@@ -1,20 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and
+check them.
 
     python3 chip_smoke.py            # from the repository root
 
 Phases, one JSON line each on stdout:
-  device   the card, and its name and power limit from nvidia-smi;
-  build    nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu (seconds taken);
-  kernels  each hand-written kernel against its plain PyTorch version, at the
-           serving path's shapes (CVPPP, b128) and at a ragged shape (KITTI
-           128x448, D=13, 48x64 glimpse), with CUDA-event times;
-  serve    InstanceSegmenter serves the flagship CVPPP checkpoint (a
-           checkout without it fails) to three requests of b=8, 32 and 128,
-           counting kernel launches; the b32 forward is held against the
-           plain-glimpse forward and a b2 forward against the CPU, a forward
-           with the bf16 islands on must fail the same gates, and the b128
-           forward is timed.
+  device        the card, and its name and power limit from nvidia-smi;
+  build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and the C++
+                compiler csrc/hungarian.cc, both at once (seconds taken);
+  kernels       each hand-written kernel against its plain PyTorch version,
+                at the serving path's shapes (CVPPP, b128) and at a ragged
+                shape (KITTI 128x448, D=13, 48x64 glimpse), with CUDA-event
+                times;
+  kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
+                against plain autograd through the einsums, every input
+                gradient, at the CVPPP train shapes (b32) and the KITTI
+                shape; the kernels' backward uses (paste as extract's d_x,
+                extract at D=1 as paste's d_p) and the filter-gradient
+                einsums timed;
+  serve         InstanceSegmenter serves the flagship CVPPP checkpoint (a
+                checkout without it fails) to three requests of b=8, 32 and
+                128, counting kernel launches; the b32 forward is held
+                against the plain-glimpse forward and a b2 forward against
+                the CPU, a forward with the bf16 islands on must fail the
+                same gates, and the b128 forward is timed;
+  train         the Trainer restores the flagship checkpoint with its Adam
+                state and takes 5 steps at b32 from step 30000 and 2 from
+                step 0 (the ground-truth segmentation mix on), counting
+                launches per step; one step's loss, gradients and update are
+                held against the plain-glimpse step (b32) at step 0 and at
+                step 30000 (there by the loss and all gradients at once,
+                beside the step's float32 noise floor) and against the CPU's
+                (b2) at step 0, with the matchings of each pair reported
+                and pinned where they differ; a step whose glimpse backward
+                drops the filter gradients must fail the same gates.
 Then the kernel table, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
 0.  Without CUDA the script exits 1 before printing any result.
@@ -22,6 +41,8 @@ Then the kernel table, the card's name and power limit, and as the last line
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import os
 import statistics
@@ -35,6 +56,13 @@ CHECKPOINT_DIR = os.path.join(REPO, 'results',
 REPLACES = {
     'glimpse_extract': 'rec_attend_tpu/ops/pallas/glimpse.py:62',
     'glimpse_paste': 'rec_attend_tpu/ops/pallas/glimpse.py:75',
+}
+# Where the JAX package launches each kernel for a gradient.
+BACKWARD_USES = {
+    'glimpse_extract': 'd_p of _paste_bwd, rec_attend_tpu/ops/pallas/'
+                       'glimpse.py:181',
+    'glimpse_paste': 'd_x of _extract_bwd, rec_attend_tpu/ops/pallas/'
+                     'glimpse.py:152',
 }
 SOURCE = 'rec_attend_tpu_torch/csrc/glimpse.cu'
 # Published H100 SXM peaks: HBM3 bytes/s and float32 FLOP/s outside the
@@ -54,6 +82,54 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5
 Y_OUT_MEAN_ATOL = 1e-5
 Y_OUT_MOVED, Y_OUT_MOVED_SHARE = 1e-3, 1e-3
 S_OUT_ATOL = 1e-4
+
+# Gradients of one glimpse, Function against plain autograd: the tolerance
+# of ROADMAP B, atol scaled by the gradient's largest magnitude (the filter
+# gradients sum up to 48*48*4 products).
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+# Whole train step, kernel glimpses against plain ones (and card against
+# CPU), from the same parameters, Adam state, batch and draws:
+#   loss: relative difference;
+#   gradients (the main gate): per parameter leaf, the relative L2 error
+#   ||g - g_ref|| / ||g_ref||; a conv bias that a train-mode BatchNorm
+#   follows has gradient 0 in exact arithmetic (the BatchNorm subtracts the
+#   batch mean), so there max |g| / max |g_w| of the layer's weight
+#   gradient, on both sides, instead;
+#   updated parameters: per leaf, the relative L2 error of the update
+#   (new - old); for those biases, whose gradient is noise, the largest
+#   update difference in units of lr (Adam moves an element whose gradient
+#   is noise by up to about lr either way, so 2 lr at most).
+#   The update's limit is ten times the gradient's: Adam divides each
+#   element by the root of its second moment, which weighs most the
+#   elements whose gradient is small against their history (measured on
+#   the card: the update's error 1.8 times the gradient's at step 0).
+# The steps compared run with cuDNN held to its deterministic algorithms,
+# as the serving forwards do, and with the same Hungarian matchings: where
+# a step's matchings differ from the reference's in any example, the gate
+# holds the step taken with the reference's matching pinned.
+# STEP_LIMITS hold at step 0, where the ground-truth segmentation mix fills
+# the canvas, so no timestep sees another's predicted masks.  A step whose
+# glimpse backward drops the filter gradients must fail them.
+STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 1e-3,
+               'zero_grad_share_max': 1e-4, 'update_rel_l2_max': 1e-2,
+               'zero_update_in_lr_max': 2.0}
+# From step 30000 on, both knobs are about 0 and the canvas carries the
+# model's own masks through 21 feedbacks and the steep output sigmoid.
+# There float32 summation-order differences of 1e-7 grow in the forward
+# (y_out) and reach the gradients, with the matchings unchanged: two plain
+# steps whose glimpse einsums only sum in other orders differed in the
+# gradient of all leaves together by 0.005 to 0.050 relative L2, and in
+# their worst leaf by 0.015 to 0.26, over five b32 batches (H100).  So the
+# step there is held by the loss and by the relative L2 error of all
+# gradients at once, at twice the largest of those floors; the control
+# measured 0.95 to 0.99.  A limit set as a multiple of the floor of the
+# same run would rest on one sample of a floor that spread tenfold over
+# those batches (kernel against plain reached 3.7 times it).
+OWN_CANVAS_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_all': 0.1}
+GRADIENT_GATES = ('grad_rel_l2_max', 'grad_rel_l2_all')
+TRAIN_BATCH = 32
+TRAIN_CPU_BATCH = 2
+
 
 def emit(phase, **fields):
   print(json.dumps({'phase': phase, **fields}), flush=True)
@@ -89,6 +165,18 @@ def ms(torch, fn, iters=20, warmup=3, sleep=True):
     end.synchronize()
     times.append(start.elapsed_time(end))
   return statistics.median(times)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+  """cuDNN held to its deterministic algorithms (same result every call)
+  inside the block."""
+  saved = torch.backends.cudnn.deterministic
+  torch.backends.cudnn.deterministic = True
+  try:
+    yield
+  finally:
+    torch.backends.cudnn.deterministic = saved
 
 
 def forward_diff(got, want):
@@ -170,6 +258,277 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
   return result
 
 
+def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
+                      dev, timed):
+  """Every input gradient of one differentiable glimpse against plain
+  autograd through the einsums; time the kernel's backward use and the
+  filter-gradient einsums."""
+  f_y, f_x = filters(torch, attention, b, h, w, fh, fw, gen, dev)
+  if name == 'glimpse_extract':
+    a = torch.rand((b, h, w, d), generator=gen, device=dev)
+    g = torch.rand((b, fh, fw, d), generator=gen, device=dev)
+    fn, plain = gk.glimpse_extract, attention.extract_patch
+  else:
+    a = torch.rand((b, fh, fw, d), generator=gen, device=dev)
+    g = torch.rand((b, h, w, d), generator=gen, device=dev)
+    fn, plain = gk.glimpse_paste, attention.paste_patch
+
+  def grads(f):
+    ins = [t.detach().clone().requires_grad_() for t in (a, f_y, f_x)]
+    return torch.autograd.grad(f(*ins), ins, g)
+
+  got = grads(fn)
+  torch.cuda.synchronize()
+  want = grads(plain)
+  result = {'shape': [b, h, w, d, fh, fw]}
+  for key, x, y in zip(('d_operand', 'd_f_y', 'd_f_x'), got, want):
+    err = float((x - y).abs().max())
+    scale = max(1.0, float(y.abs().max()))
+    if not torch.allclose(x, y, rtol=GRAD_RTOL, atol=GRAD_ATOL * scale):
+      raise AssertionError(f'{name} {key} at {result["shape"]} disagrees '
+                           f'with plain autograd: max abs err {err}, '
+                           f'largest |grad| {scale}')
+    result[key] = {'max_abs_err': err, 'max_abs_value': float(y.abs().max())}
+  if not timed:
+    return result
+  # The kernel's backward use: extract's d_x = paste(g); paste's d_p =
+  # extract(g).  Bytes: g, both filter banks, the result; operations: the
+  # two contractions at the use's shapes.
+  if name == 'glimpse_extract':
+    use = lambda: gk._paste(g, f_y, f_x)
+    use_plain = lambda: attention.paste_patch(g, f_y, f_x)
+    use_library = lambda: torch.einsum('bhf,bfgd,bwg->bhwd', f_y, g, f_x)
+    nbytes = 4 * (b * fh * fw * d + b * h * fh + b * w * fw + b * h * w * d)
+    flops = 2 * b * (h * fh * fw * d + h * w * fw * d)
+    use_kernel = 'glimpse_paste'
+
+    def filter_grads():
+      xg = torch.einsum('bhwd,bwg->bhgd', a, f_x)
+      fyx = torch.einsum('bhf,bhwd->bfwd', f_y, a)
+      return (torch.einsum('bfgd,bhgd->bhf', g, xg),
+              torch.einsum('bfgd,bfwd->bwg', g, fyx))
+  else:
+    use = lambda: gk._extract(g, f_y, f_x)
+    use_plain = lambda: attention.extract_patch(g, f_y, f_x)
+    use_library = lambda: torch.einsum('bhf,bhwd,bwg->bfgd', f_y, g, f_x)
+    nbytes = 4 * (b * h * w * d + b * h * fh + b * w * fw + b * fh * fw * d)
+    flops = 2 * b * (fh * h * w * d + fh * w * d * fw)
+    use_kernel = 'glimpse_extract'
+
+    def filter_grads():
+      pfx = torch.einsum('bfgd,bwg->bfwd', a, f_x)
+      fyp = torch.einsum('bhf,bfgd->bhgd', f_y, a)
+      return (torch.einsum('bhwd,bfwd->bhf', g, pfx),
+              torch.einsum('bhwd,bhgd->bwg', g, fyp))
+  bound_ms, bound_by = bound(nbytes, flops)
+  ins = [t.detach().clone().requires_grad_() for t in (a, f_y, f_x)]
+  out = fn(*ins)
+  plain_ins = [t.detach().clone().requires_grad_() for t in (a, f_y, f_x)]
+  plain_out = plain(*plain_ins)
+  result['backward_use'] = {
+      'kernel': use_kernel, 'kernel_ms': ms(torch, use),
+      'plain_ms': ms(torch, use_plain), 'library_ms': ms(torch, use_library),
+      'bound_ms': bound_ms, 'bound_by': bound_by, 'bytes': nbytes,
+      'flops': flops}
+  result['filter_grad_einsums_ms'] = ms(torch, filter_grads)
+  result['backward_ms'] = ms(torch, lambda: torch.autograd.grad(
+      out, ins, g, retain_graph=True))
+  result['plain_backward_ms'] = ms(torch, lambda: torch.autograd.grad(
+      plain_out, plain_ins, g, retain_graph=True))
+  return result
+
+
+def zero_grad_leaves(model):
+  """{bias name: weight name} of the conv layers that a BatchNorm follows
+  (their bias gradient is 0 in exact arithmetic)."""
+  return {f'{name[:-len(".bn")]}.b': f'{name[:-len(".bn")]}.w'
+          for name, module in model.named_modules()
+          if name.endswith('.bn') and module is not None}
+
+
+def match_differences(got, want):
+  """{matching: number of examples whose matching differs} of two steps'
+  'match', 'match_box' (Hungarian) and 'grd_match' (greedy, [B,T,T])."""
+  return {k: int((got[k] != want[k]).flatten(1).any(1).sum())
+          for k in ('match', 'match_box', 'grd_match')}
+
+
+def step_diff(torch, model, got, want, lr):
+  """Differences of two train steps from the same state, as one_step
+  returns them.  Returns the statistics that STEP_LIMITS names ("_max" ones
+  as [leaf, value]); besides them the relative L2 error of all gradients
+  but the zero-gradient biases at once, the median leaf's, how many
+  examples' matchings differ, and the forwards' differences."""
+  zero = zero_grad_leaves(model)
+  loss, grads, old, new = got[:4]
+  loss_ref, grads_ref, _, new_ref = want[:4]
+  stats = {'loss': float(loss), 'loss_ref': float(loss_ref),
+           'loss_rel_diff': abs(float(loss) - float(loss_ref))
+           / max(abs(float(loss_ref)), 1e-30)}
+  grad_rel, update_rel, zero_grad, zero_update = {}, {}, {}, {}
+
+  def rel(x, y):
+    return float((x - y).norm() / y.norm().clamp_min(1e-30))
+  for k, g in grads.items():
+    g_ref = grads_ref[k]
+    if not (torch.isfinite(g).all() and torch.isfinite(new[k]).all()):
+      raise AssertionError(f'non-finite gradient or parameter: {k}')
+    if k in zero:
+      w_ref = float(grads_ref[zero[k]].abs().max())
+      zero_grad[k] = max(float(g.abs().max()),
+                         float(g_ref.abs().max())) / max(w_ref, 1e-30)
+      zero_update[k] = float((new[k] - new_ref[k]).abs().max()) / lr
+    else:
+      grad_rel[k] = rel(g, g_ref)
+      update_rel[k] = rel(new[k] - old[k], new_ref[k] - old[k])
+  worst = lambda d: max(d.items(), key=lambda kv: kv[1])
+  live = [k for k in grads if k not in zero]
+  stats.update(grad_rel_l2_max=worst(grad_rel),
+               update_rel_l2_max=worst(update_rel),
+               zero_grad_share_max=worst(zero_grad),
+               zero_update_in_lr_max=worst(zero_update),
+               grad_rel_l2_all=rel(torch.cat([grads[k].flatten()
+                                              for k in live]),
+                                   torch.cat([grads_ref[k].flatten()
+                                              for k in live])),
+               grad_rel_l2_median=statistics.median(grad_rel.values()),
+               matches_differ=match_differences(got[4], want[4]),
+               forward=forward_diff(got[4], want[4]))
+  return stats
+
+
+def step_gate_failures(stats, limits):
+  """Names of the limits that step_diff's statistics exceed."""
+  def value(v):
+    return v[1] if isinstance(v, (list, tuple)) else v
+  return [k for k, limit in limits.items() if value(stats[k]) > limit]
+
+
+@contextlib.contextmanager
+def hungarian_calls(matching, solve_fn):
+  """Inside the block every Hungarian solve of the loss calls
+  solve_fn(solve, weights), where solve is the host solver."""
+  solve = matching.hungarian_lib.hungarian
+  matching.hungarian_lib.hungarian = lambda w: solve_fn(solve, w)
+  try:
+    yield
+  finally:
+    matching.hungarian_lib.hungarian = solve
+
+
+def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
+             glimpse, pinned=None):
+  """One train step on copies of model and opt_state: (loss, grads, old
+  params, new params, matches).  matches holds the step's Hungarian
+  matchings 'match' and 'match_box', its greedy matches 'grd_match', the
+  host solver's answer 'solved', and the forward's 'y_out' and 's_out'.  With pinned (another step's
+  'solved'), the solve returns that answer instead of solving."""
+  model = copy.deepcopy(model)
+  opt_state = copy.deepcopy(opt_state)
+  old = {k: v.detach().clone() for k, v in model.named_parameters()}
+  solved = []
+
+  def solve_fn(solve, w):
+    solved.append(solve(w) if pinned is None else pinned)
+    return solved[-1]
+  with hungarian_calls(matching, solve_fn):
+    loss, aux, grads = ts.loss_and_grads(model, batch, draws, step, glimpse)
+  ts.apply_updates(model, opt_state, grads, aux['new_bn'])
+  new = {k: v.detach().clone() for k, v in model.named_parameters()}
+  (solution,) = solved
+  outs = aux['outputs']
+  matches = {'match': aux['match'], 'match_box': aux['match_box'],
+             'grd_match': outs['grd_match'], 'solved': solution,
+             'y_out': outs['y_out'].detach(), 's_out': outs['s_out'].detach()}
+  return loss.detach(), grads, old, new, matches
+
+
+def without_filter_grads(torch, gk):
+  """Glimpse functions whose backward drops d_f_y and d_f_x: the negative
+  control of the train-step gates."""
+  class Drop(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, f):
+      return f.view_as(f)
+
+    @staticmethod
+    def backward(ctx, g):
+      return torch.zeros_like(g)
+
+  return (lambda x, f_y, f_x: gk.glimpse_extract(x, Drop.apply(f_y),
+                                                 Drop.apply(f_x)),
+          lambda p, f_y, f_x: gk.glimpse_paste(p, Drop.apply(f_y),
+                                               Drop.apply(f_x)))
+
+
+def reordered_plain(torch):
+  """Plain glimpse einsums that contract in the other order (W before H for
+  extract, G before F for paste): the same functions, other float32
+  rounding."""
+  return (lambda x, f_y, f_x: torch.einsum(
+              'bhf,bhgd->bfgd', f_y, torch.einsum('bhwd,bwg->bhgd', x, f_x)),
+          lambda p, f_y, f_x: torch.einsum(
+              'bhf,bfwd->bhwd', f_y, torch.einsum('bfgd,bwg->bfwd', p, f_x)))
+
+
+def to_device(draws, dev):
+  return {k: (v if k == 'aug' else v.to(dev)) for k, v in draws.items()}
+
+
+def held_steps(torch, model, run, want, lr, limits):
+  """A train step held against the reference step want (as one_step gives
+  them).  run(pinned) takes the step, solving its matchings, or with the
+  host solver's answer pinned.  Yields (suffix, stats, gated): the step as
+  it solves ('', gated where its Hungarian matchings agree with want's in
+  every example) and, where they do not, the step with want's answer pinned
+  ('_pinned', gated)."""
+  def diff(got):
+    stats = step_diff(torch, model, got, want, lr)
+    stats['failed'] = step_gate_failures(stats, limits)
+    return stats
+  stats = diff(run(None))
+  agree = not (stats['matches_differ']['match']
+               or stats['matches_differ']['match_box'])
+  yield '', stats, agree
+  if not agree:
+    yield '_pinned', diff(run(want[4]['solved'])), True
+
+
+def step_gates(torch, ts, matching, gk, model, opt, batch, draws, step, lr,
+               limits):
+  """Kernel glimpses against plain ones on one train step at global step
+  ``step``, from the same parameters, Adam state, batch and draws, with
+  cuDNN held to its deterministic algorithms, held to ``limits``.  Beside
+  it: two plain steps whose einsums sum in other orders (the float32 noise
+  floor), and the step whose glimpse backward drops the filter gradients,
+  with the plain step's matchings pinned, which must fail the gradient
+  limits.  Returns (gates {name: stats}, failures)."""
+  def run(glimpse):
+    def step_fn(pinned):
+      with deterministic_cudnn(torch):
+        return one_step(torch, ts, matching, model, opt, batch, draws, step,
+                        glimpse, pinned)
+    return step_fn
+  plain = run('plain')(None)
+  gates, failures = {}, []
+  for name, stats, _ in held_steps(torch, model, run(reordered_plain(torch)),
+                                   plain, lr, limits):
+    gates['noise_floor' + name] = stats
+  for name, stats, gated in held_steps(torch, model, run('kernel'), plain,
+                                       lr, limits):
+    gates['kernel_vs_plain' + name] = stats
+    if gated and stats['failed']:
+      failures.append(f'kernel_vs_plain{name}: fails {stats["failed"]}')
+  control = run(without_filter_grads(torch, gk))(plain[4]['solved'])
+  stats = step_diff(torch, model, control, plain, lr)
+  stats['failed'] = step_gate_failures(stats, limits)
+  gates['dropped_filter_grads_vs_plain_pinned'] = stats
+  if not set(GRADIENT_GATES) & set(stats['failed']):
+    failures.append('dropped_filter_grads_vs_plain_pinned: the gradient '
+                    'gate passes it')
+  return gates, failures
+
+
 def flagship_segmenter(cfg):
   """(InstanceSegmenter on the card, checkpoint path): the flagship
   checkpoint.  Raises where the checkout lacks it."""
@@ -179,6 +538,134 @@ def flagship_segmenter(cfg):
   return (InstanceSegmenter.from_checkpoint(CHECKPOINT_DIR, cfg=cfg,
                                             device='cuda'),
           os.path.relpath(ckpt, REPO))
+
+
+def train_phase(torch, np, cfg, dev, gk, name_power):
+  """The training path: restore, gate one step, take 5 + 2 steps."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+
+  trainer = Trainer(cfg, device=dev, seed=0)
+  ckpt = trainer.restore(CHECKPOINT_DIR)
+  if trainer.step != 30000 or trainer.opt_state['count'] != 30000:
+    raise AssertionError(f'restored step {trainer.step}, Adam count '
+                         f'{trainer.opt_state["count"]}')
+  T, b = cfg.timespan, TRAIN_BATCH
+
+  def batches(seed0):
+    seed = seed0
+    while True:
+      yield synthetic_instances(b, cfg.inp_height, cfg.inp_width, T,
+                                seed=seed)
+      seed += 1
+
+  # ---- gates: one step from the restored state ------------------------
+  batch = {k: v.to(dev) for k, v in next(batches(1000)).items()}
+  draws = draw_train_randoms(cfg, b, torch.Generator(dev).manual_seed(1))
+  lr = learn_rate(cfg, trainer.opt_state['count'])
+  gates, failures = {}, []
+  for step, limits in ((0, STEP_LIMITS), (30000, OWN_CANVAS_LIMITS)):
+    g, f = step_gates(torch, ts, matching, gk, trainer.model,
+                      trainer.opt_state, batch, draws, step, lr, limits)
+    gates.update({f'{k}_b{b}_step{step}': v for k, v in g.items()})
+    failures += [f'step {step}: {x}' for x in f]
+  # The card against the CPU, b2, at step 0.
+  cpu_model = FullModel(cfg, device='cpu')
+  cpu_model.load_state_dict(trainer.model.state_dict())
+  cpu_opt = {'count': trainer.opt_state['count'],
+             'mu': {k: v.cpu() for k, v in trainer.opt_state['mu'].items()},
+             'nu': {k: v.cpu() for k, v in trainer.opt_state['nu'].items()}}
+  nb = TRAIN_CPU_BATCH
+  small = {k: v[:nb] for k, v in batch.items()}
+  small_draws = draw_train_randoms(cfg, nb,
+                                   torch.Generator(dev).manual_seed(2))
+  host = one_step(torch, ts, matching, cpu_model, cpu_opt,
+                  {k: v.cpu() for k, v in small.items()},
+                  to_device(small_draws, 'cpu'), 0, 'kernel')
+  host = tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
+                 for k, v in x.items()} if isinstance(x, dict) else x.to(dev))
+               for x in host)
+
+  def card(pinned):
+    with deterministic_cudnn(torch):
+      return one_step(torch, ts, matching, trainer.model, trainer.opt_state,
+                      small, small_draws, 0, 'kernel', pinned)
+  for name, stats, gated in held_steps(torch, trainer.model, card, host, lr,
+                                       STEP_LIMITS):
+    gates[f'card_vs_cpu{name}_b{nb}_step0'] = stats
+    if gated and stats['failed']:
+      failures.append(f'card_vs_cpu{name}: fails {stats["failed"]}')
+  if failures:
+    raise AssertionError(f'train step gates: {failures}; {gates}')
+
+  # ---- the main path: 5 steps from 30000, 2 from 0 ---------------------
+  solve_ms = []
+
+  def timed_solve(solve, w):
+    t0 = time.perf_counter()
+    out = solve(w)
+    solve_ms.append((time.perf_counter() - t0) * 1e3)
+    return out
+  data = batches(0)
+  steps = []
+  forward_launches = {'glimpse_extract': 0, 'glimpse_paste': 0}
+  backward_launches = dict(forward_launches)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  with hungarian_calls(matching, timed_solve):
+    for i in range(7):
+      if i == 5:
+        trainer.step = 0
+      step = trainer.step
+      gk.reset_launch_counts()
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+      (metrics,) = trainer.run(1, data)
+      end.record()
+      end.synchronize()
+      total, bwd = gk.launch_counts(), gk.launch_counts(backward=True)
+      want = {'glimpse_extract': 4 * T, 'glimpse_paste': 4 * T}
+      want_bwd = {'glimpse_extract': 2 * T, 'glimpse_paste': 0}
+      if total != want or bwd != want_bwd:
+        raise AssertionError(f'step {step}: launches {total} (backward '
+                             f'{bwd}), want {want} (backward {want_bwd})')
+      for k in total:
+        forward_launches[k] += total[k] - bwd[k]
+        backward_launches[k] += bwd[k]
+      if not np.isfinite(metrics['loss']):
+        raise AssertionError(f'step {step}: loss {metrics["loss"]}')
+      steps.append({'step': step, 'ms': start.elapsed_time(end),
+                    'solve_ms': solve_ms[-1], 'launches': total,
+                    'backward_launches': bwd,
+                    **{k: metrics[k] for k in (
+                        'loss', 'box_loss', 'segm_loss', 'conf_loss',
+                        'iou_soft', 'count_acc', 'learn_rate')}})
+  peak = torch.cuda.max_memory_allocated()
+  for k, v in trainer.model.state_dict().items():
+    if not torch.isfinite(v).all():
+      raise AssertionError(f'non-finite parameter after training: {k}')
+  if trainer.opt_state['count'] != 30007:
+    raise AssertionError(f'Adam count {trainer.opt_state["count"]}')
+  step_ms = statistics.median(s['ms'] for s in steps)
+  solve_med = statistics.median(s['solve_ms'] for s in steps)
+  return {
+      'weights': os.path.relpath(ckpt, REPO), 'batch': b,
+      'gates': gates,
+      'limits': {'step0': STEP_LIMITS, 'step30000': OWN_CANVAS_LIMITS},
+      'steps': steps, 'step_ms_median': step_ms,
+      'instances_per_s': b * T / (step_ms / 1e3),
+      'max_memory_allocated_bytes': peak,
+      'hungarian_solve_ms_median': solve_med,
+      'hungarian_share': solve_med / step_ms,
+      'forward_launches': forward_launches,
+      'backward_launches': backward_launches,
+      'adam_count': trainer.opt_state['count'], 'nvidia_smi': name_power}
 
 
 def main():
@@ -204,9 +691,11 @@ def main():
 
   # ---- build -----------------------------------------------------------
   t0 = time.time()
-  path = build.build(verbose=True)
+  paths = build.build(verbose=True)
   build.load()
-  emit('build', seconds=time.time() - t0, library=os.path.relpath(path))
+  build.load_hungarian()
+  emit('build', seconds=time.time() - t0,
+       libraries={k: os.path.relpath(v, REPO) for k, v in paths.items()})
 
   # ---- kernels ---------------------------------------------------------
   # Full float32 everywhere: matmuls and convolutions off TF32.
@@ -230,6 +719,27 @@ def main():
                                           *ragged_dims, gen, dev, timed=False)
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
+
+  # ---- kernels_grad ----------------------------------------------------
+  # The train step's shapes: extract takes x [32,224,224,4]; paste writes
+  # [32,224,224,1], so its backward extracts at D=1.
+  b = TRAIN_BATCH
+  train_dims = {
+      'glimpse_extract': (b, cfg.inp_height, cfg.inp_width,
+                          cfg.acnn_inp_depth, cfg.filter_height,
+                          cfg.filter_width),
+      'glimpse_paste': (b, cfg.inp_height, cfg.inp_width, 1,
+                        cfg.filter_height, cfg.filter_width),
+  }
+  grad_checks = {}
+  for name, dims in train_dims.items():
+    grad_checks[name] = check_kernel_grad(torch, gk, attention, name, *dims,
+                                          gen, dev, timed=True)
+    grad_checks[name]['ragged'] = check_kernel_grad(
+        torch, gk, attention, name, *ragged_dims, gen, dev, timed=False)
+  emit('kernels_grad', tf32=False, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+       atol_scaled_by='max(1, largest |grad|)', nvidia_smi=name_power,
+       functions=grad_checks)
 
   # ---- serve -----------------------------------------------------------
   seg, weights = flagship_segmenter(cfg)
@@ -260,10 +770,20 @@ def main():
   launches = gk.launch_counts()
 
   with torch.inference_mode():
-    # Kernel glimpses against the plain einsum forms, b32.
     x32 = images[32].to(dev)
-    got32 = full_model_forward(seg.model, x32, glimpse='kernel')
+    # cuDNN's default algorithms may sum in another order from one call to
+    # the next (atomics), and the forward's feedbacks carry such 1e-7
+    # differences to s_out: two plain forwards of the same batch differ.
+    # The gates compare with cuDNN held to its deterministic algorithms.
     want = full_model_forward(seg.model, x32, glimpse='plain')
+    plain_repeat = forward_diff(
+        full_model_forward(seg.model, x32, glimpse='plain'), want)
+  with deterministic_cudnn(torch), torch.inference_mode():
+    want = full_model_forward(seg.model, x32, glimpse='plain')
+    plain_repeat_det = forward_diff(
+        full_model_forward(seg.model, x32, glimpse='plain'), want)
+    # Kernel glimpses against the plain einsum forms, b32.
+    got32 = full_model_forward(seg.model, x32, glimpse='kernel')
     plain_err = forward_agreement(got32, want)
     # The card against the CPU on a small batch.
     cpu_model = FullModel(cfg, device='cpu')
@@ -280,11 +800,14 @@ def main():
     bf16_err['failed'] = gate_failures(bf16_err)
     if not bf16_err['failed']:
       raise AssertionError(f'the gates pass a bf16 forward: {bf16_err}')
+  with torch.inference_mode():
     # b128 forward time.
     x128 = images[128].to(dev)
     forward_ms = ms(torch, lambda: full_model_forward(seg.model, x128),
                     iters=5, warmup=1, sleep=False)
   emit('serve', weights=weights, requests=requests, launches=launches,
+       plain_vs_plain_b32=plain_repeat,
+       plain_vs_plain_b32_deterministic=plain_repeat_det,
        kernel_vs_plain_b32=plain_err, card_vs_cpu_b2=cpu_err,
        bf16_vs_f32_b32=bf16_err,
        limits={'y_out_mean': Y_OUT_MEAN_ATOL,
@@ -294,14 +817,39 @@ def main():
        instances_per_s_b128=128 * T / (forward_ms / 1e3),
        nvidia_smi=name_power)
 
+  train = train_phase(torch, np, cfg, dev, gk, name_power)
+  emit('train', **train)
+
   table = []
   for name, c in checks.items():
     table.append({
         'name': name, 'route': 'cuda', 'source': SOURCE,
-        'replaces': REPLACES[name], 'launches': launches[name],
+        'replaces': REPLACES[name], 'use': 'forward',
+        'launches': launches[name] + train['forward_launches'][name],
+        'launches_by_path': {'serve': launches[name],
+                             'train': train['forward_launches'][name]},
         'max_abs_err': max(c['max_abs_err'], c['ragged']['max_abs_err']),
-        'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
-        'bound_by': c['bound_by'], 'library_ms': c['library_ms']})
+        'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
+        'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
+        'library_ms': c['library_ms']})
+  # The kernels' backward uses that the main paths run: extract as d_p of
+  # paste (paste as d_x of extract is not on them: the flagship's glimpse
+  # input needs no gradient; kernels_grad checks and times it).
+  for fn_name, c in grad_checks.items():
+    use = c['backward_use']
+    name = use['kernel']
+    launched = train['backward_launches'][name]
+    if not launched:
+      continue
+    table.append({
+        'name': name, 'route': 'cuda', 'source': SOURCE,
+        'replaces': REPLACES[name], 'use': BACKWARD_USES[name],
+        'launches': launched, 'launches_by_path': {'train': launched},
+        'max_abs_err': max(c['d_operand']['max_abs_err'],
+                           c['ragged']['d_operand']['max_abs_err']),
+        'ms': use['kernel_ms'], 'plain_ms': use['plain_ms'],
+        'bound_ms': use['bound_ms'], 'bound_by': use['bound_by'],
+        'library_ms': use['library_ms']})
   print(json.dumps({'kernels': table}), flush=True)
   print(name_power, flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,10 @@
-"""Configuration of the flagship model, as far as its eval forward reads it.
+"""Configuration of the flagship model, as far as its forward, loss and
+train step read it.
 
 Counterpart of ``rec_attend_tpu/config.py``.  Field names and defaults are
 those of the JAX ``FullModelConfig``, so a ``model_opt.yaml`` written by the
-JAX trainer loads here unchanged; keys the forward does not read (losses,
-knob schedules, optimizer settings) are ignored on load.
+JAX trainer loads here unchanged; keys the port does not read (pretrain
+paths, the Pallas and scan switches) are ignored on load.
 """
 
 from __future__ import annotations
@@ -36,12 +37,13 @@ DATASET_TRANSFORMS = {
 
 @dataclass(frozen=True)
 class FullModelConfig:
-  """Options of the recurrent-attention model that its forward reads."""
+  """Options of the recurrent-attention model that the port reads."""
   # Geometry
   timespan: int = 21
   inp_height: int = 224
   inp_width: int = 224
   inp_depth: int = 3
+  padding: int = 16
   filter_height: int = 48
   filter_width: int = 48
 
@@ -66,13 +68,39 @@ class FullModelConfig:
   num_ctrl_rnn_iter: int = 5
   num_glimpse_mlp_layers: int = 2
 
+  # Regularisation / training
+  attn_box_padding_ratio: float = 0.2
+  weight_decay: float = 5e-5
   use_bn: bool = True
+  segm_loss_fn: str = 'iou'
+  box_loss_fn: str = 'iou'
+  loss_mix_ratio: float = 1.0
+  segm_weight_alpha: float = 0.0
+  base_learn_rate: float = 0.001
+  learn_rate_decay: float = 0.96
+  steps_per_learn_rate_decay: int = 5000
+  clip_gradient: float = 1.0
+
+  # Scheduled-sampling knob
+  use_knob: bool = False
+  knob_base: float = 1.0
+  knob_decay: float = 0.9
+  steps_per_knob_decay: int = 300
+  knob_box_offset: int = 300
+  knob_segm_offset: int = 500
+  knob_use_timescale: bool = False
+  gt_box_ctr_noise: float = 0.05
+  gt_box_pad_noise: float = 0.1
+  gt_segm_noise: float = 0.3
 
   # Structure flags
   squash_ctrl_params: bool = False
+  fixed_order: bool = False
   fixed_gamma: bool = False
   fixed_var: bool = False
   dynamic_var: bool = False
+  use_iou_box: bool = False
+  stop_canvas_grad: bool = True
   add_skip_conn: bool = True
   disable_overwrite: bool = True
 
@@ -89,7 +117,21 @@ class FullModelConfig:
   attn_add_d_out: Optional[bool] = None
   attn_add_y_out: Optional[bool] = None
 
+  # Freezing (True = the subnet's parameters are not updated)
+  freeze_ctrl_cnn: bool = False
+  freeze_ctrl_rnn: bool = False
+  freeze_ctrl_mlp: bool = False
+  freeze_attn_net: bool = False
+
+  # Augmentation
+  rnd_hflip: bool = False
+  rnd_vflip: bool = False
+  rnd_transpose: bool = False
+  rnd_colour: bool = False
+
   dtype: str = 'float32'          # compute dtype of the conv/matmul stacks
+  remat: bool = False             # recompute each timestep in the backward
+  accumulate_greedy_match: bool = False
 
   # ---- load / save -----------------------------------------------------
 
@@ -203,17 +245,20 @@ class FullModelConfig:
     return tuple([self.add_skip_conn] * len(self.attn_cnn_filter_size))
 
 
-# Fields of FullModelConfig, i.e. the options the eval forward reads.
+# Fields of FullModelConfig, i.e. the options the port reads.
 FORWARD_FIELDS = tuple(f.name for f in dataclasses.fields(FullModelConfig))
 
 
 def cvppp_full_config() -> FullModelConfig:
   """The flagship CVPPP preset (JAX config.py:531-558, ref run_cvppp.sh),
-  restricted to the fields the forward reads."""
+  restricted to the fields the port reads."""
   d = DATASET_DIMS['cvppp']
   return FullModelConfig(
       timespan=d['timespan'], inp_height=d['inp_height'],
       inp_width=d['inp_width'],
+      use_knob=True, knob_decay=0.5, steps_per_knob_decay=700,
+      knob_box_offset=-50000, knob_segm_offset=3000, knob_use_timescale=True,
+      box_loss_fn='iou', segm_loss_fn='iou',
       ctrl_cnn_filter_size=(3,) * 8,
       ctrl_cnn_depth=(8, 8, 16, 16, 32, 32, 64, 64),
       ctrl_cnn_pool=(1, 2, 1, 2, 1, 2, 2, 2),
@@ -225,16 +270,19 @@ def cvppp_full_config() -> FullModelConfig:
       attn_dcnn_depth=(32, 32, 16, 16, 8, 8, 1),
       attn_dcnn_pool=(2, 1, 2, 1, 2, 1, 1),
       filter_height=48, filter_width=48,
-      fixed_gamma=True,
+      fixed_gamma=True, stop_canvas_grad=True,
+      base_learn_rate=0.001, learn_rate_decay=0.8,
+      steps_per_learn_rate_decay=5000,
       ctrl_add_inp=True, ctrl_add_canvas=True,
-      attn_add_inp=True, attn_add_canvas=True)
+      attn_add_inp=True, attn_add_canvas=True,
+      remat=True, **DATASET_TRANSFORMS['cvppp'])
 
 
 def tiny_full_config(**overrides) -> FullModelConfig:
   """Small config for tests: 64x64 images, short timespan
-  (JAX config.py:682-697; its ``padding`` only feeds the train-time crop)."""
+  (JAX config.py:682-697)."""
   base = dict(
-      timespan=4, inp_height=64, inp_width=64,
+      timespan=4, inp_height=64, inp_width=64, padding=4,
       filter_height=16, filter_width=16,
       ctrl_cnn_filter_size=(3, 3, 3), ctrl_cnn_depth=(4, 8, 8),
       ctrl_cnn_pool=(2, 2, 2), ctrl_rnn_hid_dim=32, num_ctrl_mlp_layers=1,

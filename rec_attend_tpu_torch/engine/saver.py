@@ -5,7 +5,10 @@ A checkpoint ``ckpt-<step>.npz`` stores ``num_leaves`` and the leaves
 ``leaf_<i>`` of a pytree in ``jax.tree_util`` flatten order: dict keys
 sorted, lists in order.  The trainer saves ``{'params', 'opt_state'}``, so
 the optimizer state comes first and the parameters are the last leaves; a
-params-only checkpoint holds just them.
+params-only checkpoint holds just them.  The full model's optimizer,
+``optax.chain(clip, adam(schedule))``, flattens to Adam's update count, its
+first moments (one leaf per parameter, in parameter order), its second
+moments, and the schedule's count: 2 + 3 * P leaves in all.
 """
 
 from __future__ import annotations
@@ -16,6 +19,11 @@ import re
 import numpy as np
 
 CKPT_RE = re.compile(r'ckpt-(\d+)\.npz$')
+
+
+def checkpoint_step(path):
+  """The step in a checkpoint's file name, ``ckpt-<step>.npz``."""
+  return int(CKPT_RE.search(path).group(1))
 
 
 def latest_checkpoint(folder):
@@ -67,4 +75,38 @@ def load_params(path, shapes):
                          f'{leaf.shape}, the model wants '
                          f'{tuple(shapes[name])}')
       out[name] = leaf
+  return out
+
+
+def load_adam_state(path, shapes):
+  """Read the Adam state of a full-model checkpoint.
+
+  Args:
+    shapes: {dotted name: shape} of the parameter tree.
+  Returns:
+    {'count': int, 'mu': {name: array}, 'nu': {name: array}}.
+  Raises ValueError unless the file holds exactly the leaves of
+  ``{'opt_state', 'params'}`` for this tree, with equal Adam and schedule
+  counts.
+  """
+  names = jax_leaf_order(shapes)
+  p = len(names)
+  with np.load(path) as data:
+    n = int(data['num_leaves'])
+    if n != 2 + 3 * p:
+      raise ValueError(f'{path} has {n} leaves; Adam state and parameters '
+                       f'of this model make {2 + 3 * p}')
+    count, sched_count = int(data['leaf_0']), int(data[f'leaf_{1 + 2 * p}'])
+    if count != sched_count:
+      raise ValueError(f'{path}: Adam count {count}, schedule count '
+                       f'{sched_count}')
+    out = {'count': count, 'mu': {}, 'nu': {}}
+    for m, key in enumerate(('mu', 'nu')):
+      for i, name in enumerate(names):
+        leaf = data[f'leaf_{1 + m * p + i}']
+        if tuple(leaf.shape) != tuple(shapes[name]):
+          raise ValueError(f'{path}: {key} leaf for {name} has shape '
+                           f'{leaf.shape}, the model wants '
+                           f'{tuple(shapes[name])}')
+        out[key][name] = leaf
   return out

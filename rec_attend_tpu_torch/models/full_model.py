@@ -1,30 +1,39 @@
-"""The flagship recurrent-attention instance segmentation model, eval forward.
+"""The flagship recurrent-attention instance segmentation model.
 
 Counterpart of ``rec_attend_tpu/models/full_model.py``: ``FullModel`` holds
-the parameters of ``init_full_model`` (``:44-76``) under the same names, and
-``full_model_forward`` is ``full_model_forward(train=False)`` (``:198-568``).
-At each of T timesteps a CNN+LSTM controller looks at image (+) canvas and
-emits an attention box; a Gaussian glimpse is cropped (``glimpse_extract``),
-a CNN/D-CNN segments one instance inside it, the mask is pasted back
-(``glimpse_paste``, also used to render the box) and max-accumulated into
-the canvas, and a score MLP emits a stop confidence.
+the parameters of ``init_full_model`` (``:44-76``) under the same names;
+``full_model_forward`` is ``full_model_forward(train=False)`` (``:198-568``),
+``full_model_train_forward`` its train=True branch and ``full_model_loss``
+the loss (``:575-722``).  At each of T timesteps a CNN+LSTM controller looks
+at image (+) canvas and emits an attention box; a Gaussian glimpse is
+cropped (``glimpse_extract``), a CNN/D-CNN segments one instance inside it,
+the mask is pasted back (``glimpse_paste``, also used to render the box) and
+max-accumulated into the canvas, and a score MLP emits a stop confidence.
 
-The JAX ``lax.scan`` over T is a Python loop carrying the canvas.  The eval
-centre crop of the JAX augmentation is the identity and is not ported; the
-ground-truth boxes, scheduled-sampling knob and train-mode BatchNorm feed
-only training and are not on this path.
+The JAX ``lax.scan`` over T is a Python loop carrying the canvas; with
+``cfg.remat`` each timestep of training runs under
+``torch.utils.checkpoint`` and is recomputed in the backward, as
+``jax.checkpoint`` does.  Training's random draws (augmentation, box noise,
+knob uniforms, segmentation noise) are inputs, drawn before the loop by
+``draw_train_randoms``: a recomputed timestep must see the draws of its
+first run, and ``torch.utils.checkpoint`` restores only the global random
+state, not an explicit generator's.  The eval centre crop of the JAX
+augmentation is the identity and is not ported.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.device import resolve_device
 from rec_attend_tpu_torch.nn import layers as L
-from rec_attend_tpu_torch.ops import attention
+from rec_attend_tpu_torch.ops import attention, boxes, image_ops, losses
+from rec_attend_tpu_torch.ops import matching
 from rec_attend_tpu_torch.ops.cuda import glimpse as gk
 
 ATTN_BOX_BETA = -5.0
@@ -88,6 +97,288 @@ class FullModel(nn.Module):
     return full_model_forward(self, x, glimpse)
 
 
+# ---------------------------------------------------------------------------
+# Schedules (JAX full_model.py:142-165)
+# ---------------------------------------------------------------------------
+
+def knob_probs(cfg: FullModelConfig, step, device=None):
+  """Scheduled-sampling probabilities (box, segm) of the ground-truth mix
+  at global step ``step``, each [1, T, 1] float32."""
+  t = cfg.timespan
+  if cfg.knob_use_timescale:
+    time_scale = 1.0 + torch.log(
+        1.0 + torch.arange(t, dtype=torch.float32, device=device) * 3.0)
+  else:
+    time_scale = torch.ones(t, device=device)
+  step = torch.tensor(float(step), dtype=torch.float32, device=device)
+
+  def expdecay(offset):
+    s = torch.clamp_min(step - offset, 0.0)
+    return cfg.knob_base * cfg.knob_decay ** (s / cfg.steps_per_knob_decay)
+
+  p_box = torch.clamp_max(expdecay(cfg.knob_box_offset) * time_scale, 1.0)
+  p_segm = torch.clamp_max(expdecay(cfg.knob_segm_offset) * time_scale, 1.0)
+  return p_box.view(1, t, 1), p_segm.view(1, t, 1)
+
+
+def learn_rate(cfg: FullModelConfig, count):
+  """Staircase exponential decay at optimizer update ``count``, float32."""
+  step = np.float32(count)
+  return float(np.float32(cfg.base_learn_rate) * np.float32(
+      cfg.learn_rate_decay) ** np.floor(
+          step / np.float32(cfg.steps_per_learn_rate_decay)))
+
+
+def draw_train_randoms(cfg: FullModelConfig, batch_size, generator):
+  """Every random draw of one training forward, made before the T loop.
+
+  Returns a dict: 'aug' (``image_ops.draw_transformation``: crop offset and
+  flip coins), 'pad_noise' [B,T,1] and 'ctr_noise' [B,T,2] (the box noise),
+  'knob_box' and 'knob_segm' [B,T,1] (uniforms compared with the knob
+  probabilities), 'segm_noise' [T,B,H,W,1] (the noise of the ground-truth
+  segmentation mix), on the generator's device."""
+  b, t = batch_size, cfg.timespan
+  dev = generator.device
+
+  def uniform(shape, lo=0.0, hi=1.0):
+    u = torch.rand(shape, generator=generator, device=dev)
+    return u * (hi - lo) + lo
+
+  aug = image_ops.draw_transformation(cfg.padding, generator)
+  pad = cfg.attn_box_padding_ratio
+  return {
+      'aug': aug,
+      'pad_noise': uniform((b, t, 1), pad - cfg.gt_box_pad_noise,
+                           pad + cfg.gt_box_pad_noise),
+      'ctr_noise': uniform((b, t, 2), -cfg.gt_box_ctr_noise,
+                           cfg.gt_box_ctr_noise),
+      'knob_box': uniform((b, t, 1)),
+      'knob_segm': uniform((b, t, 1)),
+      'segm_noise': uniform((t, b, cfg.inp_height, cfg.inp_width, 1), 0.0,
+                            cfg.gt_segm_noise),
+  }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+def _glimpse_fns(glimpse):
+  """(extract, paste) of a glimpse mode: 'kernel' (the CUDA kernels, their
+  plain version on the CPU), 'plain' (the einsum forms), or a pair of
+  functions of the same signature."""
+  if glimpse == 'kernel':
+    return gk.glimpse_extract, gk.glimpse_paste
+  if glimpse == 'plain':
+    return attention.extract_patch, attention.paste_patch
+  if isinstance(glimpse, tuple) and len(glimpse) == 2:
+    return glimpse
+  raise ValueError(f"glimpse must be 'kernel', 'plain' or a pair of "
+                   f"functions, got {glimpse!r}")
+
+
+def _check_input(model, x):
+  cfg = model.cfg
+  b, h, w = x.shape[0], cfg.inp_height, cfg.inp_width
+  if tuple(x.shape) != (b, h, w, cfg.inp_depth):
+    raise ValueError(f'x is {tuple(x.shape)}, the model takes '
+                     f'[B,{h},{w},{cfg.inp_depth}]')
+  if x.device != model.device:
+    raise ValueError(f'x is on {x.device}, the model on {model.device}')
+  flags = cfg.resolved_input_flags()
+  if any(flags[f'{net}_add_{key}'] for net in ('ctrl', 'attn')
+         for key in ('d_out', 'y_out')):
+    raise NotImplementedError(
+        'the packed fg/orientation input channels (KITTI, Cityscapes '
+        'configs) come with a later slice')
+
+
+def _timestep(model, x, canvas, t, extract_fn, paste_fn, train=None):
+  """One timestep of the model (JAX full_model.py:287-508).
+
+  Args:
+    x: [B,H,W,D] image; canvas: [B,H,W,1]; t: timestep index.
+    train: None for eval; for training a dict of this step's inputs:
+      ground truth ('y_gt' [B,T,H,W], 'attn_box_gt' [B,T,H,W],
+      'attn_top_left_gt'/'attn_bot_right_gt'/'attn_ctr_gtn'/'attn_size_gtn'
+      [B,T,2]), knob draws 'knob_box'/'knob_segm' [B,1], 'segm_noise'
+      [B,H,W,1] and the greedy-match mask 'grd_cum' [B,T].
+  Returns:
+    (canvas, grd_cum or None, step outputs, {net: new BN statistics} or
+    None).
+  """
+  cfg = model.cfg
+  flags = cfg.resolved_input_flags()
+  B = x.shape[0]
+  H, W = cfg.inp_height, cfg.inp_width
+  FH, FW = cfg.filter_height, cfg.filter_width
+  dev = x.device
+  cdt = torch.bfloat16 if cfg.dtype == 'bfloat16' else torch.float32
+  hid = cfg.ctrl_rnn_hid_dim
+  n_adc = len(cfg.attn_dcnn_filter_size)
+  relu = F.relu
+  gmlp_act = ([relu] * (cfg.num_glimpse_mlp_layers - 1)
+              + [lambda z: torch.softmax(z, dim=-1)])
+  cmlp_act = [relu] * (cfg.num_ctrl_mlp_layers - 1) + [None]
+  stats = None if train is None else {
+      'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []}
+
+  def inputs(prefix):
+    parts = [v for key, v in (('inp', x), ('canvas', canvas))
+             if flags[f'{prefix}_add_{key}']]
+    return torch.cat(parts, dim=3)
+
+  def net_stats(net):
+    return None if stats is None else stats[net]
+
+  ccnn_inp = inputs('ctrl').to(cdt)
+  acnn_inp = inputs('attn')
+
+  # Controller CNN with this timestep's BN copy.
+  h_ccnn = L.apply_cnn(model.ctrl_cnn, L.nchw(ccnn_inp), cfg.ctrl_cnn_pool,
+                       [relu] * len(cfg.ctrl_cnn_filter_size), t,
+                       net_stats('ctrl_cnn'))
+  crnn_inp = L.nhwc(h_ccnn[-1]).reshape(B, cfg.glimpse_map_dim,
+                                        cfg.glimpse_feat_dim)
+
+  # Inner glimpse RNN (JAX full_model.py:336-349).
+  crnn_state = torch.zeros((B, 2 * hid), device=dev)
+  glimpse_map = torch.ones((B, cfg.glimpse_map_dim, 1),
+                           device=dev) / cfg.glimpse_map_dim
+  for it in range(cfg.num_ctrl_rnn_iter):
+    crnn_glimpse = torch.sum(crnn_inp * glimpse_map, dim=1)
+    crnn_state = model.ctrl_lstm(crnn_glimpse, crnn_state)
+    h_crnn = crnn_state[:, hid:]
+    if it < cfg.num_ctrl_rnn_iter - 1:
+      glimpse_map = L.apply_mlp(model.glimpse_mlp, h_crnn,
+                                gmlp_act)[-1][:, :, None]
+  ctrl_out = L.apply_mlp(model.ctrl_mlp, h_crnn, cmlp_act)[-1].float()
+
+  # 9-dof controller output (JAX full_model.py:354-378).
+  attn_ctr_norm = ctrl_out[:, 0:2]
+  attn_lg_size = ctrl_out[:, 2:4]
+  if cfg.squash_ctrl_params:
+    attn_ctr_norm = torch.tanh(attn_ctr_norm)
+    attn_lg_size = -F.softplus(attn_lg_size)
+  attn_ctr, attn_size = attention.get_unnormalized_attn(
+      attn_ctr_norm, attn_lg_size, H, W)
+  if cfg.dynamic_var:
+    attn_lg_var = ctrl_out[:, 4:6]
+  elif cfg.fixed_var:
+    attn_lg_var = torch.zeros((B, 2), device=dev)
+  else:
+    attn_lg_var = attention.get_normalized_var(attn_size, FH, FW)
+  if cfg.fixed_gamma:
+    attn_lg_gamma = torch.zeros((B, 1), device=dev)
+    y_out_lg_gamma = torch.full((B, 1), 2.0, device=dev)
+  else:
+    attn_lg_gamma = ctrl_out[:, 6:7]
+    y_out_lg_gamma = ctrl_out[:, 8:9]
+  attn_box_lg_gamma = ctrl_out[:, 7:8]
+
+  def filters(ctr, size):
+    return (attention.get_gaussian_filter(ctr[:, 0], size[:, 0],
+                                          attn_lg_var[:, 0], H, FH),
+            attention.get_gaussian_filter(ctr[:, 1], size[:, 1],
+                                          attn_lg_var[:, 1], W, FW))
+
+  # Render the attention box from the predicted parameters.
+  f_y, f_x = filters(attn_ctr, attn_size)
+  box_patch = torch.exp(attn_box_lg_gamma).view(B, 1, 1, 1).expand(
+      B, FH, FW, 1).contiguous()
+  attn_box = paste_fn(box_patch, f_y, f_x)
+  attn_box = torch.sigmoid(attn_box + ATTN_BOX_BETA)[..., 0]     # [B,H,W]
+
+  step_out = {}
+  grd_cum = grd_match = None
+  if train is not None:
+    # Soft box IoU against every ground-truth box (JAX :386-395).
+    if cfg.use_iou_box:
+      tl, br = attention.get_box_coord(attn_ctr, attn_size)
+      iou_soft_box_t = losses.f_iou_box(
+          tl[:, None, :], br[:, None, :], train['attn_top_left_gt'],
+          train['attn_bot_right_gt'])                              # [B,T]
+    else:
+      iou_soft_box_t = (
+          losses.f_inter(attn_box[:, None], train['attn_box_gt'])
+          / losses.f_union(attn_box[:, None], train['attn_box_gt']))
+    step_out['iou_soft_box_t'] = iou_soft_box_t
+    grd_cum = train['grd_cum']
+    if cfg.use_knob:
+      # Mix in the greedily matched, noisy ground-truth box (JAX :396-415);
+      # the match does not accumulate unless accumulate_greedy_match.
+      grd_match = losses.f_greedy_match(iou_soft_box_t, grd_cum)
+      step_out['grd_match'] = grd_match
+      if cfg.accumulate_greedy_match:
+        grd_cum = torch.clamp_max(grd_cum + grd_match, 1.0)
+      ctr_gtm = torch.sum(grd_match[:, :, None] * train['attn_ctr_gtn'], 1)
+      size_gtm = torch.sum(grd_match[:, :, None] * train['attn_size_gtn'],
+                           1)
+      kb = train['knob_box']
+      attn_ctr = kb * ctr_gtm + (1 - kb) * attn_ctr
+      attn_size = kb * size_gtm + (1 - kb) * attn_size
+      # Final filters from the mixed box (JAX :420-425).
+      f_y, f_x = filters(attn_ctr, attn_size)
+
+  # Glimpse crop and attention CNN (compute dtype).
+  x_patch = torch.exp(attn_lg_gamma).view(B, 1, 1, 1) * extract_fn(
+      acnn_inp, f_y, f_x)
+  x_patch_c = L.nchw(x_patch.to(cdt))
+  h_acnn = L.apply_cnn(model.attn_cnn, x_patch_c, cfg.attn_cnn_pool,
+                       [relu] * len(cfg.attn_cnn_filter_size), t,
+                       net_stats('attn_cnn'))
+  h_core = L.nhwc(h_acnn[-1]).reshape(B, cfg.core_dim)
+
+  # D-CNN with skip connections (JAX full_model.py:439-452).
+  adcnn_skip = None
+  if cfg.add_skip_conn:
+    skip_rev = list(cfg.resolved_attn_cnn_skip())[::-1]
+    h_rev = h_acnn[::-1][1:] + [x_patch_c]
+    adcnn_skip = [None] + [hc if sk else None
+                           for sk, hc in zip(skip_rev, h_rev)]
+    adcnn_skip = (adcnn_skip + [None] * n_adc)[:n_adc]
+  h_adcnn = L.apply_dcnn(model.attn_dcnn, h_acnn[-1], cfg.attn_dcnn_pool,
+                         [relu] * n_adc, t, skip=adcnn_skip,
+                         stats=net_stats('attn_dcnn'))
+  y_out_patch = L.nhwc(h_adcnn[-1]).float().contiguous()     # [B,FH,FW,1]
+
+  # Paste the mask back to full resolution (JAX full_model.py:454-460).
+  y_out = paste_fn(y_out_patch, f_y, f_x)
+  y_out = torch.sigmoid(torch.exp(y_out_lg_gamma).view(B, 1, 1, 1) * y_out
+                        + Y_OUT_BETA)
+  if cfg.disable_overwrite:
+    y_out = (1.0 - canvas) * y_out
+
+  # Score (JAX full_model.py:462-465).
+  smlp_inp = torch.cat([h_crnn, h_core.float()], dim=1)
+  s_out = L.apply_mlp(model.score_mlp, smlp_inp,
+                      [torch.sigmoid])[-1][:, 0].float()
+
+  # Knob: mix the ground-truth segmentation into the canvas (JAX :466-479).
+  y_canvas = y_out
+  if train is not None and cfg.use_knob:
+    y_mix = torch.einsum('bt,bthw->bhw', grd_match, train['y_gt'])[..., None]
+    y_mix = y_mix - y_mix * train['segm_noise']
+    ks = train['knob_segm'][:, :, None, None]                  # [B,1,1,1]
+    y_canvas = ks * y_mix + (1 - ks) * y_out
+  canvas = torch.maximum(y_canvas, canvas)
+  if cfg.stop_canvas_grad:
+    canvas = canvas.detach()
+
+  step_out.update(
+      y_out=y_out[..., 0], s_out=s_out, attn_box=attn_box,
+      y_out_patch=y_out_patch[..., 0], attn_ctr=attn_ctr,
+      attn_size=attn_size, attn_lg_var=attn_lg_var,
+      attn_ctr_norm=attn_ctr_norm, attn_lg_size=attn_lg_size,
+      attn_lg_gamma=attn_lg_gamma, attn_box_lg_gamma=attn_box_lg_gamma,
+      y_out_lg_gamma=y_out_lg_gamma)
+  return canvas, grd_cum, step_out, stats
+
+
+def _stack_steps(steps):
+  return {k: torch.stack([s[k] for s in steps], dim=1) for k in steps[0]}
+
+
 @torch.no_grad()
 def full_model_forward(model: FullModel, x, glimpse='kernel'):
   """Run the T-step eval forward (no gradients: this is the serving path).
@@ -105,163 +396,240 @@ def full_model_forward(model: FullModel, x, glimpse='kernel'):
     'attn_ctr_norm', 'attn_lg_size' [B,T,2], 'attn_lg_gamma',
     'attn_box_lg_gamma', 'y_out_lg_gamma' [B,T,1].
   """
+  extract_fn, paste_fn = _glimpse_fns(glimpse)
+  _check_input(model, x)
   cfg = model.cfg
-  if glimpse == 'kernel':
-    extract_fn, paste_fn = gk.glimpse_extract, gk.glimpse_paste
-  elif glimpse == 'plain':
-    extract_fn, paste_fn = attention.extract_patch, attention.paste_patch
-  else:
-    raise ValueError(f"glimpse must be 'kernel' or 'plain', got {glimpse!r}")
-  flags = cfg.resolved_input_flags()
-  B = x.shape[0]
-  T = cfg.timespan
+  x = x.float()
+  canvas = torch.zeros((x.shape[0], cfg.inp_height, cfg.inp_width, 1),
+                       device=x.device)
+  steps = []
+  for t in range(cfg.timespan):
+    canvas, _, step_out, _ = _timestep(model, x, canvas, t, extract_fn,
+                                       paste_fn)
+    steps.append(step_out)
+  out = _stack_steps(steps)
+  out['canvas'] = canvas[..., 0]
+  return out
+
+
+def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
+                             glimpse='kernel'):
+  """Run the T-step training forward (JAX full_model_forward(train=True)).
+
+  Args:
+    model: FullModel; x [B,H,W,inp_depth], y_gt [B,T,H,W], s_gt [B,T] on
+      its device, float.
+    draws: dict of ``draw_train_randoms`` (or the same draws from
+      elsewhere), on the model's device.
+    step: global step, for the knob schedule.
+    glimpse: as in ``full_model_forward``.
+  Returns:
+    (outputs, new_bn): outputs holds the stacked per-step outputs of
+    ``full_model_forward`` plus 'iou_soft_box_t' [B,T,T], with the knob
+    the greedy matches 'grd_match' [B,T,T], the transformed
+    'x_trans'/'y_gt_trans', 's_gt', and the ground truth 'attn_box_gt',
+    'attn_ctr_norm_gt', 'attn_lg_size_gt' and friends; new_bn maps each
+    EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value.
+  """
+  extract_fn, paste_fn = _glimpse_fns(glimpse)
+  _check_input(model, x)
+  cfg = model.cfg
+  if cfg.fixed_order:
+    raise NotImplementedError('fixed_order training is not ported yet')
+  if cfg.dtype != 'float32':
+    raise NotImplementedError('training runs in float32 only so far')
+  B, T = x.shape[0], cfg.timespan
   H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
-  if tuple(x.shape) != (B, H, W, cfg.inp_depth):
-    raise ValueError(f'x is {tuple(x.shape)}, the model takes '
-                     f'[B,{H},{W},{cfg.inp_depth}]')
-  if x.device != model.device:
-    raise ValueError(f'x is on {x.device}, the model on {model.device}')
-  if any(flags[f'{net}_add_{key}'] for net in ('ctrl', 'attn')
-         for key in ('d_out', 'y_out')):
-    raise NotImplementedError(
-        'the packed fg/orientation input channels (KITTI, Cityscapes '
-        'configs) come with a later slice')
-  dev = model.device
-  cdt = torch.bfloat16 if cfg.dtype == 'bfloat16' else torch.float32
-  x = x.float()
 
-  n_adc = len(cfg.attn_dcnn_filter_size)
-  relu = F.relu
-  ccnn_act = [relu] * len(cfg.ctrl_cnn_filter_size)
-  acnn_act = [relu] * len(cfg.attn_cnn_filter_size)
-  adcnn_act = [relu] * n_adc
-  gmlp_act = ([relu] * (cfg.num_glimpse_mlp_layers - 1)
-              + [lambda z: torch.softmax(z, dim=-1)])
-  cmlp_act = [relu] * (cfg.num_ctrl_mlp_layers - 1) + [None]
-  skip_rev = list(cfg.resolved_attn_cnn_skip())[::-1]
-  hid = cfg.ctrl_rnn_hid_dim
+  # Augmentation (JAX full_model.py:218-228).
+  aug = image_ops.random_transformation(
+      x.float(), cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
+      rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
+      rnd_colour=cfg.rnd_colour, y=y_gt.float())
+  x, y_gt = aug['x'], aug['y']
 
-  def inputs(prefix, canvas):
-    parts = [v for key, v in (('inp', x), ('canvas', canvas))
-             if flags[f'{prefix}_add_{key}']]
-    return torch.cat(parts, dim=3)
+  # Ground-truth attention boxes, clean and noisy (JAX :230-250).
+  min_pad = cfg.padding + 4.0
+  (attn_ctr_gt, attn_size_gt, _, _, attn_box_gt, attn_top_left_gt,
+   attn_bot_right_gt) = boxes.get_gt_attn(
+       y_gt, FH, FW, padding_ratio=cfg.attn_box_padding_ratio,
+       center_shift_ratio=0.0, min_padding=min_pad)
+  attn_ctr_gtn, attn_size_gtn = boxes.get_gt_attn(
+      y_gt, FH, FW, padding_ratio=draws['pad_noise'],
+      center_shift_ratio=draws['ctr_noise'], min_padding=min_pad)[:2]
 
-  def zeros(*shape):
-    return torch.zeros(shape, device=dev)
+  # Knob draws (JAX :255-262).
+  p_box, p_segm = knob_probs(cfg, step, x.device)
+  knob_box = (draws['knob_box'] <= p_box).float()
+  knob_segm = (draws['knob_segm'] <= p_segm).float()
 
-  out = {
-      'y_out': torch.empty((B, T, H, W), device=dev),
-      's_out': torch.empty((B, T), device=dev),
-      'attn_box': torch.empty((B, T, H, W), device=dev),
-      'y_out_patch': torch.empty((B, T, FH, FW), device=dev),
-  }
-  steps = {k: [] for k in ('attn_ctr', 'attn_size', 'attn_lg_var',
-                           'attn_ctr_norm', 'attn_lg_size', 'attn_lg_gamma',
-                           'attn_box_lg_gamma', 'y_out_lg_gamma')}
-  canvas = zeros(B, H, W, 1)
-  box_patch = torch.ones((B, FH, FW, 1), device=dev)
+  gt = {'y_gt': y_gt, 'attn_box_gt': attn_box_gt,
+        'attn_top_left_gt': attn_top_left_gt,
+        'attn_bot_right_gt': attn_bot_right_gt,
+        'attn_ctr_gtn': attn_ctr_gtn, 'attn_size_gtn': attn_size_gtn}
 
+  def body(canvas, grd_cum, t):
+    train = dict(gt, knob_box=knob_box[:, t], knob_segm=knob_segm[:, t],
+                 segm_noise=draws['segm_noise'][t], grd_cum=grd_cum)
+    return _timestep(model, x, canvas, t, extract_fn, paste_fn, train)
+
+  canvas = torch.zeros((B, H, W, 1), device=x.device)
+  grd_cum = torch.zeros((B, T), device=x.device)
+  steps, bn_steps = [], []
   for t in range(T):
-    ccnn_inp = inputs('ctrl', canvas).to(cdt)
-    acnn_inp = inputs('attn', canvas)
-
-    # Controller CNN with this timestep's BN copy.
-    h_ccnn = L.apply_cnn(model.ctrl_cnn, L.nchw(ccnn_inp),
-                         cfg.ctrl_cnn_pool, ccnn_act, t)
-    crnn_inp = L.nhwc(h_ccnn[-1]).reshape(B, cfg.glimpse_map_dim,
-                                          cfg.glimpse_feat_dim)
-
-    # Inner glimpse RNN (JAX full_model.py:336-349).
-    crnn_state = zeros(B, 2 * hid)
-    glimpse_map = torch.ones((B, cfg.glimpse_map_dim, 1),
-                             device=dev) / cfg.glimpse_map_dim
-    for it in range(cfg.num_ctrl_rnn_iter):
-      crnn_glimpse = torch.sum(crnn_inp * glimpse_map, dim=1)
-      crnn_state = model.ctrl_lstm(crnn_glimpse, crnn_state)
-      h_crnn = crnn_state[:, hid:]
-      if it < cfg.num_ctrl_rnn_iter - 1:
-        glimpse_map = L.apply_mlp(model.glimpse_mlp, h_crnn,
-                                  gmlp_act)[-1][:, :, None]
-    ctrl_out = L.apply_mlp(model.ctrl_mlp, h_crnn, cmlp_act)[-1].float()
-
-    # 9-dof controller output (JAX full_model.py:354-378).
-    attn_ctr_norm = ctrl_out[:, 0:2]
-    attn_lg_size = ctrl_out[:, 2:4]
-    if cfg.squash_ctrl_params:
-      attn_ctr_norm = torch.tanh(attn_ctr_norm)
-      attn_lg_size = -F.softplus(attn_lg_size)
-    attn_ctr, attn_size = attention.get_unnormalized_attn(
-        attn_ctr_norm, attn_lg_size, H, W)
-    if cfg.dynamic_var:
-      attn_lg_var = ctrl_out[:, 4:6]
-    elif cfg.fixed_var:
-      attn_lg_var = zeros(B, 2)
+    if cfg.remat:
+      canvas, grd_cum, step_out, stats = torch.utils.checkpoint.checkpoint(
+          body, canvas, grd_cum, t, use_reentrant=False,
+          preserve_rng_state=False)
     else:
-      attn_lg_var = attention.get_normalized_var(attn_size, FH, FW)
-    if cfg.fixed_gamma:
-      attn_lg_gamma = zeros(B, 1)
-      y_out_lg_gamma = torch.full((B, 1), 2.0, device=dev)
+      canvas, grd_cum, step_out, stats = body(canvas, grd_cum, t)
+    steps.append(step_out)
+    bn_steps.append(stats)
+
+  outputs = _stack_steps(steps)
+  outputs.update(
+      canvas=canvas[..., 0], x_trans=x, y_gt_trans=y_gt, s_gt=s_gt,
+      attn_ctr_gt=attn_ctr_gt, attn_size_gt=attn_size_gt,
+      attn_top_left_gt=attn_top_left_gt,
+      attn_bot_right_gt=attn_bot_right_gt, attn_box_gt=attn_box_gt,
+      attn_ctr_norm_gt=attention.get_normalized_center(attn_ctr_gt, H, W),
+      attn_lg_size_gt=attention.get_normalized_size(attn_size_gt, H, W),
+      gt_knob_prob_box=p_box[0, 0, 0], gt_knob_prob_segm=p_segm[0, 0, 0])
+
+  new_bn = {}
+  for net in ('ctrl_cnn', 'attn_cnn', 'attn_dcnn'):
+    for i, pair in enumerate(bn_steps[0][net]):
+      if pair is None:
+        continue
+      for k, key in enumerate(('ema_mean', 'ema_var')):
+        new_bn[f'{net}.{i}.bn.{key}'] = torch.stack(
+            [s[net][i][k] for s in bn_steps])
+  return outputs, new_bn
+
+
+# ---------------------------------------------------------------------------
+# Loss (JAX full_model.py:575-722)
+# ---------------------------------------------------------------------------
+
+def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
+  """Total loss and metrics of one training batch.
+
+  Args:
+    batch: dict 'x' [B,H,W,D], 'y_gt' [B,T,H,W], 's_gt' [B,T], float, on
+      the model's device.
+    draws, step, glimpse: as in ``full_model_train_forward``.
+  Returns:
+    (loss, aux): aux holds the scalar terms and metrics as 0-d tensors,
+    'outputs', 'new_bn' (the new BN statistics), 'match' and 'match_box'.
+  """
+  cfg = model.cfg
+  outputs, new_bn = full_model_train_forward(
+      model, batch['x'], batch['y_gt'], batch['s_gt'], draws, step, glimpse)
+  y_out = outputs['y_out']
+  y_gt = outputs['y_gt_trans']
+  s_gt = outputs['s_gt']
+  s_out = outputs['s_out']
+  B = y_out.shape[0]
+
+  # Both matchings in one Hungarian solve over [2B, T, T].
+  iou_soft_pairwise = losses.f_iou(y_out, y_gt, pairwise=True)
+  if cfg.use_knob:
+    iou_soft_box = outputs['iou_soft_box_t']
+  else:
+    iou_soft_box = losses.f_iou(outputs['attn_box'], outputs['attn_box_gt'],
+                                pairwise=True)
+  both = matching.f_segm_match(
+      torch.cat([iou_soft_box, iou_soft_pairwise], dim=0),
+      torch.cat([s_gt, s_gt], dim=0))
+  match_box, match = both[:B], both[B:]
+
+  # Box loss.
+  match_count_box = torch.clamp_min(torch.sum(match_box, dim=(1, 2)), 1.0)
+  iou_soft_box_mask = torch.sum(iou_soft_box * match_box, dim=1)
+  iou_soft_box_scalar = torch.sum(
+      torch.sum(iou_soft_box_mask, dim=1) / match_count_box) / B
+  attn_params = torch.cat([outputs['attn_ctr_norm'],
+                           outputs['attn_lg_size']], dim=2)
+  attn_params_gt = torch.cat([outputs['attn_ctr_norm_gt'],
+                              outputs['attn_lg_size_gt']], dim=2)
+  if cfg.box_loss_fn == 'mse':
+    box_loss = losses.f_match_loss(attn_params, attn_params_gt, match_box,
+                                   losses.f_squared_err)
+  elif cfg.box_loss_fn == 'huber':
+    box_loss = losses.f_match_loss(attn_params, attn_params_gt, match_box,
+                                   losses.f_huber)
+  elif cfg.box_loss_fn == 'iou':
+    box_loss = -iou_soft_box_scalar
+  elif cfg.box_loss_fn == 'wt_cov':
+    box_loss = -losses.f_weighted_coverage(iou_soft_box,
+                                           outputs['attn_box_gt'])
+  elif cfg.box_loss_fn == 'bce':
+    box_loss = losses.f_match_loss(outputs['attn_box'],
+                                   outputs['attn_box_gt'], match_box,
+                                   losses.f_bce)
+  else:
+    raise ValueError(f'Unknown box_loss_fn: {cfg.box_loss_fn}')
+
+  # Segmentation loss.
+  match_count = torch.clamp_min(torch.sum(match, dim=(1, 2)), 1.0)
+  wt_cov_soft = losses.f_weighted_coverage(iou_soft_pairwise, y_gt)
+  unwt_cov_soft = losses.f_unweighted_coverage(iou_soft_pairwise,
+                                               match_count)
+  iou_soft_mask = torch.sum(iou_soft_pairwise * match, dim=1)
+  iou_soft_scalar = torch.sum(
+      torch.sum(iou_soft_mask, dim=1) / match_count) / B
+  if cfg.segm_loss_fn == 'iou':
+    if cfg.segm_weight_alpha > 0.0:
+      # Per matched instance weight area^(-alpha), renormalised to mean 1
+      # over the example's matched instances.
+      area = torch.sum(y_gt, dim=(2, 3))
+      matched = torch.sum(match, dim=1)
+      w = matched * torch.pow(area + 1.0, -cfg.segm_weight_alpha)
+      w = w * match_count[:, None] / torch.clamp_min(
+          torch.sum(w, dim=1, keepdim=True), 1e-6)
+      segm_loss = -torch.sum(
+          torch.sum(w * iou_soft_mask, dim=1) / match_count) / B
     else:
-      attn_lg_gamma = ctrl_out[:, 6:7]
-      y_out_lg_gamma = ctrl_out[:, 8:9]
-    attn_box_lg_gamma = ctrl_out[:, 7:8]
+      segm_loss = -iou_soft_scalar
+  elif cfg.segm_loss_fn == 'wt_cov':
+    segm_loss = -wt_cov_soft
+  elif cfg.segm_loss_fn == 'bce':
+    segm_loss = losses.f_match_loss(y_out, y_gt, match, losses.f_bce)
+  else:
+    raise ValueError(f'Unknown segm_loss_fn: {cfg.segm_loss_fn}')
 
-    # Eval uses the predicted box as it is, so one filter pair serves the
-    # box render, the glimpse crop and the mask paste.
-    f_y = attention.get_gaussian_filter(
-        attn_ctr[:, 0], attn_size[:, 0], attn_lg_var[:, 0], H, FH)
-    f_x = attention.get_gaussian_filter(
-        attn_ctr[:, 1], attn_size[:, 1], attn_lg_var[:, 1], W, FW)
-    attn_box = paste_fn(
-        box_patch * torch.exp(attn_box_lg_gamma).view(B, 1, 1, 1), f_y, f_x)
-    out['attn_box'][:, t] = torch.sigmoid(attn_box + ATTN_BOX_BETA)[..., 0]
+  conf_loss = losses.f_conf_loss(s_out, match, use_cum_min=True)
+  wd_loss = L.weight_decay_loss(model, cfg.weight_decay)
+  total = box_loss + segm_loss + cfg.loss_mix_ratio * conf_loss + wd_loss
 
-    # Glimpse crop and attention CNN (compute dtype).
-    x_patch = torch.exp(attn_lg_gamma).view(B, 1, 1, 1) * extract_fn(
-        acnn_inp, f_y, f_x)
-    x_patch_c = L.nchw(x_patch.to(cdt))
-    h_acnn = L.apply_cnn(model.attn_cnn, x_patch_c, cfg.attn_cnn_pool,
-                         acnn_act, t)
-    h_core = L.nhwc(h_acnn[-1]).reshape(B, cfg.core_dim)
-
-    # D-CNN with skip connections (JAX full_model.py:439-452).
-    adcnn_skip = None
-    if cfg.add_skip_conn:
-      h_rev = h_acnn[::-1][1:] + [x_patch_c]
-      adcnn_skip = [None] + [hc if sk else None
-                             for sk, hc in zip(skip_rev, h_rev)]
-      adcnn_skip = (adcnn_skip + [None] * n_adc)[:n_adc]
-    h_adcnn = L.apply_dcnn(model.attn_dcnn, h_acnn[-1], cfg.attn_dcnn_pool,
-                           adcnn_act, t, skip=adcnn_skip)
-    y_out_patch = L.nhwc(h_adcnn[-1]).float().contiguous()   # [B,FH,FW,1]
-
-    # Paste the mask back to full resolution (JAX full_model.py:454-460).
-    y_out = paste_fn(y_out_patch, f_y, f_x)
-    y_out = torch.sigmoid(torch.exp(y_out_lg_gamma).view(B, 1, 1, 1) * y_out
-                          + Y_OUT_BETA)
-    if cfg.disable_overwrite:
-      y_out = (1.0 - canvas) * y_out
-
-    # Score (JAX full_model.py:462-465).
-    smlp_inp = torch.cat([h_crnn, h_core.float()], dim=1)
-    s_out = L.apply_mlp(model.score_mlp, smlp_inp,
-                        [torch.sigmoid])[-1][:, 0].float()
-
-    canvas = torch.maximum(y_out, canvas)
-    out['y_out'][:, t] = y_out[..., 0]
-    out['s_out'][:, t] = s_out
-    out['y_out_patch'][:, t] = y_out_patch[..., 0]
-    for k, v in (('attn_ctr', attn_ctr), ('attn_size', attn_size),
-                 ('attn_lg_var', attn_lg_var),
-                 ('attn_ctr_norm', attn_ctr_norm),
-                 ('attn_lg_size', attn_lg_size),
-                 ('attn_lg_gamma', attn_lg_gamma),
-                 ('attn_box_lg_gamma', attn_box_lg_gamma),
-                 ('y_out_lg_gamma', y_out_lg_gamma)):
-      steps[k].append(v)
-
-  out['canvas'] = canvas[..., 0]
-  for k, v in steps.items():
-    out[k] = torch.stack(v, dim=1)
-  return out
+  # Hard metrics (JAX :678-685).
+  with torch.no_grad():
+    y_out_hard = (y_out > 0.5).float()
+    iou_hard_pair = losses.f_iou(y_out_hard, y_gt, pairwise=True)
+    iou_hard_mask = torch.sum(iou_hard_pair * match, dim=1)
+    iou_hard = torch.sum(torch.sum(iou_hard_mask, dim=1) / match_count) / B
+    dice_pair = losses.f_dice(y_out_hard, y_gt, pairwise=True)
+    dice = torch.sum(torch.sum(dice_pair * match, dim=(1, 2))
+                     / match_count) / B
+    metrics = {
+        'wt_cov_soft': wt_cov_soft.detach(),
+        'unwt_cov_soft': unwt_cov_soft.detach(),
+        'iou_hard': iou_hard, 'dice': dice,
+        'wt_cov_hard': losses.f_weighted_coverage(iou_hard_pair, y_gt),
+        'unwt_cov_hard': losses.f_unweighted_coverage(iou_hard_pair,
+                                                      match_count),
+        'count_acc': losses.f_count_acc(s_out, s_gt),
+        'dic': losses.f_dic(s_out, s_gt),
+        'dic_abs': losses.f_dic(s_out, s_gt, abs=True),
+    }
+  scalars = {'loss': total, 'box_loss': box_loss, 'segm_loss': segm_loss,
+             'conf_loss': conf_loss,
+             'wd_loss': torch.as_tensor(wd_loss, device=total.device),
+             'iou_soft': iou_soft_scalar, 'iou_soft_box': iou_soft_box_scalar}
+  aux = {**{k: v.detach() for k, v in scalars.items()}, **metrics,
+         'learn_rate': torch.tensor(learn_rate(cfg, step),
+                                    device=total.device),
+         'outputs': outputs, 'new_bn': new_bn, 'match': match,
+         'match_box': match_box}
+  return total, aux

@@ -1,6 +1,6 @@
-"""Layer library of the recurrent-attention model, eval forms.
+"""Layer library of the recurrent-attention model.
 
-Counterpart of ``rec_attend_tpu/nn/layers.py:49-355``.  Parameters keep the
+Counterpart of ``rec_attend_tpu/nn/layers.py:36-402``.  Parameters keep the
 JAX package's names and layouts (conv ``w`` [F,F,in,out], transposed-conv
 ``w`` [F,F,out,in], dense ``w`` [in,out], BatchNorm copies [T,C]), so a JAX
 parameter tree maps onto these modules name for name.  Activations are
@@ -15,6 +15,12 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-3
+BN_DECAY = 0.9
+
+# Parameter names that carry L2 weight decay: conv/dense weights and the
+# LSTM matrices, never biases or BatchNorm parameters.
+WD_PARAM_NAMES = ('w', 'w_xi', 'w_hi', 'w_xf', 'w_hf', 'w_xu', 'w_hu',
+                  'w_xo', 'w_ho')
 
 
 def _trunc_normal(shape, generator, stddev=0.01):
@@ -84,7 +90,7 @@ def nhwc(x):
 
 
 # ---------------------------------------------------------------------------
-# BatchNorm with per-timestep copies (eval form)
+# BatchNorm with per-timestep copies
 # ---------------------------------------------------------------------------
 
 class BatchNorm(nn.Module):
@@ -98,13 +104,29 @@ class BatchNorm(nn.Module):
     self.register_buffer('ema_mean', torch.zeros(shape))
     self.register_buffer('ema_var', torch.ones(shape))
 
-  def forward(self, x, t):
-    """Normalise channel dim 1 of x ([B,C,H,W] or [B,C]) with the EMA
-    statistics of copy ``t``; computed in float32, returned in x's dtype."""
+  def forward(self, x, t, stats=None):
+    """Normalise channel dim 1 of x ([B,C,H,W] or [B,C]) with copy ``t``;
+    computed in float32, returned in x's dtype.
+
+    Eval (``stats`` None): with the EMA statistics.  Train (``stats`` a
+    list): with the batch mean and biased variance, and the new EMA
+    statistics of copy t, ``BN_DECAY * ema + (1 - BN_DECAY) * batch``, are
+    appended to ``stats`` as a (mean, var) pair instead of being written
+    here, so that a recomputed forward does not apply them twice."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
-    mean = self.ema_mean[t].view(shape)
-    inv = torch.rsqrt(self.ema_var[t] + BN_EPS).view(shape)
-    normed = ((x.float() - mean) * inv * self.gamma[t].view(shape)
+    xf = x.float()
+    if stats is None:
+      mean, var = self.ema_mean[t], self.ema_var[t]
+    else:
+      axes = (0,) + tuple(range(2, x.dim()))
+      mean = torch.mean(xf, dim=axes)
+      var = torch.var(xf, dim=axes, correction=0)
+      stats.append(((BN_DECAY * self.ema_mean[t]
+                     + (1 - BN_DECAY) * mean).detach(),
+                    (BN_DECAY * self.ema_var[t]
+                     + (1 - BN_DECAY) * var).detach()))
+    inv = torch.rsqrt(var + BN_EPS).view(shape)
+    normed = ((xf - mean.view(shape)) * inv * self.gamma[t].view(shape)
               + self.beta[t].view(shape))
     return normed.to(x.dtype)
 
@@ -146,16 +168,20 @@ def init_dcnn(filter_sizes, channels, use_bn, skip_ch, num_bn_copies,
   return nn.ModuleList(layers)
 
 
-def apply_cnn(layers, x, pool, act, t):
+def apply_cnn(layers, x, pool, act, t, stats=None):
   """conv -> +b -> BN(copy t) -> act -> SAME max-pool, per layer.
 
-  x [B,C,H,W]; returns the list of per-layer activations."""
+  x [B,C,H,W]; returns the list of per-layer activations.  With ``stats``
+  a list, BatchNorm runs in train mode and appends each layer's new EMA
+  statistics (None for a layer without BatchNorm)."""
   h = x
   h_list = []
   for i, layer in enumerate(layers):
     h = conv2d_same(h, layer.w) + layer.b.to(h.dtype).view(1, -1, 1, 1)
     if layer.bn is not None:
-      h = layer.bn(h, t)
+      h = layer.bn(h, t, stats)
+    elif stats is not None:
+      stats.append(None)
     if act[i] is not None:
       h = act[i](h)
     h = max_pool_same(h, pool[i])
@@ -163,9 +189,10 @@ def apply_cnn(layers, x, pool, act, t):
   return h_list
 
 
-def apply_dcnn(layers, x, pool, act, t, skip=None):
+def apply_dcnn(layers, x, pool, act, t, skip=None, stats=None):
   """Transposed-conv net; skip[i] (may be None) is concatenated on the
-  channel axis before layer i.  Returns the per-layer activations."""
+  channel axis before layer i.  Returns the per-layer activations;
+  ``stats`` as in ``apply_cnn``."""
   h = x
   h_list = []
   for i, layer in enumerate(layers):
@@ -174,7 +201,9 @@ def apply_dcnn(layers, x, pool, act, t, skip=None):
     h = (conv2d_transpose_same(h, layer.w, pool[i])
          + layer.b.to(h.dtype).view(1, -1, 1, 1))
     if layer.bn is not None:
-      h = layer.bn(h, t)
+      h = layer.bn(h, t, stats)
+    elif stats is not None:
+      stats.append(None)
     if act[i] is not None:
       h = act[i](h)
     h_list.append(h)
@@ -237,3 +266,19 @@ class LSTM(nn.Module):
     c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zu)
     h = torch.sigmoid(zo) * torch.tanh(c)
     return torch.cat([c, h], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Weight decay
+# ---------------------------------------------------------------------------
+
+def weight_decay_loss(module, wd):
+  """wd * sum over the decayed parameters (``WD_PARAM_NAMES``) of
+  0.5 * sum(w^2)."""
+  if not wd:
+    return 0.0
+  total = 0.0
+  for name, p in module.named_parameters():
+    if name.rsplit('.', 1)[-1] in WD_PARAM_NAMES:
+      total = total + 0.5 * torch.sum(torch.square(p))
+  return wd * total

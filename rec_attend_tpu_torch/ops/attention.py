@@ -60,6 +60,22 @@ def _img_size(inp_height, inp_width, like):
                       device=like.device)
 
 
+def get_normalized_center(ctr, inp_height, inp_width):
+  """Pixels -> [-1, 1] centre."""
+  return ctr / (_img_size(inp_height, inp_width, ctr) / 2.0) - 1.0
+
+
+def get_normalized_size(size, inp_height, inp_width):
+  """Pixels -> log-fraction size."""
+  return torch.log(size / _img_size(inp_height, inp_width, size))
+
+
+def get_normalized_gamma(size, filter_height, filter_width):
+  """lg_gamma = log(F_area) - log(box area)."""
+  return (math.log(float(filter_height * filter_width))
+          - torch.log(torch.prod(size, dim=-1)))
+
+
 def get_unnormalized_attn(ctr_norm, lg_size, inp_height, inp_width):
   """[-1, 1] centre and log-fraction size -> pixels."""
   img = _img_size(inp_height, inp_width, ctr_norm)
@@ -74,3 +90,7 @@ def get_normalized_var(size, filter_height, filter_width):
 
 def get_box_coord(ctr, size):
   return ctr - size / 2.0, ctr + size / 2.0
+
+
+def get_box_ctr_size(top_left, bot_right):
+  return (top_left + bot_right) / 2.0, bot_right - top_left

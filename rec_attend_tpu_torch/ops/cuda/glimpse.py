@@ -1,15 +1,27 @@
-"""Wrappers of the hand-written glimpse kernels (``csrc/glimpse.cu``).
+"""The hand-written glimpse kernels (``csrc/glimpse.cu``) as differentiable
+operations.
 
-Counterpart of ``rec_attend_tpu/ops/pallas/glimpse.py``:
-``glimpse_extract`` replaces ``_extract_call`` and ``glimpse_paste`` replaces
-``_paste_call``.  A CUDA tensor goes to the kernel, or the wrapper raises; a
-CPU tensor goes to the plain two-einsum version of ``ops/attention.py``, the
-same function the kernels are held against.  Each wrapper counts the
-launches of its kernel in its ``launches`` attribute.
+Counterpart of ``rec_attend_tpu/ops/pallas/glimpse.py``: ``glimpse_extract``
+and ``glimpse_paste`` are its ``extract_patch`` and ``paste_patch``, two
+``torch.autograd.Function``s whose passes reuse the two kernels as the JAX
+custom VJPs do (``_extract_bwd``, ``_paste_bwd``):
 
-Only the forward exists so far: on CUDA, with gradients enabled and an input
-that requires them, a wrapper raises instead of returning a tensor with no
-gradient.
+  extract  forward  extract kernel
+           backward d_x = paste kernel (g);  d_f_y, d_f_x: einsums
+  paste    forward  paste kernel
+           backward d_p = extract kernel (g);  d_f_y, d_f_x: einsums
+
+The filter gradients are thin contractions that JAX also leaves outside
+its kernels, so they stay ``torch.einsum``.  A backward computes only the
+gradients ``ctx.needs_input_grad`` asks for.
+
+A CUDA tensor goes to the kernel, or the call raises: there is no fallback
+to the einsum forms on the card.  A CPU tensor goes to the plain two-einsum
+version of ``ops/attention.py``, in the forward and in the backward, so the
+Functions' own backward formulas run on the CPU too.  Each wrapper counts
+the launches of its kernel, backward launches included, in its
+``launches`` attribute, and the backward ones also in
+``backward_launches``.
 """
 
 from __future__ import annotations
@@ -41,6 +53,8 @@ def _check(name, a, f_y, f_x):
   devices = {t.device for t in (a, f_y, f_x)}
   if len(devices) != 1:
     raise ValueError(f'{name}: operands on several devices: {devices}')
+  if a.device.type not in ('cpu', 'cuda'):
+    raise ValueError(f'{name}: no kernel for device {a.device}')
   return b, h, w, fh, fw
 
 
@@ -51,10 +65,6 @@ def _launch(name, a, f_y, f_x, out, dims):
       raise TypeError(f'{name}: the kernel takes float32, got {t.dtype}')
     if not t.is_contiguous():
       raise ValueError(f'{name}: the kernel takes contiguous tensors')
-    if torch.is_grad_enabled() and t.requires_grad:
-      raise NotImplementedError(
-          f'{name}: backward kernels come with the training slice; call '
-          'under torch.no_grad() or torch.inference_mode()')
   lib = build.load()
   with torch.cuda.device(a.device):
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -66,16 +76,15 @@ def _launch(name, a, f_y, f_x, out, dims):
                        f'at dims {dims}')
 
 
-def glimpse_extract(x, f_y, f_x):
-  """Glimpse crop: x [B,H,W,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,FH,FW,D]."""
+def _extract(x, f_y, f_x, backward=False):
+  """x [B,H,W,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,FH,FW,D], no autograd;
+  ``backward`` marks a launch for a gradient."""
   b, h, w, fh, fw = _check('glimpse_extract', x, f_y, f_x)
   if x.shape[1:3] != (h, w):
     raise ValueError(f'glimpse_extract: x is {tuple(x.shape)} but the '
                      f'filters span {h}x{w}')
   if x.device.type == 'cpu':
     return extract_patch_plain(x, f_y, f_x)
-  if x.device.type != 'cuda':
-    raise ValueError(f'glimpse_extract: no kernel for device {x.device}')
   d = x.shape[3]
   if d > MAX_EXTRACT_CHANNELS:
     raise ValueError(f'glimpse_extract: the kernel takes at most '
@@ -83,35 +92,99 @@ def glimpse_extract(x, f_y, f_x):
   out = torch.empty((b, fh, fw, d), dtype=torch.float32, device=x.device)
   _launch('glimpse_extract', x, f_y, f_x, out, (b, h, w, d, fh, fw))
   glimpse_extract.launches += 1
+  glimpse_extract.backward_launches += backward
   return out
 
 
-def glimpse_paste(p, f_y, f_x):
-  """Mask paste: p [B,FH,FW,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,H,W,D]."""
+def _paste(p, f_y, f_x, backward=False):
+  """p [B,FH,FW,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,H,W,D], no autograd;
+  ``backward`` marks a launch for a gradient."""
   b, h, w, fh, fw = _check('glimpse_paste', p, f_y, f_x)
   if p.shape[1:3] != (fh, fw):
     raise ValueError(f'glimpse_paste: patch is {tuple(p.shape)} but the '
                      f'filters have {fh}x{fw} taps')
   if p.device.type == 'cpu':
     return paste_patch_plain(p, f_y, f_x)
-  if p.device.type != 'cuda':
-    raise ValueError(f'glimpse_paste: no kernel for device {p.device}')
   d = p.shape[3]
   out = torch.empty((b, h, w, d), dtype=torch.float32, device=p.device)
   _launch('glimpse_paste', p, f_y, f_x, out, (b, h, w, d, fh, fw))
   glimpse_paste.launches += 1
+  glimpse_paste.backward_launches += backward
   return out
 
 
-glimpse_extract.launches = 0
-glimpse_paste.launches = 0
+class ExtractPatch(torch.autograd.Function):
+  """patch[b,f,g,d] = sum_hw f_y[b,h,f] x[b,h,w,d] f_x[b,w,g]."""
+
+  @staticmethod
+  def forward(ctx, x, f_y, f_x):
+    ctx.save_for_backward(x, f_y, f_x)
+    return _extract(x, f_y, f_x)
+
+  @staticmethod
+  def backward(ctx, g):
+    x, f_y, f_x = ctx.saved_tensors
+    g = g.contiguous()
+    need_x, need_fy, need_fx = ctx.needs_input_grad
+    d_x = _paste(g, f_y, f_x, backward=True) if need_x else None
+    d_f_y = d_f_x = None
+    if need_fy:   # sum_{g,d} g[b,f,g,d] (x f_x)[b,h,g,d]
+      xg = torch.einsum('bhwd,bwg->bhgd', x, f_x)
+      d_f_y = torch.einsum('bfgd,bhgd->bhf', g, xg)
+    if need_fx:   # sum_{f,d} g[b,f,g,d] (f_y x)[b,f,w,d]
+      fyx = torch.einsum('bhf,bhwd->bfwd', f_y, x)
+      d_f_x = torch.einsum('bfgd,bfwd->bwg', g, fyx)
+    return d_x, d_f_y, d_f_x
+
+
+class PastePatch(torch.autograd.Function):
+  """out[b,h,w,d] = sum_fg f_y[b,h,f] p[b,f,g,d] f_x[b,w,g]."""
+
+  @staticmethod
+  def forward(ctx, p, f_y, f_x):
+    ctx.save_for_backward(p, f_y, f_x)
+    return _paste(p, f_y, f_x)
+
+  @staticmethod
+  def backward(ctx, g):
+    p, f_y, f_x = ctx.saved_tensors
+    g = g.contiguous()
+    need_p, need_fy, need_fx = ctx.needs_input_grad
+    d_p = _extract(g, f_y, f_x, backward=True) if need_p else None
+    d_f_y = d_f_x = None
+    if need_fy:   # sum_{w,d} g[b,h,w,d] (p f_x^T)[b,f,w,d]
+      pfx = torch.einsum('bfgd,bwg->bfwd', p, f_x)
+      d_f_y = torch.einsum('bhwd,bfwd->bhf', g, pfx)
+    if need_fx:   # sum_{h,d} g[b,h,w,d] (f_y p)[b,h,g,d]
+      fyp = torch.einsum('bhf,bfgd->bhgd', f_y, p)
+      d_f_x = torch.einsum('bhwd,bhgd->bwg', g, fyp)
+    return d_p, d_f_y, d_f_x
+
+
+def glimpse_extract(x, f_y, f_x):
+  """Glimpse crop: x [B,H,W,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,FH,FW,D]."""
+  return ExtractPatch.apply(x, f_y, f_x)
+
+
+def glimpse_paste(p, f_y, f_x):
+  """Mask paste: p [B,FH,FW,D], f_y [B,H,FH], f_x [B,W,FW] -> [B,H,W,D]."""
+  return PastePatch.apply(p, f_y, f_x)
+
+
 WRAPPERS = (glimpse_extract, glimpse_paste)
 
 
 def reset_launch_counts():
   for fn in WRAPPERS:
     fn.launches = 0
+    fn.backward_launches = 0
 
 
-def launch_counts():
-  return {fn.__name__: fn.launches for fn in WRAPPERS}
+def launch_counts(backward=False):
+  """{wrapper name: kernel launches} since the last reset; with
+  ``backward``, the launches for gradients only."""
+  key = 'backward_launches' if backward else 'launches'
+  return {fn.__name__: getattr(fn, key) for fn in WRAPPERS}
+
+
+reset_launch_counts()

@@ -17,6 +17,7 @@ from rec_attend_tpu.parallel.train_step import make_optimizer
 from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch import convert
 from rec_attend_tpu_torch.engine import saver
+from rec_attend_tpu_torch.models import full_model as TFM
 
 torch.set_num_threads(1)
 
@@ -97,15 +98,18 @@ def test_latest_checkpoint_needs_one(tmp_path):
 
 
 def test_cvppp_preset_matches_the_flagship_folder():
-  """Every field the forward reads agrees between the port's preset, the
-  JAX preset and the flagship folder's model_opt.yaml."""
+  """Every field the port reads agrees between the port's preset, the
+  JAX preset and the flagship folder's model_opt.yaml (a field the yaml
+  predates, segm_weight_alpha, is read there as its default)."""
   with open(os.path.join(FLAGSHIP, 'model_opt.yaml')) as f:
     opt = yaml.safe_load(f)
   ours = C.cvppp_full_config().to_dict()
   jax_preset = JC.cvppp_full_config().to_dict()
+  defaults = C.FullModelConfig().to_dict()
   assert set(ours) == set(C.FORWARD_FIELDS)
+  assert set(C.FORWARD_FIELDS) - set(opt) == {'segm_weight_alpha'}
   for name in C.FORWARD_FIELDS:
-    assert ours[name] == opt[name], name
+    assert ours[name] == opt.get(name, defaults[name]), name
     assert ours[name] == jax_preset[name], name
   loaded = C.FullModelConfig.from_yaml(os.path.join(FLAGSHIP,
                                                     'model_opt.yaml'))
@@ -135,3 +139,46 @@ def test_config_dict_round_trip():
   assert dataclasses.is_dataclass(cfg)
   assert C.FullModelConfig.from_dict({'ctrl_cnn_pool': '2,2,1'}
                                      ).ctrl_cnn_pool == (2, 2, 1)
+
+
+def test_flagship_adam_state_loads_like_jax():
+  """The Adam state of the flagship checkpoint, read without JAX, equals
+  the JAX Saver's restore carried over by opt_state_from_jax (exact); the
+  Trainer continues from it at step 30000, as restore_ckpt does."""
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  cfg = C.cvppp_full_config()
+  path = saver.latest_checkpoint(FLAGSHIP)
+  got = convert.opt_state_from_checkpoint(path, cfg)
+  jcfg = JC.cvppp_full_config()
+  params = JF.init_full_model(jax.random.PRNGKey(0), jcfg)
+  tx = make_optimizer(jcfg)
+  tree, step = Saver(FLAGSHIP).restore({'params': params,
+                                        'opt_state': tx.init(params)})
+  want = convert.opt_state_from_jax(tree['opt_state'], cfg)
+  assert got['count'] == want['count'] == step == 30000
+  trainable = {k for k, _ in
+               TFM.FullModel(cfg, device='meta').named_parameters()}
+  assert set(got['mu']) == set(got['nu']) == trainable
+  for key in ('mu', 'nu'):
+    for name in trainable:
+      np.testing.assert_array_equal(got[key][name].numpy(),
+                                    want[key][name].numpy(), err_msg=name)
+  # The EMA leaves' moments, which the port drops, are zero in JAX.
+  mu = convert.flatten_tree(jax.tree_util.tree_map(
+      np.asarray, tree['opt_state'][1][0].mu))
+  assert all(not mu[k].any() for k in mu if k.endswith(('ema_mean',
+                                                        'ema_var')))
+  trainer = Trainer(cfg, device='cpu')
+  assert trainer.restore(FLAGSHIP) == path
+  assert trainer.step == 30000 and trainer.opt_state['count'] == 30000
+  np.testing.assert_array_equal(
+      trainer.opt_state['nu']['ctrl_lstm.w_xi'].numpy(),
+      got['nu']['ctrl_lstm.w_xi'].numpy())
+
+
+def test_adam_state_needs_a_full_checkpoint(tmp_path):
+  params = JF.init_full_model(jax.random.PRNGKey(4), JC.tiny_full_config())
+  Saver(str(tmp_path)).save({'params': params}, 1)
+  with pytest.raises(ValueError, match='leaves'):
+    convert.opt_state_from_checkpoint(saver.latest_checkpoint(str(tmp_path)),
+                                      C.tiny_full_config())

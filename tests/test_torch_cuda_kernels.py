@@ -5,7 +5,11 @@ machine with the card (which has no JAX, so without the repo's conftest):
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerance: rtol 1e-4 / atol 1e-5, those of tests/test_pallas_glimpse.py
-(both float32; the kernel sums in another order than cuBLAS).
+(both float32; the kernel sums in another order than cuBLAS).  Gradients
+(the Functions' backward, whose operand gradient is the other kernel,
+against plain autograd through the einsums): rtol 1e-3 / atol 1e-4 times
+max(1, the gradient's largest magnitude), the gradient tolerance of
+ROADMAP B.
 """
 
 import pytest
@@ -83,7 +87,63 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
   with pytest.raises(ValueError):
     gk.glimpse_extract(torch.rand(1, 32, 40, 129, device=dev), f_y[:1],
                        f_x[:1])
-  with pytest.raises(NotImplementedError, match='training slice'):
-    gk.glimpse_paste(p.requires_grad_(), f_y, f_x)
+  # An input that requires a gradient is taken: the backward launches the
+  # other kernel.
+  out = gk.glimpse_paste(p.requires_grad_(), f_y, f_x)
+  assert out.grad_fn is not None
   with torch.no_grad():
-    gk.glimpse_paste(p, f_y, f_x)
+    assert gk.glimpse_paste(p, f_y, f_x).grad_fn is None
+
+
+def _grads(fn, ins, g):
+  ins = [t.detach().clone().requires_grad_() for t in ins]
+  return torch.autograd.grad(fn(*ins), ins, g)
+
+
+def _assert_grads_close(got, want):
+  for a, b in zip(got, want):
+    torch.testing.assert_close(
+        a, b, rtol=1e-3, atol=1e-4 * max(1.0, float(b.abs().max())))
+
+
+@pytest.mark.parametrize('shape', SHAPES, ids=str)
+def test_extract_grads_match_plain_autograd(dev, shape):
+  """d_x = paste kernel (g), d_f_y and d_f_x einsums."""
+  x, p, f_y, f_x = _inputs(shape, dev)
+  g = torch.rand_like(p)
+  before = gk.launch_counts(backward=True)
+  got = _grads(gk.glimpse_extract, (x, f_y, f_x), g)
+  torch.cuda.synchronize()
+  after = gk.launch_counts(backward=True)
+  assert after['glimpse_paste'] == before['glimpse_paste'] + 1
+  _assert_grads_close(got, _grads(attention.extract_patch, (x, f_y, f_x), g))
+
+
+@pytest.mark.parametrize('shape', SHAPES, ids=str)
+def test_paste_grads_match_plain_autograd(dev, shape):
+  """d_p = extract kernel (g), d_f_y and d_f_x einsums."""
+  x, p, f_y, f_x = _inputs(shape, dev)
+  g = torch.rand_like(x)
+  before = gk.launch_counts(backward=True)
+  got = _grads(gk.glimpse_paste, (p, f_y, f_x), g)
+  torch.cuda.synchronize()
+  after = gk.launch_counts(backward=True)
+  assert after['glimpse_extract'] == before['glimpse_extract'] + 1
+  _assert_grads_close(got, _grads(attention.paste_patch, (p, f_y, f_x), g))
+
+
+def test_backward_launches_only_what_is_needed(dev):
+  """The flagship's case: the glimpse input needs no gradient (the canvas
+  is cut), so extract's backward launches no paste; the filters still get
+  theirs."""
+  x, p, f_y, f_x = _inputs((4, 224, 224, 4, 48, 48), dev)
+  f_y.requires_grad_()
+  f_x.requires_grad_()
+  gk.reset_launch_counts()
+  gk.glimpse_extract(x, f_y, f_x).sum().backward()
+  assert gk.launch_counts() == {'glimpse_extract': 1, 'glimpse_paste': 0}
+  assert f_y.grad is not None and f_x.grad is not None
+  gk.reset_launch_counts()
+  gk.glimpse_paste(p, f_y.detach(), f_x.detach().requires_grad_()).sum(
+  ).backward()
+  assert gk.launch_counts() == {'glimpse_extract': 0, 'glimpse_paste': 1}

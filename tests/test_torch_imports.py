@@ -1,7 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
 h5py, cv2, optax or triton, which the machine with the card may lack), reads
 YAML only inside its YAML reader, and never falls back to the CPU by
-itself."""
+itself.  Every module of the package is covered, the training path's
+(losses, matching, boxes, augmentation, train step, trainer) included, and
+a train step runs with those modules blocked."""
 
 import ast
 import os
@@ -15,6 +17,7 @@ import torch
 
 from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch import device as device_mod
+from rec_attend_tpu_torch.engine.trainer import Trainer
 from rec_attend_tpu_torch.models.full_model import FullModel
 from rec_attend_tpu_torch.serving import InstanceSegmenter
 
@@ -28,7 +31,8 @@ BLOCKED = ('jax', 'jaxlib', 'rec_attend_tpu', 'yaml', 'h5py', 'cv2', 'optax',
 
 def _port_sources():
   paths = [os.path.join(REPO, 'chip_smoke.py'),
-           os.path.join(REPO, 'profile_port.py')]
+           os.path.join(REPO, 'profile_port.py'),
+           os.path.join(REPO, 'step_noise.py')]
   for root, _, files in os.walk(PACKAGE):
     paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
   return sorted(paths)
@@ -64,6 +68,14 @@ def test_port_imports_with_those_modules_missing():
       model = FullModel(config.tiny_full_config(), device='cpu')
       out = model(torch.rand(1, 64, 64, 3))
       assert out['y_out'].shape == (1, 4, 64, 64)
+      from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+      from rec_attend_tpu_torch.engine.trainer import Trainer
+      cfg = config.tiny_full_config(use_knob=True, remat=True,
+                                    rnd_hflip=True, rnd_transpose=True)
+      trainer = Trainer(cfg, device='cpu')
+      data = synthetic_instances(2, 64, 64, cfg.timespan, seed=1)
+      history = trainer.run(1, iter([data]))
+      assert trainer.step == 1 and history[0]['loss'] == history[0]['loss']
       leaked = [m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
       assert not leaked, leaked
@@ -112,6 +124,8 @@ def test_entry_points_default_to_cuda(monkeypatch):
     device_mod.resolve_device()
   with pytest.raises(RuntimeError, match='CUDA'):
     FullModel(cfg)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    Trainer(cfg)
   params = FullModel(cfg, device='cpu').state_dict()
   with pytest.raises(RuntimeError, match='CUDA'):
     InstanceSegmenter(params, cfg)
