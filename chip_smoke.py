@@ -7,11 +7,13 @@ check them.
 Phases, one JSON line each on stdout:
   device        the card, and its name and power limit from nvidia-smi;
   build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and the C++
-                compiler csrc/hungarian.cc, both at once (seconds taken);
+                compiler csrc/hungarian.cc, both at once (seconds taken),
+                and each kernel's registers a thread, spill bytes and
+                static shared memory as nvcc -Xptxas -v reports them;
   kernels       each hand-written kernel against its plain PyTorch version,
-                at the serving path's shapes (CVPPP, b128) and at a ragged
-                shape (KITTI 128x448, D=13, 48x64 glimpse), with CUDA-event
-                times;
+                at the serving path's shapes (CVPPP, b128; paste at b8
+                too) and at a ragged shape (KITTI 128x448, D=13, 48x64
+                glimpse), with CUDA-event times;
   kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
                 against plain autograd through the einsums, every input
                 gradient, at the CVPPP train shapes (b32) and the KITTI
@@ -34,7 +36,8 @@ Phases, one JSON line each on stdout:
                 (b2) at step 0, with the matchings of each pair reported
                 and pinned where they differ; a step whose glimpse backward
                 drops the filter gradients must fail the same gates.
-Then the kernel table, the card's name and power limit, and as the last line
+Then the kernel table (each row with bound_share = bound_ms / ms), the
+card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
 0.  Without CUDA the script exits 1 before printing any result.
 """
@@ -250,11 +253,13 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
             'max_abs_value': float(want.abs().max())}
   if timed:
     bound_ms, bound_by = bound(nbytes, flops)
+    kernel_ms = ms(torch, lambda: kernel(a, f_y, f_x))
     result.update(
-        kernel_ms=ms(torch, lambda: kernel(a, f_y, f_x)),
+        kernel_ms=kernel_ms,
         plain_ms=ms(torch, lambda: plain(a, f_y, f_x)),
         library_ms=ms(torch, library),
-        bound_ms=bound_ms, bound_by=bound_by, bytes=nbytes, flops=flops)
+        bound_ms=bound_ms, bound_by=bound_by,
+        bound_share=bound_ms / kernel_ms, bytes=nbytes, flops=flops)
   return result
 
 
@@ -325,11 +330,12 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
   out = fn(*ins)
   plain_ins = [t.detach().clone().requires_grad_() for t in (a, f_y, f_x)]
   plain_out = plain(*plain_ins)
+  kernel_ms = ms(torch, use)
   result['backward_use'] = {
-      'kernel': use_kernel, 'kernel_ms': ms(torch, use),
+      'kernel': use_kernel, 'kernel_ms': kernel_ms,
       'plain_ms': ms(torch, use_plain), 'library_ms': ms(torch, use_library),
-      'bound_ms': bound_ms, 'bound_by': bound_by, 'bytes': nbytes,
-      'flops': flops}
+      'bound_ms': bound_ms, 'bound_by': bound_by,
+      'bound_share': bound_ms / kernel_ms, 'bytes': nbytes, 'flops': flops}
   result['filter_grad_einsums_ms'] = ms(torch, filter_grads)
   result['backward_ms'] = ms(torch, lambda: torch.autograd.grad(
       out, ins, g, retain_graph=True))
@@ -691,11 +697,15 @@ def main():
 
   # ---- build -----------------------------------------------------------
   t0 = time.time()
-  paths = build.build(verbose=True)
+  paths = build.build(verbose=True, force=True)
   build.load()
   build.load_hungarian()
+  resources = build.kernel_resources(build.compile_logs['glimpse'])
+  if not any(k.startswith('paste_kernel') for k in resources):
+    raise AssertionError('nvcc -Xptxas -v reported no paste kernel')
   emit('build', seconds=time.time() - t0,
-       libraries={k: os.path.relpath(v, REPO) for k, v in paths.items()})
+       libraries={k: os.path.relpath(v, REPO) for k, v in paths.items()},
+       kernel_resources=resources)
 
   # ---- kernels ---------------------------------------------------------
   # Full float32 everywhere: matmuls and convolutions off TF32.
@@ -717,6 +727,10 @@ def main():
                                 timed=True)
     checks[name]['ragged'] = check_kernel(torch, gk, attention, name,
                                           *ragged_dims, gen, dev, timed=False)
+  # The smallest request of the serving path: 8 images.
+  checks['glimpse_paste']['b8'] = check_kernel(
+      torch, gk, attention, 'glimpse_paste', 8, *main_dims['glimpse_paste'][1:],
+      gen, dev, timed=True)
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 
@@ -831,7 +845,10 @@ def main():
         'max_abs_err': max(c['max_abs_err'], c['ragged']['max_abs_err']),
         'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
         'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
-        'library_ms': c['library_ms']})
+        'bound_share': c['bound_share'], 'library_ms': c['library_ms'],
+        **({'b8': {k: c['b8'][k] for k in (
+            'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms',
+            'bound_share')}} if 'b8' in c else {})})
   # The kernels' backward uses that the main paths run: extract as d_p of
   # paste (paste as d_x of extract is not on them: the flagship's glimpse
   # input needs no gradient; kernels_grad checks and times it).
@@ -849,7 +866,7 @@ def main():
                            c['ragged']['d_operand']['max_abs_err']),
         'ms': use['kernel_ms'], 'plain_ms': use['plain_ms'],
         'bound_ms': use['bound_ms'], 'bound_by': use['bound_by'],
-        'library_ms': use['library_ms']})
+        'bound_share': use['bound_share'], 'library_ms': use['library_ms']})
   print(json.dumps({'kernels': table}), flush=True)
   print(name_power, flush=True)
   print(json.dumps({'ok': True, 'device': {

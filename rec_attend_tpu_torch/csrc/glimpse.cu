@@ -13,6 +13,8 @@
 // that stream, do not synchronise, allocate nothing, and return
 // cudaGetLastError() so the caller can raise on a refused launch.
 
+#include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -178,102 +180,313 @@ extract_kernel(const float* __restrict__ x, const float* __restrict__ fy,
 // which also brackets the call with channels-major transposes; this kernel
 // writes the channels-last output directly.
 //
-// Bound on the H100: at the main path's shapes (b128, 48x48 patch, D=1,
-// 224x224 output) the call writes 25.7 MB and reads about 12 MB (patch and
-// filter banks), about 38 MB, which is 11 us at 3.35 TB/s; the separable
-// contraction is 0.75 GFLOP, also about 11 us at 67 TFLOP/s of float32.
-// Both limits meet near 11 us.
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s float32 on the CUDA cores): at
+// the main path's shapes (b128, 48x48 patch, D=1, 224x224 output) the call
+// writes 25.7 MB and reads 12.2 MB (patch and filter banks), 37.9 MB, 11.3
+// us; the separable contraction is 0.75 GFLOP (stage 1 0.13, stage 2
+// 0.62), 11.2 us.  Both limits meet near 11 us, so the design has to keep
+// the FMA pipes fed from shared memory and the stores streaming.
 //
-// Design: one block per (image, tile of HT output rows h), so a batch of 8
-// requests still gives 8 * ceil(224/32) = 56 blocks.
-//   stage 1  tmp[h, g*D+d] = sum_f f_y[h,f] * p[f,g,d] for the tile's rows,
-//            in shared memory (p is small and read through L1);
-//   stage 2  out[h,w,d] = sum_g tmp[h, g*D+d] * f_x[w,g], f_x staged
-//            transposed in shared memory; each thread owns one (w,d) column
-//            and keeps the tile's HT sums in registers, then writes them
-//            channels-last, neighbouring threads on neighbouring addresses.
-// HT is chosen by the host so that shared memory fits; ragged tiles are
-// masked.
+// Design: one block per (image, tile of BM output rows, tile of Wt output
+// columns); at the main path's shapes a column tile is the whole row, so no
+// stage-1 work is repeated across blocks.
+//   staging  cp.async copies, no transposing stores: the block's f_x rows
+//            [Wt][FW] as global memory holds them, each row's 16-byte chunks
+//            XOR-swizzled by (row/4) mod 8 so that stage 2's float4 reads
+//            of 8 neighbouring threads fall in 8 different bank groups;
+//            the block's f_y rows and, per channel chunk, p.  f_x (the
+//            largest) is a group of its own that lands while stage 1 runs.
+//   stage 1  tmp[h, g, dd] = sum_f f_y[h,f] * p[f,g,d0+dd] over the tile's
+//            rows, for DC channels at a time (DC = 4 where D is a multiple
+//            of 4, else 1); each item is 2 rows x 4 columns, float4 reads.
+//   stage 2  out[h, w, d0+dd] = sum_g tmp[h,g,dd] * f_x[w,g]: an
+//            outer-product SGEMM per channel.  Thread (ty, tx) keeps TM rows
+//            x 4 neighbouring columns x DC channels in registers; per 4
+//            taps g it reads TM (DC=1) or 4*TM (DC=4) float4 of tmp and 4
+//            float4 of f_x for 16*TM*DC FMAs (10.7 FMAs a load at TM=8,
+//            DC=1 and at TM=2, DC=4).
+//   store    16-byte stores: D=1 with W a multiple of 4 writes 4 columns as
+//            one float4, D a multiple of 4 writes 4 channels as one float4;
+//            other shapes store scalars.
+// Sums run over f, then over g, each ascending, as the plain version's
+// two einsums associate them; padded taps add exact zeros.  No split over
+// f or g, no atomics.
+// The host picks TM (rows a thread) as large as keeps at least two blocks
+// per SM (b128 D=1: TM=8, 896 blocks; b8: TM=2, 224 blocks; b32 D=4: TM=2,
+// 896 blocks).  It splits a row into column tiles only where the staged
+// f_x would not fit in shared memory (not at any shape of the repo's
+// configs).  Stage 1 costs FH/Wt of stage 2's operations per column tile at
+// any D (0.21 at a whole 224-column row, FH=48), so each extra tile adds
+// that much again, at D=1 and D=4 alike.
+// Build (nvcc -Xptxas -v, sm_90a): REGISTERS_NOTE
 // ---------------------------------------------------------------------------
 
-constexpr int kPaMaxHT = 32;
-constexpr int kPaBatch = 8;     // loads in flight per thread while staging
+constexpr int kPaMaxNTX = 64;   // column quads a pass (stage 2 threads in x)
 
-size_t paste_smem_floats(int W, int D, int FH, int FW, int HT) {
-  return (size_t)FW * (W + 1) + (size_t)HT * FH + (size_t)HT * FW * D;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Shared-memory geometry of one paste block, in floats.  Every region and
+// row is a multiple of 4 floats, so float4 accesses stay aligned.
+struct PasteGeom {
+  int Cg;    // 16-byte tap chunks of a row: ceil(FW/4)
+  int RS;    // f_x row stride: Cg rounded up to 8 chunks (the swizzle)
+  int FHr;   // f_y row stride and p rows: FH rounded up to 4
+  int BMr;   // tile rows, rounded up to even (stage 1 takes row pairs)
+  int PS;    // p row stride: 4*Cg*DC
+  int TS;    // tmp row stride: PS + 4 (padding against bank conflicts)
+  __host__ __device__ PasteGeom(int FH, int FW, int BM, int DC) {
+    Cg = (FW + 3) / 4;
+    RS = 4 * ((Cg + 7) / 8 * 8);
+    FHr = (FH + 3) / 4 * 4;
+    BMr = (BM + 1) / 2 * 2;
+    PS = 4 * Cg * DC;
+    TS = PS + 4;
+  }
+  __host__ __device__ size_t floats(int Wt) const {
+    return (size_t)Wt * RS + (size_t)BMr * FHr + (size_t)FHr * PS +
+           (size_t)BMr * TS;
+  }
+};
+
+__device__ __forceinline__ void zero4(float* dst) {
+  *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Copies p[f, g, d0 .. d0+DC) of one image into ps[f][g*DC + dd], zero
+// beyond FH and FW.
+template <int DC>
+__device__ __forceinline__ void paste_stage_p(
+    float* ps, const float* pb, int d0, int D, int FH, int FW,
+    const PasteGeom& G, bool vec, int tid) {
+  const int cols = G.PS / 4;   // 16-byte chunks of a row
+  for (int i = tid; i < G.FHr * cols; i += kThreads) {
+    const int f = i / cols, c = i - f * cols;
+    float* dst = ps + f * G.PS + 4 * c;
+    if constexpr (DC == 4) {   // one chunk is the 4 channels of tap g = c
+      if (f < FH && c < FW) {
+        cp_async16(dst, pb + ((size_t)f * FW + c) * D + d0);
+      } else {
+        zero4(dst);
+      }
+    } else if (f >= FH) {
+      zero4(dst);
+    } else if (vec && D == 1 && (FW & 3) == 0) {
+      cp_async16(dst, pb + (size_t)f * FW + 4 * c);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int g = 4 * c + e;
+        if (g < FW) {
+          cp_async4(dst + e, pb + ((size_t)f * FW + g) * D + d0);
+        } else {
+          dst[e] = 0.f;
+        }
+      }
+    }
+  }
+}
+
+template <int TM, int DC>
+__global__ void __launch_bounds__(kThreads, 2)
 paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
              const float* __restrict__ fx, float* __restrict__ out,
-             int H, int W, int D, int FH, int FW, int HT) {
+             int H, int W, int D, int FH, int FW, int NTX, int NTY, int Wt,
+             bool vec) {
   extern __shared__ __align__(16) float smem[];
-  // f_x transposed, rows padded to W+1 floats so that the transposing
-  // store and the column reads of stage 2 both avoid bank conflicts.
-  const int Wp = W + 1;
-  float* fxs = smem;                 // [FW][Wp]
-  float* fys = fxs + FW * Wp;        // [HT][FH]
-  float* tmp = fys + HT * FH;        // [HT][FW*D]
+  const int BM = NTY * TM;
+  const PasteGeom G(FH, FW, BM, DC);
+  float* fxs = smem;                       // [Wt][RS], swizzled chunks
+  float* fys = fxs + (size_t)Wt * G.RS;    // [BMr][FHr]
+  float* ps = fys + G.BMr * G.FHr;         // [FHr][PS]
+  float* tmp = ps + G.FHr * G.PS;          // [BMr][TS]
 
-  const int b = blockIdx.y;
-  const int h0 = blockIdx.x * HT;
-  const int hn = min(HT, H - h0);
+  const int b = blockIdx.z;
+  const int h0 = blockIdx.y * BM;
+  const int wb = blockIdx.x * Wt;
   const int tid = threadIdx.x;
-  const int gd = FW * D;
-  const float* pb = p + (size_t)b * FH * gd;
+  const float* pb = p + (size_t)b * FH * FW * D;
   const float* fyb = fy + (size_t)b * H * FH;
   const float* fxb = fx + (size_t)b * W * FW;
 
-  // Stage the filters with kPaBatch independent loads in flight per thread.
-  const int nfx = W * FW;
-  for (int i0 = 0; i0 < nfx; i0 += kThreads * kPaBatch) {
-    float v[kPaBatch];
+  // Group 1: the tile's f_y rows and the first channel chunk of p.
+  const int fcols = G.FHr / 4;
+  for (int i = tid; i < G.BMr * fcols; i += kThreads) {
+    const int r = i / fcols, c = i - r * fcols;
+    const int h = h0 + r;
+    float* dst = fys + r * G.FHr + 4 * c;
+    const float* src = fyb + (size_t)h * FH + 4 * c;
+    if (r >= BM || h >= H) {
+      zero4(dst);
+    } else if (vec && (FH & 3) == 0) {
+      cp_async16(dst, src);
+    } else {
 #pragma unroll
-    for (int k = 0; k < kPaBatch; ++k) {
-      const int i = i0 + tid + k * kThreads;
-      v[k] = (i < nfx) ? __ldg(fxb + i) : 0.f;
-    }
-#pragma unroll
-    for (int k = 0; k < kPaBatch; ++k) {
-      const int i = i0 + tid + k * kThreads;
-      if (i < nfx) {
-        const int w = i / FW, g = i - w * FW;
-        fxs[g * Wp + w] = v[k];
+      for (int e = 0; e < 4; ++e) {
+        if (4 * c + e < FH) cp_async4(dst + e, src + e); else dst[e] = 0.f;
       }
     }
   }
-  for (int i = tid; i < HT * FH; i += kThreads) {
-    fys[i] = (i < hn * FH) ? __ldg(fyb + (size_t)h0 * FH + i) : 0.f;
-  }
-  __syncthreads();
-
-  for (int i = tid; i < HT * gd; i += kThreads) {
-    const int hh = i / gd, c = i - hh * gd;
-    const float* fr = fys + hh * FH;
-    float s = 0.f;
-#pragma unroll 8
-    for (int f = 0; f < FH; ++f) s += fr[f] * __ldg(pb + (size_t)f * gd + c);
-    tmp[i] = s;
-  }
-  __syncthreads();
-
-  float* ob = out + ((size_t)b * H + h0) * W * D;
-  for (int col = tid; col < W * D; col += kThreads) {
-    const int w = col / D, d = col - w * D;
-    float r[kPaMaxHT];
+  paste_stage_p<DC>(ps, pb, 0, D, FH, FW, G, vec, tid);
+  cp_async_commit();
+  // Group 2: the f_x rows of the tile's columns, chunk c of row r at chunk
+  // c ^ ((r / 4) % 8).  Chunks past Cg are never read.
+  for (int i = tid; i < Wt * G.Cg; i += kThreads) {
+    const int r = i / G.Cg, c = i - r * G.Cg;
+    const int w = wb + r;
+    float* dst = fxs + r * G.RS + 4 * (c ^ ((r >> 2) & 7));
+    const float* src = fxb + (size_t)w * FW + 4 * c;
+    if (w >= W) {
+      zero4(dst);
+    } else if (vec && (FW & 3) == 0) {
+      cp_async16(dst, src);
+    } else {
 #pragma unroll
-    for (int hh = 0; hh < kPaMaxHT; ++hh) r[hh] = 0.f;
-    for (int g = 0; g < FW; ++g) {
-      const float fv = fxs[g * Wp + w];
-      const float* t = tmp + g * D + d;
-#pragma unroll
-      for (int hh = 0; hh < kPaMaxHT; ++hh) {
-        if (hh < HT) r[hh] += t[hh * gd] * fv;
+      for (int e = 0; e < 4; ++e) {
+        if (4 * c + e < FW) cp_async4(dst + e, src + e); else dst[e] = 0.f;
       }
     }
+  }
+  cp_async_commit();
+
+  const int ty = tid / NTX, tx = tid - ty * NTX;
+  const int passes = Wt / (4 * NTX);
+  const int items = (G.BMr / 2) * (G.PS / 4);
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    if (d0 == 0) cp_async_wait<1>(); else cp_async_wait<0>();
+    __syncthreads();
+
+    // Stage 1: two rows x 4 columns an item, f ascending.
+    for (int it = tid; it < items; it += kThreads) {
+      const int r0 = 2 * (it / (G.PS / 4));
+      const int c = 4 * (it % (G.PS / 4));
+      const float* y0 = fys + r0 * G.FHr;
+      const float* y1 = y0 + G.FHr;
+      float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+      for (int f0 = 0; f0 < G.FHr; f0 += 4) {
+        const float4 a0 = *reinterpret_cast<const float4*>(y0 + f0);
+        const float4 a1 = *reinterpret_cast<const float4*>(y1 + f0);
+        const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
+        const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-    for (int hh = 0; hh < kPaMaxHT; ++hh) {
-      if (hh < hn) ob[(size_t)hh * W * D + col] = r[hh];
+        for (int k = 0; k < 4; ++k) {
+          const float4 v =
+              *reinterpret_cast<const float4*>(ps + (f0 + k) * G.PS + c);
+          s0.x += a0v[k] * v.x; s0.y += a0v[k] * v.y;
+          s0.z += a0v[k] * v.z; s0.w += a0v[k] * v.w;
+          s1.x += a1v[k] * v.x; s1.y += a1v[k] * v.y;
+          s1.z += a1v[k] * v.z; s1.w += a1v[k] * v.w;
+        }
+      }
+      *reinterpret_cast<float4*>(tmp + r0 * G.TS + c) = s0;
+      *reinterpret_cast<float4*>(tmp + (r0 + 1) * G.TS + c) = s1;
+    }
+    __syncthreads();
+    // ps is free: the next channel chunk lands during stage 2.
+    const bool more = d0 + DC < D;
+    if (more) {
+      paste_stage_p<DC>(ps, pb, d0 + DC, D, FH, FW, G, vec, tid);
+      cp_async_commit();
+    }
+    if (d0 == 0) {
+      if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+      __syncthreads();
+    }
+
+    // Stage 2: TM rows x 4 columns x DC channels a thread, g ascending.
+    if (ty < NTY) {
+      for (int pass = 0; pass < passes; ++pass) {
+        const int lr = pass * 4 * NTX + 4 * tx;   // local f_x row
+        const int sw = (lr >> 2) & 7;
+        float acc[TM][4][DC];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int dd = 0; dd < DC; ++dd) acc[i][j][dd] = 0.f;
+        const float* trow = tmp + ty * TM * G.TS;
+        const float* frow = fxs + lr * G.RS;
+        for (int c = 0; c < G.Cg; ++c) {
+          float bv[4][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float4 v = *reinterpret_cast<const float4*>(
+                frow + j * G.RS + 4 * (c ^ sw));
+            bv[j][0] = v.x; bv[j][1] = v.y; bv[j][2] = v.z; bv[j][3] = v.w;
+          }
+#pragma unroll
+          for (int i = 0; i < TM; ++i) {
+            if constexpr (DC == 1) {
+              const float4 a = *reinterpret_cast<const float4*>(
+                  trow + i * G.TS + 4 * c);
+              const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+              for (int k = 0; k < 4; ++k)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j][0] += av[k] * bv[j][k];
+            } else {
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    trow + i * G.TS + (4 * c + k) * DC);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                for (int j = 0; j < 4; ++j)
+#pragma unroll
+                  for (int dd = 0; dd < DC; ++dd)
+                    acc[i][j][dd] += av[dd] * bv[j][k];
+              }
+            }
+          }
+        }
+        const int w = wb + lr;
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const int h = h0 + ty * TM + i;
+          if (h >= H) continue;
+          float* orow = out + ((size_t)b * H + h) * W * D;
+          if constexpr (DC == 4) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (w + j < W) {
+                *reinterpret_cast<float4*>(orow + (size_t)(w + j) * D + d0) =
+                    make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
+                                acc[i][j][3]);
+              }
+            }
+          } else if (vec && D == 1 && (W & 3) == 0) {
+            if (w < W) {
+              *reinterpret_cast<float4*>(orow + w) =
+                  make_float4(acc[i][0][0], acc[i][1][0], acc[i][2][0],
+                              acc[i][3][0]);
+            }
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (w + j < W) orow[(size_t)(w + j) * D + d0] = acc[i][j][0];
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -287,6 +500,79 @@ cudaError_t allow_smem(const void* kernel, size_t bytes) {
 }
 
 constexpr size_t kMaxSmemBytes = 227 * 1024;
+
+// The paste launch that the host settles on: TM rows a thread, DC channels
+// a pass, NTX x NTY stage-2 threads, Wt columns a block, CT column tiles.
+struct PastePlan {
+  int TM = 0, DC = 1, NTX = 1, NTY = 1, Wt = 0, CT = 1;
+  size_t smem = 0;
+};
+
+int multiprocessors() {
+  static int count = 0;
+  if (count == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+      count = 132;
+  }
+  return count;
+}
+
+// Largest TM that still gives two blocks per SM (else the smallest at the
+// first geometry that fits), whole rows of 4*NTX-column passes.  Only where
+// nothing fits in shared memory: column tiles, then fewer rows a block,
+// then narrower passes.
+bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
+                PastePlan* plan) {
+  static const int kTM1[] = {8, 4, 2}, kTM4[] = {2, 1};
+  const int DC = (vec && D % 4 == 0) ? 4 : 1;
+  const int* tms = DC == 4 ? kTM4 : kTM1;
+  const int ntm = DC == 4 ? 2 : 3;
+  const int quads = (W + 3) / 4;
+  const int passes = (quads + kPaMaxNTX - 1) / kPaMaxNTX;
+  const long target = 2L * multiprocessors();
+  bool found = false;
+  for (int ntx = (quads + passes - 1) / passes; ntx >= 1;
+       ntx = ntx > 1 ? (ntx + 1) / 2 : 0) {
+    const int chunks = (quads + ntx - 1) / ntx;
+    for (int split = 1; split <= chunks; ++split) {
+      const int Wt = 4 * ntx * ((chunks + split - 1) / split);
+      const int CT = (W + Wt - 1) / Wt;
+      for (int ny = kThreads / ntx; ny >= 1; ny /= 2) {
+        for (int k = 0; k < ntm; ++k) {
+          const int TM = tms[k];
+          const int NTY = min(ny, (H + TM - 1) / TM);
+          const int BM = NTY * TM;
+          const size_t smem =
+              PasteGeom(FH, FW, BM, DC).floats(Wt) * sizeof(float);
+          if (smem > kMaxSmemBytes || (H + BM - 1) / BM > 65535) continue;
+          *plan = PastePlan{TM, DC, ntx, NTY, Wt, CT, smem};
+          found = true;
+          if ((long)B * ((H + BM - 1) / BM) * CT >= target) return true;
+        }
+        if (found) return true;
+      }
+    }
+  }
+  return false;
+}
+
+template <int TM, int DC>
+cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
+                         float* out, int B, int H, int W, int D, int FH,
+                         int FW, const PastePlan& plan, bool vec,
+                         cudaStream_t stream) {
+  cudaError_t err = allow_smem((const void*)paste_kernel<TM, DC>, plan.smem);
+  if (err != cudaSuccess) return err;
+  const int BM = plan.NTY * TM;
+  const dim3 grid(plan.CT, (H + BM - 1) / BM, B);
+  paste_kernel<TM, DC><<<grid, kThreads, plan.smem, stream>>>(
+      p, fy, fx, out, H, W, D, FH, FW, plan.NTX, plan.NTY, plan.Wt, vec);
+  return cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -309,23 +595,26 @@ int glimpse_extract(const float* x, const float* fy, const float* fx,
   return (int)cudaGetLastError();
 }
 
+
 int glimpse_paste(const float* p, const float* fy, const float* fx,
                   float* out, int B, int H, int W, int D, int FH, int FW,
                   void* stream) {
   if (B < 1 || H < 1 || W < 1 || D < 1 || FH < 1 || FW < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
-  int HT = kPaMaxHT;
-  while (HT > 1 &&
-         paste_smem_floats(W, D, FH, FW, HT) * sizeof(float) > kMaxSmemBytes)
-    --HT;
-  const size_t smem = paste_smem_floats(W, D, FH, FW, HT) * sizeof(float);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)paste_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((H + HT - 1) / HT, B);
-  paste_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      p, fy, fx, out, H, W, D, FH, FW, HT);
-  return (int)cudaGetLastError();
+  const bool vec = ((uintptr_t)p | (uintptr_t)fy | (uintptr_t)fx |
+                    (uintptr_t)out) % 16 == 0;
+  PastePlan plan;
+  if (!paste_plan(B, H, W, D, FH, FW, vec, &plan))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define PASTE_CASE(tm, dc)                                                  \
+  if (plan.TM == tm && plan.DC == dc)                                       \
+    return (int)launch_paste<tm, dc>(p, fy, fx, out, B, H, W, D, FH, FW,    \
+                                     plan, vec, s);
+  PASTE_CASE(8, 1) PASTE_CASE(4, 1) PASTE_CASE(2, 1)
+  PASTE_CASE(2, 4) PASTE_CASE(1, 4)
+#undef PASTE_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* glimpse_error_string(int err) {

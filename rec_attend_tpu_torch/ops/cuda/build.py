@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -44,6 +45,8 @@ KERNELS = ('glimpse_extract', 'glimpse_paste')
 
 _lock = threading.Lock()
 _libs = {}
+# {library name: compiler output} of the compiles that build() ran.
+compile_logs = {}
 
 
 def find_nvcc():
@@ -75,9 +78,11 @@ def _command(name, out, verbose):
   return cmd + ['-o', out, SOURCES[name]]
 
 
-def build(names=tuple(SOURCES), verbose=False):
-  """Compile every library of ``names`` whose current source has none yet,
-  all compiles at once.
+def build(names=tuple(SOURCES), verbose=False, force=False):
+  """Compile every library of ``names`` whose current source has none yet
+  (with ``force``, every one), all compiles at once.  With ``verbose``, nvcc
+  reports each kernel's resources (``-Xptxas -v``); each compile's output is
+  kept in ``compile_logs``.
 
   Returns {name: library path}.  Raises RuntimeError with the compiler's
   output if a compile fails."""
@@ -85,7 +90,7 @@ def build(names=tuple(SOURCES), verbose=False):
   os.makedirs(BUILD_DIR, exist_ok=True)
   running = {}
   for name, path in paths.items():
-    if os.path.exists(path):
+    if os.path.exists(path) and not force:
       continue
     # Compile to a private name and rename, so that a concurrent builder
     # never loads a half-written library.
@@ -102,12 +107,43 @@ def build(names=tuple(SOURCES), verbose=False):
       failed.append(f'{name}: {" ".join(cmd)} exited {proc.returncode}\n'
                     f'{out}')
       continue
+    compile_logs[name] = out
     if verbose and out:
       print(out, file=sys.stderr, flush=True)
     os.replace(tmp, paths[name])
   if failed:
     raise RuntimeError('build failed:\n' + '\n'.join(failed))
   return paths
+
+
+def kernel_resources(log):
+  """{kernel: {'registers', 'spill_store_bytes', 'spill_load_bytes',
+  'static_smem_bytes'}} from the ``-Xptxas -v`` lines of an nvcc log;
+  a template instance is named as ``paste_kernel<8,1>``."""
+  usage, name = {}, None
+  for line in log.splitlines():
+    m = re.search(r"(?:Compiling entry function|Function properties for) "
+                  r"'?(\w+)", line)
+    if m:
+      mangled = m.group(1)
+      base = re.search(r'([A-Za-z]+(?:_[A-Za-z]+)*_kernel)', mangled)
+      args = re.findall(r'Li(\d+)E', mangled)
+      name = (base.group(1) if base else mangled) + (
+          f'<{",".join(args)}>' if args else '')
+      usage.setdefault(name, {})
+      continue
+    if name is None:
+      continue
+    m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', line)
+    if m:
+      usage[name]['spill_store_bytes'] = int(m.group(1))
+      usage[name]['spill_load_bytes'] = int(m.group(2))
+    m = re.search(r'Used (\d+) registers', line)
+    if m:
+      usage[name]['registers'] = int(m.group(1))
+      m = re.search(r'(\d+) bytes smem', line)
+      usage[name]['static_smem_bytes'] = int(m.group(1)) if m else 0
+  return usage
 
 
 def _load(name, bind):

@@ -44,6 +44,8 @@ class InstanceSegmenter:
     self.device = self.model.device
     self.threshold = threshold
     self.remove_tiny = remove_tiny
+    # Stored and never read, as in the reference: the scores are hardened
+    # at 0.5 (rec_attend_tpu/serving.py:99).
     self.conf_threshold = conf_threshold
 
   @classmethod
@@ -78,7 +80,7 @@ class InstanceSegmenter:
       x = self._prepare(images)
       out = full_model_forward(self.model, x)
       y_out, s_out = out['y_out'], out['s_out']
-      y, conf = pp.apply_confidence(y_out, s_out, self.conf_threshold)
+      y, conf = pp.apply_confidence(y_out, s_out)
       y = pp.apply_one_label(y)
       masks = pp.apply_threshold(y, self.threshold)
       if self.remove_tiny:

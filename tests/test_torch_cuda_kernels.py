@@ -29,6 +29,18 @@ RTOL, ATOL = 1e-4, 1e-5
 SHAPES = [(4, 224, 224, 4, 48, 48), (2, 128, 448, 13, 48, 64),
           (1, 256, 512, 21, 48, 48), (3, 33, 45, 3, 7, 9),
           (2, 17, 300, 1, 5, 70), (1, 40, 50, 128, 20, 12)]
+# The paste kernel's tile edges: a thread computes TM rows (8, 4 or 2) x 4
+# columns, a block NTY*TM rows of whole 4*NTX-column passes (NTX <= 64
+# column quads); one row past and one short of a row tile and of a 256-
+# column pass, W*D not a multiple of 4 (no 16-byte stores: 257, 255, 43),
+# D=4 (4 channels a thread), B=1 and B=8 at 224x224 D=1 (the serving
+# path's smallest requests, two rows a thread), and extract's d_x shape of
+# the train step (b32, D=4).
+PASTE_SHAPES = SHAPES + [
+    (1, 33, 257, 1, 48, 48), (1, 31, 255, 1, 48, 48),
+    (2, 65, 64, 4, 48, 48), (2, 63, 63, 4, 48, 48), (2, 40, 43, 1, 12, 10),
+    (1, 224, 224, 1, 48, 48), (8, 224, 224, 1, 48, 48),
+    (32, 224, 224, 4, 48, 48)]
 
 
 @pytest.fixture
@@ -64,7 +76,7 @@ def test_extract_kernel_matches_plain(dev, shape):
                              rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize('shape', SHAPES, ids=str)
+@pytest.mark.parametrize('shape', PASTE_SHAPES, ids=str)
 def test_paste_kernel_matches_plain(dev, shape):
   _, p, f_y, f_x = _inputs(shape, dev)
   before = gk.glimpse_paste.launches
@@ -87,6 +99,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
   with pytest.raises(ValueError):
     gk.glimpse_extract(torch.rand(1, 32, 40, 129, device=dev), f_y[:1],
                        f_x[:1])
+  # A patch whose filter taps do not fit in shared memory, at any tiling.
+  wide = torch.rand(1, 4, 20000, 1, device=dev)
+  with pytest.raises(RuntimeError, match='glimpse_paste launch failed'):
+    gk.glimpse_paste(wide, torch.rand(1, 8, 4, device=dev),
+                     torch.rand(1, 8, 20000, device=dev))
   # An input that requires a gradient is taken: the backward launches the
   # other kernel.
   out = gk.glimpse_paste(p.requires_grad_(), f_y, f_x)
@@ -106,7 +123,7 @@ def _assert_grads_close(got, want):
         a, b, rtol=1e-3, atol=1e-4 * max(1.0, float(b.abs().max())))
 
 
-@pytest.mark.parametrize('shape', SHAPES, ids=str)
+@pytest.mark.parametrize('shape', PASTE_SHAPES, ids=str)
 def test_extract_grads_match_plain_autograd(dev, shape):
   """d_x = paste kernel (g), d_f_y and d_f_x einsums."""
   x, p, f_y, f_x = _inputs(shape, dev)

@@ -47,14 +47,26 @@ def images():
   return (rng.rand(3, SIZE, SIZE, 3) * 255).astype(np.uint8)
 
 
-def test_predict_matches_jax(folder, images):
-  kw = dict(threshold=THRESHOLD, remove_tiny=REMOVE_TINY)
+# The reference stores conf_threshold and never reads it: it hardens the
+# scores at 0.5 whatever the value.  0.4 (the flagship's calibrated score
+# threshold) lies below one of the JAX scores of these inputs that are under
+# 0.5, so a port that hardened at conf_threshold would count that slot.
+CONF_THRESHOLDS = [0.5, 0.4]
+
+
+@pytest.mark.parametrize('conf_threshold', CONF_THRESHOLDS)
+def test_predict_matches_jax(folder, images, conf_threshold):
+  kw = dict(threshold=THRESHOLD, remove_tiny=REMOVE_TINY,
+            conf_threshold=conf_threshold)
   want = jserving.InstanceSegmenter.from_checkpoint(folder, **kw).predict(
       images)
   seg = serving.InstanceSegmenter.from_checkpoint(folder, device='cpu', **kw)
   got = seg.predict(images)
   assert np.abs(want['soft_masks'] - THRESHOLD).min() > 1e-4
   assert np.abs(want['scores'] - 0.5).min() > 1e-4
+  if conf_threshold != 0.5:
+    between = (want['scores'] > conf_threshold) & (want['scores'] < 0.5)
+    assert between.any()
   assert want['masks'].sum() > 0 and want['counts'].sum() > 0
   np.testing.assert_array_equal(got['masks'], want['masks'])
   np.testing.assert_array_equal(got['counts'], want['counts'])
