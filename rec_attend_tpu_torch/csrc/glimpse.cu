@@ -252,14 +252,15 @@ struct PasteGeom {
   int FHr;   // f_y row stride and p rows: FH rounded up to 4
   int BMr;   // tile rows, rounded up to even (stage 1 takes row pairs)
   int PS;    // p row stride: 4*Cg*DC
-  int TS;    // tmp row stride: PS + 4 (padding against bank conflicts)
+  int TS;    // tmp row stride: PS padded to an odd number of chunks, so
+             // that 4 neighbouring rows lie in 4 bank groups
   __host__ __device__ PasteGeom(int FH, int FW, int BM, int DC) {
     Cg = (FW + 3) / 4;
     RS = 4 * ((Cg + 7) / 8 * 8);
     FHr = (FH + 3) / 4 * 4;
     BMr = (BM + 1) / 2 * 2;
     PS = 4 * Cg * DC;
-    TS = PS + 4;
+    TS = PS + ((PS / 4) % 2 ? 8 : 4);
   }
   __host__ __device__ size_t floats(int Wt) const {
     return (size_t)Wt * RS + (size_t)BMr * FHr + (size_t)FHr * PS +
@@ -267,8 +268,36 @@ struct PasteGeom {
   }
 };
 
+// Which 16-byte chunk column row r of the staged f_x XORs its chunks with.
+// Thread t of a pass reads 4 rows: with quad, rows 4t..4t+3 (4 neighbouring
+// output columns, one float4 store at D=1), else rows t, t+NTX, t+2NTX,
+// t+3NTX (neighbouring threads on neighbouring columns: coalesced stores at
+// any D).  NTX is a multiple of 8, so all 4 rows XOR with t mod 8, and the 8
+// threads of a warp that read distinct rows read 8 different bank groups.
+__device__ __forceinline__ int paste_swizzle(int r, bool quad) {
+  return quad ? (r >> 2) & 7 : r & 7;
+}
+
 __device__ __forceinline__ void zero4(float* dst) {
   *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Calls f(r, c) for every (row, column) of a rows x cols grid that thread
+// tid owns, row-major, kThreads apart, with one division in all.
+template <class F>
+__device__ __forceinline__ void for_each_cell(int rows, int cols, int tid,
+                                              F f) {
+  int r = tid / cols, c = tid - r * cols;
+  const int dr = kThreads / cols, dc = kThreads - dr * cols;
+  while (r < rows) {
+    f(r, c);
+    r += dr;
+    c += dc;
+    if (c >= cols) {
+      c -= cols;
+      ++r;
+    }
+  }
 }
 
 // Copies p[f, g, d0 .. d0+DC) of one image into ps[f][g*DC + dd], zero
@@ -277,9 +306,7 @@ template <int DC>
 __device__ __forceinline__ void paste_stage_p(
     float* ps, const float* pb, int d0, int D, int FH, int FW,
     const PasteGeom& G, bool vec, int tid) {
-  const int cols = G.PS / 4;   // 16-byte chunks of a row
-  for (int i = tid; i < G.FHr * cols; i += kThreads) {
-    const int f = i / cols, c = i - f * cols;
+  for_each_cell(G.FHr, G.PS / 4, tid, [&](int f, int c) {
     float* dst = ps + f * G.PS + 4 * c;
     if constexpr (DC == 4) {   // one chunk is the 4 channels of tap g = c
       if (f < FH && c < FW) {
@@ -302,35 +329,15 @@ __device__ __forceinline__ void paste_stage_p(
         }
       }
     }
-  }
+  });
 }
 
-template <int TM, int DC>
-__global__ void __launch_bounds__(kThreads, 2)
-paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
-             const float* __restrict__ fx, float* __restrict__ out,
-             int H, int W, int D, int FH, int FW, int NTX, int NTY, int Wt,
-             bool vec) {
-  extern __shared__ __align__(16) float smem[];
-  const int BM = NTY * TM;
-  const PasteGeom G(FH, FW, BM, DC);
-  float* fxs = smem;                       // [Wt][RS], swizzled chunks
-  float* fys = fxs + (size_t)Wt * G.RS;    // [BMr][FHr]
-  float* ps = fys + G.BMr * G.FHr;         // [FHr][PS]
-  float* tmp = ps + G.FHr * G.PS;          // [BMr][TS]
-
-  const int b = blockIdx.z;
-  const int h0 = blockIdx.y * BM;
-  const int wb = blockIdx.x * Wt;
-  const int tid = threadIdx.x;
-  const float* pb = p + (size_t)b * FH * FW * D;
-  const float* fyb = fy + (size_t)b * H * FH;
-  const float* fxb = fx + (size_t)b * W * FW;
-
-  // Group 1: the tile's f_y rows and the first channel chunk of p.
-  const int fcols = G.FHr / 4;
-  for (int i = tid; i < G.BMr * fcols; i += kThreads) {
-    const int r = i / fcols, c = i - r * fcols;
+// Copies f_y rows h0 .. h0+BM of one image into fys[r][f], zero beyond H,
+// BM and FH.
+__device__ __forceinline__ void paste_stage_fy(
+    float* fys, const float* fyb, int h0, int BM, int H, int FH,
+    const PasteGeom& G, bool vec, int tid) {
+  for_each_cell(G.BMr, G.FHr / 4, tid, [&](int r, int c) {
     const int h = h0 + r;
     float* dst = fys + r * G.FHr + 4 * c;
     const float* src = fyb + (size_t)h * FH + 4 * c;
@@ -344,15 +351,43 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
         if (4 * c + e < FH) cp_async4(dst + e, src + e); else dst[e] = 0.f;
       }
     }
-  }
+  });
+}
+
+template <int TM, int DC>
+__global__ void __launch_bounds__(kThreads, 2)
+paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
+             const float* __restrict__ fx, float* __restrict__ out,
+             int H, int W, int D, int FH, int FW, int NTX, int NTY, int Wt,
+             int RT, bool vec, bool quad) {
+  extern __shared__ __align__(16) float smem[];
+  const int BM = NTY * TM;
+  const PasteGeom G(FH, FW, BM, DC);
+  float* fxs = smem;                       // [Wt][RS], swizzled chunks
+  float* fys = fxs + (size_t)Wt * G.RS;    // [BMr][FHr]
+  float* ps = fys + G.BMr * G.FHr;         // [FHr][PS]
+  float* tmp = ps + G.FHr * G.PS;          // [BMr][TS]
+
+  const int b = blockIdx.z;
+  const int wb = blockIdx.x * Wt;
+  // The block's row tiles: RT tiles of BM rows from t0, within H.
+  const int t0 = blockIdx.y * RT;
+  const int t1 = min(t0 + RT, (H + BM - 1) / BM);
+  const int tid = threadIdx.x;
+  const float* pb = p + (size_t)b * FH * FW * D;
+  const float* fyb = fy + (size_t)b * H * FH;
+  const float* fxb = fx + (size_t)b * W * FW;
+
+  // Group 1: the first tile's f_y rows and the first channel chunk of p.
+  paste_stage_fy(fys, fyb, t0 * BM, BM, H, FH, G, vec, tid);
   paste_stage_p<DC>(ps, pb, 0, D, FH, FW, G, vec, tid);
   cp_async_commit();
-  // Group 2: the f_x rows of the tile's columns, chunk c of row r at chunk
-  // c ^ ((r / 4) % 8).  Chunks past Cg are never read.
-  for (int i = tid; i < Wt * G.Cg; i += kThreads) {
-    const int r = i / G.Cg, c = i - r * G.Cg;
+  // Group 2: the f_x rows of the tile's columns, once for all row tiles;
+  // chunk c of row r at chunk c ^ paste_swizzle(r).  Chunks past Cg are
+  // never read.
+  for_each_cell(Wt, G.Cg, tid, [&](int r, int c) {
     const int w = wb + r;
-    float* dst = fxs + r * G.RS + 4 * (c ^ ((r >> 2) & 7));
+    float* dst = fxs + r * G.RS + 4 * (c ^ paste_swizzle(r, quad));
     const float* src = fxb + (size_t)w * FW + 4 * c;
     if (w >= W) {
       zero4(dst);
@@ -364,125 +399,144 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
         if (4 * c + e < FW) cp_async4(dst + e, src + e); else dst[e] = 0.f;
       }
     }
-  }
+  });
   cp_async_commit();
 
-  const int ty = tid / NTX, tx = tid - ty * NTX;
+  // Stage-2 threads: warp (wx, wy) of NTX/8 x 8/(NTX/8), lane (lane%8,
+  // lane/8) within it; thread rows wy*4*TM + 4*i + lane/8 (i < TM), so the
+  // 4 rows a tmp read serves are neighbours.
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wx = warp % (NTX / 8), wy = warp / (NTX / 8);
+  const int tx = wx * 8 + (lane & 7);
+  const int row0 = wy * 4 * TM + (lane >> 3);
+  const int sw = lane & 7;   // paste_swizzle of every row the thread reads
+  const int rstep = quad ? 1 : NTX;
+  const float* trow = tmp + row0 * G.TS;
   const int passes = Wt / (4 * NTX);
-  const int items = (G.BMr / 2) * (G.PS / 4);
-  for (int d0 = 0; d0 < D; d0 += DC) {
-    if (d0 == 0) cp_async_wait<1>(); else cp_async_wait<0>();
-    __syncthreads();
-
-    // Stage 1: two rows x 4 columns an item, f ascending.
-    for (int it = tid; it < items; it += kThreads) {
-      const int r0 = 2 * (it / (G.PS / 4));
-      const int c = 4 * (it % (G.PS / 4));
-      const float* y0 = fys + r0 * G.FHr;
-      const float* y1 = y0 + G.FHr;
-      float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
-      for (int f0 = 0; f0 < G.FHr; f0 += 4) {
-        const float4 a0 = *reinterpret_cast<const float4*>(y0 + f0);
-        const float4 a1 = *reinterpret_cast<const float4*>(y1 + f0);
-        const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
-        const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float4 v =
-              *reinterpret_cast<const float4*>(ps + (f0 + k) * G.PS + c);
-          s0.x += a0v[k] * v.x; s0.y += a0v[k] * v.y;
-          s0.z += a0v[k] * v.z; s0.w += a0v[k] * v.w;
-          s1.x += a1v[k] * v.x; s1.y += a1v[k] * v.y;
-          s1.z += a1v[k] * v.z; s1.w += a1v[k] * v.w;
-        }
-      }
-      *reinterpret_cast<float4*>(tmp + r0 * G.TS + c) = s0;
-      *reinterpret_cast<float4*>(tmp + (r0 + 1) * G.TS + c) = s1;
-    }
-    __syncthreads();
-    // ps is free: the next channel chunk lands during stage 2.
-    const bool more = d0 + DC < D;
-    if (more) {
-      paste_stage_p<DC>(ps, pb, d0 + DC, D, FH, FW, G, vec, tid);
-      cp_async_commit();
-    }
-    if (d0 == 0) {
-      if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+  bool first = true;
+  for (int t = t0; t < t1; ++t) {
+    const int h0 = t * BM;
+    for (int d0 = 0; d0 < D; d0 += DC) {
+      if (first) cp_async_wait<1>(); else cp_async_wait<0>();
       __syncthreads();
-    }
 
-    // Stage 2: TM rows x 4 columns x DC channels a thread, g ascending.
-    if (ty < NTY) {
-      for (int pass = 0; pass < passes; ++pass) {
-        const int lr = pass * 4 * NTX + 4 * tx;   // local f_x row
-        const int sw = (lr >> 2) & 7;
-        float acc[TM][4][DC];
+      // Stage 1: two rows x 4 columns an item, f ascending.
+      for_each_cell(G.BMr / 2, G.PS / 4, tid, [&](int pr, int c4) {
+        const int c = 4 * c4;
+        const float* y0 = fys + 2 * pr * G.FHr;
+        const float* y1 = y0 + G.FHr;
+        float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
+#pragma unroll 4
+        for (int f0 = 0; f0 < G.FHr; f0 += 4) {
+          const float4 a0 = *reinterpret_cast<const float4*>(y0 + f0);
+          const float4 a1 = *reinterpret_cast<const float4*>(y1 + f0);
+          const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
+          const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
 #pragma unroll
-        for (int i = 0; i < TM; ++i)
+          for (int k = 0; k < 4; ++k) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(ps + (f0 + k) * G.PS + c);
+            s0.x += a0v[k] * v.x; s0.y += a0v[k] * v.y;
+            s0.z += a0v[k] * v.z; s0.w += a0v[k] * v.w;
+            s1.x += a1v[k] * v.x; s1.y += a1v[k] * v.y;
+            s1.z += a1v[k] * v.z; s1.w += a1v[k] * v.w;
+          }
+        }
+        *reinterpret_cast<float4*>(tmp + 2 * pr * G.TS + c) = s0;
+        *reinterpret_cast<float4*>(tmp + (2 * pr + 1) * G.TS + c) = s1;
+      });
+      __syncthreads();
+      // f_y and p are free: what the next stage 1 reads lands during
+      // stage 2 (the next channel chunk, else the next tile's rows).
+      bool more = true;
+      if (d0 + DC < D) {
+        paste_stage_p<DC>(ps, pb, d0 + DC, D, FH, FW, G, vec, tid);
+      } else if (t + 1 < t1) {
+        paste_stage_fy(fys, fyb, h0 + BM, BM, H, FH, G, vec, tid);
+        if (D > DC) paste_stage_p<DC>(ps, pb, 0, D, FH, FW, G, vec, tid);
+      } else {
+        more = false;
+      }
+      if (more) cp_async_commit();
+      if (first) {
+        if (more) cp_async_wait<1>(); else cp_async_wait<0>();
+        __syncthreads();
+        first = false;
+      }
+
+      // Stage 2: TM rows x 4 columns x DC channels a thread, g ascending.
+      // A warp is 4 thread rows x 8 thread columns, so a float4 read of tmp
+      // serves 4 addresses and one of f_x 8 (one bank wavefront each).
+      if (wy < NTY / 4) {
+        for (int pass = 0; pass < passes; ++pass) {
+          // The thread's f_x rows (output columns) r0 + j * rstep.
+          const int r0 = pass * 4 * NTX + (quad ? 4 * tx : tx);
+          const float* frow = fxs + r0 * G.RS;
+          float acc[TM][4][DC];
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int i = 0; i < TM; ++i)
 #pragma unroll
-            for (int dd = 0; dd < DC; ++dd) acc[i][j][dd] = 0.f;
-        const float* trow = tmp + ty * TM * G.TS;
-        const float* frow = fxs + lr * G.RS;
-        for (int c = 0; c < G.Cg; ++c) {
-          float bv[4][4];
+            for (int j = 0; j < 4; ++j)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float4 v = *reinterpret_cast<const float4*>(
-                frow + j * G.RS + 4 * (c ^ sw));
-            bv[j][0] = v.x; bv[j][1] = v.y; bv[j][2] = v.z; bv[j][3] = v.w;
+              for (int dd = 0; dd < DC; ++dd) acc[i][j][dd] = 0.f;
+          for (int c = 0; c < G.Cg; ++c) {
+            const int cs = 4 * (c ^ sw);
+            float bv[4][4];
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              const float4 v = *reinterpret_cast<const float4*>(
+                  frow + j * rstep * G.RS + cs);
+              bv[j][0] = v.x; bv[j][1] = v.y; bv[j][2] = v.z; bv[j][3] = v.w;
+            }
+#pragma unroll
+            for (int i = 0; i < TM; ++i) {
+              if constexpr (DC == 1) {
+                const float4 a = *reinterpret_cast<const float4*>(
+                    trow + 4 * i * G.TS + 4 * c);
+                const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+#pragma unroll
+                  for (int j = 0; j < 4; ++j) acc[i][j][0] += av[k] * bv[j][k];
+              } else {
+#pragma unroll
+                for (int k = 0; k < 4; ++k) {
+                  const float4 a = *reinterpret_cast<const float4*>(
+                      trow + 4 * i * G.TS + (4 * c + k) * DC);
+                  const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+                  for (int j = 0; j < 4; ++j)
+#pragma unroll
+                    for (int dd = 0; dd < DC; ++dd)
+                      acc[i][j][dd] += av[dd] * bv[j][k];
+                }
+              }
+            }
           }
 #pragma unroll
           for (int i = 0; i < TM; ++i) {
-            if constexpr (DC == 1) {
-              const float4 a = *reinterpret_cast<const float4*>(
-                  trow + i * G.TS + 4 * c);
-              const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-              for (int k = 0; k < 4; ++k)
-#pragma unroll
-                for (int j = 0; j < 4; ++j) acc[i][j][0] += av[k] * bv[j][k];
-            } else {
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                const float4 a = *reinterpret_cast<const float4*>(
-                    trow + i * G.TS + (4 * c + k) * DC);
-                const float av[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-                for (int j = 0; j < 4; ++j)
-#pragma unroll
-                  for (int dd = 0; dd < DC; ++dd)
-                    acc[i][j][dd] += av[dd] * bv[j][k];
+            const int h = h0 + row0 + 4 * i;
+            if (h >= H) continue;
+            float* orow = out + ((size_t)b * H + h) * W * D;
+            if (quad) {
+              if (wb + r0 < W) {
+                *reinterpret_cast<float4*>(orow + wb + r0) =
+                    make_float4(acc[i][0][0], acc[i][1][0], acc[i][2][0],
+                                acc[i][3][0]);
               }
+              continue;
             }
-          }
-        }
-        const int w = wb + lr;
-#pragma unroll
-        for (int i = 0; i < TM; ++i) {
-          const int h = h0 + ty * TM + i;
-          if (h >= H) continue;
-          float* orow = out + ((size_t)b * H + h) * W * D;
-          if constexpr (DC == 4) {
 #pragma unroll
             for (int j = 0; j < 4; ++j) {
-              if (w + j < W) {
-                *reinterpret_cast<float4*>(orow + (size_t)(w + j) * D + d0) =
+              const int w = wb + r0 + j * rstep;
+              if (w >= W) continue;
+              if constexpr (DC == 4) {
+                *reinterpret_cast<float4*>(orow + (size_t)w * D + d0) =
                     make_float4(acc[i][j][0], acc[i][j][1], acc[i][j][2],
                                 acc[i][j][3]);
+              } else {
+                orow[(size_t)w * D + d0] = acc[i][j][0];
               }
-            }
-          } else if (vec && D == 1 && (W & 3) == 0) {
-            if (w < W) {
-              *reinterpret_cast<float4*>(orow + w) =
-                  make_float4(acc[i][0][0], acc[i][1][0], acc[i][2][0],
-                              acc[i][3][0]);
-            }
-          } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              if (w + j < W) orow[(size_t)(w + j) * D + d0] = acc[i][j][0];
             }
           }
         }
@@ -504,7 +558,7 @@ constexpr size_t kMaxSmemBytes = 227 * 1024;
 // The paste launch that the host settles on: TM rows a thread, DC channels
 // a pass, NTX x NTY stage-2 threads, Wt columns a block, CT column tiles.
 struct PastePlan {
-  int TM = 0, DC = 1, NTX = 1, NTY = 1, Wt = 0, CT = 1;
+  int TM = 0, DC = 1, NTX = 1, NTY = 1, Wt = 0, CT = 1, RT = 1;
   size_t smem = 0;
 };
 
@@ -520,10 +574,13 @@ int multiprocessors() {
   return count;
 }
 
-// Largest TM that still gives two blocks per SM (else the smallest at the
-// first geometry that fits), whole rows of 4*NTX-column passes.  Only where
-// nothing fits in shared memory: column tiles, then fewer rows a block,
-// then narrower passes.
+// The blocks run in one wave, two to an SM: a block takes RT row tiles of
+// BM = NTY*TM rows (staging f_x once for them all), with RT as even across
+// an image's tiles as the wave allows.  Among the TM that fit, the one whose
+// busiest block has the fewest rows (RT*BM) wins, the larger TM on a tie.
+// Only where nothing fits in shared memory: column tiles, then fewer thread
+// rows, then narrower passes.  NTX is a multiple of 8 (a warp spans 8
+// thread columns) and NTY of 4.
 bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
                 PastePlan* plan) {
   static const int kTM1[] = {8, 4, 2}, kTM4[] = {2, 1};
@@ -532,27 +589,34 @@ bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
   const int ntm = DC == 4 ? 2 : 3;
   const int quads = (W + 3) / 4;
   const int passes = (quads + kPaMaxNTX - 1) / kPaMaxNTX;
-  const long target = 2L * multiprocessors();
-  bool found = false;
-  for (int ntx = (quads + passes - 1) / passes; ntx >= 1;
-       ntx = ntx > 1 ? (ntx + 1) / 2 : 0) {
+  const long slots = 2L * multiprocessors();
+  for (int wxs = ((quads + passes - 1) / passes + 7) / 8; wxs >= 1;
+       wxs = wxs > 1 ? (wxs + 1) / 2 : 0) {
+    const int ntx = 8 * wxs;
     const int chunks = (quads + ntx - 1) / ntx;
     for (int split = 1; split <= chunks; ++split) {
       const int Wt = 4 * ntx * ((chunks + split - 1) / split);
       const int CT = (W + Wt - 1) / Wt;
-      for (int ny = kThreads / ntx; ny >= 1; ny /= 2) {
+      for (int wys = kThreads / 32 / wxs; wys >= 1; wys /= 2) {
+        long best = -1;
         for (int k = 0; k < ntm; ++k) {
           const int TM = tms[k];
-          const int NTY = min(ny, (H + TM - 1) / TM);
+          const int NTY = 4 * min(wys, (H + 4 * TM - 1) / (4 * TM));
           const int BM = NTY * TM;
+          const int nt = (H + BM - 1) / BM;
           const size_t smem =
               PasteGeom(FH, FW, BM, DC).floats(Wt) * sizeof(float);
-          if (smem > kMaxSmemBytes || (H + BM - 1) / BM > 65535) continue;
-          *plan = PastePlan{TM, DC, ntx, NTY, Wt, CT, smem};
-          found = true;
-          if ((long)B * ((H + BM - 1) / BM) * CT >= target) return true;
+          if (smem > kMaxSmemBytes) continue;
+          const long rt0 = ((long)B * nt * CT + slots - 1) / slots;
+          const int per_image = (int)((nt + rt0 - 1) / rt0);
+          const int RT = (nt + per_image - 1) / per_image;
+          if ((nt + RT - 1) / RT > 65535) continue;
+          if (best < 0 || (long)RT * BM < best) {
+            best = (long)RT * BM;
+            *plan = PastePlan{TM, DC, ntx, NTY, Wt, CT, RT, smem};
+          }
         }
-        if (found) return true;
+        if (best >= 0) return true;
       }
     }
   }
@@ -567,9 +631,11 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
   cudaError_t err = allow_smem((const void*)paste_kernel<TM, DC>, plan.smem);
   if (err != cudaSuccess) return err;
   const int BM = plan.NTY * TM;
-  const dim3 grid(plan.CT, (H + BM - 1) / BM, B);
+  const int tiles = (H + BM - 1) / BM;
+  const dim3 grid(plan.CT, (tiles + plan.RT - 1) / plan.RT, B);
   paste_kernel<TM, DC><<<grid, kThreads, plan.smem, stream>>>(
-      p, fy, fx, out, H, W, D, FH, FW, plan.NTX, plan.NTY, plan.Wt, vec);
+      p, fy, fx, out, H, W, D, FH, FW, plan.NTX, plan.NTY, plan.Wt, plan.RT,
+      vec, vec && D == 1 && W % 4 == 0);
   return cudaGetLastError();
 }
 
