@@ -187,38 +187,44 @@ extract_kernel(const float* __restrict__ x, const float* __restrict__ fy,
 // 0.62), 11.2 us.  Both limits meet near 11 us, so the design has to keep
 // the FMA pipes fed from shared memory and the stores streaming.
 //
-// Design: one block per (image, tile of BM output rows, tile of Wt output
-// columns); at the main path's shapes a column tile is the whole row, so no
-// stage-1 work is repeated across blocks.
+// Design: the blocks run in one wave, two to an SM.  A block owns one
+// image, RT row tiles of BM = NTY*TM rows and Wt output columns (at every
+// shape of the repo's configs the whole row, so no stage-1 work is
+// repeated across blocks).
 //   staging  cp.async copies, no transposing stores: the block's f_x rows
-//            [Wt][FW] as global memory holds them, each row's 16-byte chunks
-//            XOR-swizzled by (row/4) mod 8 so that stage 2's float4 reads
-//            of 8 neighbouring threads fall in 8 different bank groups;
-//            the block's f_y rows and, per channel chunk, p.  f_x (the
-//            largest) is a group of its own that lands while stage 1 runs.
-//   stage 1  tmp[h, g, dd] = sum_f f_y[h,f] * p[f,g,d0+dd] over the tile's
-//            rows, for DC channels at a time (DC = 4 where D is a multiple
-//            of 4, else 1); each item is 2 rows x 4 columns, float4 reads.
+//            [Wt][FW] as global memory holds them, once for all its row
+//            tiles, each row's 16-byte chunks XOR-swizzled so that stage 2's
+//            float4 reads hit 8 bank groups; f_y rows and, per channel
+//            chunk, p.  f_x (the largest) is a group of its own that lands
+//            while stage 1 runs; the next group's f_y lands during stage 2.
+//   stage 1  tmp[h, g, dd] = sum_f f_y[h,f] * p[f,g,d0+dd] for GT row tiles
+//            at once (all RT where two blocks still fit in an SM's shared
+//            memory), DC channels at a time (DC = 4 where D is a multiple
+//            of 4, else 1); an item is 4 rows x 4 columns in registers.
 //   stage 2  out[h, w, d0+dd] = sum_g tmp[h,g,dd] * f_x[w,g]: an
-//            outer-product SGEMM per channel.  Thread (ty, tx) keeps TM rows
-//            x 4 neighbouring columns x DC channels in registers; per 4
-//            taps g it reads TM (DC=1) or 4*TM (DC=4) float4 of tmp and 4
-//            float4 of f_x for 16*TM*DC FMAs (10.7 FMAs a load at TM=8,
-//            DC=1 and at TM=2, DC=4).
+//            outer-product SGEMM per channel.  A warp is 4 x 8 threads,
+//            each with TM rows x 4 columns x DC channels in registers; per
+//            4 taps g a thread reads TM (DC=1) or 4*TM (DC=4) float4 of tmp
+//            (4 addresses a warp) and 4 float4 of f_x (8 addresses a warp),
+//            for 16*TM*DC FMAs: 10.2 FMAs a load at TM=7, DC=1.
 //   store    16-byte stores: D=1 with W a multiple of 4 writes 4 columns as
-//            one float4, D a multiple of 4 writes 4 channels as one float4;
-//            other shapes store scalars.
+//            one float4, D a multiple of 4 writes 4 channels as one float4,
+//            neighbouring threads on neighbouring addresses; other shapes
+//            store scalars.
 // Sums run over f, then over g, each ascending, as the plain version's
 // two einsums associate them; padded taps add exact zeros.  No split over
 // f or g, no atomics.
-// The host picks TM (rows a thread) as large as keeps at least two blocks
-// per SM (b128 D=1: TM=8, 896 blocks; b8: TM=2, 224 blocks; b32 D=4: TM=2,
-// 896 blocks).  It splits a row into column tiles only where the staged
-// f_x would not fit in shared memory (not at any shape of the repo's
-// configs).  Stage 1 costs FH/Wt of stage 2's operations per column tile at
-// any D (0.21 at a whole 224-column row, FH=48), so each extra tile adds
-// that much again, at D=1 and D=4 alike.
-// Build (nvcc -Xptxas -v, sm_90a): REGISTERS_NOTE
+// The host picks, among TM = 8, 7, 4, 2 (DC=4: 2, 1), the one whose busiest
+// block has the fewest rows once the tiles are spread over one wave: b128
+// D=1 takes TM=7, 2 blocks an image of 4 tiles of 28 rows (256 blocks);
+// b8 takes TM=2, 224 blocks of 8 rows; b32 D=4 TM=1, 256 blocks.  It splits
+// a row into column tiles only where the staged f_x would not fit in shared
+// memory (no shape of the repo's configs).  Stage 1 costs FH/Wt of stage
+// 2's operations per column tile at any D (0.21 at a whole 224-column row,
+// FH=48), so each extra tile would add that much again, at D=1 and D=4.
+// Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): registers a thread 116, 109,
+// 124, 105 at TM = 8, 7, 4, 2 (DC=1), 127 and 107 at TM = 2, 1 (DC=4); no
+// spills, no static shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int kPaMaxNTX = 64;   // column quads a pass (stage 2 threads in x)
@@ -250,7 +256,7 @@ struct PasteGeom {
   int Cg;    // 16-byte tap chunks of a row: ceil(FW/4)
   int RS;    // f_x row stride: Cg rounded up to 8 chunks (the swizzle)
   int FHr;   // f_y row stride and p rows: FH rounded up to 4
-  int BMr;   // tile rows, rounded up to even (stage 1 takes row pairs)
+  int BMr;   // stage-1 rows, rounded up to 4 (stage 1 takes 4 at a time)
   int PS;    // p row stride: 4*Cg*DC
   int TS;    // tmp row stride: PS padded to an odd number of chunks, so
              // that 4 neighbouring rows lie in 4 bank groups
@@ -258,7 +264,7 @@ struct PasteGeom {
     Cg = (FW + 3) / 4;
     RS = 4 * ((Cg + 7) / 8 * 8);
     FHr = (FH + 3) / 4 * 4;
-    BMr = (BM + 1) / 2 * 2;
+    BMr = (BM + 3) / 4 * 4;
     PS = 4 * Cg * DC;
     TS = PS + ((PS / 4) % 2 ? 8 : 4);
   }
@@ -359,10 +365,11 @@ __global__ void __launch_bounds__(kThreads, 2)
 paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
              const float* __restrict__ fx, float* __restrict__ out,
              int H, int W, int D, int FH, int FW, int NTX, int NTY, int Wt,
-             int RT, bool vec, bool quad) {
+             int RT, int GT, bool vec, bool quad) {
   extern __shared__ __align__(16) float smem[];
   const int BM = NTY * TM;
-  const PasteGeom G(FH, FW, BM, DC);
+  // Stage 1 runs for a group of GT row tiles at once (GT*BM rows).
+  const PasteGeom G(FH, FW, GT * BM, DC);
   float* fxs = smem;                       // [Wt][RS], swizzled chunks
   float* fys = fxs + (size_t)Wt * G.RS;    // [BMr][FHr]
   float* ps = fys + G.BMr * G.FHr;         // [FHr][PS]
@@ -378,8 +385,9 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
   const float* fyb = fy + (size_t)b * H * FH;
   const float* fxb = fx + (size_t)b * W * FW;
 
-  // Group 1: the first tile's f_y rows and the first channel chunk of p.
-  paste_stage_fy(fys, fyb, t0 * BM, BM, H, FH, G, vec, tid);
+  // Group 1: the first tile group's f_y rows and the first channel chunk
+  // of p.
+  paste_stage_fy(fys, fyb, t0 * BM, GT * BM, H, FH, G, vec, tid);
   paste_stage_p<DC>(ps, pb, 0, D, FH, FW, G, vec, tid);
   cp_async_commit();
   // Group 2: the f_x rows of the tile's columns, once for all row tiles;
@@ -411,48 +419,55 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
   const int row0 = wy * 4 * TM + (lane >> 3);
   const int sw = lane & 7;   // paste_swizzle of every row the thread reads
   const int rstep = quad ? 1 : NTX;
-  const float* trow = tmp + row0 * G.TS;
   const int passes = Wt / (4 * NTX);
   bool first = true;
-  for (int t = t0; t < t1; ++t) {
-    const int h0 = t * BM;
+  for (int tg = t0; tg < t1; tg += GT) {
+    const int tn = min(GT, t1 - tg);   // tiles in this group
     for (int d0 = 0; d0 < D; d0 += DC) {
       if (first) cp_async_wait<1>(); else cp_async_wait<0>();
       __syncthreads();
 
-      // Stage 1: two rows x 4 columns an item, f ascending.
-      for_each_cell(G.BMr / 2, G.PS / 4, tid, [&](int pr, int c4) {
+      // Stage 1: 4 rows x 4 columns an item, f ascending; per 4 taps f it
+      // reads 4 float4 of f_y and 4 of p for 64 FMAs.
+      for_each_cell(G.BMr / 4, G.PS / 4, tid, [&](int rq, int c4) {
         const int c = 4 * c4;
-        const float* y0 = fys + 2 * pr * G.FHr;
-        const float* y1 = y0 + G.FHr;
-        float4 s0 = make_float4(0.f, 0.f, 0.f, 0.f), s1 = s0;
-#pragma unroll 4
+        const float* y = fys + 4 * rq * G.FHr;
+        float s[4][4] = {};
+#pragma unroll 2
         for (int f0 = 0; f0 < G.FHr; f0 += 4) {
-          const float4 a0 = *reinterpret_cast<const float4*>(y0 + f0);
-          const float4 a1 = *reinterpret_cast<const float4*>(y1 + f0);
-          const float a0v[4] = {a0.x, a0.y, a0.z, a0.w};
-          const float a1v[4] = {a1.x, a1.y, a1.z, a1.w};
+          float a[4][4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float4 v =
+                *reinterpret_cast<const float4*>(y + r * G.FHr + f0);
+            a[r][0] = v.x; a[r][1] = v.y; a[r][2] = v.z; a[r][3] = v.w;
+          }
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
             const float4 v =
                 *reinterpret_cast<const float4*>(ps + (f0 + k) * G.PS + c);
-            s0.x += a0v[k] * v.x; s0.y += a0v[k] * v.y;
-            s0.z += a0v[k] * v.z; s0.w += a0v[k] * v.w;
-            s1.x += a1v[k] * v.x; s1.y += a1v[k] * v.y;
-            s1.z += a1v[k] * v.z; s1.w += a1v[k] * v.w;
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+              s[r][0] += a[r][k] * v.x; s[r][1] += a[r][k] * v.y;
+              s[r][2] += a[r][k] * v.z; s[r][3] += a[r][k] * v.w;
+            }
           }
         }
-        *reinterpret_cast<float4*>(tmp + 2 * pr * G.TS + c) = s0;
-        *reinterpret_cast<float4*>(tmp + (2 * pr + 1) * G.TS + c) = s1;
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          *reinterpret_cast<float4*>(tmp + (4 * rq + r) * G.TS + c) =
+              make_float4(s[r][0], s[r][1], s[r][2], s[r][3]);
+        }
       });
       __syncthreads();
       // f_y and p are free: what the next stage 1 reads lands during
-      // stage 2 (the next channel chunk, else the next tile's rows).
+      // stage 2 (the next channel chunk, else the next group's rows).
       bool more = true;
       if (d0 + DC < D) {
         paste_stage_p<DC>(ps, pb, d0 + DC, D, FH, FW, G, vec, tid);
-      } else if (t + 1 < t1) {
-        paste_stage_fy(fys, fyb, h0 + BM, BM, H, FH, G, vec, tid);
+      } else if (tg + GT < t1) {
+        paste_stage_fy(fys, fyb, (tg + GT) * BM, GT * BM, H, FH, G, vec,
+                       tid);
         if (D > DC) paste_stage_p<DC>(ps, pb, 0, D, FH, FW, G, vec, tid);
       } else {
         more = false;
@@ -468,7 +483,10 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
       // A warp is 4 thread rows x 8 thread columns, so a float4 read of tmp
       // serves 4 addresses and one of f_x 8 (one bank wavefront each).
       if (wy < NTY / 4) {
-        for (int pass = 0; pass < passes; ++pass) {
+        for (int tp = 0; tp < tn * passes; ++tp) {
+          const int tile = tp / passes, pass = tp - tile * passes;
+          const int h0 = (tg + tile) * BM;
+          const float* trow = tmp + (tile * BM + row0) * G.TS;
           // The thread's f_x rows (output columns) r0 + j * rstep.
           const int r0 = pass * 4 * NTX + (quad ? 4 * tx : tx);
           const float* frow = fxs + r0 * G.RS;
@@ -479,6 +497,8 @@ paste_kernel(const float* __restrict__ p, const float* __restrict__ fy,
             for (int j = 0; j < 4; ++j)
 #pragma unroll
               for (int dd = 0; dd < DC; ++dd) acc[i][j][dd] = 0.f;
+          // Two tap chunks in flight where the registers allow (TM <= 4).
+#pragma unroll(TM <= 4 ? 2 : 1)
           for (int c = 0; c < G.Cg; ++c) {
             const int cs = 4 * (c ^ sw);
             float bv[4][4];
@@ -558,7 +578,7 @@ constexpr size_t kMaxSmemBytes = 227 * 1024;
 // The paste launch that the host settles on: TM rows a thread, DC channels
 // a pass, NTX x NTY stage-2 threads, Wt columns a block, CT column tiles.
 struct PastePlan {
-  int TM = 0, DC = 1, NTX = 1, NTY = 1, Wt = 0, CT = 1, RT = 1;
+  int TM = 0, DC = 1, NTX = 1, NTY = 1, Wt = 0, CT = 1, RT = 1, GT = 1;
   size_t smem = 0;
 };
 
@@ -576,17 +596,19 @@ int multiprocessors() {
 
 // The blocks run in one wave, two to an SM: a block takes RT row tiles of
 // BM = NTY*TM rows (staging f_x once for them all), with RT as even across
-// an image's tiles as the wave allows.  Among the TM that fit, the one whose
-// busiest block has the fewest rows (RT*BM) wins, the larger TM on a tie.
+// an image's tiles as the wave allows, and runs stage 1 for GT of them at
+// a time (all RT where two blocks still fit in an SM's shared memory).
+// Among the TM that fit, the one whose busiest block has the fewest rows
+// (RT*BM) wins, the larger TM on a tie.
 // Only where nothing fits in shared memory: column tiles, then fewer thread
 // rows, then narrower passes.  NTX is a multiple of 8 (a warp spans 8
 // thread columns) and NTY of 4.
 bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
                 PastePlan* plan) {
-  static const int kTM1[] = {8, 4, 2}, kTM4[] = {2, 1};
+  static const int kTM1[] = {8, 7, 4, 2}, kTM4[] = {2, 1};
   const int DC = (vec && D % 4 == 0) ? 4 : 1;
   const int* tms = DC == 4 ? kTM4 : kTM1;
-  const int ntm = DC == 4 ? 2 : 3;
+  const int ntm = DC == 4 ? 2 : 4;
   const int quads = (W + 3) / 4;
   const int passes = (quads + kPaMaxNTX - 1) / kPaMaxNTX;
   const long slots = 2L * multiprocessors();
@@ -604,16 +626,22 @@ bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
           const int NTY = 4 * min(wys, (H + 4 * TM - 1) / (4 * TM));
           const int BM = NTY * TM;
           const int nt = (H + BM - 1) / BM;
-          const size_t smem =
-              PasteGeom(FH, FW, BM, DC).floats(Wt) * sizeof(float);
-          if (smem > kMaxSmemBytes) continue;
           const long rt0 = ((long)B * nt * CT + slots - 1) / slots;
           const int per_image = (int)((nt + rt0 - 1) / rt0);
           const int RT = (nt + per_image - 1) / per_image;
           if ((nt + RT - 1) / RT > 65535) continue;
+          // Stage 1 for all RT tiles at once where two blocks still fit
+          // on an SM, else for fewer.
+          int GT = RT;
+          size_t smem = PasteGeom(FH, FW, GT * BM, DC).floats(Wt) * 4;
+          while (GT > 1 && smem > kMaxSmemBytes / 2) {
+            --GT;
+            smem = PasteGeom(FH, FW, GT * BM, DC).floats(Wt) * 4;
+          }
+          if (smem > kMaxSmemBytes) continue;
           if (best < 0 || (long)RT * BM < best) {
             best = (long)RT * BM;
-            *plan = PastePlan{TM, DC, ntx, NTY, Wt, CT, RT, smem};
+            *plan = PastePlan{TM, DC, ntx, NTY, Wt, CT, RT, GT, smem};
           }
         }
         if (best >= 0) return true;
@@ -635,7 +663,7 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
   const dim3 grid(plan.CT, (tiles + plan.RT - 1) / plan.RT, B);
   paste_kernel<TM, DC><<<grid, kThreads, plan.smem, stream>>>(
       p, fy, fx, out, H, W, D, FH, FW, plan.NTX, plan.NTY, plan.Wt, plan.RT,
-      vec, vec && D == 1 && W % 4 == 0);
+      plan.GT, vec, vec && D == 1 && W % 4 == 0);
   return cudaGetLastError();
 }
 
@@ -677,7 +705,7 @@ int glimpse_paste(const float* p, const float* fy, const float* fx,
   if (plan.TM == tm && plan.DC == dc)                                       \
     return (int)launch_paste<tm, dc>(p, fy, fx, out, B, H, W, D, FH, FW,    \
                                      plan, vec, s);
-  PASTE_CASE(8, 1) PASTE_CASE(4, 1) PASTE_CASE(2, 1)
+  PASTE_CASE(8, 1) PASTE_CASE(7, 1) PASTE_CASE(4, 1) PASTE_CASE(2, 1)
   PASTE_CASE(2, 4) PASTE_CASE(1, 4)
 #undef PASTE_CASE
   return (int)cudaErrorInvalidValue;
