@@ -29,18 +29,21 @@ RTOL, ATOL = 1e-4, 1e-5
 SHAPES = [(4, 224, 224, 4, 48, 48), (2, 128, 448, 13, 48, 64),
           (1, 256, 512, 21, 48, 48), (3, 33, 45, 3, 7, 9),
           (2, 17, 300, 1, 5, 70), (1, 40, 50, 128, 20, 12)]
-# The paste kernel's tile edges: a thread computes TM rows (8, 4 or 2) x 4
+# The paste kernel's tile edges: a thread computes TM rows (8, 7, 4, 2) x 4
 # columns, a block NTY*TM rows of whole 4*NTX-column passes (NTX <= 64
 # column quads); one row past and one short of a row tile and of a 256-
 # column pass, W*D not a multiple of 4 (no 16-byte stores: 257, 255, 43),
 # D=4 (4 channels a thread), B=1 and B=8 at 224x224 D=1 (the serving
-# path's smallest requests, two rows a thread), and extract's d_x shape of
-# the train step (b32, D=4).
+# path's smallest requests, two rows a thread), extract's d_x shape of
+# the train step (b32, D=4), and three whose staged filters only fit in
+# shared memory as narrower passes, column tiles or fewer rows a block.
 PASTE_SHAPES = SHAPES + [
     (1, 33, 257, 1, 48, 48), (1, 31, 255, 1, 48, 48),
     (2, 65, 64, 4, 48, 48), (2, 63, 63, 4, 48, 48), (2, 40, 43, 1, 12, 10),
     (1, 224, 224, 1, 48, 48), (8, 224, 224, 1, 48, 48),
-    (32, 224, 224, 4, 48, 48)]
+    (32, 224, 224, 4, 48, 48),
+    (1, 40, 224, 1, 48, 200), (1, 16, 1100, 1, 8, 48),
+    (2, 300, 16, 1, 1500, 8)]
 
 
 @pytest.fixture
