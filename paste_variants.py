@@ -27,7 +27,8 @@ import tempfile
 
 import chip_smoke as cs
 
-STAGE1 = '        for (int f0 = 0; f0 < G.FHr; f0 += 4) {\n          float a[4][4];'
+STAGE1 = ('        for (int f0 = 0; f0 < G.FHr; f0 += 4) {\n'
+          '          float a[4][4];')
 STAGE2 = '          for (int c = 0; c < G.Cg; ++c) {\n            const int cs'
 B_LOAD = ('              const float4 v = *reinterpret_cast<const float4*>(\n'
           '                  frow + j * rstep * G.RS + cs);')
