@@ -697,10 +697,10 @@ def main():
 
   # ---- build -----------------------------------------------------------
   t0 = time.time()
-  paths = build.build(verbose=True, force=True)
+  paths = build.build()
   build.load()
   build.load_hungarian()
-  resources = build.kernel_resources(build.compile_logs['glimpse'])
+  resources = build.kernel_resources(build.compile_log('glimpse'))
   if not any(k.startswith('paste_kernel') for k in resources):
     raise AssertionError('nvcc -Xptxas -v reported no paste kernel')
   emit('build', seconds=time.time() - t0,

@@ -214,17 +214,19 @@ extract_kernel(const float* __restrict__ x, const float* __restrict__ fy,
 // Sums run over f, then over g, each ascending, as the plain version's
 // two einsums associate them; padded taps add exact zeros.  No split over
 // f or g, no atomics.
-// The host picks, among TM = 8, 7, 4, 2 (DC=4: 2, 1), the one whose busiest
-// block has the fewest rows once the tiles are spread over one wave: b128
-// D=1 takes TM=7, 2 blocks an image of 4 tiles of 28 rows (256 blocks);
-// b8 takes TM=2, 224 blocks of 8 rows; b32 D=4 TM=1, 256 blocks.  It splits
+// The host picks TM = 7 or 2 at DC=1 (TM = 1 at DC=4), the one whose
+// busiest block has the fewest rows once the tiles are spread over one
+// wave: b128 D=1 takes TM=7, 2 blocks an image of 4 tiles of 28 rows (256
+// blocks); b8 takes TM=2, 224 blocks of 8 rows; b32 D=4 TM=1, 256 blocks.
+// TM=7 fits 224 rows (8 tiles of 28), TM=2 gives the most blocks; no shape
+// of the repo's configs needs another instance.  It splits
 // a row into column tiles only where the staged f_x would not fit in shared
 // memory (no shape of the repo's configs).  Stage 1 costs FH/Wt of stage
 // 2's operations per column tile at any D (0.21 at a whole 224-column row,
 // FH=48), so each extra tile would add that much again, at D=1 and D=4.
-// Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): registers a thread 116, 109,
-// 124, 105 at TM = 8, 7, 4, 2 (DC=1), 127 and 107 at TM = 2, 1 (DC=4); no
-// spills, no static shared memory.
+// Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): registers a thread 109 and
+// 105 at TM = 7, 2 (DC=1), 107 at TM = 1 (DC=4); no spills, no static
+// shared memory.
 // ---------------------------------------------------------------------------
 
 constexpr int kPaMaxNTX = 64;   // column quads a pass (stage 2 threads in x)
@@ -605,10 +607,10 @@ int multiprocessors() {
 // thread columns) and NTY of 4.
 bool paste_plan(int B, int H, int W, int D, int FH, int FW, bool vec,
                 PastePlan* plan) {
-  static const int kTM1[] = {8, 7, 4, 2}, kTM4[] = {2, 1};
+  static const int kTM1[] = {7, 2}, kTM4[] = {1};
   const int DC = (vec && D % 4 == 0) ? 4 : 1;
   const int* tms = DC == 4 ? kTM4 : kTM1;
-  const int ntm = DC == 4 ? 2 : 4;
+  const int ntm = DC == 4 ? 1 : 2;
   const int quads = (W + 3) / 4;
   const int passes = (quads + kPaMaxNTX - 1) / kPaMaxNTX;
   const long slots = 2L * multiprocessors();
@@ -705,8 +707,7 @@ int glimpse_paste(const float* p, const float* fy, const float* fx,
   if (plan.TM == tm && plan.DC == dc)                                       \
     return (int)launch_paste<tm, dc>(p, fy, fx, out, B, H, W, D, FH, FW,    \
                                      plan, vec, s);
-  PASTE_CASE(8, 1) PASTE_CASE(7, 1) PASTE_CASE(4, 1) PASTE_CASE(2, 1)
-  PASTE_CASE(2, 4) PASTE_CASE(1, 4)
+  PASTE_CASE(7, 1) PASTE_CASE(2, 1) PASTE_CASE(1, 4)
 #undef PASTE_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -10,9 +10,11 @@ Two libraries, each with a plain C interface and loaded with ``ctypes``:
 Each is built under ``rec_attend_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, and built again when its source changes (the
 file name carries a hash of the source).  ``build()`` starts every compile
-at once and waits for all of them.  Nothing of ``torch.utils.cpp_extension``
-is used: a source that includes PyTorch's headers takes minutes to compile,
-these take seconds.
+at once and waits for all of them, and keeps each compiler's output beside
+its library (``glimpse-<hash>.log``): nvcc's holds the ``-Xptxas -v``
+report of each kernel's registers, spills and static shared memory.
+Nothing of ``torch.utils.cpp_extension`` is used: a source that includes
+PyTorch's headers takes minutes to compile, these take seconds.
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ import os
 import re
 import shutil
 import subprocess
-import sys
 import tempfile
 import threading
 
@@ -45,8 +46,6 @@ KERNELS = ('glimpse_extract', 'glimpse_paste')
 
 _lock = threading.Lock()
 _libs = {}
-# {library name: compiler output} of the compiles that build() ran.
-compile_logs = {}
 
 
 def find_nvcc():
@@ -68,21 +67,35 @@ def library_path(name='glimpse'):
   return os.path.join(BUILD_DIR, f'{name}-{digest}.so')
 
 
-def _command(name, out, verbose):
+def log_path(name='glimpse'):
+  """The compiler output kept beside the library of ``name``."""
+  return library_path(name)[:-len('.so')] + '.log'
+
+
+def compile_log(name='glimpse'):
+  """The compiler's output for the current source of ``name``."""
+  with open(log_path(name)) as f:
+    return f.read()
+
+
+def _command(name, out):
   if name == 'glimpse':
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-      cmd += ['-Xptxas', '-v']
+    cmd = [find_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v']
   else:
     cmd = [os.environ.get('CXX', 'g++'), *CXX_FLAGS]
   return cmd + ['-o', out, SOURCES[name]]
 
 
-def build(names=tuple(SOURCES), verbose=False, force=False):
+def _replace_with(path, text):
+  fd, tmp = tempfile.mkstemp(dir=BUILD_DIR)
+  with os.fdopen(fd, 'w') as f:
+    f.write(text)
+  os.replace(tmp, path)
+
+
+def build(names=tuple(SOURCES)):
   """Compile every library of ``names`` whose current source has none yet
-  (with ``force``, every one), all compiles at once.  With ``verbose``, nvcc
-  reports each kernel's resources (``-Xptxas -v``); each compile's output is
-  kept in ``compile_logs``.
+  (or no log beside it), all compiles at once.
 
   Returns {name: library path}.  Raises RuntimeError with the compiler's
   output if a compile fails."""
@@ -90,13 +103,13 @@ def build(names=tuple(SOURCES), verbose=False, force=False):
   os.makedirs(BUILD_DIR, exist_ok=True)
   running = {}
   for name, path in paths.items():
-    if os.path.exists(path) and not force:
+    if os.path.exists(path) and os.path.exists(log_path(name)):
       continue
     # Compile to a private name and rename, so that a concurrent builder
     # never loads a half-written library.
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = _command(name, tmp, verbose)
+    cmd = _command(name, tmp)
     running[name] = (cmd, tmp, subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
   failed = []
@@ -107,9 +120,8 @@ def build(names=tuple(SOURCES), verbose=False, force=False):
       failed.append(f'{name}: {" ".join(cmd)} exited {proc.returncode}\n'
                     f'{out}')
       continue
-    compile_logs[name] = out
-    if verbose and out:
-      print(out, file=sys.stderr, flush=True)
+    # The log lands first: a library with no log beside it is built again.
+    _replace_with(log_path(name), out)
     os.replace(tmp, paths[name])
   if failed:
     raise RuntimeError('build failed:\n' + '\n'.join(failed))

@@ -1,8 +1,11 @@
 """The native-library builder of the port (``ops/cuda/build.py``): its
-reading of nvcc's ``-Xptxas -v`` report, and a forced rebuild, on the host
-library that builds here (``g++``; nvcc runs only on the card's machine)."""
+reading of nvcc's ``-Xptxas -v`` report, and the compile log it keeps
+beside a library, on the host library that builds here (``g++``; nvcc runs
+only on the card's machine)."""
 
 import os
+
+import pytest
 
 from rec_attend_tpu_torch.ops.cuda import build
 
@@ -31,11 +34,34 @@ def test_kernel_resources_reads_each_kernel():
   assert build.kernel_resources('nvcc: no ptxas lines\n') == {}
 
 
-def test_forced_build_compiles_again_and_keeps_its_log():
+class _Compiled(Exception):
+  pass
+
+
+def _refuse_compiles(monkeypatch):
+  def compile_again(*args, **kwargs):
+    raise _Compiled
+  monkeypatch.setattr(build.subprocess, 'Popen', compile_again)
+
+
+def test_build_keeps_its_compile_log_beside_the_library(monkeypatch,
+                                                         tmp_path):
+  monkeypatch.setattr(build, 'BUILD_DIR', str(tmp_path))
   path = build.build(('hungarian',))['hungarian']
-  before = os.stat(path).st_mtime_ns
-  build.compile_logs.pop('hungarian', None)
-  assert build.build(('hungarian',), force=True)['hungarian'] == path
-  assert 'hungarian' in build.compile_logs
-  assert os.stat(path).st_mtime_ns >= before
-  assert os.path.exists(path)
+  log = build.log_path('hungarian')
+  assert os.path.dirname(path) == os.path.dirname(log) == str(tmp_path)
+  assert os.path.basename(log) == os.path.basename(path)[:-3] + '.log'
+  assert os.path.exists(path) and os.path.exists(log)
+  assert isinstance(build.compile_log('hungarian'), str)
+  # A library whose log is there is not built again.
+  _refuse_compiles(monkeypatch)
+  assert build.build(('hungarian',))['hungarian'] == path
+
+
+def test_a_library_without_its_log_is_built_again(monkeypatch, tmp_path):
+  monkeypatch.setattr(build, 'BUILD_DIR', str(tmp_path))
+  build.build(('hungarian',))
+  os.unlink(build.log_path('hungarian'))
+  _refuse_compiles(monkeypatch)
+  with pytest.raises(_Compiled):
+    build.build(('hungarian',))

@@ -29,8 +29,8 @@ RTOL, ATOL = 1e-4, 1e-5
 SHAPES = [(4, 224, 224, 4, 48, 48), (2, 128, 448, 13, 48, 64),
           (1, 256, 512, 21, 48, 48), (3, 33, 45, 3, 7, 9),
           (2, 17, 300, 1, 5, 70), (1, 40, 50, 128, 20, 12)]
-# The paste kernel's tile edges: a thread computes TM rows (8, 7, 4, 2) x 4
-# columns, a block NTY*TM rows of whole 4*NTX-column passes (NTX <= 64
+# The paste kernel's tile edges: a thread computes TM rows (7 or 2; 1 at
+# D=4) x 4 columns, a block NTY*TM rows of whole 4*NTX-column passes (NTX <= 64
 # column quads); one row past and one short of a row tile and of a 256-
 # column pass, W*D not a multiple of 4 (no 16-byte stores: 257, 255, 43),
 # D=4 (4 channels a thread), B=1 and B=8 at 224x224 D=1 (the serving
@@ -44,6 +44,13 @@ PASTE_SHAPES = SHAPES + [
     (32, 224, 224, 4, 48, 48),
     (1, 40, 224, 1, 48, 200), (1, 16, 1100, 1, 8, 48),
     (2, 300, 16, 1, 1500, 8)]
+# Inputs 4 bytes past a 16-byte boundary (a contiguous view with a storage
+# offset): the kernel then copies them 4 bytes at a time, takes one channel
+# a pass at any D and stores scalars.
+UNALIGNED = [((8, 224, 224, 1, 48, 48), 'p'), ((8, 224, 224, 1, 48, 48), 'f_x'),
+             ((32, 224, 224, 4, 48, 48), 'p'),
+             ((32, 224, 224, 4, 48, 48), 'f_x'),
+             ((3, 33, 45, 3, 7, 9), 'f_y')]
 
 
 @pytest.fixture
@@ -79,9 +86,26 @@ def test_extract_kernel_matches_plain(dev, shape):
                              rtol=RTOL, atol=ATOL)
 
 
-@pytest.mark.parametrize('shape', PASTE_SHAPES, ids=str)
-def test_paste_kernel_matches_plain(dev, shape):
+def _unaligned(t):
+  """A copy of t that lies 4 bytes past a 16-byte boundary."""
+  moved = torch.empty(t.numel() + 1, device=t.device)[1:].view(t.shape)
+  assert moved.is_contiguous() and moved.data_ptr() % 16 == 4
+  return moved.copy_(t)
+
+
+@pytest.mark.parametrize(
+    'shape, unaligned',
+    [pytest.param(s, None, id=str(s)) for s in PASTE_SHAPES]
+    + [pytest.param(s, name, id=f'{s}-unaligned-{name}')
+       for s, name in UNALIGNED])
+def test_paste_kernel_matches_plain(dev, shape, unaligned):
   _, p, f_y, f_x = _inputs(shape, dev)
+  if unaligned == 'p':
+    p = _unaligned(p)
+  elif unaligned == 'f_y':
+    f_y = _unaligned(f_y)
+  elif unaligned == 'f_x':
+    f_x = _unaligned(f_x)
   before = gk.glimpse_paste.launches
   got = gk.glimpse_paste(p, f_y, f_x)
   torch.cuda.synchronize()

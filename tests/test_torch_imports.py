@@ -32,8 +32,7 @@ BLOCKED = ('jax', 'jaxlib', 'rec_attend_tpu', 'yaml', 'h5py', 'cv2', 'optax',
 def _port_sources():
   paths = [os.path.join(REPO, 'chip_smoke.py'),
            os.path.join(REPO, 'profile_port.py'),
-           os.path.join(REPO, 'step_noise.py'),
-           os.path.join(REPO, 'paste_variants.py')]
+           os.path.join(REPO, 'step_noise.py')]
   for root, _, files in os.walk(PACKAGE):
     paths += [os.path.join(root, f) for f in files if f.endswith('.py')]
   return sorted(paths)
