@@ -22,9 +22,11 @@ namespace {
 constexpr int kThreads = 256;
 
 // ---------------------------------------------------------------------------
-// glimpse_extract
+// glimpse_extract, general route: extract_kernel_general
 //
-// Replaces rec_attend_tpu/ops/pallas/glimpse.py:_extract_call/_extract_kernel.
+// Replaces rec_attend_tpu/ops/pallas/glimpse.py:_extract_call/_extract_kernel
+// at every shape that extract_tiled_kernel (below) does not take: see
+// extract_route for the rule.
 // The TPU kernel reads x channels-major, so every call brackets it with
 // full-tensor [B,H,W,D] <-> [B,D,H,W] transposes in device memory; this
 // kernel reads x channels-last where it lies, and needs no transpose.
@@ -67,9 +69,10 @@ size_t extract_smem_floats(int D, int FW, int WS) {
 }
 
 __global__ void __launch_bounds__(kThreads, 2)
-extract_kernel(const float* __restrict__ x, const float* __restrict__ fy,
-               const float* __restrict__ fx, float* __restrict__ out,
-               int H, int W, int D, int FH, int FW, int WS) {
+extract_kernel_general(const float* __restrict__ x,
+                       const float* __restrict__ fy,
+                       const float* __restrict__ fx, float* __restrict__ out,
+                       int H, int W, int D, int FH, int FW, int WS) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                        // [kExHC][kExCols]
   float* fys = xs + kExHC * kExCols;       // [kExHC][kExFT]
@@ -670,23 +673,338 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 }
 
 
+// ---------------------------------------------------------------------------
+// glimpse_extract at the main path's shapes: extract_tiled_kernel<FT,TF,TC>
+//
+// Replaces rec_attend_tpu/ops/pallas/glimpse.py:62 _extract_kernel (called
+// by _extract_call, :86) where the image is 224x224, the glimpse 48x48, D
+// is 1 or 4 and all four pointers are 16-byte aligned: the flagship's
+// forward (x [B,224,224,4]) and its d_p in paste's backward (g
+// [B,224,224,1]).  extract_route sends every other shape to
+// extract_kernel_general; the route depends on the shape and the pointers'
+// alignment alone.
+//
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s float32 on the CUDA cores): at
+// b128 D=4 the call moves 118 MB (x 102.8 MB, the filter banks, the patch),
+// 35 us, and does 3.0 GFLOP (stage 1 2.47, stage 2 0.53), 45 us: bound by
+// operations.  As d_p at b32 D=1 it reads 6.4 MB of g, about 2.8 us, and
+// does 0.19 GFLOP: bound by bytes.
+//
+// Design: a block owns one image and FT output rows f, so no sum crosses
+// blocks (no split over h or w, no atomics).  It walks x in strips of
+// kTxCols = 224 contiguous floats of each row (the whole row at D=1, 56
+// columns w at D=4) and each strip in chunks of kTxKC rows h:
+//   staging  cp.async 16-byte copies, double-buffered: chunk k+1 of x
+//            (kTxKC rows of the strip) and of f_y (its [kTxKC x FT] rows)
+//            land while chunk k is summed; a strip's f_x rows [WS x 48]
+//            come with its first chunk, into one of two buffers, as global
+//            memory holds them (all lanes of a warp read one f_x row in
+//            stage 2, so a swizzle would change no bank).  No scalar
+//            staging stores, no transposing stores.
+//   stage 1  tmp[f, c] = sum_h f_y[h,f] * x[h,c], c = w*D+d of the strip: a
+//            register-tiled SGEMM, TF rows f x TC columns a thread, the
+//            sums in registers over the whole strip.  Per h a thread reads
+//            TF/4 float4 of f_y and one float4 (TC = 4) or one float (TC =
+//            1) of x: 12 FMAs a load at <48,12,4>, where a warp is 8 column
+//            quads x 4 row groups (one bank wavefront a load).
+//   stage 2  acc[f, g, d] += sum_w tmp[f, w*D+d] * f_x[w, g], tmp in shared
+//            memory (rows padded to kTxTS = 228 floats, so that the rows a
+//            warp reads lie in distinct banks), acc in registers for the
+//            whole walk over w: SF rows f x 4 taps g x D channels a thread.
+//            Per w it reads SF float4 of tmp and one float4 of f_x (D=4:
+//            12 FMAs a load at SF=3); per 4 w, SF + 4 float4 (D=1).
+//   store    a patch row is 48*D contiguous floats; a thread writes its 4
+//            taps x D channels of a row as float4s.
+// Summation order: each tmp element sums over h ascending in one chain;
+// each acc element sums over w ascending in one chain across the strips.
+// The [FH, W, D] intermediate never reaches device memory.
+//
+// Route and tiles: the host takes the largest FT of {48, 12} whose grid
+// (B * 48/FT blocks) has at least kTxMinBlocks = 96 blocks (about three
+// quarters of the H100's 132 SMs), else FT = 4.  b128 takes FT=48 (128
+// blocks; x of each image is read once from device memory), b32 FT=12
+// (128 blocks), b8 FT=4 (96 blocks).  A smaller FT reads x of an image once
+// per f-tile, from L2 where the image's blocks run together: FT=12 four
+// times (at b32 D=1, 25.7 MB of L2 reads for 6.4 MB of x), FT=4 twelve
+// times (at b8 D=4, 77 MB for 6.4 MB).
+// ---------------------------------------------------------------------------
+
+constexpr int kTxSize = 224;        // image rows and columns taken
+constexpr int kTxTaps = 48;         // glimpse rows and columns taken
+constexpr int kTxThreads = 224;     // 7 warps
+constexpr int kTxCols = 224;        // floats of an x row a strip holds
+constexpr int kTxKC = 32;           // x rows a chunk
+constexpr int kTxTS = kTxCols + 4;  // tmp row stride
+constexpr int kTxGQ = kTxTaps / 4;  // tap quads of a patch row
+constexpr int kTxMinBlocks = 96;
+static_assert(kTxSize % kTxKC == 0, "whole chunks");
+
+// Shared memory of one block, in floats: x and f_y double-buffered, f_x of
+// a strip (two buffers where there are two strips or more), tmp.
+size_t extract_tiled_smem_floats(int FT, int D) {
+  const int WS = kTxSize / D;
+  return 2 * (size_t)kTxKC * kTxCols + 2 * (size_t)kTxKC * FT +
+         (size_t)(D > 1 ? 2 : 1) * WS * kTxTaps + (size_t)FT * kTxTS;
+}
+
+// The extract route: FT (48, 12 or 4) for extract_tiled_kernel, 0 for
+// extract_kernel_general, -1 where neither takes the shape.
+int extract_route(int B, int H, int W, int D, int FH, int FW, bool aligned) {
+  if (B < 1 || H < 1 || W < 1 || D < 1 || FH < 1 || FW < 1 || B > 65535 ||
+      D > kExCols)
+    return -1;
+  if (aligned && H == kTxSize && W == kTxSize && FH == kTxTaps &&
+      FW == kTxTaps && (D == 1 || D == 4)) {
+    for (int ft : {48, 12}) {
+      if ((long)B * (kTxTaps / ft) >= kTxMinBlocks) return ft;
+    }
+    return 4;
+  }
+  const size_t smem = extract_smem_floats(D, FW, kExCols / D) * sizeof(float);
+  return smem > kMaxSmemBytes ? -1 : 0;
+}
+
+template <int FT, int TF, int TC>
+__global__ void __launch_bounds__(kTxThreads, FT >= 48 ? 1 : 2)
+extract_tiled_kernel(const float* __restrict__ x,
+                     const float* __restrict__ fy,
+                     const float* __restrict__ fx, float* __restrict__ out,
+                     int D) {
+  constexpr int NFG = FT / TF;           // stage-1 row groups
+  constexpr int LPG = 32 / NFG;          // lanes of a warp in a row group
+  constexpr int SF = FT >= 48 ? 3 : 1;   // stage-2 rows a thread
+  constexpr int FS = FT / SF;            // stage-2 row stride
+  constexpr int NT2 = FS * kTxGQ;        // stage-2 threads
+  constexpr int NH = kTxSize / kTxKC;    // chunks a strip
+  constexpr int XQ = kTxCols / 4;        // 16-byte copies of an x row
+  static_assert(NFG * (kTxCols / TC) == kTxThreads, "stage-1 threads");
+  static_assert(TF % 4 == 0 && (TC == 1 || TC == 4), "stage-1 tile");
+  static_assert(NT2 <= kTxThreads, "stage-2 threads");
+  static_assert(kTxKC * XQ % kTxThreads == 0, "x chunk split");
+  extern __shared__ __align__(16) float smem[];
+  const int WS = kTxSize / D;                         // columns w a strip
+  float* xs = smem;                                   // [2][kTxKC][kTxCols]
+  float* fys = xs + 2 * kTxKC * kTxCols;              // [2][kTxKC][FT]
+  float* fxs = fys + 2 * kTxKC * FT;                  // [1 or 2][WS][48]
+  float* tmp = fxs + (D > 1 ? 2 : 1) * WS * kTxTaps;  // [FT][kTxTS]
+
+  const int b = blockIdx.y;
+  const int f0 = blockIdx.x * FT;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row = (size_t)kTxSize * D;   // floats of an x row
+  const float* xb = x + (size_t)b * kTxSize * row;
+  const float* fyb = fy + (size_t)b * kTxSize * kTxTaps + f0;
+  const float* fxb = fx + (size_t)b * kTxSize * kTxTaps;
+  const int nk = D * NH;                    // chunks in all
+
+  // Chunk k: rows h0 .. h0+kTxKC of strip s.  Thread tid copies the 16
+  // bytes at column quad tid%XQ of rows tid/XQ + j*(kTxThreads/XQ).
+  const int xr0 = tid / XQ, xc = tid % XQ;
+  auto issue = [&](int k) {
+    const int s = k / NH, h0 = (k - s * NH) * kTxKC;
+    float* xd = xs + (k & 1) * kTxKC * kTxCols;
+    const float* xsrc = xb + (size_t)h0 * row + s * kTxCols + 4 * xc;
+#pragma unroll
+    for (int j = 0; j < kTxKC * XQ / kTxThreads; ++j) {
+      const int r = xr0 + j * (kTxThreads / XQ);
+      cp_async16(xd + r * kTxCols + 4 * xc, xsrc + r * row);
+    }
+    float* yd = fys + (k & 1) * kTxKC * FT;
+    for (int i = tid; i < kTxKC * FT / 4; i += kTxThreads) {
+      const int r = i / (FT / 4), c = i - r * (FT / 4);
+      cp_async16(yd + r * FT + 4 * c,
+                 fyb + (size_t)(h0 + r) * kTxTaps + 4 * c);
+    }
+    if (h0 == 0) {
+      float* fd = fxs + (s & 1) * WS * kTxTaps;
+      const float* fsrc = fxb + (size_t)s * WS * kTxTaps;
+      for (int i = tid; i < WS * kTxTaps / 4; i += kTxThreads)
+        cp_async16(fd + 4 * i, fsrc + 4 * i);
+    }
+    cp_async_commit();
+  };
+
+  // Stage-1 thread: rows fg*TF .. of its row group, columns TC*cg ...
+  const int fg = lane / LPG;
+  const int cg = warp * LPG + lane % LPG;
+  // Stage-2 thread (tid < NT2): rows ft + i*FS, taps 4*gq ...
+  const int gq = tid % kTxGQ, ft = tid / kTxGQ;
+  float acc1[TF][TC];
+  float acc2[SF][4][4];
+#pragma unroll
+  for (int i = 0; i < TF; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc1[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SF; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int d = 0; d < 4; ++d) acc2[i][j][d] = 0.f;
+
+  issue(0);
+  for (int k = 0; k < nk; ++k) {
+    if (k + 1 < nk) {
+      issue(k + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // Stage 1, h ascending.
+    const float* xk = xs + (k & 1) * kTxKC * kTxCols + TC * cg;
+    const float* yk = fys + (k & 1) * kTxKC * FT + fg * TF;
+#pragma unroll 8
+    for (int hh = 0; hh < kTxKC; ++hh) {
+      float a[TF];
+#pragma unroll
+      for (int q = 0; q < TF / 4; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(yk + hh * FT + 4 * q);
+        a[4 * q] = v.x; a[4 * q + 1] = v.y; a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+      float v[TC];
+      if constexpr (TC == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(xk + hh * kTxCols);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      } else {
+        v[0] = xk[hh * kTxCols];
+      }
+#pragma unroll
+      for (int i = 0; i < TF; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc1[i][j] += a[i] * v[j];
+    }
+
+    const int s = k / NH;
+    if (k - s * NH == NH - 1) {
+      // The strip is summed: its tmp, then stage 2 over its columns w.
+#pragma unroll
+      for (int i = 0; i < TF; ++i) {
+        float* t = tmp + (fg * TF + i) * kTxTS + TC * cg;
+        if constexpr (TC == 4) {
+          *reinterpret_cast<float4*>(t) =
+              make_float4(acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
+        } else {
+          t[0] = acc1[i][0];
+        }
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc1[i][j] = 0.f;
+      }
+      __syncthreads();
+      if (tid < NT2) {
+        const float* fk = fxs + (s & 1) * WS * kTxTaps + 4 * gq;
+        const float* tk = tmp + ft * kTxTS;
+        if (D == 4) {
+#pragma unroll 4
+          for (int w = 0; w < WS; ++w) {
+            const float4 f =
+                *reinterpret_cast<const float4*>(fk + w * kTxTaps);
+            const float fv[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+            for (int i = 0; i < SF; ++i) {
+              const float4 t = *reinterpret_cast<const float4*>(
+                  tk + i * FS * kTxTS + 4 * w);
+              const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int d = 0; d < 4; ++d) acc2[i][j][d] += tv[d] * fv[j];
+            }
+          }
+        } else {
+#pragma unroll 2
+          for (int w = 0; w < WS; w += 4) {
+            float fv[4][4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float4 f =
+                  *reinterpret_cast<const float4*>(fk + (w + e) * kTxTaps);
+              fv[e][0] = f.x; fv[e][1] = f.y; fv[e][2] = f.z; fv[e][3] = f.w;
+            }
+#pragma unroll
+            for (int i = 0; i < SF; ++i) {
+              const float4 t = *reinterpret_cast<const float4*>(
+                  tk + i * FS * kTxTS + w);
+              const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+              for (int e = 0; e < 4; ++e)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc2[i][j][0] += tv[e] * fv[e][j];
+            }
+          }
+        }
+      }
+    }
+    // Buffer k&1 (and, after a strip, tmp) is free for the next copies.
+    __syncthreads();
+  }
+
+  if (tid < NT2) {
+#pragma unroll
+    for (int i = 0; i < SF; ++i) {
+      float* o = out + ((size_t)b * kTxTaps + f0 + ft + i * FS) * kTxTaps * D +
+                 4 * gq * D;
+      if (D == 4) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(o + 4 * j) = make_float4(
+              acc2[i][j][0], acc2[i][j][1], acc2[i][j][2], acc2[i][j][3]);
+      } else {
+        *reinterpret_cast<float4*>(o) = make_float4(
+            acc2[i][0][0], acc2[i][1][0], acc2[i][2][0], acc2[i][3][0]);
+      }
+    }
+  }
+}
+
+template <int FT, int TF, int TC>
+cudaError_t launch_extract_tiled(const float* x, const float* fy,
+                                 const float* fx, float* out, int B, int D,
+                                 cudaStream_t stream) {
+  const size_t smem = extract_tiled_smem_floats(FT, D) * sizeof(float);
+  cudaError_t err =
+      allow_smem((const void*)extract_tiled_kernel<FT, TF, TC>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(kTxTaps / FT, B);
+  extract_tiled_kernel<FT, TF, TC><<<grid, kTxThreads, smem, stream>>>(
+      x, fy, fx, out, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+int glimpse_extract_route(int B, int H, int W, int D, int FH, int FW,
+                          int aligned) {
+  return extract_route(B, H, W, D, FH, FW, aligned != 0);
+}
+
 int glimpse_extract(const float* x, const float* fy, const float* fx,
                     float* out, int B, int H, int W, int D, int FH, int FW,
                     void* stream) {
-  if (B < 1 || H < 1 || W < 1 || D < 1 || FH < 1 || FW < 1 || B > 65535 ||
-      D > kExCols)
-    return (int)cudaErrorInvalidValue;
+  const bool aligned = ((uintptr_t)x | (uintptr_t)fy | (uintptr_t)fx |
+                        (uintptr_t)out) % 16 == 0;
+  const int route = extract_route(B, H, W, D, FH, FW, aligned);
+  const cudaStream_t s = (cudaStream_t)stream;
+#define EXTRACT_CASE(ft, tf, tc)                                            \
+  case ft:                                                                  \
+    return (int)launch_extract_tiled<ft, tf, tc>(x, fy, fx, out, B, D, s);
+  switch (route) {
+    EXTRACT_CASE(48, 12, 4) EXTRACT_CASE(12, 12, 1) EXTRACT_CASE(4, 4, 1)
+#undef EXTRACT_CASE
+    case 0: break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   const int WS = kExCols / D;
   const size_t smem = extract_smem_floats(D, FW, WS) * sizeof(float);
-  if (smem > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem((const void*)extract_kernel, smem);
+  cudaError_t err = allow_smem((const void*)extract_kernel_general, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((FH + kExFT - 1) / kExFT, B);
-  extract_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  extract_kernel_general<<<grid, kThreads, smem, s>>>(
       x, fy, fx, out, H, W, D, FH, FW, WS);
   return (int)cudaGetLastError();
 }

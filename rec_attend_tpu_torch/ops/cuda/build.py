@@ -128,20 +128,33 @@ def build(names=tuple(SOURCES)):
   return paths
 
 
+def _kernel_name(mangled):
+  """``paste_kernel<7,1>`` from an Itanium-mangled kernel name: the last
+  length-prefixed name of its nesting, with its integer template arguments;
+  the name itself where it is not mangled."""
+  m = re.match(r'_ZN?', mangled)
+  if not m:
+    return mangled
+  pos, name = m.end(), mangled
+  while (d := re.match(r'\d+', mangled[pos:])):
+    start = pos + d.end()
+    name, pos = mangled[start:start + int(d.group())], start + int(d.group())
+  args = re.match(r'I((?:Li-?\d+E)+)E', mangled[pos:])
+  if args:
+    name += '<' + ','.join(re.findall(r'Li(-?\d+)E', args.group(1))) + '>'
+  return name
+
+
 def kernel_resources(log):
   """{kernel: {'registers', 'spill_store_bytes', 'spill_load_bytes',
   'static_smem_bytes'}} from the ``-Xptxas -v`` lines of an nvcc log;
-  a template instance is named as ``paste_kernel<8,1>``."""
+  a template instance is named as ``paste_kernel<7,1>``."""
   usage, name = {}, None
   for line in log.splitlines():
     m = re.search(r"(?:Compiling entry function|Function properties for) "
                   r"'?(\w+)", line)
     if m:
-      mangled = m.group(1)
-      base = re.search(r'([A-Za-z]+(?:_[A-Za-z]+)*_kernel)', mangled)
-      args = re.findall(r'Li(\d+)E', mangled)
-      name = (base.group(1) if base else mangled) + (
-          f'<{",".join(args)}>' if args else '')
+      name = _kernel_name(m.group(1))
       usage.setdefault(name, {})
       continue
     if name is None:
@@ -172,6 +185,8 @@ def _bind_glimpse(lib):
     fn = getattr(lib, name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
+  lib.glimpse_extract_route.argtypes = [ctypes.c_int] * 7
+  lib.glimpse_extract_route.restype = ctypes.c_int
   lib.glimpse_error_string.argtypes = [ctypes.c_int]
   lib.glimpse_error_string.restype = ctypes.c_char_p
 

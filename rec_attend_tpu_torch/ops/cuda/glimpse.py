@@ -15,6 +15,11 @@ The filter gradients are thin contractions that JAX also leaves outside
 its kernels, so they stay ``torch.einsum``.  A backward computes only the
 gradients ``ctx.needs_input_grad`` asks for.
 
+The extract kernel has two routes, picked on the host from the shape and
+the pointers' alignment alone (``extract_route``): ``extract_tiled_kernel``
+at the flagship's shapes (224x224 image, 48x48 glimpse, D = 1 or 4,
+16-byte aligned), ``extract_kernel_general`` at every other shape.
+
 A CUDA tensor goes to the kernel, or the call raises: there is no fallback
 to the einsum forms on the card.  A CPU tensor goes to the plain two-einsum
 version of ``ops/attention.py``, in the forward and in the backward, so the
@@ -56,6 +61,21 @@ def _check(name, a, f_y, f_x):
   if a.device.type not in ('cpu', 'cuda'):
     raise ValueError(f'{name}: no kernel for device {a.device}')
   return b, h, w, fh, fw
+
+
+def extract_route(b, h, w, d, fh, fw, aligned=True):
+  """The extract kernel that ``glimpse_extract`` launches at these dims:
+  {'kernel': 'extract_tiled_kernel', 'ft': output rows a block} or
+  {'kernel': 'extract_kernel_general'}.  ``aligned``: all four pointers
+  16-byte aligned.  Raises ValueError where neither kernel takes them."""
+  route = build.load().glimpse_extract_route(b, h, w, d, fh, fw,
+                                             int(aligned))
+  if route < 0:
+    raise ValueError(f'glimpse_extract: no kernel takes dims '
+                     f'{(b, h, w, d, fh, fw)}')
+  if route == 0:
+    return {'kernel': 'extract_kernel_general'}
+  return {'kernel': 'extract_tiled_kernel', 'ft': route}
 
 
 def _launch(name, a, f_y, f_x, out, dims):

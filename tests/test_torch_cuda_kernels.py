@@ -52,6 +52,27 @@ UNALIGNED = [((8, 224, 224, 1, 48, 48), 'p'), ((8, 224, 224, 1, 48, 48), 'f_x'),
              ((32, 224, 224, 4, 48, 48), 'f_x'),
              ((3, 33, 45, 3, 7, 9), 'f_y')]
 
+# Extract's tiled route takes a 224x224 image, a 48x48 glimpse, D = 1 or 4
+# and 16-byte aligned pointers, at any B (output rows a block: 48 from 96
+# images on, 12 from 24, else 4); every other shape goes to the general
+# route.  So: the tiled route at B = 1, 8, 32, 128 (D=4) and 1, 8, 32
+# (D=1), each FT at both D; one change away from it (H or W 223 or 225,
+# FH or FW 47 or 49, D = 2 or 3); and inputs 4 bytes past a 16-byte
+# boundary, x, f_y and f_x in turn.
+TILED = [(1, 224, 224, 4, 48, 48), (8, 224, 224, 4, 48, 48),
+         (32, 224, 224, 4, 48, 48), (128, 224, 224, 4, 48, 48),
+         (1, 224, 224, 1, 48, 48), (8, 224, 224, 1, 48, 48),
+         (32, 224, 224, 1, 48, 48)]
+OFF_TILED = [(4, 223, 224, 4, 48, 48), (4, 225, 224, 4, 48, 48),
+             (4, 224, 223, 4, 48, 48), (4, 224, 225, 1, 48, 48),
+             (4, 224, 224, 4, 47, 48), (4, 224, 224, 1, 49, 48),
+             (4, 224, 224, 4, 48, 47), (4, 224, 224, 4, 48, 49),
+             (4, 224, 224, 2, 48, 48), (4, 224, 224, 3, 48, 48)]
+EXTRACT_SHAPES = SHAPES + TILED + OFF_TILED
+EXTRACT_UNALIGNED = [((8, 224, 224, 4, 48, 48), 'x'),
+                     ((8, 224, 224, 4, 48, 48), 'f_y'),
+                     ((32, 224, 224, 1, 48, 48), 'f_x')]
+
 
 @pytest.fixture
 def dev():
@@ -75,15 +96,42 @@ def _inputs(shape, dev, seed=0):
           bank(h, fh), bank(w, fw))
 
 
-@pytest.mark.parametrize('shape', SHAPES, ids=str)
-def test_extract_kernel_matches_plain(dev, shape):
+@pytest.mark.parametrize(
+    'shape, unaligned',
+    [pytest.param(s, None, id=str(s)) for s in EXTRACT_SHAPES]
+    + [pytest.param(s, name, id=f'{s}-unaligned-{name}')
+       for s, name in EXTRACT_UNALIGNED])
+def test_extract_kernel_matches_plain(dev, shape, unaligned):
   x, _, f_y, f_x = _inputs(shape, dev)
+  if unaligned == 'x':
+    x = _unaligned(x)
+  elif unaligned == 'f_y':
+    f_y = _unaligned(f_y)
+  elif unaligned == 'f_x':
+    f_x = _unaligned(f_x)
   before = gk.glimpse_extract.launches
   got = gk.glimpse_extract(x, f_y, f_x)
   torch.cuda.synchronize()
   assert gk.glimpse_extract.launches == before + 1
   torch.testing.assert_close(got, attention.extract_patch(x, f_y, f_x),
                              rtol=RTOL, atol=ATOL)
+
+
+def test_extract_route(dev):
+  """The tiled route takes the main path's shapes, with the output rows a
+  block that fill about one wave; one change away from them, or an
+  unaligned pointer, sends a shape to the general route."""
+  want_ft = {1: 4, 8: 4, 32: 12, 128: 48}
+  for shape in TILED:
+    assert gk.extract_route(*shape) == {'kernel': 'extract_tiled_kernel',
+                                        'ft': want_ft[shape[0]]}, shape
+    assert gk.extract_route(*shape, aligned=False) == {
+        'kernel': 'extract_kernel_general'}, shape
+  for shape in SHAPES[1:] + OFF_TILED:
+    assert gk.extract_route(*shape) == {
+        'kernel': 'extract_kernel_general'}, shape
+  with pytest.raises(ValueError, match='no kernel takes'):
+    gk.extract_route(1, 32, 40, 129, 8, 8)
 
 
 def _unaligned(t):
@@ -163,7 +211,7 @@ def test_extract_grads_match_plain_autograd(dev, shape):
   _assert_grads_close(got, _grads(attention.extract_patch, (x, f_y, f_x), g))
 
 
-@pytest.mark.parametrize('shape', SHAPES, ids=str)
+@pytest.mark.parametrize('shape', EXTRACT_SHAPES, ids=str)
 def test_paste_grads_match_plain_autograd(dev, shape):
   """d_p = extract kernel (g), d_f_y and d_f_x einsums."""
   x, p, f_y, f_x = _inputs(shape, dev)
