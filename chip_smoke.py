@@ -9,11 +9,13 @@ Phases, one JSON line each on stdout:
   build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and the C++
                 compiler csrc/hungarian.cc, both at once (seconds taken),
                 and each kernel's registers a thread, spill bytes and
-                static shared memory as nvcc -Xptxas -v reports them;
+                static shared memory as nvcc -Xptxas -v reports them (the
+                paste kernel and both extract routes must be there);
   kernels       each hand-written kernel against its plain PyTorch version,
-                at the serving path's shapes (CVPPP, b128; paste at b8
-                too) and at a ragged shape (KITTI 128x448, D=13, 48x64
-                glimpse), with CUDA-event times;
+                at the serving path's shapes (CVPPP, b128 and b8) and at a
+                ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
+                CUDA-event times; each extract names its route (the tiled
+                kernel and its output rows a block, or the general one);
   kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
                 against plain autograd through the einsums, every input
                 gradient, at the CVPPP train shapes (b32) and the KITTI
@@ -224,6 +226,15 @@ def filters(torch, attention, b, h, w, fh, fw, gen, dev):
   return bank(h, fh), bank(w, fw)
 
 
+def extract_route(gk, *operands):
+  """The extract kernel that glimpse_extract launches on these operands
+  (x or g, f_y, f_x), and its output rows a block."""
+  b, h, w, d = operands[0].shape
+  fh, fw = operands[1].shape[2], operands[2].shape[2]
+  return gk.extract_route(b, h, w, d, fh, fw, aligned=all(
+      t.data_ptr() % 16 == 0 for t in operands))
+
+
 def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
                  timed):
   """Compare one kernel with its plain version; time all three forms."""
@@ -251,6 +262,8 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
         f'{float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())}')
   result = {'shape': [b, h, w, d, fh, fw], 'max_abs_err': err,
             'max_abs_value': float(want.abs().max())}
+  if name == 'glimpse_extract':
+    result['route'] = extract_route(gk, a, f_y, f_x)
   if timed:
     bound_ms, bound_by = bound(nbytes, flops)
     kernel_ms = ms(torch, lambda: kernel(a, f_y, f_x))
@@ -336,6 +349,8 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
       'plain_ms': ms(torch, use_plain), 'library_ms': ms(torch, use_library),
       'bound_ms': bound_ms, 'bound_by': bound_by,
       'bound_share': bound_ms / kernel_ms, 'bytes': nbytes, 'flops': flops}
+  if use_kernel == 'glimpse_extract':
+    result['backward_use']['route'] = extract_route(gk, g, f_y, f_x)
   result['filter_grad_einsums_ms'] = ms(torch, filter_grads)
   result['backward_ms'] = ms(torch, lambda: torch.autograd.grad(
       out, ins, g, retain_graph=True))
@@ -701,11 +716,15 @@ def main():
   build.load()
   build.load_hungarian()
   resources = build.kernel_resources(build.compile_log('glimpse'))
-  if not any(k.startswith('paste_kernel') for k in resources):
-    raise AssertionError('nvcc -Xptxas -v reported no paste kernel')
+  for prefix in ('paste_kernel', 'extract_tiled_kernel',
+                 'extract_kernel_general'):
+    if not any(k.startswith(prefix) for k in resources):
+      raise AssertionError(f'nvcc -Xptxas -v reported no {prefix}')
   emit('build', seconds=time.time() - t0,
        libraries={k: os.path.relpath(v, REPO) for k, v in paths.items()},
-       kernel_resources=resources)
+       kernel_resources=resources,
+       extract_kernels={k: v for k, v in resources.items()
+                        if k.startswith('extract')})
 
   # ---- kernels ---------------------------------------------------------
   # Full float32 everywhere: matmuls and convolutions off TF32.
@@ -728,9 +747,17 @@ def main():
     checks[name]['ragged'] = check_kernel(torch, gk, attention, name,
                                           *ragged_dims, gen, dev, timed=False)
   # The smallest request of the serving path: 8 images.
-  checks['glimpse_paste']['b8'] = check_kernel(
-      torch, gk, attention, 'glimpse_paste', 8, *main_dims['glimpse_paste'][1:],
-      gen, dev, timed=True)
+  for name, dims in main_dims.items():
+    checks[name]['b8'] = check_kernel(torch, gk, attention, name, 8,
+                                      *dims[1:], gen, dev, timed=True)
+  # The main path's extracts take the tiled kernel, the ragged one the
+  # general kernel.
+  routes = {k: checks['glimpse_extract'][k]['route']['kernel']
+            for k in ('b8', 'ragged')}
+  routes['b128'] = checks['glimpse_extract']['route']['kernel']
+  if routes != {'b128': 'extract_tiled_kernel', 'b8': 'extract_tiled_kernel',
+                'ragged': 'extract_kernel_general'}:
+    raise AssertionError(f'extract routes {routes}')
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 
@@ -846,9 +873,10 @@ def main():
         'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
         'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
         'bound_share': c['bound_share'], 'library_ms': c['library_ms'],
-        **({'b8': {k: c['b8'][k] for k in (
-            'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms',
-            'bound_share')}} if 'b8' in c else {})})
+        **({'kernel_route': c['route']} if 'route' in c else {}),
+        'b8': {k: c['b8'][k] for k in (
+            'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_share',
+            'route') if k in c['b8']}})
   # The kernels' backward uses that the main paths run: extract as d_p of
   # paste (paste as d_x of extract is not on them: the flagship's glimpse
   # input needs no gradient; kernels_grad checks and times it).
@@ -866,7 +894,8 @@ def main():
                            c['ragged']['d_operand']['max_abs_err']),
         'ms': use['kernel_ms'], 'plain_ms': use['plain_ms'],
         'bound_ms': use['bound_ms'], 'bound_by': use['bound_by'],
-        'bound_share': use['bound_share'], 'library_ms': use['library_ms']})
+        'bound_share': use['bound_share'], 'library_ms': use['library_ms'],
+        **({'kernel_route': use['route']} if 'route' in use else {})})
   print(json.dumps({'kernels': table}), flush=True)
   print(name_power, flush=True)
   print(json.dumps({'ok': True, 'device': {

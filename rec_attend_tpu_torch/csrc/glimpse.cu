@@ -693,19 +693,21 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 // Design: a block owns one image and FT output rows f, so no sum crosses
 // blocks (no split over h or w, no atomics).  It walks x in strips of
 // kTxCols = 224 contiguous floats of each row (the whole row at D=1, 56
-// columns w at D=4) and each strip in chunks of kTxKC rows h:
-//   staging  cp.async 16-byte copies, double-buffered: chunk k+1 of x
-//            (kTxKC rows of the strip) and of f_y (its [kTxKC x FT] rows)
-//            land while chunk k is summed; a strip's f_x rows [WS x 48]
-//            come with its first chunk, into one of two buffers, as global
-//            memory holds them (all lanes of a warp read one f_x row in
-//            stage 2, so a swizzle would change no bank).  No scalar
-//            staging stores, no transposing stores.
+// columns w at D=4) and each strip in chunks of KC rows h (32 at FT=48,
+// 56 at the smaller FT, where shared memory holds them):
+//   staging  cp.async 16-byte copies into kTxStages = 3 buffers: chunk k+1
+//            of x (KC rows of the strip) and of f_y (its [KC x FT] rows)
+//            lands while chunk k is summed, into the buffer that chunk k-2
+//            left, so one barrier an iteration suffices; a strip's
+//            f_x rows [WS x 48] come with its first chunk, into one of two
+//            buffers, as global memory holds them (all lanes of a warp read
+//            one f_x row in stage 2, so a swizzle would change no bank).
+//            No scalar staging stores, no transposing stores.
 //   stage 1  tmp[f, c] = sum_h f_y[h,f] * x[h,c], c = w*D+d of the strip: a
 //            register-tiled SGEMM, TF rows f x TC columns a thread, the
 //            sums in registers over the whole strip.  Per h a thread reads
 //            TF/4 float4 of f_y and one float4 (TC = 4) or one float (TC =
-//            1) of x: 12 FMAs a load at <48,12,4>, where a warp is 8 column
+//            1) of x: 12 FMAs a load at FT=48, where a warp is 8 column
 //            quads x 4 row groups (one bank wavefront a load).
 //   stage 2  acc[f, g, d] += sum_w tmp[f, w*D+d] * f_x[w, g], tmp in shared
 //            memory (rows padded to kTxTS = 228 floats, so that the rows a
@@ -733,17 +735,16 @@ constexpr int kTxSize = 224;        // image rows and columns taken
 constexpr int kTxTaps = 48;         // glimpse rows and columns taken
 constexpr int kTxThreads = 224;     // 7 warps
 constexpr int kTxCols = 224;        // floats of an x row a strip holds
-constexpr int kTxKC = 32;           // x rows a chunk
+constexpr int kTxStages = 3;        // chunk buffers
 constexpr int kTxTS = kTxCols + 4;  // tmp row stride
 constexpr int kTxGQ = kTxTaps / 4;  // tap quads of a patch row
 constexpr int kTxMinBlocks = 96;
-static_assert(kTxSize % kTxKC == 0, "whole chunks");
 
-// Shared memory of one block, in floats: x and f_y double-buffered, f_x of
-// a strip (two buffers where there are two strips or more), tmp.
-size_t extract_tiled_smem_floats(int FT, int D) {
+// Shared memory of one block, in floats: kTxStages chunks of x and f_y,
+// f_x of a strip (two buffers where there are two strips or more), tmp.
+size_t extract_tiled_smem_floats(int FT, int KC, int D) {
   const int WS = kTxSize / D;
-  return 2 * (size_t)kTxKC * kTxCols + 2 * (size_t)kTxKC * FT +
+  return (size_t)kTxStages * KC * (kTxCols + FT) +
          (size_t)(D > 1 ? 2 : 1) * WS * kTxTaps + (size_t)FT * kTxTS;
 }
 
@@ -764,7 +765,7 @@ int extract_route(int B, int H, int W, int D, int FH, int FW, bool aligned) {
   return smem > kMaxSmemBytes ? -1 : 0;
 }
 
-template <int FT, int TF, int TC>
+template <int FT, int TF, int TC, int KC>
 __global__ void __launch_bounds__(kTxThreads, FT >= 48 ? 1 : 2)
 extract_tiled_kernel(const float* __restrict__ x,
                      const float* __restrict__ fy,
@@ -775,17 +776,17 @@ extract_tiled_kernel(const float* __restrict__ x,
   constexpr int SF = FT >= 48 ? 3 : 1;   // stage-2 rows a thread
   constexpr int FS = FT / SF;            // stage-2 row stride
   constexpr int NT2 = FS * kTxGQ;        // stage-2 threads
-  constexpr int NH = kTxSize / kTxKC;    // chunks a strip
+  constexpr int NH = kTxSize / KC;       // chunks a strip
   constexpr int XQ = kTxCols / 4;        // 16-byte copies of an x row
   static_assert(NFG * (kTxCols / TC) == kTxThreads, "stage-1 threads");
   static_assert(TF % 4 == 0 && (TC == 1 || TC == 4), "stage-1 tile");
   static_assert(NT2 <= kTxThreads, "stage-2 threads");
-  static_assert(kTxKC * XQ % kTxThreads == 0, "x chunk split");
+  static_assert(kTxSize % KC == 0 && KC * XQ % kTxThreads == 0, "chunks");
   extern __shared__ __align__(16) float smem[];
   const int WS = kTxSize / D;                         // columns w a strip
-  float* xs = smem;                                   // [2][kTxKC][kTxCols]
-  float* fys = xs + 2 * kTxKC * kTxCols;              // [2][kTxKC][FT]
-  float* fxs = fys + 2 * kTxKC * FT;                  // [1 or 2][WS][48]
+  float* xs = smem;                             // [kTxStages][KC][kTxCols]
+  float* fys = xs + kTxStages * KC * kTxCols;     // [kTxStages][KC][FT]
+  float* fxs = fys + kTxStages * KC * FT;         // [1 or 2][WS][48]
   float* tmp = fxs + (D > 1 ? 2 : 1) * WS * kTxTaps;  // [FT][kTxTS]
 
   const int b = blockIdx.y;
@@ -797,20 +798,21 @@ extract_tiled_kernel(const float* __restrict__ x,
   const float* fxb = fx + (size_t)b * kTxSize * kTxTaps;
   const int nk = D * NH;                    // chunks in all
 
-  // Chunk k: rows h0 .. h0+kTxKC of strip s.  Thread tid copies the 16
-  // bytes at column quad tid%XQ of rows tid/XQ + j*(kTxThreads/XQ).
+  // Chunk k: rows h0 .. h0+KC of strip s, one commit group.  Thread tid
+  // copies the 16 bytes at column quad tid%XQ of rows tid/XQ +
+  // j*(kTxThreads/XQ).
   const int xr0 = tid / XQ, xc = tid % XQ;
   auto issue = [&](int k) {
-    const int s = k / NH, h0 = (k - s * NH) * kTxKC;
-    float* xd = xs + (k & 1) * kTxKC * kTxCols;
+    const int s = k / NH, h0 = (k - s * NH) * KC;
+    float* xd = xs + (k % kTxStages) * KC * kTxCols;
     const float* xsrc = xb + (size_t)h0 * row + s * kTxCols + 4 * xc;
 #pragma unroll
-    for (int j = 0; j < kTxKC * XQ / kTxThreads; ++j) {
+    for (int j = 0; j < KC * XQ / kTxThreads; ++j) {
       const int r = xr0 + j * (kTxThreads / XQ);
       cp_async16(xd + r * kTxCols + 4 * xc, xsrc + r * row);
     }
-    float* yd = fys + (k & 1) * kTxKC * FT;
-    for (int i = tid; i < kTxKC * FT / 4; i += kTxThreads) {
+    float* yd = fys + (k % kTxStages) * KC * FT;
+    for (int i = tid; i < KC * FT / 4; i += kTxThreads) {
       const int r = i / (FT / 4), c = i - r * (FT / 4);
       cp_async16(yd + r * FT + 4 * c,
                  fyb + (size_t)(h0 + r) * kTxTaps + 4 * c);
@@ -842,21 +844,24 @@ extract_tiled_kernel(const float* __restrict__ x,
 #pragma unroll
       for (int d = 0; d < 4; ++d) acc2[i][j][d] = 0.f;
 
+  // One barrier an iteration: chunk k+1 lands in the buffer of chunk k-2,
+  // which every thread left before it reached iteration k-1's barrier; tmp
+  // and a strip's f_x buffer are written again only strips later.
   issue(0);
   for (int k = 0; k < nk; ++k) {
     if (k + 1 < nk) {
       issue(k + 1);
-      cp_async_wait<1>();
+      cp_async_wait<1>();   // chunk k has landed
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
 
     // Stage 1, h ascending.
-    const float* xk = xs + (k & 1) * kTxKC * kTxCols + TC * cg;
-    const float* yk = fys + (k & 1) * kTxKC * FT + fg * TF;
-#pragma unroll 8
-    for (int hh = 0; hh < kTxKC; ++hh) {
+    const float* xk = xs + (k % kTxStages) * KC * kTxCols + TC * cg;
+    const float* yk = fys + (k % kTxStages) * KC * FT + fg * TF;
+#pragma unroll
+    for (int hh = 0; hh < KC; ++hh) {
       float a[TF];
 #pragma unroll
       for (int q = 0; q < TF / 4; ++q) {
@@ -938,8 +943,6 @@ extract_tiled_kernel(const float* __restrict__ x,
         }
       }
     }
-    // Buffer k&1 (and, after a strip, tmp) is free for the next copies.
-    __syncthreads();
   }
 
   if (tid < NT2) {
@@ -960,16 +963,16 @@ extract_tiled_kernel(const float* __restrict__ x,
   }
 }
 
-template <int FT, int TF, int TC>
+template <int FT, int TF, int TC, int KC>
 cudaError_t launch_extract_tiled(const float* x, const float* fy,
                                  const float* fx, float* out, int B, int D,
                                  cudaStream_t stream) {
-  const size_t smem = extract_tiled_smem_floats(FT, D) * sizeof(float);
+  const size_t smem = extract_tiled_smem_floats(FT, KC, D) * sizeof(float);
   cudaError_t err =
-      allow_smem((const void*)extract_tiled_kernel<FT, TF, TC>, smem);
+      allow_smem((const void*)extract_tiled_kernel<FT, TF, TC, KC>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(kTxTaps / FT, B);
-  extract_tiled_kernel<FT, TF, TC><<<grid, kTxThreads, smem, stream>>>(
+  extract_tiled_kernel<FT, TF, TC, KC><<<grid, kTxThreads, smem, stream>>>(
       x, fy, fx, out, D);
   return cudaGetLastError();
 }
@@ -990,11 +993,12 @@ int glimpse_extract(const float* x, const float* fy, const float* fx,
                         (uintptr_t)out) % 16 == 0;
   const int route = extract_route(B, H, W, D, FH, FW, aligned);
   const cudaStream_t s = (cudaStream_t)stream;
-#define EXTRACT_CASE(ft, tf, tc)                                            \
+#define EXTRACT_CASE(ft, tf, tc, kc)                                        \
   case ft:                                                                  \
-    return (int)launch_extract_tiled<ft, tf, tc>(x, fy, fx, out, B, D, s);
+    return (int)launch_extract_tiled<ft, tf, tc, kc>(x, fy, fx, out, B, D, s);
   switch (route) {
-    EXTRACT_CASE(48, 12, 4) EXTRACT_CASE(12, 12, 1) EXTRACT_CASE(4, 4, 1)
+    EXTRACT_CASE(48, 12, 4, 32) EXTRACT_CASE(12, 12, 1, 56)
+    EXTRACT_CASE(4, 4, 1, 56)
 #undef EXTRACT_CASE
     case 0: break;
     default: return (int)cudaErrorInvalidValue;

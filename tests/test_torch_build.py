@@ -41,8 +41,8 @@ ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_c
 ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0322extract_kernel_generalEPKfS1_S1_Pfiiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 96 registers, used 1 barriers
-ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_tiled_kernelILi48ELi12ELi4EEEvPKfS2_S2_Pfi' for 'sm_90a'
-ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_tiled_kernelILi48ELi12ELi4EEEvPKfS2_S2_Pfi
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_tiled_kernelILi48ELi12ELi4ELi32EEEvPKfS2_S2_Pfi' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_tiled_kernelILi48ELi12ELi4ELi32EEEvPKfS2_S2_Pfi
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
 """
@@ -53,11 +53,12 @@ def test_kernel_resources_names_the_extract_kernels():
       'extract_kernel_general': {'registers': 96, 'spill_store_bytes': 0,
                                  'spill_load_bytes': 0,
                                  'static_smem_bytes': 0},
-      'extract_tiled_kernel<48,12,4>': {'registers': 168,
-                                        'spill_store_bytes': 8,
-                                        'spill_load_bytes': 8,
-                                        'static_smem_bytes': 0},
+      'extract_tiled_kernel<48,12,4,32>': {'registers': 168,
+                                           'spill_store_bytes': 8,
+                                           'spill_load_bytes': 8,
+                                           'static_smem_bytes': 0},
   }
+
 
 class _Compiled(Exception):
   pass
