@@ -26,8 +26,10 @@ Phases, one JSON line each on stdout:
                 checkout without it fails) to three requests of b=8, 32 and
                 128, counting kernel launches; the b32 forward is held
                 against the plain-glimpse forward and a b2 forward against
-                the CPU, a forward with the bf16 islands on must fail the
-                same gates, and the b128 forward is timed;
+                the CPU (beside them plain einsums that sum in another
+                order against the plain forward: the float32 floor), a
+                forward with the bf16 islands on must fail the same gates,
+                and the b128 forward is timed;
   train         the Trainer restores the flagship checkpoint with its Adam
                 state and takes 5 steps at b32 from step 30000 and 2 from
                 step 0 (the ground-truth segmentation mix on), counting
@@ -226,15 +228,6 @@ def filters(torch, attention, b, h, w, fh, fw, gen, dev):
   return bank(h, fh), bank(w, fw)
 
 
-def extract_route(gk, *operands):
-  """The extract kernel that glimpse_extract launches on these operands
-  (x or g, f_y, f_x), and its output rows a block."""
-  b, h, w, d = operands[0].shape
-  fh, fw = operands[1].shape[2], operands[2].shape[2]
-  return gk.extract_route(b, h, w, d, fh, fw, aligned=all(
-      t.data_ptr() % 16 == 0 for t in operands))
-
-
 def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
                  timed):
   """Compare one kernel with its plain version; time all three forms."""
@@ -263,7 +256,7 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
   result = {'shape': [b, h, w, d, fh, fw], 'max_abs_err': err,
             'max_abs_value': float(want.abs().max())}
   if name == 'glimpse_extract':
-    result['route'] = extract_route(gk, a, f_y, f_x)
+    result['route'] = gk.extract_route_of(a, f_y, f_x)
   if timed:
     bound_ms, bound_by = bound(nbytes, flops)
     kernel_ms = ms(torch, lambda: kernel(a, f_y, f_x))
@@ -350,7 +343,7 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
       'bound_ms': bound_ms, 'bound_by': bound_by,
       'bound_share': bound_ms / kernel_ms, 'bytes': nbytes, 'flops': flops}
   if use_kernel == 'glimpse_extract':
-    result['backward_use']['route'] = extract_route(gk, g, f_y, f_x)
+    result['backward_use']['route'] = gk.extract_route_of(g, f_y, f_x)
   result['filter_grad_einsums_ms'] = ms(torch, filter_grads)
   result['backward_ms'] = ms(torch, lambda: torch.autograd.grad(
       out, ins, g, retain_graph=True))
@@ -823,6 +816,10 @@ def main():
     want = full_model_forward(seg.model, x32, glimpse='plain')
     plain_repeat_det = forward_diff(
         full_model_forward(seg.model, x32, glimpse='plain'), want)
+    # The float32 floor beside the gate: plain einsums that sum in another
+    # order, against the plain forward (reported, not gated).
+    reordered = forward_diff(full_model_forward(
+        seg.model, x32, glimpse=reordered_plain(torch)), want)
     # Kernel glimpses against the plain einsum forms, b32.
     got32 = full_model_forward(seg.model, x32, glimpse='kernel')
     plain_err = forward_agreement(got32, want)
@@ -849,6 +846,7 @@ def main():
   emit('serve', weights=weights, requests=requests, launches=launches,
        plain_vs_plain_b32=plain_repeat,
        plain_vs_plain_b32_deterministic=plain_repeat_det,
+       reordered_plain_vs_plain_b32=reordered,
        kernel_vs_plain_b32=plain_err, card_vs_cpu_b2=cpu_err,
        bf16_vs_f32_b32=bf16_err,
        limits={'y_out_mean': Y_OUT_MEAN_ATOL,

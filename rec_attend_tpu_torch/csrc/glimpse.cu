@@ -6,6 +6,7 @@
 //            x [B,H,W,D], f_y [B,H,FH], f_x [B,W,FW] -> out [B,FH,FW,D]
 //   paste    out[b,h,w,d] = sum_f sum_g f_y[b,h,f] * p[b,f,g,d] * f_x[b,w,g]
 //            p [B,FH,FW,D], f_y [B,H,FH], f_x [B,W,FW] -> out [B,H,W,D]
+// (extract's tiled route writes its out as [B,FH,D,FW] in memory instead).
 // All arithmetic is float32 on the CUDA cores with float32 accumulation,
 // as the TPU kernels accumulate in float32.
 //
@@ -715,8 +716,12 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 //            whole walk over w: SF rows f x 4 taps g x D channels a thread.
 //            Per w it reads SF float4 of tmp and one float4 of f_x (D=4:
 //            12 FMAs a load at SF=3); per 4 w, SF + 4 float4 (D=1).
-//   store    a patch row is 48*D contiguous floats; a thread writes its 4
-//            taps x D channels of a row as float4s.
+//   store    the patch goes out as [B][FH][D][FW] in memory, the layout in
+//            which the plain version (two einsums) returns it, so that the
+//            layers after the glimpse run the same cuDNN algorithms, and
+//            round the same way, on the kernel path and the plain one; a
+//            patch row f is 48*D contiguous floats, and a thread writes its
+//            4 taps of each channel as one float4.
 // Summation order: each tmp element sums over h ascending in one chain;
 // each acc element sums over w ascending in one chain across the strips.
 // The [FH, W, D] intermediate never reaches device memory.
@@ -728,7 +733,14 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 // (128 blocks), b8 FT=4 (96 blocks).  A smaller FT reads x of an image once
 // per f-tile, from L2 where the image's blocks run together: FT=12 four
 // times (at b32 D=1, 25.7 MB of L2 reads for 6.4 MB of x), FT=4 twelve
-// times (at b8 D=4, 77 MB for 6.4 MB).
+// times (at b8 D=4, 77 MB for 6.4 MB).  The smaller FT stage 56 rows a
+// chunk, which fits once in an SM's shared memory (208 KB at FT=12 D=1), so
+// a grid past 132 blocks takes more than one wave there.
+// Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): registers a thread 164 at
+// <48,12,4,32> (one block of 7 warps an SM), 112 at <12,12,1,56> and 104 at
+// <4,4,1,56>; no spills, no static shared memory.  On one H100 80GB HBM3 at
+// 700 W the output equals the two-einsum plain version's to the bit at the
+// main path's shapes (cuBLAS sums in the same order there).
 // ---------------------------------------------------------------------------
 
 constexpr int kTxSize = 224;        // image rows and columns taken
@@ -945,19 +957,18 @@ extract_tiled_kernel(const float* __restrict__ x,
     }
   }
 
+  // out is [B][FH][D][FW] in memory: channel d of row f at o + d*48.
   if (tid < NT2) {
 #pragma unroll
     for (int i = 0; i < SF; ++i) {
-      float* o = out + ((size_t)b * kTxTaps + f0 + ft + i * FS) * kTxTaps * D +
-                 4 * gq * D;
-      if (D == 4) {
+      float* o = out + ((size_t)b * kTxTaps + f0 + ft + i * FS) * D * kTxTaps +
+                 4 * gq;
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(o + 4 * j) = make_float4(
-              acc2[i][j][0], acc2[i][j][1], acc2[i][j][2], acc2[i][j][3]);
-      } else {
-        *reinterpret_cast<float4*>(o) = make_float4(
-            acc2[i][0][0], acc2[i][1][0], acc2[i][2][0], acc2[i][3][0]);
+      for (int d = 0; d < 4; ++d) {
+        if (d < D) {
+          *reinterpret_cast<float4*>(o + d * kTxTaps) = make_float4(
+              acc2[i][0][d], acc2[i][1][d], acc2[i][2][d], acc2[i][3][d]);
+        }
       }
     }
   }
@@ -986,6 +997,9 @@ int glimpse_extract_route(int B, int H, int W, int D, int FH, int FW,
   return extract_route(B, H, W, D, FH, FW, aligned != 0);
 }
 
+// out is [B][FH][FW][D] in memory on the general route and [B][FH][D][FW]
+// (the plain version's layout) on the tiled route: glimpse_extract_route
+// tells them apart.
 int glimpse_extract(const float* x, const float* fy, const float* fx,
                     float* out, int B, int H, int W, int D, int FH, int FW,
                     void* stream) {

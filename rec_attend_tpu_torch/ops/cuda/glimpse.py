@@ -18,7 +18,9 @@ gradients ``ctx.needs_input_grad`` asks for.
 The extract kernel has two routes, picked on the host from the shape and
 the pointers' alignment alone (``extract_route``): ``extract_tiled_kernel``
 at the flagship's shapes (224x224 image, 48x48 glimpse, D = 1 or 4,
-16-byte aligned), ``extract_kernel_general`` at every other shape.
+16-byte aligned), ``extract_kernel_general`` at every other shape.  The
+tiled kernel returns the patch in the plain version's memory layout
+([B,FH,D,FW], viewed as [B,FH,FW,D]), the general one contiguous.
 
 A CUDA tensor goes to the kernel, or the call raises: there is no fallback
 to the einsum forms on the card.  A CPU tensor goes to the plain two-einsum
@@ -78,6 +80,14 @@ def extract_route(b, h, w, d, fh, fw, aligned=True):
   return {'kernel': 'extract_tiled_kernel', 'ft': route}
 
 
+def extract_route_of(x, f_y, f_x):
+  """``extract_route`` of the operands x (or a gradient) [B,H,W,D], f_y
+  [B,H,FH], f_x [B,W,FW] on the card, with their alignment."""
+  b, h, w, d = x.shape
+  return extract_route(b, h, w, d, f_y.shape[2], f_x.shape[2], aligned=all(
+      t.data_ptr() % 16 == 0 for t in (x, f_y, f_x)))
+
+
 def _launch(name, a, f_y, f_x, out, dims):
   """Launch kernel ``name`` on the current stream of the operands' card."""
   for t in (a, f_y, f_x):
@@ -109,7 +119,14 @@ def _extract(x, f_y, f_x, backward=False):
   if d > MAX_EXTRACT_CHANNELS:
     raise ValueError(f'glimpse_extract: the kernel takes at most '
                      f'{MAX_EXTRACT_CHANNELS} channels, got {d}')
-  out = torch.empty((b, fh, fw, d), dtype=torch.float32, device=x.device)
+  if extract_route_of(x, f_y, f_x)['kernel'] == 'extract_tiled_kernel':
+    # The tiled kernel writes the patch as [B,FH,D,FW] in memory, the layout
+    # of the plain version's result, so that the layers after it run the
+    # same algorithms on either path.
+    out = torch.empty((b, fh, d, fw), dtype=torch.float32,
+                      device=x.device).transpose(2, 3)
+  else:
+    out = torch.empty((b, fh, fw, d), dtype=torch.float32, device=x.device)
   _launch('glimpse_extract', x, f_y, f_x, out, (b, h, w, d, fh, fw))
   glimpse_extract.launches += 1
   glimpse_extract.backward_launches += backward

@@ -113,8 +113,11 @@ def test_extract_kernel_matches_plain(dev, shape, unaligned):
   got = gk.glimpse_extract(x, f_y, f_x)
   torch.cuda.synchronize()
   assert gk.glimpse_extract.launches == before + 1
-  torch.testing.assert_close(got, attention.extract_patch(x, f_y, f_x),
-                             rtol=RTOL, atol=ATOL)
+  want = attention.extract_patch(x, f_y, f_x)
+  torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+  # The tiled route returns the plain version's memory layout.
+  if gk.extract_route_of(x, f_y, f_x)['kernel'] == 'extract_tiled_kernel':
+    assert got.stride() == want.stride()
 
 
 def test_extract_route(dev):
