@@ -915,7 +915,7 @@ extract_tiled_kernel(const float* __restrict__ x,
         const float* fk = fxs + (s & 1) * WS * kTxTaps + 4 * gq;
         const float* tk = tmp + ft * kTxTS;
         if (D == 4) {
-#pragma unroll 4
+#pragma unroll 8
           for (int w = 0; w < WS; ++w) {
             const float4 f =
                 *reinterpret_cast<const float4*>(fk + w * kTxTaps);
