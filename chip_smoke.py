@@ -745,12 +745,10 @@ def main():
                                       *dims[1:], gen, dev, timed=True)
   # The main path's extracts take the tiled kernel, the ragged one the
   # general kernel.
-  routes = {k: checks['glimpse_extract'][k]['route']['kernel']
-            for k in ('b8', 'ragged')}
-  routes['b128'] = checks['glimpse_extract']['route']['kernel']
-  if routes != {'b128': 'extract_tiled_kernel', 'b8': 'extract_tiled_kernel',
-                'ragged': 'extract_kernel_general'}:
-    raise AssertionError(f'extract routes {routes}')
+  ex = checks['glimpse_extract']
+  routes = [c['route']['kernel'] for c in (ex, ex['b8'], ex['ragged'])]
+  if routes != ['extract_tiled_kernel'] * 2 + ['extract_kernel_general']:
+    raise AssertionError(f'extract routes (b128, b8, ragged): {routes}')
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 

@@ -41,9 +41,6 @@ from rec_attend_tpu_torch.ops.cuda import build
 extract_patch_plain = attention.extract_patch
 paste_patch_plain = attention.paste_patch
 
-# Widest channel count the extract kernel's W strip holds (csrc kExCols).
-MAX_EXTRACT_CHANNELS = 128
-
 
 def _check(name, a, f_y, f_x):
   """Validate a [B, *, *, D] operand and its filter banks; returns
@@ -116,9 +113,6 @@ def _extract(x, f_y, f_x, backward=False):
   if x.device.type == 'cpu':
     return extract_patch_plain(x, f_y, f_x)
   d = x.shape[3]
-  if d > MAX_EXTRACT_CHANNELS:
-    raise ValueError(f'glimpse_extract: the kernel takes at most '
-                     f'{MAX_EXTRACT_CHANNELS} channels, got {d}')
   if extract_route_of(x, f_y, f_x)['kernel'] == 'extract_tiled_kernel':
     # The tiled kernel writes the patch as [B,FH,D,FW] in memory, the layout
     # of the plain version's result, so that the layers after it run the
