@@ -778,7 +778,7 @@ int extract_route(int B, int H, int W, int D, int FH, int FW, bool aligned) {
 }
 
 template <int FT, int TF, int TC, int KC>
-__global__ void __launch_bounds__(kTxThreads, FT >= 48 ? 1 : 2)
+__global__ void __launch_bounds__(kTxThreads, 1)
 extract_tiled_kernel(const float* __restrict__ x,
                      const float* __restrict__ fy,
                      const float* __restrict__ fx, float* __restrict__ out,
