@@ -675,7 +675,7 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 
 
 // ---------------------------------------------------------------------------
-// glimpse_extract at the main path's shapes: extract_tiled_kernel<FT,TF,TC>
+// glimpse_extract at the main path's shapes: extract_tiled_kernel<FT,TF,TC,KC>
 //
 // Replaces rec_attend_tpu/ops/pallas/glimpse.py:62 _extract_kernel (called
 // by _extract_call, :86) where the image is 224x224, the glimpse 48x48, D
