@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's serving, training and eval paths on one CUDA card
+and check them.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -12,8 +12,8 @@ Phases, one JSON line each on stdout:
                 static shared memory as nvcc -Xptxas -v reports them (the
                 paste kernel and both extract routes must be there);
   kernels       each hand-written kernel against its plain PyTorch version,
-                at the serving path's shapes (CVPPP, b128 and b8) and at a
-                ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
+                at the serving path's shapes (CVPPP, b128, b8 and b1) and at
+                a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
                 CUDA-event times; each extract names its route (the tiled
                 kernel and its output rows a block, or the general one);
   kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
@@ -24,12 +24,15 @@ Phases, one JSON line each on stdout:
                 einsums timed;
   serve         InstanceSegmenter serves the flagship CVPPP checkpoint (a
                 checkout without it fails) to three requests of b=8, 32 and
-                128, counting kernel launches; the b32 forward is held
-                against the plain-glimpse forward and a b2 forward against
-                the CPU (beside them plain einsums that sum in another
-                order against the plain forward: the float32 floor), a
-                forward with the bf16 islands on must fail the same gates,
-                and the b128 forward is timed;
+                128 at the model's size and two of other sizes (b1 530x500,
+                b8 300x400: input resize, masks upsampled back), counting
+                kernel launches; the other sizes' requests are held against
+                the CPU's through the same predict, the b32 forward against
+                the plain-glimpse forward and a b2 forward against the CPU
+                (beside them plain einsums that sum in another order against
+                the plain forward: the float32 floor), a forward with the
+                bf16 islands on must fail the same gates, and the b128
+                forward is timed;
   train         the Trainer restores the flagship checkpoint with its Adam
                 state and takes 5 steps at b32 from step 30000 and 2 from
                 step 0 (the ground-truth segmentation mix on), counting
@@ -39,7 +42,15 @@ Phases, one JSON line each on stdout:
                 beside the step's float32 noise floor) and against the CPU's
                 (b2) at step 0, with the matchings of each pair reported
                 and pinned where they differ; a step whose glimpse backward
-                drops the filter gradients must fail the same gates.
+                drops the filter gradients must fail the same gates;
+  eval          eval_split over 64 synthetic 224x224 images with labels at
+                b32, score and mask thresholds 0.40, with the kernels, the
+                plain glimpses and plain einsums that sum in another order
+                (the float32 floor), counting kernel launches; per example
+                the kernels' SBD is held to the plain one within a limit
+                set from that floor, and the counts must be equal; upsample
+                on the card against the CPU; host seconds per batch of the
+                postprocess chain and of the analyzers.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -51,10 +62,12 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -136,6 +149,20 @@ OWN_CANVAS_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_all': 0.1}
 GRADIENT_GATES = ('grad_rel_l2_max', 'grad_rel_l2_all')
 TRAIN_BATCH = 32
 TRAIN_CPU_BATCH = 2
+# Requests of other sizes than the model's: CVPPP A1's image size at b1,
+# and a b8 request of another size.
+OTHER_SIZE_REQUESTS = ((1, 530, 500), (8, 300, 400))
+# The eval path: the flagship's valid-split size and thresholds (the
+# headline of count_calibration.json), at the JAX TrainConfig batch size.
+EVAL_EXAMPLES, EVAL_BATCH, EVAL_THRESHOLD = 64, 32, 0.4
+# Per example, kernel against plain: |delta SBD| <= twice the largest of
+# the float32 floor (plain einsums that sum in another order against the
+# plain forward, same run, same 64 examples) plus the CSVs' resolution,
+# 1e-4; counts equal.
+EVAL_SBD_FLOOR_FACTOR, EVAL_CSV_RESOLUTION = 2.0, 1e-4
+# upsample on the card against the CPU: the tolerance the CPU tests hold
+# it to against cv2.
+UPSAMPLE_ATOL = 1e-6
 
 
 def emit(phase, **fields):
@@ -543,6 +570,119 @@ def step_gates(torch, ts, matching, gk, model, opt, batch, draws, step, lr,
   return gates, failures
 
 
+def read_scores(folder, name):
+  """{example id: value} of an analyzer's CSV (the ID,Score lines)."""
+  with open(os.path.join(folder, f'{name}.csv')) as f:
+    rows = [line.strip().split(',') for line in f.readlines()[1:]]
+  return {r[0]: float(r[1]) for r in rows if r[0] not in ('Mean', 'Std')}
+
+
+def eval_phase(torch, cfg, gk):
+  """The eval path: eval_split over a synthetic split with the kernel
+  glimpses, the plain ones and the reordered plain ones (the float32
+  floor), cuDNN deterministic; launches counted on the kernel run."""
+  from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS
+  from rec_attend_tpu_torch.cli.eval import eval_split
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+  from rec_attend_tpu_torch.utils import postprocess as pp
+
+  T = cfg.timespan
+  ds = SyntheticDataset(EVAL_EXAMPLES, cfg.inp_height, cfg.inp_width, T,
+                        seed=4)
+  n_batches = -(-EVAL_EXAMPLES // EVAL_BATCH)
+  names = DEFAULT_ANALYZERS + ['count']
+
+  def run(glimpse, label):
+    exp = EvalExperiment(CHECKPOINT_DIR, cfg=cfg, device='cuda',
+                         glimpse=glimpse)
+    out = os.path.join(csv_root, label)
+    timings = {}
+    t0 = time.time()
+    with deterministic_cudnn(torch):
+      summary = eval_split(exp, ds, out, [EVAL_THRESHOLD], names,
+                           batch_size=EVAL_BATCH,
+                           score_threshold=EVAL_THRESHOLD, timings=timings)
+    seconds = time.time() - t0
+    means = {k.split()[0]: float(v[0])
+             for k, v in summary[EVAL_THRESHOLD].items()}
+    if not all(math.isfinite(v) for v in means.values()):
+      raise AssertionError(f'eval {label}: means {means}')
+    per_example = {n: read_scores(out, n) for n in ('sbd', 'dic')}
+    if len(per_example['sbd']) != EVAL_EXAMPLES:
+      raise AssertionError(f'eval {label}: {len(per_example["sbd"])} rows')
+    return {'means': means, 'per_example': per_example, 'seconds': seconds,
+            'timings': timings}
+
+  # The analyzers' CSVs go to a temporary folder inside the checkout.
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_eval-',
+                                   dir=REPO) as csv_root:
+    gk.reset_launch_counts()
+    kernel = run('kernel', 'kernel')
+    launches = gk.launch_counts()
+    want = {'glimpse_extract': T * n_batches,
+            'glimpse_paste': 2 * T * n_batches}
+    if launches != want:
+      raise AssertionError(f'eval: kernel launches {launches}, want {want}')
+    plain = run('plain', 'plain')
+    floor = run(reordered_plain(torch), 'reordered_plain')
+
+  def compare(got, ref):
+    sbd, sbd_ref = got['per_example']['sbd'], ref['per_example']['sbd']
+    dic, dic_ref = got['per_example']['dic'], ref['per_example']['dic']
+    return {'sbd_max_abs_diff': max(abs(sbd[k] - sbd_ref[k]) for k in sbd),
+            'sbd_differ': sorted(k for k in sbd if sbd[k] != sbd_ref[k]),
+            'count_differ': sorted(k for k in dic if dic[k] != dic_ref[k])}
+  floor_stats = compare(floor, plain)
+  kernel_stats = compare(kernel, plain)
+  sbd_limit = (EVAL_SBD_FLOOR_FACTOR * floor_stats['sbd_max_abs_diff']
+               + EVAL_CSV_RESOLUTION)
+  failures = []
+  if kernel_stats['sbd_max_abs_diff'] > sbd_limit:
+    failures.append(f'SBD differs by {kernel_stats["sbd_max_abs_diff"]}, '
+                    f'limit {sbd_limit}')
+  if kernel_stats['count_differ']:
+    failures.append(f'counts differ at {kernel_stats["count_differ"]}')
+
+  # upsample on the card against the CPU, on the same confidence-weighted
+  # maps: at the model's size (the eval path) and at 530x500 (serving).
+  exp = EvalExperiment(CHECKPOINT_DIR, cfg=cfg, device='cuda')
+  with torch.inference_mode():
+    x = torch.from_numpy(ds.get_batch(range(min(8, EVAL_EXAMPLES)))['x'])
+    out = full_model_forward(exp.model, x.cuda())
+    maps = out['y_out'] * out['s_out'][:, :, None, None]
+  upsample = {}
+  for b, size in ((len(x), (cfg.inp_height, cfg.inp_width)),
+                  (2, (530, 500))):
+    got = pp.upsample(maps[:b], [size] * b).cpu()
+    want = pp.upsample(maps[:b].cpu(), [size] * b)
+    err = float((got - want).abs().max())
+    upsample[f'b{b}_{size[0]}x{size[1]}'] = err
+    if err > UPSAMPLE_ATOL:
+      failures.append(f'upsample to {size} on the card differs from the '
+                      f'CPU by {err}')
+  if failures:
+    raise AssertionError(f'eval gates: {failures}')
+  median = lambda v: statistics.median(v) if v else None
+  return {
+      'examples': EVAL_EXAMPLES, 'batch': EVAL_BATCH,
+      'thresholds': {'score': EVAL_THRESHOLD, 'mask': EVAL_THRESHOLD},
+      'launches': launches,
+      'means': {'kernel': kernel['means'], 'plain': plain['means'],
+                'reordered_plain': floor['means']},
+      'kernel_vs_plain': kernel_stats,
+      'reordered_plain_vs_plain': floor_stats,
+      'limits': {'sbd_max_abs_diff': sbd_limit, 'count_differ': 0,
+                 'upsample_card_vs_cpu': UPSAMPLE_ATOL},
+      'upsample_card_vs_cpu_max_abs': upsample,
+      'seconds': {k: v['seconds'] for k, v in (
+          ('kernel', kernel), ('plain', plain), ('reordered_plain', floor))},
+      'host_seconds_per_batch_median': {
+          k: median(v) for k, v in kernel['timings'].items()},
+      'host_seconds_per_batch': kernel['timings']}
+
+
 def flagship_segmenter(cfg):
   """(InstanceSegmenter on the card, checkpoint path): the flagship
   checkpoint.  Raises where the checkout lacks it."""
@@ -696,6 +836,7 @@ def main():
   from rec_attend_tpu_torch.ops.cuda import glimpse as gk
 
   # ---- device ----------------------------------------------------------
+  start = time.time()
   name_power = nvidia_smi_name_power()
   dev = torch.device('cuda')
   kind = torch.cuda.get_device_name(0)
@@ -739,16 +880,18 @@ def main():
                                 timed=True)
     checks[name]['ragged'] = check_kernel(torch, gk, attention, name,
                                           *ragged_dims, gen, dev, timed=False)
-  # The smallest request of the serving path: 8 images.
+  # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
-    checks[name]['b8'] = check_kernel(torch, gk, attention, name, 8,
-                                      *dims[1:], gen, dev, timed=True)
+    for b in (8, 1):
+      checks[name][f'b{b}'] = check_kernel(torch, gk, attention, name, b,
+                                           *dims[1:], gen, dev, timed=True)
   # The main path's extracts take the tiled kernel, the ragged one the
   # general kernel.
   ex = checks['glimpse_extract']
-  routes = [c['route']['kernel'] for c in (ex, ex['b8'], ex['ragged'])]
-  if routes != ['extract_tiled_kernel'] * 2 + ['extract_kernel_general']:
-    raise AssertionError(f'extract routes (b128, b8, ragged): {routes}')
+  routes = [c['route']['kernel'] for c in (ex, ex['b8'], ex['b1'],
+                                           ex['ragged'])]
+  if routes != ['extract_tiled_kernel'] * 3 + ['extract_kernel_general']:
+    raise AssertionError(f'extract routes (b128, b8, b1, ragged): {routes}')
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 
@@ -778,28 +921,55 @@ def main():
   T = cfg.timespan
   images = {b: synthetic_images(b, cfg.inp_height, cfg.inp_width, seed=b)
             for b in (8, 32, 128)}
+  other_sizes = [synthetic_images(b, h, w, seed=h).numpy()
+                 for b, h, w in OTHER_SIZE_REQUESTS]
   gk.reset_launch_counts()
   requests = []
-  for b, imgs in images.items():
+  for imgs in [v.numpy() for v in images.values()] + other_sizes:
+    b, h, w = imgs.shape[:3]
     before = gk.launch_counts()
     t0 = time.time()
-    result = seg.predict(imgs.numpy())
+    result = seg.predict(imgs)
     seconds = time.time() - t0
     launched = {k: v - before[k] for k, v in gk.launch_counts().items()}
     if launched != {'glimpse_extract': T, 'glimpse_paste': 2 * T}:
       raise AssertionError(f'b={b}: kernel launches {launched}, want '
                            f'{T} extract and {2 * T} paste')
-    if result['masks'].shape != (b, T, cfg.inp_height, cfg.inp_width):
+    if result['masks'].shape != (b, T, h, w):
       raise AssertionError(f'masks {result["masks"].shape}')
     if not (np.isfinite(result['scores']).all()
             and np.isfinite(result['soft_masks']).all()):
       raise AssertionError('non-finite outputs')
     if result['counts'].min() < 0 or result['counts'].max() > T:
       raise AssertionError(f'counts {result["counts"]}')
-    requests.append({'batch': b, 'seconds': seconds, 'launches': launched,
+    requests.append({'batch': b, 'size': [h, w], 'seconds': seconds,
+                     'launches': launched,
                      'counts': result['counts'].tolist()[:8],
                      'mask_pixels': int(result['masks'].sum())})
   launches = gk.launch_counts()
+
+  # Requests of other sizes, the card against the CPU through the same
+  # predict: scores within the serving gate's s_out limit, the share of
+  # mask pixels that differ within its moved-pixel share, counts equal.
+  from rec_attend_tpu_torch.serving import InstanceSegmenter
+  cpu_seg = InstanceSegmenter(seg.model.state_dict(), cfg, device='cpu')
+  other_sizes_vs_cpu = {}
+  for imgs in other_sizes:
+    with deterministic_cudnn(torch):
+      got = seg.predict(imgs)
+    want = cpu_seg.predict(imgs)
+    stats = {
+        'scores_max_abs': float(np.abs(got['scores'] - want['scores']).max()),
+        'mask_pixels_differ_share': float(
+            (got['masks'] != want['masks']).mean()),
+        'soft_masks_max_abs': float(
+            np.abs(got['soft_masks'] - want['soft_masks']).max()),
+        'counts_equal': bool((got['counts'] == want['counts']).all())}
+    other_sizes_vs_cpu['b{}_{}x{}'.format(*imgs.shape[:3])] = stats
+    if (stats['scores_max_abs'] > S_OUT_ATOL
+        or stats['mask_pixels_differ_share'] > Y_OUT_MOVED_SHARE
+        or not stats['counts_equal']):
+      raise AssertionError(f'request {imgs.shape}: card against CPU {stats}')
 
   with torch.inference_mode():
     x32 = images[32].to(dev)
@@ -846,6 +1016,7 @@ def main():
        plain_vs_plain_b32_deterministic=plain_repeat_det,
        reordered_plain_vs_plain_b32=reordered,
        kernel_vs_plain_b32=plain_err, card_vs_cpu_b2=cpu_err,
+       other_sizes_card_vs_cpu=other_sizes_vs_cpu,
        bf16_vs_f32_b32=bf16_err,
        limits={'y_out_mean': Y_OUT_MEAN_ATOL,
                'y_out_moved_share': Y_OUT_MOVED_SHARE,
@@ -857,22 +1028,27 @@ def main():
   train = train_phase(torch, np, cfg, dev, gk, name_power)
   emit('train', **train)
 
+  evals = eval_phase(torch, cfg, gk)
+  emit('eval', nvidia_smi=name_power, **evals)
+
   table = []
   for name, c in checks.items():
     table.append({
         'name': name, 'route': 'cuda', 'source': SOURCE,
         'replaces': REPLACES[name], 'use': 'forward',
-        'launches': launches[name] + train['forward_launches'][name],
+        'launches': (launches[name] + train['forward_launches'][name]
+                     + evals['launches'][name]),
         'launches_by_path': {'serve': launches[name],
-                             'train': train['forward_launches'][name]},
+                             'train': train['forward_launches'][name],
+                             'eval': evals['launches'][name]},
         'max_abs_err': max(c['max_abs_err'], c['ragged']['max_abs_err']),
         'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
         'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
         'bound_share': c['bound_share'], 'library_ms': c['library_ms'],
         **({'kernel_route': c['route']} if 'route' in c else {}),
-        'b8': {k: c['b8'][k] for k in (
-            'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_share',
-            'route') if k in c['b8']}})
+        **{f'b{b}': {k: c[f'b{b}'][k] for k in (
+            'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+            'bound_share', 'route') if k in c[f'b{b}']} for b in (8, 1)}})
   # The kernels' backward uses that the main paths run: extract as d_p of
   # paste (paste as d_x of extract is not on them: the flagship's glimpse
   # input needs no gradient; kernels_grad checks and times it).
@@ -892,6 +1068,7 @@ def main():
         'bound_ms': use['bound_ms'], 'bound_by': use['bound_by'],
         'bound_share': use['bound_share'], 'library_ms': use['library_ms'],
         **({'kernel_route': use['route']} if 'route' in use else {})})
+  emit('done', seconds=time.time() - start)
   print(json.dumps({'kernels': table}), flush=True)
   print(name_power, flush=True)
   print(json.dumps({'ok': True, 'device': {

@@ -8,11 +8,13 @@ the same size and colour ranges; a later shape occludes the earlier ones
 in their masks, and instances left empty are dropped.  The draws come from
 a torch generator, so the images are not those of the JAX package's files;
 they are of the same kind, which is what a model trained on that dataset
-needs to stay in its working range.
+needs to stay in its working range.  ``SyntheticDataset`` holds such a
+split in memory for the eval path.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -67,3 +69,46 @@ def synthetic_images(n, height, width, seed=0, max_objects=9):
   """[n, height, width, 3] float32 images in [0, 1] on the CPU."""
   return synthetic_instances(n, height, width, seed=seed,
                              max_objects=max_objects)['x']
+
+
+class SyntheticDataset:
+  """An in-memory split of ``synthetic_instances``, with the interface the
+  eval path reads from the JAX package's datasets
+  (``rec_attend_tpu/data/dataset.py``): ``get_dataset_size``,
+  ``get_batch(idx, timespan)`` and ``get_full_size_labels(ids, timespan)``.
+
+  Its images are of the model's size, so the full-size labels are the
+  labels themselves, as in the JAX package's synthetic H5 files.  Image
+  ``i`` has the id ``synth{i:04d}``.  It holds ``timespan`` instance slots
+  and is read at that timespan."""
+
+  def __init__(self, n, height, width, timespan, seed=0, max_objects=9):
+    data = synthetic_instances(n, height, width, timespan, seed=seed,
+                               max_objects=max_objects)
+    self.x = data['x'].numpy()
+    self.y_gt = data['y_gt'].numpy()
+    self.s_gt = data['s_gt'].numpy()
+    self.timespan = timespan
+    self.img_ids = np.array([f'synth{i:04d}' for i in range(n)])
+    self._pos = {name: i for i, name in enumerate(self.img_ids)}
+
+  def get_dataset_size(self):
+    return len(self.img_ids)
+
+  def _check_timespan(self, timespan):
+    if timespan not in (None, self.timespan):
+      raise ValueError(f'timespan {timespan}: this split holds '
+                       f'{self.timespan} instance slots')
+
+  def get_batch(self, idx, timespan=None):
+    """'x' [b,H,W,3], 'y_gt' [b,T,H,W], 's_gt' [b,T] and 'idx_map' (the
+    ids) of the examples at positions ``idx``."""
+    self._check_timespan(timespan)
+    idx = np.asarray(idx)
+    return {'x': self.x[idx], 'y_gt': self.y_gt[idx], 's_gt': self.s_gt[idx],
+            'idx_map': self.img_ids[idx]}
+
+  def get_full_size_labels(self, ids, timespan=None):
+    """A list of [T, H, W] label arrays, one per id."""
+    self._check_timespan(timespan)
+    return [self.y_gt[self._pos[i]] for i in ids]

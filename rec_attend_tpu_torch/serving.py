@@ -10,9 +10,9 @@ Counterpart of ``rec_attend_tpu/serving.py:32-111``:
 
 The forward runs under ``torch.inference_mode()`` on the segmenter's device
 (``cuda`` unless the caller asks for the CPU), followed by the eval chain
-confidence -> one-label -> threshold -> remove-tiny on the same device.
-Images must have the model's input size: resizing needs cv2 and comes with
-a later slice.
+confidence -> one-label -> upsample -> threshold -> remove-tiny on the same
+device.  Images of any size are resized to the model's input size, and the
+masks are brought back to the images' size (``full_size``).
 """
 
 from __future__ import annotations
@@ -60,28 +60,31 @@ class InstanceSegmenter:
     return cls(params, cfg, device=device, **kw)
 
   def _prepare(self, images):
-    h, w = self.cfg.inp_height, self.cfg.inp_width
+    """[B,H,W,3] images of any size (or one [H,W,3]), float in [0,1] or
+    uint8-style -> (model-size batch on the device, (H, W))."""
+    size = (self.cfg.inp_height, self.cfg.inp_width)
     images = np.asarray(images, np.float32)
     if images.ndim == 3:
       images = images[None]
-    if images.ndim != 4 or images.shape[1:] != (h, w, self.cfg.inp_depth):
-      raise NotImplementedError(
-          f'images of shape {images.shape}: this port serves '
-          f'[B,{h},{w},{self.cfg.inp_depth}] only; resizing (cv2 in the JAX '
-          'package) comes with a later slice')
     if images.max() > 1.5:      # uint8-style range
       images = images / 255.0
-    return torch.from_numpy(images).to(self.device)
+    orig = images.shape[1:3]
+    x = torch.from_numpy(images).to(self.device)
+    x = pp.resize(x.permute(0, 3, 1, 2), size).permute(0, 2, 3, 1)
+    return x.contiguous(), orig
 
-  def predict(self, images):
+  def predict(self, images, full_size=True):
     """Segment instances.  Returns a dict of numpy arrays: 'masks'
-    [B,T,H,W] uint8, 'soft_masks' float, 'scores' [B,T], 'counts' [B]."""
+    [B,T,H,W] uint8, 'soft_masks' float, 'scores' [B,T], 'counts' [B]; H, W
+    the images' size with ``full_size``, else the model's."""
     with torch.inference_mode():
-      x = self._prepare(images)
+      x, orig = self._prepare(images)
       out = full_model_forward(self.model, x)
       y_out, s_out = out['y_out'], out['s_out']
       y, conf = pp.apply_confidence(y_out, s_out)
       y = pp.apply_one_label(y)
+      if full_size and orig != y.shape[-2:]:
+        y = pp.upsample(y, [orig] * y.shape[0])
       masks = pp.apply_threshold(y, self.threshold)
       if self.remove_tiny:
         masks, conf = pp.remove_tiny(masks, conf, threshold=self.remove_tiny)

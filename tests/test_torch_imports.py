@@ -2,8 +2,9 @@
 h5py, cv2, optax or triton, which the machine with the card may lack), reads
 YAML only inside its YAML reader, and never falls back to the CPU by
 itself.  Every module of the package is covered, the training path's
-(losses, matching, boxes, augmentation, train step, trainer) included, and
-a train step runs with those modules blocked."""
+(losses, matching, boxes, augmentation, train step, trainer) and the eval
+path's (postprocess, analyzers, eval experiment, eval_split) included, and
+a train step and an eval_split run with those modules blocked."""
 
 import ast
 import os
@@ -17,6 +18,7 @@ import torch
 
 from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch import device as device_mod
+from rec_attend_tpu_torch.engine.experiment import EvalExperiment
 from rec_attend_tpu_torch.engine.trainer import Trainer
 from rec_attend_tpu_torch.models.full_model import FullModel
 from rec_attend_tpu_torch.serving import InstanceSegmenter
@@ -46,7 +48,7 @@ def _port_modules():
   return mods
 
 
-def test_port_imports_with_those_modules_missing():
+def test_port_imports_with_those_modules_missing(tmp_path):
   script = textwrap.dedent(f"""
       import importlib, sys
       BLOCKED = {BLOCKED!r}
@@ -76,6 +78,29 @@ def test_port_imports_with_those_modules_missing():
       data = synthetic_instances(2, 64, 64, cfg.timespan, seed=1)
       history = trainer.run(1, iter([data]))
       assert trainer.step == 1 and history[0]['loss'] == history[0]['loss']
+      # The eval path: a params-only checkpoint in the JAX layout, an
+      # in-memory dataset, the postprocess chain and the analyzers.
+      import os
+      import numpy as np
+      from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS, eval_split
+      from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+      from rec_attend_tpu_torch.engine import saver
+      from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+      cfg = config.tiny_full_config()
+      state = FullModel(cfg, device='cpu').state_dict()
+      names = saver.jax_leaf_order(state)
+      folder = {str(tmp_path)!r}
+      np.savez(os.path.join(folder, 'ckpt-7.npz'), num_leaves=len(names),
+               **{{f'leaf_{{i}}': state[n].numpy()
+                  for i, n in enumerate(names)}})
+      exp = EvalExperiment(folder, cfg=cfg, device='cpu')
+      ds = SyntheticDataset(3, 64, 64, cfg.timespan, seed=2)
+      out = os.path.join(folder, 'out')
+      summary = eval_split(exp, ds, out, [0.3, 0.5],
+                           DEFAULT_ANALYZERS + ['ins_iou', 'count'],
+                           batch_size=2, score_threshold=0.4)
+      assert sorted(summary) == [0.3, 0.5] and len(summary[0.3]) == 14
+      assert os.path.exists(os.path.join(out, 'count_50.csv'))
       leaked = [m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
       assert not leaked, leaked
@@ -132,6 +157,9 @@ def test_entry_points_default_to_cuda(monkeypatch):
   seg = InstanceSegmenter(params, cfg, device='cpu')
   out = seg.predict(np.zeros((1, 64, 64, 3), np.float32))
   assert out['masks'].shape == (1, 4, 64, 64)
+  flagship = os.path.join(REPO, 'results', 'full_model_synth-20260816104712')
+  with pytest.raises(RuntimeError, match='CUDA'):
+    EvalExperiment(flagship, cfg=C.cvppp_full_config())
 
 
 def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
