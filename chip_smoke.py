@@ -12,10 +12,12 @@ Phases, one JSON line each on stdout:
                 static shared memory as nvcc -Xptxas -v reports them (the
                 paste kernel and both extract routes must be there);
   kernels       each hand-written kernel against its plain PyTorch version,
-                at the serving path's shapes (CVPPP, b128, b8 and b1) and at
-                a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
-                CUDA-event times; each extract names its route (the tiled
-                kernel and its output rows a block, or the general one);
+                at the serving path's shapes (CVPPP, b128, b8 and b1), at
+                the synth3 chain's (KITTI 128x448, b32, extract D=13, paste
+                D=1, 48x48 glimpse) and at a ragged shape (KITTI 128x448,
+                D=13, 48x64 glimpse), with CUDA-event times; each extract
+                names its route (the tiled kernel and its output rows a
+                block, or the general one);
   kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
                 against plain autograd through the einsums, every input
                 gradient, at the CVPPP train shapes (b32) and the KITTI
@@ -50,7 +52,21 @@ Phases, one JSON line each on stdout:
                 the kernels' SBD is held to the plain one within a limit
                 set from that floor, and the counts must be equal; upsample
                 on the card against the CPU; host seconds per batch of the
-                postprocess chain and of the analyzers.
+                postprocess chain and of the analyzers;
+  chain         the KITTI-shaped chain of the synth3 checkpoints (a checkout
+                without them fails): the fg model over 64 synthetic 128x448
+                images with labels at b32, its maps packed to uint8 as the
+                JAX H5 pack writes them (the same bytes quantised on the
+                card as on the host), and eval_split of the full model on
+                the packed channels, score threshold 0.15 and mask threshold
+                0.40, with the kernels, the plain glimpses and reordered
+                plain einsums, counting kernel launches (20 extracts, all on
+                the general route, and 40 pastes a b32 forward); the b32
+                forward kernel against plain and the fg and full forwards
+                card against CPU (b2) held to their limits, per-example SBD
+                and counts as in eval; host seconds per batch of the fg
+                forward, the pack, the full forward, the postprocess chain
+                and the analyzers.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -73,6 +89,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 CHECKPOINT_DIR = os.path.join(REPO, 'results',
                               'full_model_synth-20260816104712')
+# The KITTI-shaped chain: the fg model, then the full model on its packed
+# predictions (RESULTS.md, the synth3 runs).
+CHAIN_FG_DIR = os.path.join(REPO, 'results', 'fg_model_synth3-20260818a')
+CHAIN_FULL_DIR = os.path.join(REPO, 'results', 'full_model_synth3-20260818a')
 REPLACES = {
     'glimpse_extract': 'rec_attend_tpu/ops/pallas/glimpse.py:62',
     'glimpse_paste': 'rec_attend_tpu/ops/pallas/glimpse.py:75',
@@ -163,6 +183,14 @@ EVAL_SBD_FLOOR_FACTOR, EVAL_CSV_RESOLUTION = 2.0, 1e-4
 # upsample on the card against the CPU: the tolerance the CPU tests hold
 # it to against cv2.
 UPSAMPLE_ATOL = 1e-6
+# The chain: the synth3 valid split's size and generator knobs (64 of its
+# 256 examples: seed 4, up to 12 objects), the JAX TrainConfig batch size,
+# the headline's thresholds (count_calibration.json).
+CHAIN_EXAMPLES, CHAIN_BATCH, CHAIN_MAX_OBJECTS = 64, 32, 12
+CHAIN_MASK_THRESHOLD, CHAIN_SCORE_THRESHOLD = 0.4, 0.15
+# The fg forward, card against CPU: its sigmoid and softmax maps, largest
+# difference (the port against JAX on the CPU: 1.3e-6 and 3.7e-6).
+FG_MAPS_ATOL = 1e-4
 
 
 def emit(phase, **fields):
@@ -244,6 +272,21 @@ def bound(nbytes, flops):
   return (t_bytes, 'bytes') if t_bytes >= t_ops else (t_ops, 'operations')
 
 
+def extract_flops(b, h, w, d, fh, fw):
+  """Operations of patch = f_y^T x f_x in its cheaper contraction order:
+  over h first ([b,fh,w,d], then w) or over w first ([b,h,fw,d], then h)."""
+  return 2 * b * min(fh * h * w * d + fh * w * fw * d,
+                     h * w * fw * d + fh * h * fw * d)
+
+
+def paste_flops(b, h, w, d, fh, fw):
+  """Operations of out = f_y p f_x^T in its cheaper contraction order:
+  over fh first ([b,h,fw,d], then fw) or over fw first ([b,fh,w,d],
+  then fh)."""
+  return 2 * b * min(h * fh * fw * d + h * w * fw * d,
+                     fh * w * fw * d + h * fh * w * d)
+
+
 def filters(torch, attention, b, h, w, fh, fw, gen, dev):
   """Filter banks as the model makes them: random boxes inside the image,
   tap variance from box size over glimpse size."""
@@ -264,13 +307,13 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
     kernel, plain = gk.glimpse_extract, gk.extract_patch_plain
     library = lambda: torch.einsum('bhf,bhwd,bwg->bfgd', f_y, a, f_x)
     nbytes = 4 * (b * h * w * d + b * h * fh + b * w * fw + b * fh * fw * d)
-    flops = 2 * b * (fh * h * w * d + fh * w * d * fw)
+    flops = extract_flops(b, h, w, d, fh, fw)
   else:
     a = torch.rand((b, fh, fw, d), generator=gen, device=dev)
     kernel, plain = gk.glimpse_paste, gk.paste_patch_plain
     library = lambda: torch.einsum('bhf,bfgd,bwg->bhwd', f_y, a, f_x)
     nbytes = 4 * (b * fh * fw * d + b * h * fh + b * w * fw + b * h * w * d)
-    flops = 2 * b * (h * fh * fw * d + h * w * fw * d)
+    flops = paste_flops(b, h, w, d, fh, fw)
   got = kernel(a, f_y, f_x)
   torch.cuda.synchronize()
   want = plain(a, f_y, f_x)
@@ -337,7 +380,7 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
     use_plain = lambda: attention.paste_patch(g, f_y, f_x)
     use_library = lambda: torch.einsum('bhf,bfgd,bwg->bhwd', f_y, g, f_x)
     nbytes = 4 * (b * fh * fw * d + b * h * fh + b * w * fw + b * h * w * d)
-    flops = 2 * b * (h * fh * fw * d + h * w * fw * d)
+    flops = paste_flops(b, h, w, d, fh, fw)
     use_kernel = 'glimpse_paste'
 
     def filter_grads():
@@ -350,7 +393,7 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
     use_plain = lambda: attention.extract_patch(g, f_y, f_x)
     use_library = lambda: torch.einsum('bhf,bhwd,bwg->bfgd', f_y, g, f_x)
     nbytes = 4 * (b * h * w * d + b * h * fh + b * w * fw + b * fh * fw * d)
-    flops = 2 * b * (fh * h * w * d + fh * w * d * fw)
+    flops = extract_flops(b, h, w, d, fh, fw)
     use_kernel = 'glimpse_extract'
 
     def filter_grads():
@@ -577,56 +620,55 @@ def read_scores(folder, name):
   return {r[0]: float(r[1]) for r in rows if r[0] not in ('Mean', 'Std')}
 
 
-def eval_phase(torch, cfg, gk):
-  """The eval path: eval_split over a synthetic split with the kernel
-  glimpses, the plain ones and the reordered plain ones (the float32
-  floor), cuDNN deterministic; launches counted on the kernel run."""
+def eval_runs(torch, gk, folder, cfg, dataset, examples, batch, threshold,
+              score_threshold, label):
+  """eval_split of the full model in ``folder`` over ``dataset`` (one mask
+  threshold) with the kernel glimpses, launches counted (T extracts and 2T
+  pastes a batch), the plain ones and the reordered plain ones (the float32
+  floor), cuDNN deterministic, each writing its CSVs to a temporary folder
+  inside the checkout.  Per example, the kernels' SBD is held to the plain
+  one within twice the floor plus the CSVs' resolution, and the counts
+  must be equal.  Returns (runs {'kernel', 'plain', 'reordered_plain'}:
+  means, per-example sbd and dic, seconds, timings; launches; stats;
+  the SBD limit; failures)."""
   from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS
   from rec_attend_tpu_torch.cli.eval import eval_split
-  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
   from rec_attend_tpu_torch.engine.experiment import EvalExperiment
-  from rec_attend_tpu_torch.models.full_model import full_model_forward
-  from rec_attend_tpu_torch.utils import postprocess as pp
-
   T = cfg.timespan
-  ds = SyntheticDataset(EVAL_EXAMPLES, cfg.inp_height, cfg.inp_width, T,
-                        seed=4)
-  n_batches = -(-EVAL_EXAMPLES // EVAL_BATCH)
+  n_batches = -(-examples // batch)
   names = DEFAULT_ANALYZERS + ['count']
 
-  def run(glimpse, label):
-    exp = EvalExperiment(CHECKPOINT_DIR, cfg=cfg, device='cuda',
-                         glimpse=glimpse)
-    out = os.path.join(csv_root, label)
+  def run(glimpse, name):
+    exp = EvalExperiment(folder, cfg=cfg, device='cuda', glimpse=glimpse)
+    out = os.path.join(csv_root, name)
     timings = {}
     t0 = time.time()
     with deterministic_cudnn(torch):
-      summary = eval_split(exp, ds, out, [EVAL_THRESHOLD], names,
-                           batch_size=EVAL_BATCH,
-                           score_threshold=EVAL_THRESHOLD, timings=timings)
+      summary = eval_split(exp, dataset, out, [threshold], names,
+                           batch_size=batch, score_threshold=score_threshold,
+                           timings=timings)
     seconds = time.time() - t0
-    means = {k.split()[0]: float(v[0])
-             for k, v in summary[EVAL_THRESHOLD].items()}
+    means = {k.split()[0]: float(v[0]) for k, v in summary[threshold].items()}
     if not all(math.isfinite(v) for v in means.values()):
-      raise AssertionError(f'eval {label}: means {means}')
+      raise AssertionError(f'{label} {name}: means {means}')
     per_example = {n: read_scores(out, n) for n in ('sbd', 'dic')}
-    if len(per_example['sbd']) != EVAL_EXAMPLES:
-      raise AssertionError(f'eval {label}: {len(per_example["sbd"])} rows')
+    if len(per_example['sbd']) != examples:
+      raise AssertionError(f'{label} {name}: {len(per_example["sbd"])} rows')
     return {'means': means, 'per_example': per_example, 'seconds': seconds,
             'timings': timings}
 
-  # The analyzers' CSVs go to a temporary folder inside the checkout.
-  with tempfile.TemporaryDirectory(prefix='.chip_smoke_eval-',
+  with tempfile.TemporaryDirectory(prefix=f'.chip_smoke_{label}-',
                                    dir=REPO) as csv_root:
     gk.reset_launch_counts()
-    kernel = run('kernel', 'kernel')
+    runs = {'kernel': run('kernel', 'kernel')}
     launches = gk.launch_counts()
     want = {'glimpse_extract': T * n_batches,
             'glimpse_paste': 2 * T * n_batches}
     if launches != want:
-      raise AssertionError(f'eval: kernel launches {launches}, want {want}')
-    plain = run('plain', 'plain')
-    floor = run(reordered_plain(torch), 'reordered_plain')
+      raise AssertionError(f'{label}: kernel launches {launches}, want '
+                           f'{want}')
+    runs['plain'] = run('plain', 'plain')
+    runs['reordered_plain'] = run(reordered_plain(torch), 'reordered_plain')
 
   def compare(got, ref):
     sbd, sbd_ref = got['per_example']['sbd'], ref['per_example']['sbd']
@@ -634,16 +676,38 @@ def eval_phase(torch, cfg, gk):
     return {'sbd_max_abs_diff': max(abs(sbd[k] - sbd_ref[k]) for k in sbd),
             'sbd_differ': sorted(k for k in sbd if sbd[k] != sbd_ref[k]),
             'count_differ': sorted(k for k in dic if dic[k] != dic_ref[k])}
-  floor_stats = compare(floor, plain)
-  kernel_stats = compare(kernel, plain)
-  sbd_limit = (EVAL_SBD_FLOOR_FACTOR * floor_stats['sbd_max_abs_diff']
+  stats = {'kernel_vs_plain': compare(runs['kernel'], runs['plain']),
+           'reordered_plain_vs_plain': compare(runs['reordered_plain'],
+                                               runs['plain'])}
+  sbd_limit = (EVAL_SBD_FLOOR_FACTOR
+               * stats['reordered_plain_vs_plain']['sbd_max_abs_diff']
                + EVAL_CSV_RESOLUTION)
   failures = []
+  kernel_stats = stats['kernel_vs_plain']
   if kernel_stats['sbd_max_abs_diff'] > sbd_limit:
     failures.append(f'SBD differs by {kernel_stats["sbd_max_abs_diff"]}, '
                     f'limit {sbd_limit}')
   if kernel_stats['count_differ']:
     failures.append(f'counts differ at {kernel_stats["count_differ"]}')
+  return runs, launches, stats, sbd_limit, failures
+
+
+def eval_phase(torch, cfg, gk):
+  """The eval path: eval_split over a synthetic split with the kernel
+  glimpses, the plain ones and the reordered plain ones (the float32
+  floor), cuDNN deterministic; launches counted on the kernel run."""
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+  from rec_attend_tpu_torch.utils import postprocess as pp
+
+  ds = SyntheticDataset(EVAL_EXAMPLES, cfg.inp_height, cfg.inp_width,
+                        cfg.timespan, seed=4)
+  runs, launches, stats, sbd_limit, failures = eval_runs(
+      torch, gk, CHECKPOINT_DIR, cfg, ds, EVAL_EXAMPLES, EVAL_BATCH,
+      EVAL_THRESHOLD, EVAL_THRESHOLD, 'eval')
+  kernel, plain, floor = (runs[k] for k in ('kernel', 'plain',
+                                            'reordered_plain'))
 
   # upsample on the card against the CPU, on the same confidence-weighted
   # maps: at the model's size (the eval path) and at 530x500 (serving).
@@ -671,8 +735,7 @@ def eval_phase(torch, cfg, gk):
       'launches': launches,
       'means': {'kernel': kernel['means'], 'plain': plain['means'],
                 'reordered_plain': floor['means']},
-      'kernel_vs_plain': kernel_stats,
-      'reordered_plain_vs_plain': floor_stats,
+      **stats,
       'limits': {'sbd_max_abs_diff': sbd_limit, 'count_differ': 0,
                  'upsample_card_vs_cpu': UPSAMPLE_ATOL},
       'upsample_card_vs_cpu_max_abs': upsample,
@@ -681,6 +744,124 @@ def eval_phase(torch, cfg, gk):
       'host_seconds_per_batch_median': {
           k: median(v) for k, v in kernel['timings'].items()},
       'host_seconds_per_batch': kernel['timings']}
+
+
+def chain_phase(torch, gk):
+  """The KITTI-shaped chain: the fg model, the in-memory pack and eval_split
+  of the full model on the packed channels, with the kernel glimpses, the
+  plain ones and the reordered plain ones (the float32 floor), cuDNN
+  deterministic; launches counted on the kernel run."""
+  from rec_attend_tpu_torch.cli.pack import pack_fg
+  from rec_attend_tpu_torch.cli.pack import quantise
+  from rec_attend_tpu_torch.config import kitti_fg_config
+  from rec_attend_tpu_torch.config import kitti_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.models.fg_model import FGModel
+  from rec_attend_tpu_torch.models.fg_model import fg_model_forward
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+
+  fg_cfg, cfg = kitti_fg_config(), kitti_full_config()
+  T = cfg.timespan
+  ds = SyntheticDataset(CHAIN_EXAMPLES, cfg.inp_height, cfg.inp_width, T,
+                        seed=4, max_objects=CHAIN_MAX_OBJECTS)
+  fg = EvalExperiment(CHAIN_FG_DIR, cfg=fg_cfg, device='cuda', spec='fg')
+  pack_timings = {}
+  t0 = time.time()
+  with deterministic_cudnn(torch):
+    packed = pack_fg(fg, ds, CHAIN_BATCH, timings=pack_timings)
+  pack_seconds = time.time() - t0
+  runs, launches, stats, sbd_limit, failures = eval_runs(
+      torch, gk, CHAIN_FULL_DIR, cfg, packed, CHAIN_EXAMPLES, CHAIN_BATCH,
+      CHAIN_MASK_THRESHOLD, CHAIN_SCORE_THRESHOLD, 'chain')
+  kernel, plain, floor = (runs[k] for k in ('kernel', 'plain',
+                                            'reordered_plain'))
+
+  # The b32 forward on the packed channels: kernel against plain (the
+  # serving gate), the reordered plain floor beside it; the extract takes
+  # the general route.
+  exp = EvalExperiment(CHAIN_FULL_DIR, cfg=cfg, device='cuda')
+  raw = packed.get_batch(range(CHAIN_BATCH), timespan=T)
+  x, d_in, y_in = (torch.from_numpy(raw[k]).cuda()
+                   for k in ('x', 'd_out', 'y_out'))
+  route = gk.extract_route(CHAIN_BATCH, cfg.inp_height, cfg.inp_width,
+                           cfg.acnn_inp_depth, cfg.filter_height,
+                           cfg.filter_width)
+  if route['kernel'] != 'extract_kernel_general':
+    failures.append(f'the chain\'s extract takes {route}')
+  with deterministic_cudnn(torch), torch.inference_mode():
+    want = full_model_forward(exp.model, x, d_in, y_in, glimpse='plain')
+    reordered = forward_diff(full_model_forward(
+        exp.model, x, d_in, y_in, glimpse=reordered_plain(torch)), want)
+    got = full_model_forward(exp.model, x, d_in, y_in, glimpse='kernel')
+    kernel_vs_plain = forward_diff(got, want)
+    # The card against the CPU on two images: the fg maps, their packed
+    # bytes, the full forward.
+    x2 = x[:2]
+    cpu_fg = FGModel(fg_cfg, device='cpu')
+    cpu_fg.load_state_dict(fg.model.state_dict())
+    fg_got = fg_model_forward(fg.model, x2)
+    fg_want = fg_model_forward(cpu_fg, x2.cpu())
+    fg_card_vs_cpu = {k: float((fg_got[k].cpu() - fg_want[k]).abs().max())
+                      for k in ('y_out', 'd_out')}
+    bytes_differ_share = {k: float((quantise(fg_got[k]).cpu()
+                                    != quantise(fg_want[k])).float().mean())
+                          for k in ('y_out', 'd_out')}
+    quantised_on_host = {k: bool(torch.equal(quantise(fg_got[k]).cpu(),
+                                             quantise(fg_got[k].cpu())))
+                         for k in ('y_out', 'd_out')}
+    cpu_model = FullModel(exp.cfg, device='cpu')
+    cpu_model.load_state_dict(exp.model.state_dict())
+    full_card_vs_cpu = forward_diff(
+        full_model_forward(exp.model, x2, d_in[:2], y_in[:2]),
+        full_model_forward(cpu_model, x2.cpu(), d_in[:2].cpu(),
+                           y_in[:2].cpu()))
+  for label, diff in (('kernel_vs_plain_b32', kernel_vs_plain),
+                      ('card_vs_cpu_b2', full_card_vs_cpu)):
+    if gate_failures(diff):
+      failures.append(f'{label}: {diff}')
+  if max(fg_card_vs_cpu.values()) > FG_MAPS_ATOL:
+    failures.append(f'fg card against CPU: {fg_card_vs_cpu}')
+  if not all(quantised_on_host.values()):
+    failures.append(f'the pack\'s bytes differ on the host: '
+                    f'{quantised_on_host}')
+  if failures:
+    raise AssertionError(f'chain gates: {failures}')
+  median = lambda v: statistics.median(v) if v else None
+  per_batch = {'fg_forward': pack_timings['forward'],
+               'pack': pack_timings['pack'],
+               'full_forward': kernel['timings']['forward'],
+               'postprocess': kernel['timings']['postprocess'],
+               'analyzers': kernel['timings']['analyzers']}
+  return {
+      'examples': CHAIN_EXAMPLES, 'batch': CHAIN_BATCH,
+      'weights': [os.path.relpath(d, REPO) for d in (CHAIN_FG_DIR,
+                                                     CHAIN_FULL_DIR)],
+      'thresholds': {'score': CHAIN_SCORE_THRESHOLD,
+                     'mask': CHAIN_MASK_THRESHOLD},
+      'launches': launches, 'extract_route': route,
+      'means': {'kernel': kernel['means'], 'plain': plain['means'],
+                'reordered_plain': floor['means']},
+      **stats,
+      'kernel_vs_plain_b32': kernel_vs_plain,
+      'reordered_plain_vs_plain_b32': reordered,
+      'full_card_vs_cpu_b2': full_card_vs_cpu,
+      'fg_card_vs_cpu_b2_max_abs': fg_card_vs_cpu,
+      'fg_card_vs_cpu_b2_packed_bytes_differ_share': bytes_differ_share,
+      'pack_same_bytes_on_host': quantised_on_host,
+      'limits': {'sbd_max_abs_diff': sbd_limit, 'count_differ': 0,
+                 'y_out_mean': Y_OUT_MEAN_ATOL,
+                 'y_out_moved_share': Y_OUT_MOVED_SHARE,
+                 'y_out_moved': Y_OUT_MOVED, 's_out_max': S_OUT_ATOL,
+                 'fg_maps_max_abs': FG_MAPS_ATOL},
+      'seconds': {'fg_and_pack': pack_seconds,
+                  **{k: v['seconds'] for k, v in (
+                      ('kernel', kernel), ('plain', plain),
+                      ('reordered_plain', floor))}},
+      'host_seconds_per_batch_median': {k: median(v)
+                                        for k, v in per_batch.items()},
+      'host_seconds_per_batch': per_batch}
 
 
 def flagship_segmenter(cfg):
@@ -828,6 +1009,7 @@ def main():
     sys.exit('chip_smoke: CUDA is not available; this script runs on a card')
   import numpy as np
   from rec_attend_tpu_torch.config import cvppp_full_config
+  from rec_attend_tpu_torch.config import kitti_full_config
   from rec_attend_tpu_torch.data.synthetic import synthetic_images
   from rec_attend_tpu_torch.models.full_model import FullModel
   from rec_attend_tpu_torch.models.full_model import full_model_forward
@@ -874,24 +1056,39 @@ def main():
                         cfg.filter_height, cfg.filter_width),
   }
   ragged_dims = (16, 128, 448, 13, 48, 64)
+  # The synth3 chain's forward at b32: extract x [32,128,448,13] (image,
+  # canvas, orientation, foreground), paste [32,48,48,1] -> 128x448.
+  chain_cfg = kitti_full_config()
+  chain_dims = {
+      'glimpse_extract': (CHAIN_BATCH, chain_cfg.inp_height,
+                          chain_cfg.inp_width, chain_cfg.acnn_inp_depth,
+                          chain_cfg.filter_height, chain_cfg.filter_width),
+      'glimpse_paste': (CHAIN_BATCH, chain_cfg.inp_height,
+                        chain_cfg.inp_width, 1, chain_cfg.filter_height,
+                        chain_cfg.filter_width),
+  }
   checks = {}
   for name, dims in main_dims.items():
     checks[name] = check_kernel(torch, gk, attention, name, *dims, gen, dev,
                                 timed=True)
     checks[name]['ragged'] = check_kernel(torch, gk, attention, name,
                                           *ragged_dims, gen, dev, timed=False)
+    checks[name]['synth3'] = check_kernel(torch, gk, attention, name,
+                                          *chain_dims[name], gen, dev,
+                                          timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
       checks[name][f'b{b}'] = check_kernel(torch, gk, attention, name, b,
                                            *dims[1:], gen, dev, timed=True)
-  # The main path's extracts take the tiled kernel, the ragged one the
-  # general kernel.
+  # The flagship's extracts take the tiled kernel, the ragged one and the
+  # synth3 chain's the general kernel.
   ex = checks['glimpse_extract']
   routes = [c['route']['kernel'] for c in (ex, ex['b8'], ex['b1'],
-                                           ex['ragged'])]
-  if routes != ['extract_tiled_kernel'] * 3 + ['extract_kernel_general']:
-    raise AssertionError(f'extract routes (b128, b8, b1, ragged): {routes}')
+                                           ex['ragged'], ex['synth3'])]
+  if routes != ['extract_tiled_kernel'] * 3 + ['extract_kernel_general'] * 2:
+    raise AssertionError(f'extract routes (b128, b8, b1, ragged, synth3): '
+                         f'{routes}')
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 
@@ -1031,6 +1228,9 @@ def main():
   evals = eval_phase(torch, cfg, gk)
   emit('eval', nvidia_smi=name_power, **evals)
 
+  chain = chain_phase(torch, gk)
+  emit('chain', nvidia_smi=name_power, **chain)
+
   table = []
   for name, c in checks.items():
     table.append({
@@ -1049,6 +1249,22 @@ def main():
         **{f'b{b}': {k: c[f'b{b}'][k] for k in (
             'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
             'bound_share', 'route') if k in c[f'b{b}']} for b in (8, 1)}})
+  # The synth3 chain's forward shapes (its launches from the chain phase).
+  for name, c in checks.items():
+    c = c['synth3']
+    table.append({
+        'name': name, 'route': 'cuda', 'source': SOURCE,
+        'replaces': REPLACES[name],
+        'use': 'forward, synth3 chain, {} [{}]'.format(
+            'x' if name == 'glimpse_extract' else 'out',
+            ','.join(str(v) for v in chain_dims[name][:4])),
+        'launches': chain['launches'][name],
+        'launches_by_path': {'chain': chain['launches'][name]},
+        'max_abs_err': c['max_abs_err'], 'ms': c['kernel_ms'],
+        'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
+        'bound_by': c['bound_by'], 'bound_share': c['bound_share'],
+        'library_ms': c['library_ms'],
+        **({'kernel_route': c['route']} if 'route' in c else {})})
   # The kernels' backward uses that the main paths run: extract as d_p of
   # paste (paste as d_x of extract is not on them: the flagship's glimpse
   # input needs no gradient; kernels_grad checks and times it).

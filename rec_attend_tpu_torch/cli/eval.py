@@ -20,6 +20,7 @@ import time
 import torch
 
 from rec_attend_tpu_torch import analysis
+from rec_attend_tpu_torch.device import synchronize
 from rec_attend_tpu_torch.utils import postprocess as pp
 
 DEFAULT_ANALYZERS = ['sbd', 'wt_cov', 'unwt_cov', 'avg_fp', 'avg_fn',
@@ -48,11 +49,6 @@ def _analyzer_sets(output_folder, threshold_list, analyzer_names):
         fname=os.path.join(output_folder, csv_stem.format(name)))
                  for name in analyzer_names])
   return sets
-
-
-def _sync(device):
-  if device.type == 'cuda':
-    torch.cuda.synchronize(device)
 
 
 def eval_split(exp, dataset, output_folder, threshold_list, analyzer_names,
@@ -93,7 +89,7 @@ def eval_split(exp, dataset, output_folder, threshold_list, analyzer_names,
       break
     n_batch += 1
     y_out, s_out = outputs['y_out'], outputs['s_out']
-    _sync(y_out.device)
+    synchronize(y_out.device)
     t1 = time.perf_counter()
     idx_map = raw['idx_map']
     y_gt_h = ds.get_full_size_labels(idx_map, timespan=y_out.shape[1])

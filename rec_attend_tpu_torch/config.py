@@ -1,10 +1,11 @@
-"""Configuration of the flagship model, as far as its forward, loss and
-train step read it.
+"""Configuration of the full and fg models, as far as their forwards, loss
+and train step read it.
 
 Counterpart of ``rec_attend_tpu/config.py``.  Field names and defaults are
-those of the JAX ``FullModelConfig``, so a ``model_opt.yaml`` written by the
-JAX trainer loads here unchanged; keys the port does not read (pretrain
-paths, the Pallas and scan switches) are ignored on load.
+those of the JAX ``FullModelConfig`` and ``FGModelConfig``, so a
+``model_opt.yaml`` written by the JAX trainer loads here unchanged; keys the
+port does not read (pretrain paths, the Pallas and scan switches) are
+ignored on load.
 """
 
 from __future__ import annotations
@@ -25,18 +26,48 @@ def _tuple(x):
 
 
 # Dataset geometry and augmentation defaults (JAX config.py DATASET_DIMS,
-# DATASET_TRANSFORMS), for the one dataset this package serves so far.
+# DATASET_TRANSFORMS), for the datasets of the presets below.
 DATASET_DIMS = {
     'cvppp': dict(inp_height=224, inp_width=224, timespan=21),
+    'kitti': dict(inp_height=128, inp_width=448, timespan=20),
 }
 DATASET_TRANSFORMS = {
     'cvppp': dict(rnd_hflip=True, rnd_vflip=True, rnd_transpose=True,
                   rnd_colour=False),
+    'kitti': dict(rnd_hflip=False, rnd_vflip=False, rnd_transpose=False,
+                  rnd_colour=False),
 }
 
 
+class _ConfigBase:
+  """Load, save and replace, shared by the configs."""
+
+  @classmethod
+  def from_dict(cls, d):
+    """Build from a flat option dict; keys this config lacks are ignored."""
+    kwargs = {}
+    for fld in dataclasses.fields(cls):
+      if fld.name in d:
+        v = d[fld.name]
+        kwargs[fld.name] = _tuple(v) if 'Tuple' in str(fld.type) else v
+    return cls(**kwargs)
+
+  @classmethod
+  def from_yaml(cls, path):
+    import yaml   # only this reader needs it
+    with open(path) as f:
+      return cls.from_dict(yaml.safe_load(f))
+
+  def to_dict(self):
+    return {k: (list(v) if isinstance(v, tuple) else v)
+            for k, v in dataclasses.asdict(self).items()}
+
+  def replace(self, **kw):
+    return dataclasses.replace(self, **kw)
+
+
 @dataclass(frozen=True)
-class FullModelConfig:
+class FullModelConfig(_ConfigBase):
   """Options of the recurrent-attention model that the port reads."""
   # Geometry
   timespan: int = 21
@@ -133,31 +164,6 @@ class FullModelConfig:
   remat: bool = False             # recompute each timestep in the backward
   accumulate_greedy_match: bool = False
 
-  # ---- load / save -----------------------------------------------------
-
-  @classmethod
-  def from_dict(cls, d):
-    """Build from a flat option dict; keys this config lacks are ignored."""
-    kwargs = {}
-    for fld in dataclasses.fields(cls):
-      if fld.name in d:
-        v = d[fld.name]
-        kwargs[fld.name] = _tuple(v) if 'Tuple' in str(fld.type) else v
-    return cls(**kwargs)
-
-  @classmethod
-  def from_yaml(cls, path):
-    import yaml   # only this reader needs it
-    with open(path) as f:
-      return cls.from_dict(yaml.safe_load(f))
-
-  def to_dict(self):
-    return {k: (list(v) if isinstance(v, tuple) else v)
-            for k, v in dataclasses.asdict(self).items()}
-
-  def replace(self, **kw):
-    return dataclasses.replace(self, **kw)
-
   # ---- derived helpers -------------------------------------------------
 
   def resolved_input_flags(self):
@@ -249,6 +255,39 @@ class FullModelConfig:
 FORWARD_FIELDS = tuple(f.name for f in dataclasses.fields(FullModelConfig))
 
 
+@dataclass(frozen=True)
+class FGModelConfig(_ConfigBase):
+  """Options of the fully-convolutional foreground and orientation model
+  (JAX config.py:403-441) that its eval forward reads; the training
+  options wait for the fg training."""
+  inp_height: int = 224
+  inp_width: int = 224
+  inp_depth: int = 3
+  cnn_filter_size: Tuple[int, ...] = (3, 3, 3, 3, 3)
+  cnn_depth: Tuple[int, ...] = (4, 8, 8, 12, 16)
+  cnn_pool: Tuple[int, ...] = (2, 2, 2, 2, 2)
+  dcnn_filter_size: Tuple[int, ...] = (3, 3, 3, 3, 3, 3)
+  dcnn_depth: Tuple[int, ...] = (8, 6, 4, 4, 2, 1)
+  dcnn_pool: Tuple[int, ...] = (2, 2, 2, 2, 2, 1)
+  use_bn: bool = True
+  add_skip_conn: bool = True
+  cnn_skip_mask: Optional[Tuple[int, ...]] = None
+  dcnn_skip_mask: Optional[Tuple[int, ...]] = None
+  add_orientation: bool = False
+  num_orientation_classes: int = 8
+  num_semantic_classes: int = 1
+
+  def resolved_cnn_skip_mask(self):
+    if self.cnn_skip_mask is not None:
+      return tuple(bool(v) for v in self.cnn_skip_mask)
+    return tuple([self.add_skip_conn] * len(self.cnn_filter_size))
+
+  def resolved_dcnn_skip_mask(self):
+    if self.dcnn_skip_mask is not None:
+      return tuple(bool(v) for v in self.dcnn_skip_mask)
+    return self.resolved_cnn_skip_mask()[::-1]
+
+
 def cvppp_full_config() -> FullModelConfig:
   """The flagship CVPPP preset (JAX config.py:531-558, ref run_cvppp.sh),
   restricted to the fields the port reads."""
@@ -278,6 +317,60 @@ def cvppp_full_config() -> FullModelConfig:
       remat=True, **DATASET_TRANSFORMS['cvppp'])
 
 
+def kitti_full_config() -> FullModelConfig:
+  """The KITTI preset (JAX config.py:597-629, ref run_kitti.sh:69-111):
+  128x448 input, T=20, the packed orientation and foreground channels into
+  both nets."""
+  d = DATASET_DIMS['kitti']
+  return FullModelConfig(
+      timespan=d['timespan'], inp_height=d['inp_height'],
+      inp_width=d['inp_width'],
+      use_knob=True, knob_decay=0.5, steps_per_knob_decay=1500,
+      knob_box_offset=100, knob_segm_offset=8000, knob_use_timescale=True,
+      box_loss_fn='iou', segm_loss_fn='iou',
+      ctrl_cnn_filter_size=(3,) * 8,
+      ctrl_cnn_depth=(16, 16, 32, 32, 64, 64, 64, 64),
+      ctrl_cnn_pool=(2, 2, 1, 2, 1, 2, 1, 2),
+      num_ctrl_mlp_layers=1,
+      attn_cnn_filter_size=(3,) * 6,
+      attn_cnn_depth=(16, 32, 32, 64, 64, 96),
+      attn_cnn_pool=(1, 2, 1, 2, 1, 2),
+      attn_dcnn_filter_size=(3,) * 7,
+      attn_dcnn_depth=(64, 64, 32, 32, 16, 16, 1),
+      attn_dcnn_pool=(2, 1, 2, 1, 2, 1, 1),
+      attn_cnn_skip=(1, 0, 1, 0, 1, 0, 1, 0),
+      filter_height=48, filter_width=48,
+      dynamic_var=True, add_skip_conn=True, stop_canvas_grad=True,
+      add_d_out=True, add_y_out=True,
+      ctrl_add_inp=True, ctrl_add_canvas=True,
+      ctrl_add_d_out=True, ctrl_add_y_out=True,
+      attn_add_inp=True, attn_add_canvas=True,
+      attn_add_d_out=True, attn_add_y_out=True,
+      base_learn_rate=0.001, learn_rate_decay=0.85,
+      steps_per_learn_rate_decay=5000,
+      remat=True, **DATASET_TRANSFORMS['kitti'])
+
+
+def kitti_fg_config() -> FGModelConfig:
+  """The KITTI fg preset (JAX config.py:561-578, ref run_kitti.sh:13-28):
+  18 conv and 11 transposed-conv layers at 128x448, a foreground and an
+  8-bin orientation head."""
+  d = DATASET_DIMS['kitti']
+  return FGModelConfig(
+      inp_height=d['inp_height'], inp_width=d['inp_width'],
+      cnn_filter_size=(3,) * 18,
+      cnn_depth=(32, 64, 64, 96, 96, 128, 128, 128, 128, 128, 128, 128, 128,
+                 256, 256, 256, 256, 512),
+      cnn_pool=(1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 2),
+      cnn_skip_mask=(1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 0, 0, 0, 1, 0, 0, 0, 1),
+      dcnn_filter_size=(3,) * 11,
+      dcnn_depth=(256, 256, 128, 128, 96, 96, 64, 64, 32, 32, 9),
+      dcnn_pool=(2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1),
+      dcnn_skip_mask=(1, 0, 1, 0, 1, 0, 0, 0, 0, 1, 0),
+      add_skip_conn=True,
+      add_orientation=True, num_orientation_classes=8)
+
+
 def tiny_full_config(**overrides) -> FullModelConfig:
   """Small config for tests: 64x64 images, short timespan
   (JAX config.py:682-697)."""
@@ -295,3 +388,13 @@ def tiny_full_config(**overrides) -> FullModelConfig:
       fixed_gamma=True, squash_ctrl_params=True)
   base.update(overrides)
   return FullModelConfig(**base)
+
+
+def tiny_fg_config(**overrides) -> FGModelConfig:
+  """Small fg config for tests: 64x64 images (JAX config.py:712-718)."""
+  base = dict(
+      inp_height=64, inp_width=64,
+      cnn_filter_size=(3, 3, 3), cnn_depth=(4, 8, 8), cnn_pool=(2, 2, 2),
+      dcnn_filter_size=(3, 3, 3), dcnn_depth=(8, 4, 1), dcnn_pool=(2, 2, 2))
+  base.update(overrides)
+  return FGModelConfig(**base)

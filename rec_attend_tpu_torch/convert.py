@@ -2,11 +2,12 @@
 
 The JAX model keeps its parameters as a nested tree of dicts and lists of
 arrays (``rec_attend_tpu/nn/params.py`` names them for ``weights.h5``);
-``FullModel`` registers the same leaves under dotted names, so a leaf at
-``tree['ctrl_cnn'][0]['bn']['beta']`` is ``ctrl_cnn.0.bn.beta`` here.  The
-JAX tree holds the BatchNorm EMA statistics among the parameters; here they
-are buffers, so the Adam state keeps moments for the trainable parameters
-only (the JAX moments of the EMA leaves stay zero: their gradient is 0).
+``FullModel`` and ``FGModel`` register the same leaves under dotted names,
+so a leaf at ``tree['ctrl_cnn'][0]['bn']['beta']`` is ``ctrl_cnn.0.bn.beta``
+here.  The JAX tree holds the BatchNorm EMA statistics among the
+parameters; here they are buffers, so the Adam state keeps moments for the
+trainable parameters only (the JAX moments of the EMA leaves stay zero:
+their gradient is 0).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rec_attend_tpu_torch.config import FGModelConfig
 from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.engine import saver
 
@@ -33,20 +35,35 @@ def flatten_tree(tree, prefix=''):
 
 
 def params_from_jax(tree):
-  """State dict of ``FullModel`` from a JAX parameter tree of arrays."""
+  """State dict of ``FullModel`` or ``FGModel`` from a JAX parameter tree
+  of arrays."""
   return {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
           for name, leaf in flatten_tree(tree).items()}
 
 
-def param_shapes(cfg: FullModelConfig):
-  """{dotted name: shape} of ``FullModel(cfg)``, without allocating it."""
-  from rec_attend_tpu_torch.models.full_model import FullModel
-  model = FullModel(cfg, device='meta')
+def model_class(cfg):
+  """``FGModel`` for an ``FGModelConfig``, ``FullModel`` for a
+  ``FullModelConfig``."""
+  if isinstance(cfg, FGModelConfig):
+    from rec_attend_tpu_torch.models.fg_model import FGModel
+    return FGModel
+  if isinstance(cfg, FullModelConfig):
+    from rec_attend_tpu_torch.models.full_model import FullModel
+    return FullModel
+  raise TypeError(f'no model for a {type(cfg).__name__}')
+
+
+def param_shapes(cfg):
+  """{dotted name: shape} of the model of ``cfg`` (``model_class``),
+  without allocating it."""
+  model = model_class(cfg)(cfg, device='meta')
   return {k: tuple(v.shape) for k, v in model.state_dict().items()}
 
 
-def params_from_checkpoint(path, cfg: FullModelConfig):
-  """State dict of ``FullModel(cfg)`` read from a JAX ``ckpt-*.npz``."""
+def params_from_checkpoint(path, cfg):
+  """State dict of the model of ``cfg`` read from a JAX ``ckpt-*.npz``:
+  its parameters are the checkpoint's last leaves, whatever optimizer
+  state comes before them (``saver.load_params``)."""
   return {name: torch.from_numpy(leaf)
           for name, leaf in saver.load_params(path, param_shapes(cfg)).items()}
 

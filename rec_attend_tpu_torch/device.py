@@ -15,3 +15,10 @@ def resolve_device(device=None):
     raise RuntimeError('CUDA is not available; pass device="cpu" to run on '
                        'the CPU')
   return device
+
+
+def synchronize(device):
+  """Wait for the card's queued work where ``device`` is a card; a no-op on
+  the CPU.  Host timings of device work end here."""
+  if device.type == 'cuda':
+    torch.cuda.synchronize(device)

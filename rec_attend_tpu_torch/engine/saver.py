@@ -8,7 +8,10 @@ the optimizer state comes first and the parameters are the last leaves; a
 params-only checkpoint holds just them.  The full model's optimizer,
 ``optax.chain(clip, adam(schedule))``, flattens to Adam's update count, its
 first moments (one leaf per parameter, in parameter order), its second
-moments, and the schedule's count: 2 + 3 * P leaves in all.
+moments, and the schedule's count: 2 + 3 * P leaves in all.  The fg model's,
+``optax.chain(clip, sgd(schedule, momentum=0.9))``, flattens to the
+momentum trace (one leaf per parameter) and the schedule's count, so its
+checkpoint holds 2 * P + 1 leaves, the parameters from leaf P + 1 on.
 """
 
 from __future__ import annotations

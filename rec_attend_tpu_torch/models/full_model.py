@@ -9,6 +9,11 @@ at image (+) canvas and emits an attention box; a Gaussian glimpse is
 cropped (``glimpse_extract``), a CNN/D-CNN segments one instance inside it,
 the mask is pasted back (``glimpse_paste``, also used to render the box) and
 max-accumulated into the canvas, and a score MLP emits a stop confidence.
+Where the config asks for them (the KITTI and Cityscapes presets), the
+packed predictions of the fg model, orientation ``d_in`` [B,H,W,8] and
+foreground ``y_in`` [B,H,W,C], join the image and the canvas as input
+channels of the controller and attention CNNs, in the order x, canvas,
+d_in, y_in (JAX ``:303-324``).
 
 The JAX ``lax.scan`` over T is a Python loop carrying the canvas; with
 ``cfg.remat`` each timestep of training runs under
@@ -93,8 +98,8 @@ class FullModel(nn.Module):
     self.to(device)
     self.device = self.ctrl_lstm.b_f.device   # with its index: cuda:0
 
-  def forward(self, x, glimpse='kernel'):
-    return full_model_forward(self, x, glimpse)
+  def forward(self, x, d_in=None, y_in=None, glimpse='kernel'):
+    return full_model_forward(self, x, d_in, y_in, glimpse=glimpse)
 
 
 # ---------------------------------------------------------------------------
@@ -177,27 +182,46 @@ def _glimpse_fns(glimpse):
                    f"functions, got {glimpse!r}")
 
 
-def _check_input(model, x):
+def packed_inputs(cfg: FullModelConfig):
+  """(takes d_in, takes y_in): whether either CNN reads the packed
+  orientation and foreground maps."""
+  flags = cfg.resolved_input_flags()
+  return tuple(any(flags[f'{net}_add_{key}'] for net in ('ctrl', 'attn'))
+               for key in ('d_out', 'y_out'))
+
+
+def _check_input(model, x, d_in, y_in):
   cfg = model.cfg
   b, h, w = x.shape[0], cfg.inp_height, cfg.inp_width
   if tuple(x.shape) != (b, h, w, cfg.inp_depth):
     raise ValueError(f'x is {tuple(x.shape)}, the model takes '
                      f'[B,{h},{w},{cfg.inp_depth}]')
+  for name, a, depth, wanted in zip(
+      ('d_in', 'y_in'), (d_in, y_in), (8, cfg.num_semantic_classes),
+      packed_inputs(cfg)):
+    if wanted != (a is not None):
+      raise ValueError(f'{name} is {"missing" if wanted else "given"}: the '
+                       f'config {"asks" if wanted else "does not ask"} for '
+                       'it')
+    if a is not None:
+      if tuple(a.shape) != (b, h, w, depth):
+        raise ValueError(f'{name} is {tuple(a.shape)}, the model takes '
+                         f'[{b},{h},{w},{depth}]')
+      if a.device != model.device:
+        raise ValueError(f'{name} is on {a.device}, the model on '
+                         f'{model.device}')
   if x.device != model.device:
     raise ValueError(f'x is on {x.device}, the model on {model.device}')
-  flags = cfg.resolved_input_flags()
-  if any(flags[f'{net}_add_{key}'] for net in ('ctrl', 'attn')
-         for key in ('d_out', 'y_out')):
-    raise NotImplementedError(
-        'the packed fg/orientation input channels (KITTI, Cityscapes '
-        'configs) come with a later slice')
 
 
-def _timestep(model, x, canvas, t, extract_fn, paste_fn, train=None):
+def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
+              train=None):
   """One timestep of the model (JAX full_model.py:287-508).
 
   Args:
-    x: [B,H,W,D] image; canvas: [B,H,W,1]; t: timestep index.
+    x: [B,H,W,D] image; packed: {'d_out': d_in, 'y_out': y_in}, either
+      None where the config does not read it; canvas: [B,H,W,1]; t:
+      timestep index.
     train: None for eval; for training a dict of this step's inputs:
       ground truth ('y_gt' [B,T,H,W], 'attn_box_gt' [B,T,H,W],
       'attn_top_left_gt'/'attn_bot_right_gt'/'attn_ctr_gtn'/'attn_size_gtn'
@@ -224,7 +248,9 @@ def _timestep(model, x, canvas, t, extract_fn, paste_fn, train=None):
       'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []}
 
   def inputs(prefix):
-    parts = [v for key, v in (('inp', x), ('canvas', canvas))
+    parts = [v for key, v in (('inp', x), ('canvas', canvas),
+                              ('d_out', packed['d_out']),
+                              ('y_out', packed['y_out']))
              if flags[f'{prefix}_add_{key}']]
     return torch.cat(parts, dim=3)
 
@@ -380,12 +406,16 @@ def _stack_steps(steps):
 
 
 @torch.no_grad()
-def full_model_forward(model: FullModel, x, glimpse='kernel'):
+def full_model_forward(model: FullModel, x, d_in=None, y_in=None,
+                       glimpse='kernel'):
   """Run the T-step eval forward (no gradients: this is the serving path).
 
   Args:
     model: FullModel.
     x: [B,H,W,inp_depth] image on the model's device.
+    d_in, y_in: the packed orientation [B,H,W,8] and foreground
+      [B,H,W,num_semantic_classes] maps on the model's device, given
+      exactly when the config reads them (``packed_inputs``).
     glimpse: 'kernel' runs extract/paste through the CUDA kernel wrappers
       (their plain version for CPU tensors); 'plain' runs the plain einsum
       forms, the reference the kernels are compared with.
@@ -397,15 +427,17 @@ def full_model_forward(model: FullModel, x, glimpse='kernel'):
     'attn_box_lg_gamma', 'y_out_lg_gamma' [B,T,1].
   """
   extract_fn, paste_fn = _glimpse_fns(glimpse)
-  _check_input(model, x)
+  _check_input(model, x, d_in, y_in)
   cfg = model.cfg
   x = x.float()
+  packed = {'d_out': None if d_in is None else d_in.float(),
+            'y_out': None if y_in is None else y_in.float()}
   canvas = torch.zeros((x.shape[0], cfg.inp_height, cfg.inp_width, 1),
                        device=x.device)
   steps = []
   for t in range(cfg.timespan):
-    canvas, _, step_out, _ = _timestep(model, x, canvas, t, extract_fn,
-                                       paste_fn)
+    canvas, _, step_out, _ = _timestep(model, x, packed, canvas, t,
+                                       extract_fn, paste_fn)
     steps.append(step_out)
   out = _stack_steps(steps)
   out['canvas'] = canvas[..., 0]
@@ -413,12 +445,14 @@ def full_model_forward(model: FullModel, x, glimpse='kernel'):
 
 
 def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
-                             glimpse='kernel'):
+                             glimpse='kernel', d_in=None, y_in=None):
   """Run the T-step training forward (JAX full_model_forward(train=True)).
 
   Args:
     model: FullModel; x [B,H,W,inp_depth], y_gt [B,T,H,W], s_gt [B,T] on
       its device, float.
+    d_in, y_in: the packed maps, as in ``full_model_forward``; they take
+      the augmentation's crop.
     draws: dict of ``draw_train_randoms`` (or the same draws from
       elsewhere), on the model's device.
     step: global step, for the knob schedule.
@@ -432,7 +466,7 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
     EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value.
   """
   extract_fn, paste_fn = _glimpse_fns(glimpse)
-  _check_input(model, x)
+  _check_input(model, x, d_in, y_in)
   cfg = model.cfg
   if cfg.fixed_order:
     raise NotImplementedError('fixed_order training is not ported yet')
@@ -442,12 +476,15 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
 
-  # Augmentation (JAX full_model.py:218-228).
+  # Augmentation (JAX full_model.py:218-232).
   aug = image_ops.random_transformation(
       x.float(), cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
       rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
-      rnd_colour=cfg.rnd_colour, y=y_gt.float())
+      rnd_colour=cfg.rnd_colour, y=y_gt.float(),
+      d=None if d_in is None else d_in.float(),
+      c=None if y_in is None else y_in.float())
   x, y_gt = aug['x'], aug['y']
+  packed = {'d_out': aug.get('d'), 'y_out': aug.get('c')}
 
   # Ground-truth attention boxes, clean and noisy (JAX :230-250).
   min_pad = cfg.padding + 4.0
@@ -472,7 +509,8 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   def body(canvas, grd_cum, t):
     train = dict(gt, knob_box=knob_box[:, t], knob_segm=knob_segm[:, t],
                  segm_noise=draws['segm_noise'][t], grd_cum=grd_cum)
-    return _timestep(model, x, canvas, t, extract_fn, paste_fn, train)
+    return _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
+                     train)
 
   canvas = torch.zeros((B, H, W, 1), device=x.device)
   grd_cum = torch.zeros((B, T), device=x.device)
@@ -517,7 +555,8 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
 
   Args:
     batch: dict 'x' [B,H,W,D], 'y_gt' [B,T,H,W], 's_gt' [B,T], float, on
-      the model's device.
+      the model's device, and 'd_in' and 'y_in' where the config reads them
+      (as in ``full_model_forward``).
     draws, step, glimpse: as in ``full_model_train_forward``.
   Returns:
     (loss, aux): aux holds the scalar terms and metrics as 0-d tensors,
@@ -525,7 +564,8 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
   """
   cfg = model.cfg
   outputs, new_bn = full_model_train_forward(
-      model, batch['x'], batch['y_gt'], batch['s_gt'], draws, step, glimpse)
+      model, batch['x'], batch['y_gt'], batch['s_gt'], draws, step, glimpse,
+      d_in=batch.get('d_in'), y_in=batch.get('y_in'))
   y_out = outputs['y_out']
   y_gt = outputs['y_gt_trans']
   s_gt = outputs['s_gt']

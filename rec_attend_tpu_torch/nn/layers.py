@@ -94,19 +94,20 @@ def nhwc(x):
 # ---------------------------------------------------------------------------
 
 class BatchNorm(nn.Module):
-  """BatchNorm parameters with one [C] copy per timestep: [T, C]."""
+  """BatchNorm parameters with one [C] copy per timestep, [T, C]; or, with
+  ``num_copies`` None, a single [C] copy (the fg model's)."""
 
   def __init__(self, n_out, num_copies):
     super().__init__()
-    shape = (num_copies, n_out)
+    shape = (n_out,) if num_copies is None else (num_copies, n_out)
     self.beta = nn.Parameter(torch.zeros(shape))
     self.gamma = nn.Parameter(torch.ones(shape))
     self.register_buffer('ema_mean', torch.zeros(shape))
     self.register_buffer('ema_var', torch.ones(shape))
 
   def forward(self, x, t, stats=None):
-    """Normalise channel dim 1 of x ([B,C,H,W] or [B,C]) with copy ``t``;
-    computed in float32, returned in x's dtype.
+    """Normalise channel dim 1 of x ([B,C,H,W] or [B,C]) with copy ``t``
+    (None for a single copy); computed in float32, returned in x's dtype.
 
     Eval (``stats`` None): with the EMA statistics.  Train (``stats`` a
     list): with the batch mean and biased variance, and the new EMA
@@ -115,19 +116,20 @@ class BatchNorm(nn.Module):
     here, so that a recomputed forward does not apply them twice."""
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = x.float()
+    copy = (lambda p: p) if t is None else (lambda p: p[t])
     if stats is None:
-      mean, var = self.ema_mean[t], self.ema_var[t]
+      mean, var = copy(self.ema_mean), copy(self.ema_var)
     else:
       axes = (0,) + tuple(range(2, x.dim()))
       mean = torch.mean(xf, dim=axes)
       var = torch.var(xf, dim=axes, correction=0)
-      stats.append(((BN_DECAY * self.ema_mean[t]
+      stats.append(((BN_DECAY * copy(self.ema_mean)
                      + (1 - BN_DECAY) * mean).detach(),
-                    (BN_DECAY * self.ema_var[t]
+                    (BN_DECAY * copy(self.ema_var)
                      + (1 - BN_DECAY) * var).detach()))
     inv = torch.rsqrt(var + BN_EPS).view(shape)
-    normed = ((xf - mean.view(shape)) * inv * self.gamma[t].view(shape)
-              + self.beta[t].view(shape))
+    normed = ((xf - mean.view(shape)) * inv * copy(self.gamma).view(shape)
+              + copy(self.beta).view(shape))
     return normed.to(x.dtype)
 
 
@@ -146,7 +148,8 @@ class ConvLayer(nn.Module):
 
 
 def init_cnn(filter_sizes, channels, use_bn, num_bn_copies, generator):
-  """N-layer CNN; ``channels`` has N+1 entries, input depth first."""
+  """N-layer CNN; ``channels`` has N+1 entries, input depth first;
+  ``num_bn_copies`` as in ``BatchNorm``."""
   return nn.ModuleList(
       ConvLayer((f, f, channels[i], channels[i + 1]), channels[i + 1],
                 use_bn[i], num_bn_copies, generator)

@@ -29,7 +29,8 @@ METRIC_KEYS = ('loss', 'box_loss', 'segm_loss', 'conf_loss', 'wd_loss',
 
 
 def decode_batch(batch):
-  """uint8 arrays -> float32 / 255; float inputs pass through."""
+  """uint8 arrays -> float32 / 255; float inputs pass through.  Every key
+  is carried, the packed maps 'd_in' and 'y_in' included."""
   return {k: (v.float() / 255.0 if v.dtype == torch.uint8 else v)
           for k, v in batch.items()}
 
@@ -102,9 +103,11 @@ def apply_updates(model, opt_state, grads, new_bn):
 def train_step(model, opt_state, batch, draws, step, glimpse='kernel'):
   """One step: returns (new optimizer state, {metric: 0-d tensor}).
 
-  batch: 'x', 'y_gt' (float, or uint8 as ``encode_batch`` leaves them) and
-  's_gt' on the model's device; draws: ``draw_train_randoms``; step: the
-  global step (for the knob schedule)."""
+  batch: 'x', 'y_gt' (float, or uint8 as ``encode_batch`` leaves them),
+  's_gt' and, where the config reads them, the packed maps 'd_in' and
+  'y_in' (float or uint8) on the model's device; draws:
+  ``draw_train_randoms``; step: the global step (for the knob
+  schedule)."""
   _, aux, grads = loss_and_grads(model, batch, draws, step, glimpse)
   opt_state = apply_updates(model, opt_state, grads, aux['new_bn'])
   return opt_state, {k: aux[k].detach() for k in METRIC_KEYS}

@@ -108,9 +108,10 @@ def test_forward_rejects_bad_inputs():
     TF.full_model_forward(model, torch.zeros(1, 32, 64, 3))
   with pytest.raises(ValueError):
     TF.full_model_forward(model, torch.zeros(1, 64, 64, 3), glimpse='pallas')
+  # A config that reads the packed maps refuses a forward without them.
   for over in (dict(add_d_out=True), dict(add_y_out=True)):
     packed = TF.FullModel(C.tiny_full_config(**over), device='cpu')
-    with pytest.raises(NotImplementedError, match='later slice'):
+    with pytest.raises(ValueError, match='is missing'):
       TF.full_model_forward(packed, torch.zeros(1, 64, 64, 3))
 
 

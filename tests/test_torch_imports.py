@@ -4,7 +4,8 @@ YAML only inside its YAML reader, and never falls back to the CPU by
 itself.  Every module of the package is covered, the training path's
 (losses, matching, boxes, augmentation, train step, trainer) and the eval
 path's (postprocess, analyzers, eval experiment, eval_split) included, and
-a train step and an eval_split run with those modules blocked."""
+a train step, an eval_split and the fg -> pack -> full chain run with
+those modules blocked."""
 
 import ast
 import os
@@ -111,6 +112,84 @@ def test_port_imports_with_those_modules_missing(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+def test_chain_runs_with_those_modules_missing(tmp_path):
+  """fg -> pack -> full with packed channels -> eval_split, on tiny
+  configs and an in-memory dataset, with JAX, cv2, h5py, YAML and the rest
+  blocked: params-only checkpoints in the JAX layout, configs given."""
+  script = textwrap.dedent(f"""
+      import os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import numpy as np
+      from rec_attend_tpu_torch import config
+      from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS, eval_split
+      from rec_attend_tpu_torch.cli.pack import pack_fg
+      from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+      from rec_attend_tpu_torch.engine import saver
+      from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+      from rec_attend_tpu_torch.models.fg_model import FGModel
+      from rec_attend_tpu_torch.models.full_model import FullModel
+
+      def save(model, folder):
+        state = model.state_dict()
+        names = saver.jax_leaf_order(state)
+        os.makedirs(folder)
+        np.savez(os.path.join(folder, 'ckpt-3.npz'), num_leaves=len(names),
+                 **{{f'leaf_{{i}}': state[n].numpy()
+                    for i, n in enumerate(names)}})
+
+      root = {str(tmp_path)!r}
+      fg_cfg = config.tiny_fg_config(add_orientation=True,
+                                     dcnn_depth=(8, 4, 9))
+      full_cfg = config.tiny_full_config(add_d_out=True, add_y_out=True)
+      save(FGModel(fg_cfg, device='cpu'), os.path.join(root, 'fg'))
+      save(FullModel(full_cfg, device='cpu'), os.path.join(root, 'full'))
+      fg = EvalExperiment(os.path.join(root, 'fg'), cfg=fg_cfg, device='cpu',
+                          spec='fg')
+      ds = SyntheticDataset(3, 64, 64, full_cfg.timespan, seed=2)
+      packed = pack_fg(fg, ds, 2)
+      batch = packed.get_batch([0, 2], timespan=full_cfg.timespan)
+      assert batch['d_out'].shape == (2, 64, 64, 8)
+      assert batch['y_out'].shape == (2, 64, 64, 1)
+      full = EvalExperiment(os.path.join(root, 'full'), cfg=full_cfg,
+                            device='cpu')
+      out = os.path.join(root, 'out')
+      summary = eval_split(full, packed, out, [0.4], DEFAULT_ANALYZERS,
+                           batch_size=2, score_threshold=0.15)
+      assert len(summary[0.4]) == len(DEFAULT_ANALYZERS)
+      assert os.path.exists(os.path.join(out, 'sbd.csv'))
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_fg_entry_points_default_to_cuda(monkeypatch):
+  """Without a card, the fg model and its eval experiment raise unless
+  asked for the CPU."""
+  from rec_attend_tpu_torch.models.fg_model import FGModel
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    FGModel(C.tiny_fg_config())
+  FGModel(C.tiny_fg_config(), device='cpu')
+  fg_folder = os.path.join(REPO, 'results', 'fg_model_synth3-20260818a')
+  with pytest.raises(RuntimeError, match='CUDA'):
+    EvalExperiment(fg_folder, cfg=C.kitti_fg_config(), spec='fg')
 
 
 @pytest.mark.parametrize('path', _port_sources(),
