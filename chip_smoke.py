@@ -10,20 +10,25 @@ Phases, one JSON line each on stdout:
                 compiler csrc/hungarian.cc, both at once (seconds taken),
                 and each kernel's registers a thread, spill bytes and
                 static shared memory as nvcc -Xptxas -v reports them (the
-                paste kernel and both extract routes must be there);
+                paste kernel and the three extract routes must be there);
   kernels       each hand-written kernel against its plain PyTorch version,
                 at the serving path's shapes (CVPPP, b128, b8 and b1), at
                 the synth3 chain's (KITTI 128x448, b32, extract D=13, paste
-                D=1, 48x48 glimpse) and at a ragged shape (KITTI 128x448,
-                D=13, 48x64 glimpse), with CUDA-event times; each extract
-                names its route (the tiled kernel and its output rows a
-                block, or the general one);
+                D=1, 48x48 glimpse), at Cityscapes' extract (256x512, b32,
+                D=21), at paste's d_p of the KITTI size (extract D=1) and
+                at a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
+                CUDA-event times; each extract names its route (the tiled
+                kernel, the strip kernel and their output rows a block, or
+                the general one), must take the route its shape is meant
+                for, must give the same bits on a second launch and, on the
+                tiled and strip routes, the plain version's strides;
   kernels_grad  each differentiable glimpse (ExtractPatch, PastePatch)
                 against plain autograd through the einsums, every input
-                gradient, at the CVPPP train shapes (b32) and the KITTI
-                shape; the kernels' backward uses (paste as extract's d_x,
-                extract at D=1 as paste's d_p) and the filter-gradient
-                einsums timed;
+                gradient, at the CVPPP train shapes (b32), the ragged shape
+                and the synth3 chain's shape (b32, D=13, 48x48, where
+                paste's d_p takes the strip route); the kernels' backward
+                uses (paste as extract's d_x, extract at D=1 as paste's d_p)
+                and the filter-gradient einsums timed;
   serve         InstanceSegmenter serves the flagship CVPPP checkpoint (a
                 checkout without it fails) to three requests of b=8, 32 and
                 128 at the model's size and two of other sizes (b1 530x500,
@@ -48,7 +53,8 @@ Phases, one JSON line each on stdout:
   eval          eval_split over 64 synthetic 224x224 images with labels at
                 b32, score and mask thresholds 0.40, with the kernels, the
                 plain glimpses and plain einsums that sum in another order
-                (the float32 floor), counting kernel launches; per example
+                (the float32 floor), counting kernel launches (the extracts
+                all on the tiled route); per example
                 the kernels' SBD is held to the plain one within a limit
                 set from that floor, and the counts must be equal; upsample
                 on the card against the CPU; host seconds per batch of the
@@ -61,7 +67,7 @@ Phases, one JSON line each on stdout:
                 the packed channels, score threshold 0.15 and mask threshold
                 0.40, with the kernels, the plain glimpses and reordered
                 plain einsums, counting kernel launches (20 extracts, all on
-                the general route, and 40 pastes a b32 forward); the b32
+                the strip route, and 40 pastes a b32 forward); the b32
                 forward kernel against plain and the fg and full forwards
                 card against CPU (b2) held to their limits, per-example SBD
                 and counts as in eval; host seconds per batch of the fg
@@ -326,7 +332,20 @@ def check_kernel(torch, gk, attention, name, b, h, w, d, fh, fw, gen, dev,
   result = {'shape': [b, h, w, d, fh, fw], 'max_abs_err': err,
             'max_abs_value': float(want.abs().max())}
   if name == 'glimpse_extract':
-    result['route'] = gk.extract_route_of(a, f_y, f_x)
+    # The route taken; a second launch gives the same bits (no sum crosses
+    # blocks, nothing is atomic); the tiled and strip routes write the plain
+    # version's layout.
+    route = result['route'] = gk.extract_route_of(a, f_y, f_x)
+    again = kernel(a, f_y, f_x)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+      raise AssertionError(f'{name} {tuple(a.shape)} ({route}): two launches '
+                           f'differ')
+    result['strides'] = list(got.stride())
+    if (route['kernel'] != 'extract_kernel_general'
+        and got.stride() != want.stride()):
+      raise AssertionError(f'{name} {tuple(a.shape)} ({route}): strides '
+                           f'{got.stride()}, plain {want.stride()}')
   if timed:
     bound_ms, bound_by = bound(nbytes, flops)
     kernel_ms = ms(torch, lambda: kernel(a, f_y, f_x))
@@ -358,10 +377,13 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
     ins = [t.detach().clone().requires_grad_() for t in (a, f_y, f_x)]
     return torch.autograd.grad(f(*ins), ins, g)
 
+  before = dict(gk.glimpse_extract.route_launches)
   got = grads(fn)
   torch.cuda.synchronize()
   want = grads(plain)
-  result = {'shape': [b, h, w, d, fh, fw]}
+  result = {'shape': [b, h, w, d, fh, fw], 'extract_route_launches': {
+      k: v - before[k] for k, v in gk.glimpse_extract.route_launches.items()
+      if v != before[k]}}
   for key, x, y in zip(('d_operand', 'd_f_y', 'd_f_x'), got, want):
     err = float((x - y).abs().max())
     scale = max(1.0, float(y.abs().max()))
@@ -662,6 +684,8 @@ def eval_runs(torch, gk, folder, cfg, dataset, examples, batch, threshold,
     gk.reset_launch_counts()
     runs = {'kernel': run('kernel', 'kernel')}
     launches = gk.launch_counts()
+    runs['kernel']['extract_route_launches'] = {
+        k: v for k, v in gk.glimpse_extract.route_launches.items() if v}
     want = {'glimpse_extract': T * n_batches,
             'glimpse_paste': 2 * T * n_batches}
     if launches != want:
@@ -708,6 +732,9 @@ def eval_phase(torch, cfg, gk):
       EVAL_THRESHOLD, EVAL_THRESHOLD, 'eval')
   kernel, plain, floor = (runs[k] for k in ('kernel', 'plain',
                                             'reordered_plain'))
+  routes = kernel['extract_route_launches']
+  if routes != {'extract_tiled_kernel': launches['glimpse_extract']}:
+    failures.append(f'the eval\'s extracts took {routes}')
 
   # upsample on the card against the CPU, on the same confidence-weighted
   # maps: at the model's size (the eval path) and at 530x500 (serving).
@@ -732,7 +759,7 @@ def eval_phase(torch, cfg, gk):
   return {
       'examples': EVAL_EXAMPLES, 'batch': EVAL_BATCH,
       'thresholds': {'score': EVAL_THRESHOLD, 'mask': EVAL_THRESHOLD},
-      'launches': launches,
+      'launches': launches, 'extract_route_launches': routes,
       'means': {'kernel': kernel['means'], 'plain': plain['means'],
                 'reordered_plain': floor['means']},
       **stats,
@@ -777,10 +804,13 @@ def chain_phase(torch, gk):
       CHAIN_MASK_THRESHOLD, CHAIN_SCORE_THRESHOLD, 'chain')
   kernel, plain, floor = (runs[k] for k in ('kernel', 'plain',
                                             'reordered_plain'))
+  routes = kernel['extract_route_launches']
+  if routes != {'extract_strip_kernel': launches['glimpse_extract']}:
+    failures.append(f'the chain\'s extracts took {routes}')
 
   # The b32 forward on the packed channels: kernel against plain (the
-  # serving gate), the reordered plain floor beside it; the extract takes
-  # the general route.
+  # serving gate), the reordered plain floor beside it; every extract takes
+  # the strip route.
   exp = EvalExperiment(CHAIN_FULL_DIR, cfg=cfg, device='cuda')
   raw = packed.get_batch(range(CHAIN_BATCH), timespan=T)
   x, d_in, y_in = (torch.from_numpy(raw[k]).cuda()
@@ -788,13 +818,18 @@ def chain_phase(torch, gk):
   route = gk.extract_route(CHAIN_BATCH, cfg.inp_height, cfg.inp_width,
                            cfg.acnn_inp_depth, cfg.filter_height,
                            cfg.filter_width)
-  if route['kernel'] != 'extract_kernel_general':
+  if route['kernel'] != 'extract_strip_kernel':
     failures.append(f'the chain\'s extract takes {route}')
   with deterministic_cudnn(torch), torch.inference_mode():
     want = full_model_forward(exp.model, x, d_in, y_in, glimpse='plain')
     reordered = forward_diff(full_model_forward(
         exp.model, x, d_in, y_in, glimpse=reordered_plain(torch)), want)
+    gk.reset_launch_counts()
     got = full_model_forward(exp.model, x, d_in, y_in, glimpse='kernel')
+    forward_routes = {k: v for k, v in
+                      gk.glimpse_extract.route_launches.items() if v}
+    if forward_routes != {'extract_strip_kernel': T}:
+      failures.append(f'the b32 forward\'s extracts took {forward_routes}')
     kernel_vs_plain = forward_diff(got, want)
     # The card against the CPU on two images: the fg maps, their packed
     # bytes, the full forward.
@@ -841,6 +876,8 @@ def chain_phase(torch, gk):
       'thresholds': {'score': CHAIN_SCORE_THRESHOLD,
                      'mask': CHAIN_MASK_THRESHOLD},
       'launches': launches, 'extract_route': route,
+      'extract_route_launches': routes,
+      'b32_forward_extract_route_launches': forward_routes,
       'means': {'kernel': kernel['means'], 'plain': plain['means'],
                 'reordered_plain': floor['means']},
       **stats,
@@ -1033,7 +1070,7 @@ def main():
   build.load_hungarian()
   resources = build.kernel_resources(build.compile_log('glimpse'))
   for prefix in ('paste_kernel', 'extract_tiled_kernel',
-                 'extract_kernel_general'):
+                 'extract_strip_kernel', 'extract_kernel_general'):
     if not any(k.startswith(prefix) for k in resources):
       raise AssertionError(f'nvcc -Xptxas -v reported no {prefix}')
   emit('build', seconds=time.time() - t0,
@@ -1067,28 +1104,44 @@ def main():
                         chain_cfg.inp_width, 1, chain_cfg.filter_height,
                         chain_cfg.filter_width),
   }
+  # Extract at Cityscapes' forward (b32, 256x512, D = 3+1+8+9 = 21) and as
+  # paste's d_p at the KITTI size (b32, 128x448, D=1).
+  other_extracts = {'cityscapes': (CHAIN_BATCH, 256, 512, 21, 48, 48),
+                    'synth3_d1': (CHAIN_BATCH, chain_cfg.inp_height,
+                                  chain_cfg.inp_width, 1,
+                                  chain_cfg.filter_height,
+                                  chain_cfg.filter_width)}
   checks = {}
   for name, dims in main_dims.items():
     checks[name] = check_kernel(torch, gk, attention, name, *dims, gen, dev,
                                 timed=True)
     checks[name]['ragged'] = check_kernel(torch, gk, attention, name,
-                                          *ragged_dims, gen, dev, timed=False)
+                                          *ragged_dims, gen, dev, timed=True)
     checks[name]['synth3'] = check_kernel(torch, gk, attention, name,
                                           *chain_dims[name], gen, dev,
                                           timed=True)
+  for key, dims in other_extracts.items():
+    checks['glimpse_extract'][key] = check_kernel(
+        torch, gk, attention, 'glimpse_extract', *dims, gen, dev, timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
       checks[name][f'b{b}'] = check_kernel(torch, gk, attention, name, b,
                                            *dims[1:], gen, dev, timed=True)
-  # The flagship's extracts take the tiled kernel, the ragged one and the
-  # synth3 chain's the general kernel.
+  # The flagship's extracts take the tiled kernel; the synth3 chain's,
+  # Cityscapes' and the KITTI-sized d_p the strip kernel; the 48x64 glimpse
+  # the general one.
   ex = checks['glimpse_extract']
-  routes = [c['route']['kernel'] for c in (ex, ex['b8'], ex['b1'],
-                                           ex['ragged'], ex['synth3'])]
-  if routes != ['extract_tiled_kernel'] * 3 + ['extract_kernel_general'] * 2:
-    raise AssertionError(f'extract routes (b128, b8, b1, ragged, synth3): '
-                         f'{routes}')
+  want_routes = {'b128': 'extract_tiled_kernel', 'b8': 'extract_tiled_kernel',
+                 'b1': 'extract_tiled_kernel',
+                 'ragged': 'extract_kernel_general',
+                 'synth3': 'extract_strip_kernel',
+                 'cityscapes': 'extract_strip_kernel',
+                 'synth3_d1': 'extract_strip_kernel'}
+  routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
+            for k in want_routes}
+  if routes != want_routes:
+    raise AssertionError(f'extract routes {routes}, want {want_routes}')
   emit('kernels', tf32=False, rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
        nvidia_smi=name_power, kernels=checks)
 
@@ -1109,6 +1162,15 @@ def main():
                                           gen, dev, timed=True)
     grad_checks[name]['ragged'] = check_kernel_grad(
         torch, gk, attention, name, *ragged_dims, gen, dev, timed=False)
+    # The synth3 chain's shape, D=13: ExtractPatch's forward and PastePatch's
+    # d_p take the strip route.
+    grad_checks[name]['synth3'] = check_kernel_grad(
+        torch, gk, attention, name, *chain_dims['glimpse_extract'], gen, dev,
+        timed=False)
+    routes = grad_checks[name]['synth3']['extract_route_launches']
+    if routes != {'extract_strip_kernel': 1}:
+      raise AssertionError(f'{name} gradients at the synth3 shape: extract '
+                           f'launches by route {routes}')
   emit('kernels_grad', tf32=False, rtol=GRAD_RTOL, atol=GRAD_ATOL,
        atol_scaled_by='max(1, largest |grad|)', nvidia_smi=name_power,
        functions=grad_checks)
@@ -1231,40 +1293,43 @@ def main():
   chain = chain_phase(torch, gk)
   emit('chain', nvidia_smi=name_power, **chain)
 
+  def row(name, c, use, by_path):
+    return {'name': name, 'route': 'cuda', 'source': SOURCE,
+            'replaces': REPLACES[name], 'use': use,
+            'launches': sum(by_path.values()), 'launches_by_path': by_path,
+            'max_abs_err': c['max_abs_err'], 'ms': c['kernel_ms'],
+            'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
+            'bound_by': c['bound_by'], 'bound_share': c['bound_share'],
+            'library_ms': c['library_ms'],
+            **({'kernel_route': c['route']} if 'route' in c else {})}
+
+  def shape(name, dims):
+    return '{} [{}]'.format('x' if name == 'glimpse_extract' else 'out',
+                            ','.join(str(v) for v in dims[:4]))
   table = []
   for name, c in checks.items():
     table.append({
-        'name': name, 'route': 'cuda', 'source': SOURCE,
-        'replaces': REPLACES[name], 'use': 'forward',
-        'launches': (launches[name] + train['forward_launches'][name]
-                     + evals['launches'][name]),
-        'launches_by_path': {'serve': launches[name],
-                             'train': train['forward_launches'][name],
-                             'eval': evals['launches'][name]},
-        'max_abs_err': max(c['max_abs_err'], c['ragged']['max_abs_err']),
-        'ms': c['kernel_ms'], 'plain_ms': c['plain_ms'],
-        'bound_ms': c['bound_ms'], 'bound_by': c['bound_by'],
-        'bound_share': c['bound_share'], 'library_ms': c['library_ms'],
-        **({'kernel_route': c['route']} if 'route' in c else {}),
+        **row(name, c, 'forward', {
+            'serve': launches[name], 'train': train['forward_launches'][name],
+            'eval': evals['launches'][name]}),
         **{f'b{b}': {k: c[f'b{b}'][k] for k in (
             'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
-            'bound_share', 'route') if k in c[f'b{b}']} for b in (8, 1)}})
-  # The synth3 chain's forward shapes (its launches from the chain phase).
+            'bound_share', 'route', 'max_abs_err') if k in c[f'b{b}']}
+           for b in (8, 1)}})
+  # The synth3 chain's forward shapes (their launches from the chain phase).
   for name, c in checks.items():
-    c = c['synth3']
-    table.append({
-        'name': name, 'route': 'cuda', 'source': SOURCE,
-        'replaces': REPLACES[name],
-        'use': 'forward, synth3 chain, {} [{}]'.format(
-            'x' if name == 'glimpse_extract' else 'out',
-            ','.join(str(v) for v in chain_dims[name][:4])),
-        'launches': chain['launches'][name],
-        'launches_by_path': {'chain': chain['launches'][name]},
-        'max_abs_err': c['max_abs_err'], 'ms': c['kernel_ms'],
-        'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
-        'bound_by': c['bound_by'], 'bound_share': c['bound_share'],
-        'library_ms': c['library_ms'],
-        **({'kernel_route': c['route']} if 'route' in c else {})})
+    table.append(row(name, c['synth3'], 'forward, synth3 chain, '
+                     + shape(name, chain_dims[name]),
+                     {'chain': chain['launches'][name]}))
+  # Shapes that no phase of this script runs on a path (launches 0): the
+  # strip route at Cityscapes' forward and at paste's d_p of the KITTI
+  # size, the general route at the 48x64 glimpse, paste at that glimpse.
+  for key, dims in other_extracts.items():
+    table.append(row('glimpse_extract', checks['glimpse_extract'][key],
+                     f'{key}, ' + shape('glimpse_extract', dims), {}))
+  for name, c in checks.items():
+    table.append(row(name, c['ragged'], 'ragged 48x64 glimpse, '
+                     + shape(name, ragged_dims), {}))
   # The kernels' backward uses that the main paths run: extract as d_p of
   # paste (paste as d_x of extract is not on them: the flagship's glimpse
   # input needs no gradient; kernels_grad checks and times it).

@@ -6,7 +6,8 @@
 //            x [B,H,W,D], f_y [B,H,FH], f_x [B,W,FW] -> out [B,FH,FW,D]
 //   paste    out[b,h,w,d] = sum_f sum_g f_y[b,h,f] * p[b,f,g,d] * f_x[b,w,g]
 //            p [B,FH,FW,D], f_y [B,H,FH], f_x [B,W,FW] -> out [B,H,W,D]
-// (extract's tiled route writes its out as [B,FH,D,FW] in memory instead).
+// (extract's tiled and strip routes write their out as [B,FH,D,FW] in
+// memory instead).
 // All arithmetic is float32 on the CUDA cores with float32 accumulation,
 // as the TPU kernels accumulate in float32.
 //
@@ -26,8 +27,8 @@ constexpr int kThreads = 256;
 // glimpse_extract, general route: extract_kernel_general
 //
 // Replaces rec_attend_tpu/ops/pallas/glimpse.py:_extract_call/_extract_kernel
-// at every shape that extract_tiled_kernel (below) does not take: see
-// extract_route for the rule.
+// at every shape that neither extract_tiled_kernel nor extract_strip_kernel
+// (below) takes: see extract_route for the rule.
 // The TPU kernel reads x channels-major, so every call brackets it with
 // full-tensor [B,H,W,D] <-> [B,D,H,W] transposes in device memory; this
 // kernel reads x channels-last where it lies, and needs no transpose.
@@ -682,8 +683,8 @@ cudaError_t launch_paste(const float* p, const float* fy, const float* fx,
 // is 1 or 4 and all four pointers are 16-byte aligned: the flagship's
 // forward (x [B,224,224,4]) and its d_p in paste's backward (g
 // [B,224,224,1]).  extract_route sends every other shape to
-// extract_kernel_general; the route depends on the shape and the pointers'
-// alignment alone.
+// extract_strip_kernel or extract_kernel_general; the route depends on the
+// shape and the pointers' alignment alone.
 //
 // Bound on the H100 (3.35 TB/s, 67 TFLOP/s float32 on the CUDA cores): at
 // b128 D=4 the call moves 118 MB (x 102.8 MB, the filter banks, the patch),
@@ -758,23 +759,6 @@ size_t extract_tiled_smem_floats(int FT, int KC, int D) {
   const int WS = kTxSize / D;
   return (size_t)kTxStages * KC * (kTxCols + FT) +
          (size_t)(D > 1 ? 2 : 1) * WS * kTxTaps + (size_t)FT * kTxTS;
-}
-
-// The extract route: FT (48, 12 or 4) for extract_tiled_kernel, 0 for
-// extract_kernel_general, -1 where neither takes the shape.
-int extract_route(int B, int H, int W, int D, int FH, int FW, bool aligned) {
-  if (B < 1 || H < 1 || W < 1 || D < 1 || FH < 1 || FW < 1 || B > 65535 ||
-      D > kExCols)
-    return -1;
-  if (aligned && H == kTxSize && W == kTxSize && FH == kTxTaps &&
-      FW == kTxTaps && (D == 1 || D == 4)) {
-    for (int ft : {48, 12}) {
-      if ((long)B * (kTxTaps / ft) >= kTxMinBlocks) return ft;
-    }
-    return 4;
-  }
-  const size_t smem = extract_smem_floats(D, FW, kExCols / D) * sizeof(float);
-  return smem > kMaxSmemBytes ? -1 : 0;
 }
 
 template <int FT, int TF, int TC, int KC>
@@ -988,35 +972,424 @@ cudaError_t launch_extract_tiled(const float* x, const float* fy,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// glimpse_extract at the other configurations' shapes:
+// extract_strip_kernel<FT,TC,SF,GQ>
+//
+// Replaces rec_attend_tpu/ops/pallas/glimpse.py:62 _extract_kernel (called
+// by _extract_call, :86) where the glimpse is 48x48, 1 <= D <= 32, W*D is a
+// multiple of 4 and all four pointers are 16-byte aligned, at any H and W,
+// unless extract_tiled_kernel takes the shape: the KITTI-shaped synth3
+// chain's forward (x [B,128,448,13]), Cityscapes' (x [B,256,512,21]) and
+// paste's d_p at D=1 off 224x224.  extract_kernel_general keeps every other
+// shape (other glimpse sizes, D > 32, unaligned pointers).
+//
+// Bound on the H100 (3.35 TB/s, 67 TFLOP/s float32 on the CUDA cores): at
+// the synth3 b32 shape the call moves 102.8 MB (x 95.4 MB, the filter
+// banks, the patch), 30.7 us, and does 2.54 GFLOP contracting w first (3.15
+// h first), 37.8 us: bound by operations.  Cityscapes b32: 363.2 MB, 108
+// us; 9.25 GFLOP (10.04 h first), 138 us.  At D=1, 128x448, b32: 11.2 MB,
+// 3.3 us; 0.195 GFLOP, 2.9 us: bound by bytes.
+//
+// Design (what it does about extract_kernel_general's limits):
+//   grid     one block per (image, FT output rows f): FT = 12 (8 at D > 21),
+//            so b32 runs 128 blocks (192 at D > 21), one wave on 132 SMs,
+//            one block an SM.  No sum crosses blocks (no split over h or w,
+//            no atomics): the output is the same bits from run to run.  The
+//            f-tiles of an image are neighbouring blocks, so x comes from
+//            device memory once and from L2 48/FT times.
+//   strips   x is walked in strips of S contiguous floats of each row (S =
+//            1024, or 256 at D <= 3), not of whole columns w, so every
+//            stage-1 thread is busy but in a row's last strip; each strip in
+//            chunks of KC rows h (KC*S = 8192 floats, 32 KB): cp.async
+//            16-byte copies into kSxStages = 3 buffers, two chunks in
+//            flight, one barrier a chunk.  A strip's f_x rows come with its
+//            first chunk's copies.
+//   stage 1  tmp[f, c] = sum_h f_y[h,f] * x[h,c] over the strip's floats c:
+//            each thread keeps all FT rows x TC = 4 columns in registers for
+//            the whole strip (TC = 1 at D <= 3); per h it reads FT/4 float4
+//            of f_y (one address a warp) and one float4 of x, for 4*FT FMAs
+//            (48 at FT = 12).
+//   stage 2  acc[f, g, d] += sum_w tmp[f, w*D+d] * f_x[w, g] at the strip's
+//            end: a thread owns one channel d, SF rows f and GQ quads of
+//            taps g, in registers for the whole walk over w; per w it reads
+//            SF floats of tmp and GQ float4 of f_x, for 4*SF*GQ FMAs (32 at
+//            SF=4, GQ=2; at D=1 4 columns w a step, tmp read as float4).
+//            The thread's channel and tile come from two divisions once; the
+//            walk runs over the columns w that touch the strip, and tmp rows
+//            carry kSxMargin zero floats on each side, so the channels of a
+//            column that lie in the next (or last) strip add exact zeros: no
+//            per-element mask and no division in the loop.
+//   store    the patch goes out as [B][FH][D][FW] in memory, the plain
+//            version's layout (as extract_tiled_kernel's), one float4 of 4
+//            taps a store.
+// Order: h first, as the plain version's two einsums associate the
+// contraction, each tmp element one FMA chain over h ascending and each acc
+// element one over w ascending: on the H100 the patch equals the plain
+// version's to the bit at the synth3, Cityscapes and D=1 shapes.  w first
+// would need 19 % fewer operations at 128x448, but it reads x with a stride
+// of D in its bulk stage and changes the association.  Splitting a row's
+// strips over a two-block cluster (FT = 24, the partial patches summed
+// through distributed shared memory) halves the L2 reads but sums each acc
+// element in two chains, which breaks that equality.
+// Build (nvcc -Xptxas -v, sm_90a, CUDA 12.8): registers a thread 101 at
+// <12,1,2,1>, 165 at <12,4,4,2>, 168 at <12,4,4,3>, 152 at <8,4,4,3>; no
+// spills, no static shared memory (one block of 8 warps an SM).
+// ---------------------------------------------------------------------------
+
+constexpr int kSxTaps = 48;       // glimpse rows and columns taken
+constexpr int kSxThreads = 256;
+constexpr int kSxChunk = 8192;    // floats of x a chunk stages
+constexpr int kSxStages = 3;      // chunk buffers
+constexpr int kSxMargin = 32;     // zero floats on each side of a tmp row
+constexpr int kSxMaxD = 32;
+
+// The instance for D channels: output rows a block (FT), stage-1 columns a
+// thread (TC), stage-2 rows (SF) and tap quads (GQ) a thread.  A block has
+// (FT/SF) * (12/GQ) * D stage-2 threads, at most kSxThreads: 72*D, 18*D,
+// 12*D and 8*D.
+struct StripTile {
+  int FT, TC, SF, GQ;
+};
+
+StripTile strip_tile(int D) {
+  if (D <= 3) return {12, 1, 2, 1};
+  if (D <= 14) return {12, 4, 4, 2};
+  if (D <= 21) return {12, 4, 4, 3};
+  return {8, 4, 4, 3};
+}
+
+// Shared memory of one block, in floats: kSxStages chunks of x and f_y, tmp
+// with its margins, the f_x rows of a strip (at most S/D + 2 columns w).
+size_t extract_strip_smem_floats(const StripTile& t, int D) {
+  const int S = kSxThreads * t.TC, KC = kSxChunk / S;
+  return (size_t)kSxStages * KC * (S + t.FT) +
+         (size_t)t.FT * (S + 2 * kSxMargin + 4) +
+         (size_t)(S / D + 2) * kSxTaps;
+}
+
+template <int FT, int TC, int SF, int GQ>
+__global__ void __launch_bounds__(kSxThreads, 1)
+extract_strip_kernel(const float* __restrict__ x,
+                     const float* __restrict__ fy,
+                     const float* __restrict__ fx, float* __restrict__ out,
+                     int H, int W, int D) {
+  constexpr int S = kSxThreads * TC;         // floats of an x row a strip
+  constexpr int KC = kSxChunk / S;           // rows h a chunk
+  constexpr int TS = S + 2 * kSxMargin + 4;  // tmp row stride
+  constexpr int NGQ = kSxTaps / (4 * GQ);    // stage-2 tap groups
+  constexpr int XQ = S / 4;                  // 16-byte copies of a row
+  constexpr int XR = kSxThreads / XQ;        // rows a pass of copies covers
+  constexpr int FQ = FT / 4;                 // 16-byte copies of an f_y row
+  constexpr int XC = KC / XR;                // x copies a thread a chunk
+  static_assert(XC * XR == KC && KC * FQ <= kSxThreads, "chunk copies");
+  static_assert(FT % 4 == 0 && FT % SF == 0 && kSxTaps % FT == 0 &&
+                kSxTaps % (4 * GQ) == 0 && (TC == 1 || TC == 4), "tiles");
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                         // [kSxStages][KC][S]
+  float* fys = xs + kSxStages * KC * S;     // [kSxStages][KC][FT]
+  float* tmp = fys + kSxStages * KC * FT;   // [FT][TS], data at kSxMargin
+  float* fxs = tmp + FT * TS;               // [<= S/D + 2][48]
+
+  const int b = blockIdx.y, f0 = blockIdx.x * FT, tid = threadIdx.x;
+  const int WD = W * D;                     // floats of an x row
+  const int NH = (H + KC - 1) / KC;         // chunks a strip
+  const int nk = (WD + S - 1) / S * NH;     // chunks in all
+  const float* xb = x + (size_t)b * H * WD;
+  const float* fyb = fy + (size_t)b * H * kSxTaps + f0;
+  const float* fxb = fx + (size_t)b * W * kSxTaps;
+
+  for (int i = tid; i < FT * 2 * kSxMargin; i += kSxThreads) {
+    const int r = i / (2 * kSxMargin), c = i - r * (2 * kSxMargin);
+    tmp[r * TS + (c < kSxMargin ? c : S + c)] = 0.f;
+  }
+
+  // Chunk k: rows h0 .. h0+KC of strip k/NH, zero past H and past the row.
+  // Thread tid copies the 16 bytes at quad tid%XQ of rows tid/XQ + j*XR.
+  const int xr0 = tid / XQ, xq = tid % XQ;
+  auto issue = [&](int k) {
+    const int s = k / NH, h0 = (k % NH) * KC, c = s * S + 4 * xq;
+    float* xd = xs + (k % kSxStages) * KC * S + 4 * xq;
+#pragma unroll
+    for (int j = 0; j < XC; ++j) {
+      const int r = xr0 + j * XR;
+      if (h0 + r < H && c < WD) {
+        cp_async16(xd + r * S, xb + (size_t)(h0 + r) * WD + c);
+      } else {
+        zero4(xd + r * S);
+      }
+    }
+    if (tid < KC * FQ) {
+      const int r = tid / FQ, q = tid - r * FQ;
+      float* yd = fys + (k % kSxStages) * KC * FT + r * FT + 4 * q;
+      if (h0 + r < H) {
+        cp_async16(yd, fyb + (size_t)(h0 + r) * kSxTaps + 4 * q);
+      } else {
+        zero4(yd);
+      }
+    }
+  };
+  // The f_x rows of the columns w that touch strip s: wlo .. whi.
+  auto strip_cols = [&](int s, int* wlo, int* whi) {
+    *wlo = s * S / D;
+    *whi = (min(s * S + S, WD) - 1) / D;
+  };
+  auto issue_fx = [&](int s) {
+    int wlo, whi;
+    strip_cols(s, &wlo, &whi);
+    const float* src = fxb + (size_t)wlo * kSxTaps;
+    for (int i = tid; i < (whi - wlo + 1) * (kSxTaps / 4); i += kSxThreads)
+      cp_async16(fxs + 4 * i, src + 4 * i);
+  };
+
+  // Stage-1 thread: all FT rows, columns TC*tid ..  Stage-2 thread (tid <
+  // their count): channel d, rows fs*SF .., tap quads gq*GQ ..
+  const bool stage2_thread = tid < (FT / SF) * NGQ * D;
+  const int d = tid % D, gq = tid / D % NGQ, fs = tid / D / NGQ;
+  float acc1[FT][TC];
+  float acc2[SF][GQ][4];
+#pragma unroll
+  for (int i = 0; i < FT; ++i)
+#pragma unroll
+    for (int j = 0; j < TC; ++j) acc1[i][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < SF; ++i)
+#pragma unroll
+    for (int j = 0; j < GQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[i][j][e] = 0.f;
+
+  // Stage 2 of strip s: columns w ascending.
+  auto stage2 = [&](int s) {
+    if (!stage2_thread) return;
+    int wlo, whi;
+    strip_cols(s, &wlo, &whi);
+    const float* tk = tmp + fs * SF * TS + kSxMargin + wlo * D - s * S + d;
+    const float* fk = fxs + 4 * GQ * gq;
+    if (TC == 1 && D == 1) {
+      // A tmp row is the strip's columns, 16-byte aligned and a multiple of
+      // 4 long: 4 columns a step.
+#pragma unroll 2
+      for (int w = 0; w <= whi - wlo; w += 4) {
+        float t[SF][4];
+#pragma unroll
+        for (int i = 0; i < SF; ++i) {
+          const float4 v = *reinterpret_cast<const float4*>(tk + i * TS + w);
+          t[i][0] = v.x; t[i][1] = v.y; t[i][2] = v.z; t[i][3] = v.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int j = 0; j < GQ; ++j) {
+            const float4 f = *reinterpret_cast<const float4*>(
+                fk + (w + e) * kSxTaps + 4 * j);
+#pragma unroll
+            for (int i = 0; i < SF; ++i) {
+              acc2[i][j][0] += t[i][e] * f.x; acc2[i][j][1] += t[i][e] * f.y;
+              acc2[i][j][2] += t[i][e] * f.z; acc2[i][j][3] += t[i][e] * f.w;
+            }
+          }
+      }
+      return;
+    }
+#pragma unroll 4
+    for (int w = 0; w <= whi - wlo; ++w) {
+      float tv[SF];
+#pragma unroll
+      for (int i = 0; i < SF; ++i) tv[i] = tk[i * TS + w * D];
+#pragma unroll
+      for (int j = 0; j < GQ; ++j) {
+        const float4 f =
+            *reinterpret_cast<const float4*>(fk + w * kSxTaps + 4 * j);
+#pragma unroll
+        for (int i = 0; i < SF; ++i) {
+          acc2[i][j][0] += tv[i] * f.x; acc2[i][j][1] += tv[i] * f.y;
+          acc2[i][j][2] += tv[i] * f.z; acc2[i][j][3] += tv[i] * f.w;
+        }
+      }
+    }
+  };
+
+  // Commit groups: the prologue's kSxStages-1 (chunks 0, 1, ..., empty past
+  // the last; the first with the first strip's f_x), then one an iteration
+  // (chunk k+kSxStages-1, with a strip's f_x at its first chunk; empty past
+  // the last chunk), so at iteration k the groups up to chunk k's have
+  // landed when all but the kSxStages-2 newest have.
+  constexpr int P = kSxStages - 1;          // chunks in flight
+  issue_fx(0);
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    if (p < nk) issue(p);
+    cp_async_commit();
+  }
+  for (int k = 0; k < nk; ++k) {
+    cp_async_wait<P - 1>();   // chunk k has landed
+    __syncthreads();
+    // Every thread has left chunk k-1, whose buffer chunk k+P takes, and,
+    // at a strip's first chunk, the last strip's stage 2, whose f_x buffer
+    // the strip takes.
+    const int s = k / NH, kh = k % NH;
+    if (kh == 0 && s > 0) issue_fx(s);
+    if (k + P < nk) issue(k + P);
+    cp_async_commit();
+
+    // Stage 1, h ascending.
+    const float* xk = xs + (k % kSxStages) * KC * S + TC * tid;
+    const float* yk = fys + (k % kSxStages) * KC * FT;
+#pragma unroll
+    for (int hh = 0; hh < KC; ++hh) {
+      float a[FT];
+#pragma unroll
+      for (int q = 0; q < FQ; ++q) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(yk + hh * FT + 4 * q);
+        a[4 * q] = v.x; a[4 * q + 1] = v.y; a[4 * q + 2] = v.z;
+        a[4 * q + 3] = v.w;
+      }
+      float v[TC];
+      if constexpr (TC == 4) {
+        const float4 t = *reinterpret_cast<const float4*>(xk + hh * S);
+        v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+      } else {
+        v[0] = xk[hh * S];
+      }
+#pragma unroll
+      for (int i = 0; i < FT; ++i)
+#pragma unroll
+        for (int j = 0; j < TC; ++j) acc1[i][j] += a[i] * v[j];
+    }
+    if (kh != NH - 1) continue;
+
+    // The strip is summed: its tmp, then its stage 2.
+#pragma unroll
+    for (int i = 0; i < FT; ++i) {
+      float* t = tmp + i * TS + kSxMargin + TC * tid;
+      if constexpr (TC == 4) {
+        *reinterpret_cast<float4*>(t) =
+            make_float4(acc1[i][0], acc1[i][1], acc1[i][2], acc1[i][3]);
+      } else {
+        t[0] = acc1[i][0];
+      }
+#pragma unroll
+      for (int j = 0; j < TC; ++j) acc1[i][j] = 0.f;
+    }
+    // The strip's f_x rows came with the group of its first chunk, which
+    // has landed unless the strip has fewer than kSxStages chunks.
+    if (NH < kSxStages) cp_async_wait<0>();
+    __syncthreads();
+    stage2(s);
+  }
+  // out is [B][FH][D][FW] in memory: channel d of row f at
+  // ((b*48 + f)*D + d)*48.
+  if (stage2_thread) {
+#pragma unroll
+    for (int i = 0; i < SF; ++i) {
+      float* o = out + (((size_t)b * kSxTaps + f0 + fs * SF + i) * D + d) *
+                           kSxTaps + 4 * GQ * gq;
+#pragma unroll
+      for (int j = 0; j < GQ; ++j) {
+        *reinterpret_cast<float4*>(o + 4 * j) = make_float4(
+            acc2[i][j][0], acc2[i][j][1], acc2[i][j][2], acc2[i][j][3]);
+      }
+    }
+  }
+}
+
+template <int FT, int TC, int SF, int GQ>
+cudaError_t launch_extract_strip(const float* x, const float* fy,
+                                 const float* fx, float* out, int B, int H,
+                                 int W, int D, cudaStream_t stream) {
+  const size_t smem =
+      extract_strip_smem_floats(StripTile{FT, TC, SF, GQ}, D) * sizeof(float);
+  cudaError_t err =
+      allow_smem((const void*)extract_strip_kernel<FT, TC, SF, GQ>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(kSxTaps / FT, B);
+  extract_strip_kernel<FT, TC, SF, GQ><<<grid, kSxThreads, smem, stream>>>(
+      x, fy, fx, out, H, W, D);
+  return cudaGetLastError();
+}
+
+// The extract kernels, as glimpse_extract_route names them.
+enum ExtractRoute {
+  kRouteNone = -1,
+  kRouteGeneral = 0,   // extract_kernel_general
+  kRouteTiled = 1,     // extract_tiled_kernel
+  kRouteStrip = 2,     // extract_strip_kernel
+};
+
+// The extract route of a shape, and in *ft the output rows a block of the
+// tiled (48, 12 or 4) and strip (12 or 8) routes.  Depends on the shape and
+// on whether all four pointers are 16-byte aligned, nothing else.
+ExtractRoute extract_route(int B, int H, int W, int D, int FH, int FW,
+                           bool aligned, int* ft) {
+  *ft = 0;
+  if (B < 1 || H < 1 || W < 1 || D < 1 || FH < 1 || FW < 1 || B > 65535 ||
+      D > kExCols)
+    return kRouteNone;
+  if (aligned && H == kTxSize && W == kTxSize && FH == kTxTaps &&
+      FW == kTxTaps && (D == 1 || D == 4)) {
+    *ft = 4;
+    for (int t : {48, 12}) {
+      if ((long)B * (kTxTaps / t) >= kTxMinBlocks) {
+        *ft = t;
+        break;
+      }
+    }
+    return kRouteTiled;
+  }
+  if (aligned && FH == kSxTaps && FW == kSxTaps && D <= kSxMaxD &&
+      (long)W * D % 4 == 0) {
+    *ft = strip_tile(D).FT;
+    return kRouteStrip;
+  }
+  const size_t smem = extract_smem_floats(D, FW, kExCols / D) * sizeof(float);
+  return smem > kMaxSmemBytes ? kRouteNone : kRouteGeneral;
+}
+
 }  // namespace
 
 extern "C" {
 
+// The route (an ExtractRoute: -1 none, 0 general, 1 tiled, 2 strip), and in
+// *ft the output rows a block where the route has them.
 int glimpse_extract_route(int B, int H, int W, int D, int FH, int FW,
-                          int aligned) {
-  return extract_route(B, H, W, D, FH, FW, aligned != 0);
+                          int aligned, int* ft) {
+  return extract_route(B, H, W, D, FH, FW, aligned != 0, ft);
 }
 
 // out is [B][FH][FW][D] in memory on the general route and [B][FH][D][FW]
-// (the plain version's layout) on the tiled route: glimpse_extract_route
-// tells them apart.
+// (the plain version's layout) on the tiled and strip routes:
+// glimpse_extract_route tells them apart.
 int glimpse_extract(const float* x, const float* fy, const float* fx,
                     float* out, int B, int H, int W, int D, int FH, int FW,
                     void* stream) {
   const bool aligned = ((uintptr_t)x | (uintptr_t)fy | (uintptr_t)fx |
                         (uintptr_t)out) % 16 == 0;
-  const int route = extract_route(B, H, W, D, FH, FW, aligned);
+  int ft;
+  const ExtractRoute route = extract_route(B, H, W, D, FH, FW, aligned, &ft);
   const cudaStream_t s = (cudaStream_t)stream;
-#define EXTRACT_CASE(ft, tf, tc, kc)                                        \
-  case ft:                                                                  \
-    return (int)launch_extract_tiled<ft, tf, tc, kc>(x, fy, fx, out, B, D, s);
-  switch (route) {
+  if (route == kRouteTiled) {
+#define EXTRACT_CASE(t, tf, tc, kc)                                         \
+    if (ft == t)                                                            \
+      return (int)launch_extract_tiled<t, tf, tc, kc>(x, fy, fx, out, B, D, s);
     EXTRACT_CASE(48, 12, 4, 32) EXTRACT_CASE(12, 12, 1, 56)
     EXTRACT_CASE(4, 4, 1, 56)
 #undef EXTRACT_CASE
-    case 0: break;
-    default: return (int)cudaErrorInvalidValue;
+    return (int)cudaErrorInvalidValue;
   }
+  if (route == kRouteStrip) {
+    const StripTile t = strip_tile(D);
+#define STRIP_CASE(ft_, tc, sf, gq)                                         \
+    if (t.FT == ft_ && t.TC == tc && t.SF == sf && t.GQ == gq)              \
+      return (int)launch_extract_strip<ft_, tc, sf, gq>(x, fy, fx, out, B,  \
+                                                        H, W, D, s);
+    STRIP_CASE(12, 1, 2, 1) STRIP_CASE(12, 4, 4, 2) STRIP_CASE(12, 4, 4, 3)
+    STRIP_CASE(8, 4, 4, 3)
+#undef STRIP_CASE
+    return (int)cudaErrorInvalidValue;
+  }
+  if (route != kRouteGeneral) return (int)cudaErrorInvalidValue;
   const int WS = kExCols / D;
   const size_t smem = extract_smem_floats(D, FW, WS) * sizeof(float);
   cudaError_t err = allow_smem((const void*)extract_kernel_general, smem);

@@ -185,7 +185,8 @@ def _bind_glimpse(lib):
     fn = getattr(lib, name)
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
-  lib.glimpse_extract_route.argtypes = [ctypes.c_int] * 7
+  lib.glimpse_extract_route.argtypes = ([ctypes.c_int] * 7
+                                        + [ctypes.POINTER(ctypes.c_int)])
   lib.glimpse_extract_route.restype = ctypes.c_int
   lib.glimpse_error_string.argtypes = [ctypes.c_int]
   lib.glimpse_error_string.restype = ctypes.c_char_p

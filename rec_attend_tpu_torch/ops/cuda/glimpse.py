@@ -15,12 +15,15 @@ The filter gradients are thin contractions that JAX also leaves outside
 its kernels, so they stay ``torch.einsum``.  A backward computes only the
 gradients ``ctx.needs_input_grad`` asks for.
 
-The extract kernel has two routes, picked on the host from the shape and
+The extract kernel has three routes, picked on the host from the shape and
 the pointers' alignment alone (``extract_route``): ``extract_tiled_kernel``
-at the flagship's shapes (224x224 image, 48x48 glimpse, D = 1 or 4,
-16-byte aligned), ``extract_kernel_general`` at every other shape.  The
-tiled kernel returns the patch in the plain version's memory layout
-([B,FH,D,FW], viewed as [B,FH,FW,D]), the general one contiguous.
+at the flagship's shapes (224x224 image, 48x48 glimpse, D = 1 or 4);
+``extract_strip_kernel`` at the other 48x48 glimpses with D <= 32 and W*D a
+multiple of 4 (any H and W: the KITTI and Cityscapes shapes, paste's d_p
+off 224x224), both with all pointers 16-byte aligned; and
+``extract_kernel_general`` at every other shape.  The tiled and strip
+kernels return the patch in the plain version's memory layout ([B,FH,D,FW],
+viewed as [B,FH,FW,D]), the general one contiguous.
 
 A CUDA tensor goes to the kernel, or the call raises: there is no fallback
 to the einsum forms on the card.  A CPU tensor goes to the plain two-einsum
@@ -28,10 +31,13 @@ version of ``ops/attention.py``, in the forward and in the backward, so the
 Functions' own backward formulas run on the CPU too.  Each wrapper counts
 the launches of its kernel, backward launches included, in its
 ``launches`` attribute, and the backward ones also in
-``backward_launches``.
+``backward_launches``; ``glimpse_extract.route_launches`` splits its
+launches by route.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -62,19 +68,26 @@ def _check(name, a, f_y, f_x):
   return b, h, w, fh, fw
 
 
+# The extract kernels by the route number glimpse_extract_route returns.
+EXTRACT_KERNELS = ('extract_kernel_general', 'extract_tiled_kernel',
+                   'extract_strip_kernel')
+
+
 def extract_route(b, h, w, d, fh, fw, aligned=True):
   """The extract kernel that ``glimpse_extract`` launches at these dims:
-  {'kernel': 'extract_tiled_kernel', 'ft': output rows a block} or
-  {'kernel': 'extract_kernel_general'}.  ``aligned``: all four pointers
-  16-byte aligned.  Raises ValueError where neither kernel takes them."""
+  {'kernel': 'extract_tiled_kernel' or 'extract_strip_kernel', 'ft': output
+  rows a block} or {'kernel': 'extract_kernel_general'}.  ``aligned``: all
+  four pointers 16-byte aligned.  Raises ValueError where no kernel takes
+  them."""
+  ft = ctypes.c_int(0)
   route = build.load().glimpse_extract_route(b, h, w, d, fh, fw,
-                                             int(aligned))
+                                             int(aligned), ctypes.byref(ft))
   if route < 0:
     raise ValueError(f'glimpse_extract: no kernel takes dims '
                      f'{(b, h, w, d, fh, fw)}')
   if route == 0:
-    return {'kernel': 'extract_kernel_general'}
-  return {'kernel': 'extract_tiled_kernel', 'ft': route}
+    return {'kernel': EXTRACT_KERNELS[0]}
+  return {'kernel': EXTRACT_KERNELS[route], 'ft': ft.value}
 
 
 def extract_route_of(x, f_y, f_x):
@@ -113,17 +126,19 @@ def _extract(x, f_y, f_x, backward=False):
   if x.device.type == 'cpu':
     return extract_patch_plain(x, f_y, f_x)
   d = x.shape[3]
-  if extract_route_of(x, f_y, f_x)['kernel'] == 'extract_tiled_kernel':
-    # The tiled kernel writes the patch as [B,FH,D,FW] in memory, the layout
-    # of the plain version's result, so that the layers after it run the
-    # same algorithms on either path.
+  kernel = extract_route_of(x, f_y, f_x)['kernel']
+  if kernel == 'extract_kernel_general':
+    out = torch.empty((b, fh, fw, d), dtype=torch.float32, device=x.device)
+  else:
+    # The tiled and strip kernels write the patch as [B,FH,D,FW] in memory,
+    # the layout of the plain version's result, so that the layers after it
+    # run the same algorithms on either path.
     out = torch.empty((b, fh, d, fw), dtype=torch.float32,
                       device=x.device).transpose(2, 3)
-  else:
-    out = torch.empty((b, fh, fw, d), dtype=torch.float32, device=x.device)
   _launch('glimpse_extract', x, f_y, f_x, out, (b, h, w, d, fh, fw))
   glimpse_extract.launches += 1
   glimpse_extract.backward_launches += backward
+  glimpse_extract.route_launches[kernel] += 1
   return out
 
 
@@ -209,6 +224,7 @@ def reset_launch_counts():
   for fn in WRAPPERS:
     fn.launches = 0
     fn.backward_launches = 0
+  glimpse_extract.route_launches = dict.fromkeys(EXTRACT_KERNELS, 0)
 
 
 def launch_counts(backward=False):

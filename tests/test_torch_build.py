@@ -34,8 +34,8 @@ def test_kernel_resources_reads_each_kernel():
   assert build.kernel_resources('nvcc: no ptxas lines\n') == {}
 
 
-# nvcc's report for the two extract kernels: a name with "_kernel" inside
-# it, and a template instance.
+# nvcc's report for the three extract kernels: a name with "_kernel" inside
+# it, and two template instances.
 EXTRACT_LOG = """\
 ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0322extract_kernel_generalEPKfS1_S1_Pfiiiiii' for 'sm_90a'
 ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0322extract_kernel_generalEPKfS1_S1_Pfiiiiii
@@ -45,6 +45,10 @@ ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_c
 ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_tiled_kernelILi48ELi12ELi4ELi32EEEvPKfS2_S2_Pfi
     0 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_strip_kernelILi12ELi4ELi4ELi2EEEvPKfS2_S2_Pfiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__1972d66e_10_glimpse_cu_4dc74d0320extract_strip_kernelILi12ELi4ELi4ELi2EEEvPKfS2_S2_Pfiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 154 registers, used 1 barriers
 """
 
 
@@ -57,6 +61,10 @@ def test_kernel_resources_names_the_extract_kernels():
                                            'spill_store_bytes': 8,
                                            'spill_load_bytes': 8,
                                            'static_smem_bytes': 0},
+      'extract_strip_kernel<12,4,4,2>': {'registers': 154,
+                                         'spill_store_bytes': 0,
+                                         'spill_load_bytes': 0,
+                                         'static_smem_bytes': 0},
   }
 
 

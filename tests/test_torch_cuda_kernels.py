@@ -52,26 +52,49 @@ UNALIGNED = [((8, 224, 224, 1, 48, 48), 'p'), ((8, 224, 224, 1, 48, 48), 'f_x'),
              ((32, 224, 224, 4, 48, 48), 'f_x'),
              ((3, 33, 45, 3, 7, 9), 'f_y')]
 
-# Extract's tiled route takes a 224x224 image, a 48x48 glimpse, D = 1 or 4
-# and 16-byte aligned pointers, at any B (output rows a block: 48 from 96
-# images on, 12 from 24, else 4); every other shape goes to the general
-# route.  So: the tiled route at B = 1, 8, 32, 128 (D=4) and 1, 8, 32
-# (D=1), each FT at both D; one change away from it (H or W 223 or 225,
-# FH or FW 47 or 49, D = 2 or 3); and inputs 4 bytes past a 16-byte
-# boundary, x, f_y and f_x in turn.
+# Extract has three routes, picked by the shape and the pointers' alignment.
+# The tiled route takes a 224x224 image, a 48x48 glimpse, D = 1 or 4 and
+# 16-byte aligned pointers, at any B (output rows a block: 48 from 96 images
+# on, 12 from 24, else 4).  The strip route takes the other 48x48 glimpses
+# with D <= 32 and W*D a multiple of 4, aligned, at any H and W (output rows
+# a block: 12, or 8 at D > 21).  The general route takes every other shape.
+# So: the tiled route at B = 1, 8, 32, 128 (D=4) and 1, 8, 32 (D=1), each
+# FT at both D; one change away from it (H or W 223 or 225, FH or FW 47 or
+# 49, D = 2 or 3), which the strip route takes where the glimpse stays
+# 48x48 and W*D a multiple of 4; and inputs 4 bytes past a 16-byte boundary,
+# x, f_y and f_x in turn.
 TILED = [(1, 224, 224, 4, 48, 48), (8, 224, 224, 4, 48, 48),
          (32, 224, 224, 4, 48, 48), (128, 224, 224, 4, 48, 48),
          (1, 224, 224, 1, 48, 48), (8, 224, 224, 1, 48, 48),
          (32, 224, 224, 1, 48, 48)]
-OFF_TILED = [(4, 223, 224, 4, 48, 48), (4, 225, 224, 4, 48, 48),
-             (4, 224, 223, 4, 48, 48), (4, 224, 225, 1, 48, 48),
-             (4, 224, 224, 4, 47, 48), (4, 224, 224, 1, 49, 48),
-             (4, 224, 224, 4, 48, 47), (4, 224, 224, 4, 48, 49),
-             (4, 224, 224, 2, 48, 48), (4, 224, 224, 3, 48, 48)]
-EXTRACT_SHAPES = SHAPES + TILED + OFF_TILED
+OFF_TILED_STRIP = [(4, 223, 224, 4, 48, 48), (4, 225, 224, 4, 48, 48),
+                   (4, 224, 223, 4, 48, 48), (4, 224, 224, 2, 48, 48),
+                   (4, 224, 224, 3, 48, 48)]
+OFF_TILED_GENERAL = [(4, 224, 225, 1, 48, 48), (4, 224, 224, 4, 47, 48),
+                     (4, 224, 224, 1, 49, 48), (4, 224, 224, 4, 48, 47),
+                     (4, 224, 224, 4, 48, 49)]
+OFF_TILED = OFF_TILED_STRIP + OFF_TILED_GENERAL
+# The strip route at the edges of its tiles: the instance changes at D = 4,
+# 15 and 22 (D = 1, 2, 3, 5, 13, 14, 21, 22, 32 here); a strip holds 1024
+# floats of a row (256 at D <= 3) and a chunk 8 rows of it (32 at D <= 3),
+# so H and W*D that are not multiples of them, rows shorter than one strip,
+# strips of one or two chunks (H = 4, 5, 9) and strips that end on a whole
+# column (W*D = 5200, 14000); B = 1, 2 and 32 (the synth3 chain's and
+# Cityscapes' b32 forwards, paste's d_p at the KITTI size).
+STRIP = [(1, 17, 100, 13, 48, 48), (2, 9, 400, 13, 48, 48),
+         (2, 4, 8, 13, 48, 48),
+         (1, 5, 1000, 14, 48, 48), (2, 33, 52, 21, 48, 48),
+         (1, 30, 50, 22, 48, 48), (1, 20, 45, 32, 48, 48),
+         (2, 130, 300, 1, 48, 48), (1, 9, 202, 2, 48, 48),
+         (2, 40, 100, 3, 48, 48), (1, 25, 120, 5, 48, 48),
+         (32, 128, 448, 13, 48, 48), (32, 256, 512, 21, 48, 48),
+         (32, 128, 448, 1, 48, 48)]
+EXTRACT_SHAPES = SHAPES + TILED + OFF_TILED + STRIP
 EXTRACT_UNALIGNED = [((8, 224, 224, 4, 48, 48), 'x'),
                      ((8, 224, 224, 4, 48, 48), 'f_y'),
-                     ((32, 224, 224, 1, 48, 48), 'f_x')]
+                     ((32, 224, 224, 1, 48, 48), 'f_x'),
+                     ((2, 128, 448, 13, 48, 48), 'x'),
+                     ((2, 128, 448, 1, 48, 48), 'f_x')]
 
 
 @pytest.fixture
@@ -115,24 +138,45 @@ def test_extract_kernel_matches_plain(dev, shape, unaligned):
   assert gk.glimpse_extract.launches == before + 1
   want = attention.extract_patch(x, f_y, f_x)
   torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
-  # The tiled route returns the plain version's memory layout.
-  if gk.extract_route_of(x, f_y, f_x)['kernel'] == 'extract_tiled_kernel':
+  # The tiled and strip routes return the plain version's memory layout.
+  if gk.extract_route_of(x, f_y, f_x)['kernel'] != 'extract_kernel_general':
     assert got.stride() == want.stride()
+
+
+@pytest.mark.parametrize('shape', STRIP, ids=str)
+def test_strip_route_is_deterministic(dev, shape):
+  """No sum crosses blocks and nothing is atomic: two launches on the same
+  inputs give the same bits, in the plain version's layout."""
+  x, _, f_y, f_x = _inputs(shape, dev)
+  assert gk.extract_route_of(x, f_y, f_x)['kernel'] == 'extract_strip_kernel'
+  first = gk.glimpse_extract(x, f_y, f_x)
+  second = gk.glimpse_extract(x, f_y, f_x)
+  torch.cuda.synchronize()
+  assert torch.equal(first, second)
+  assert first.stride() == attention.extract_patch(x, f_y, f_x).stride()
 
 
 def test_extract_route(dev):
   """The tiled route takes the main path's shapes, with the output rows a
-  block that fill about one wave; one change away from them, or an
-  unaligned pointer, sends a shape to the general route."""
+  block that fill about one wave; the strip route the other 48x48 glimpses
+  with D <= 32 and W*D a multiple of 4; an unaligned pointer, another
+  glimpse size, D > 32 or W*D not a multiple of 4 sends a shape to the
+  general route, which takes every other shape up to D = 128."""
   want_ft = {1: 4, 8: 4, 32: 12, 128: 48}
+  general = {'kernel': 'extract_kernel_general'}
   for shape in TILED:
     assert gk.extract_route(*shape) == {'kernel': 'extract_tiled_kernel',
                                         'ft': want_ft[shape[0]]}, shape
-    assert gk.extract_route(*shape, aligned=False) == {
-        'kernel': 'extract_kernel_general'}, shape
-  for shape in SHAPES[1:] + OFF_TILED:
+    assert gk.extract_route(*shape, aligned=False) == general, shape
+  for shape in STRIP + OFF_TILED_STRIP + [SHAPES[2]]:
     assert gk.extract_route(*shape) == {
-        'kernel': 'extract_kernel_general'}, shape
+        'kernel': 'extract_strip_kernel',
+        'ft': 8 if shape[3] > 21 else 12}, shape
+    assert gk.extract_route(*shape, aligned=False) == general, shape
+  for shape in ([SHAPES[1]] + SHAPES[3:] + OFF_TILED_GENERAL
+                + [(1, 32, 40, 33, 48, 48), (16, 128, 448, 13, 48, 64),
+                   (1, 10, 15, 3, 48, 48), (2, 17, 301, 1, 48, 48)]):
+    assert gk.extract_route(*shape) == general, shape
   with pytest.raises(ValueError, match='no kernel takes'):
     gk.extract_route(1, 32, 40, 129, 8, 8)
 
