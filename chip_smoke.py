@@ -72,7 +72,26 @@ Phases, one JSON line each on stdout:
                 card against CPU (b2) held to their limits, per-example SBD
                 and counts as in eval; host seconds per batch of the fg
                 forward, the pack, the full forward, the postprocess chain
-                and the analyzers.
+                and the analyzers;
+  chain_train   the synth3 chain's training at b8 on 16 synthetic 128x448
+                images, each stage through its Trainer: the fg model
+                restored from its checkpoint with its momentum trace, 5
+                steps; pack_fg of the trained fg model; the box model
+                restored with its Adam state on the packed channels, 5
+                steps; the KITTI full model started from the trained box's
+                controller (load_pretrained), 2 steps, then restored from
+                its checkpoint, 2 steps.  Per stage the step ms (CUDA
+                events), the peak memory and the launches per step, which
+                must be the path's (the box's 2T pastes; the full model's
+                4T extracts on the strip route, 2T of them as d_p, and 4T
+                pastes).  Before its steps, one step of each stage is
+                gated: fg card against CPU (b2) beside its floor (the batch
+                in the other order), with two controls that must fail (the
+                momentum trace reset, the loss without the orientation CE);
+                box kernel against plain (b8, beside the reordered-plain
+                floor) and card against CPU (b2); full kernel against plain
+                (b8, at step 0); the box and full controls drop the filter
+                gradients.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -99,6 +118,7 @@ CHECKPOINT_DIR = os.path.join(REPO, 'results',
 # predictions (RESULTS.md, the synth3 runs).
 CHAIN_FG_DIR = os.path.join(REPO, 'results', 'fg_model_synth3-20260818a')
 CHAIN_FULL_DIR = os.path.join(REPO, 'results', 'full_model_synth3-20260818a')
+CHAIN_BOX_DIR = os.path.join(REPO, 'results', 'box_model_synth3-20260818a')
 REPLACES = {
     'glimpse_extract': 'rec_attend_tpu/ops/pallas/glimpse.py:62',
     'glimpse_paste': 'rec_attend_tpu/ops/pallas/glimpse.py:75',
@@ -172,7 +192,9 @@ STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 1e-3,
 # same run would rest on one sample of a floor that spread tenfold over
 # those batches (kernel against plain reached 3.7 times it).
 OWN_CANVAS_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_all': 0.1}
-GRADIENT_GATES = ('grad_rel_l2_max', 'grad_rel_l2_all')
+# The gradient gates: the dropped-filter-gradient control must fail each
+# of them that the limits name.
+GRADIENT_GATES = ('grad_rel_l2_max', 'grad_rel_l2_all', 'grad_rel_l2_median')
 TRAIN_BATCH = 32
 TRAIN_CPU_BATCH = 2
 # Requests of other sizes than the model's: CVPPP A1's image size at b1,
@@ -197,6 +219,50 @@ CHAIN_MASK_THRESHOLD, CHAIN_SCORE_THRESHOLD = 0.4, 0.15
 # The fg forward, card against CPU: its sigmoid and softmax maps, largest
 # difference (the port against JAX on the CPU: 1.3e-6 and 3.7e-6).
 FG_MAPS_ATOL = 1e-4
+# The chain's training: b8, the batch of the JAX pipeline's synth3 run
+# (pipelines/run_pipeline.py:283-375), over 16 synthetic 128x448 images (two
+# batches, cycled); fg, box, full from the box and full from its checkpoint
+# take these numbers of steps; the card-against-CPU gates run at b2.
+CHAIN_TRAIN_BATCH, CHAIN_TRAIN_CPU_BATCH, CHAIN_TRAIN_EXAMPLES = 8, 2, 16
+CHAIN_TRAIN_STEPS = (5, 5, 2, 2)
+# The chain's gates, each limit set from the float32 floor that
+# `step_noise.py --chain` measured over five b8 batches (one H100 80GB
+# HBM3 at 700 W):
+# - fg, card against CPU (b2), from ckpt-3000.  Its floor, the card's step
+#   on the batch in the other order against the card's step, reached 0.0122
+#   in the worst leaf's gradient (the BatchNorm beta and gamma of a deep
+#   layer, whose gradient is a sum that nearly cancels), 0.0030 in all
+#   gradients at once and 0.0107 in the worst leaf's update; card against
+#   CPU reached 0.0122, 0.0031 and 0.0141.  The limits are twice the floor's
+#   largest; the controls measured 1.02 and more in the gradients (no
+#   orientation CE) and 0.72 and more in the update (the trace reset).
+FG_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.025,
+                  'grad_rel_l2_all': 0.0062, 'zero_grad_share_max': 1e-4,
+                  'update_rel_l2_max': 0.022, 'zero_update_in_lr_max': 2.0}
+# - box, kernel against plain (b8) and card against CPU (b2), from
+#   ckpt-12000: its canvas takes the ground truth, as at step 0, and the
+#   floor (reordered plain against plain) stayed below 9e-7 in any leaf's
+#   gradient and 3.2e-5 in any update; card against CPU reached 3.6e-4 and
+#   3.5e-4.  STEP_LIMITS hold with room.
+BOX_STEP_LIMITS = dict(STEP_LIMITS)
+# - full at step 0 from the box's controller, kernel against plain (b8):
+#   its attention nets are freshly initialised, and their BatchNorm leaves'
+#   gradients are float32 noise of nearly constant activations.  The floor
+#   reached 0.115 in the worst leaf's gradient, 0.0061 in all gradients at
+#   once and 0.315 in the worst leaf's update (Adam's first step moves a
+#   noise-level element by lr either way); kernel against plain reached
+#   2.0e-6, 2.7e-7 and 3.8e-4.  The limits are twice the floor's largest;
+#   the control (dropped filter gradients) measured 1.0 and more in the
+#   worst leaf's gradient, 0.040 and more in all gradients and 1.39 and
+#   more in the update.  Those leaves are few: the median leaf's gradient
+#   error separates the two by far more.  Its floor reached 9.7e-4 (2.4e-5
+#   to 1.3e-4 on the other four batches), kernel against plain 3.7e-7, the
+#   control 0.82 and more; its limit is twice the floor's largest, and the
+#   control must fail it too.
+FULL_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.23,
+                    'grad_rel_l2_all': 0.0122, 'grad_rel_l2_median': 2e-3,
+                    'zero_grad_share_max': 1e-4,
+                    'update_rel_l2_max': 0.63, 'zero_update_in_lr_max': 2.0}
 
 
 def emit(phase, **fields):
@@ -454,9 +520,11 @@ def zero_grad_leaves(model):
 
 def match_differences(got, want):
   """{matching: number of examples whose matching differs} of two steps'
-  'match', 'match_box' (Hungarian) and 'grd_match' (greedy, [B,T,T])."""
+  'match', 'match_box' (Hungarian) and 'grd_match' (greedy, [B,T,T]),
+  those that both steps have."""
   return {k: int((got[k] != want[k]).flatten(1).any(1).sum())
-          for k in ('match', 'match_box', 'grd_match')}
+          for k in ('match', 'match_box', 'grd_match')
+          if k in got and k in want}
 
 
 def step_diff(torch, model, got, want, lr):
@@ -464,7 +532,8 @@ def step_diff(torch, model, got, want, lr):
   returns them.  Returns the statistics that STEP_LIMITS names ("_max" ones
   as [leaf, value]); besides them the relative L2 error of all gradients
   but the zero-gradient biases at once, the median leaf's, how many
-  examples' matchings differ, and the forwards' differences."""
+  examples' matchings differ, and the forwards' differences (the full
+  model's y_out and s_out, the box model's s_out)."""
   zero = zero_grad_leaves(model)
   loss, grads, old, new = got[:4]
   loss_ref, grads_ref, _, new_ref = want[:4]
@@ -498,8 +567,12 @@ def step_diff(torch, model, got, want, lr):
                                    torch.cat([grads_ref[k].flatten()
                                               for k in live])),
                grad_rel_l2_median=statistics.median(grad_rel.values()),
-               matches_differ=match_differences(got[4], want[4]),
-               forward=forward_diff(got[4], want[4]))
+               matches_differ=match_differences(got[4], want[4]))
+  if {'y_out', 's_out'} <= want[4].keys():
+    stats['forward'] = forward_diff(got[4], want[4])
+  elif 's_out' in want[4]:
+    stats['forward'] = {'s_out_max': float(
+        (got[4]['s_out'].cpu() - want[4]['s_out'].cpu()).abs().max())}
   return stats
 
 
@@ -524,11 +597,12 @@ def hungarian_calls(matching, solve_fn):
 
 def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
              glimpse, pinned=None):
-  """One train step on copies of model and opt_state: (loss, grads, old
-  params, new params, matches).  matches holds the step's Hungarian
-  matchings 'match' and 'match_box', its greedy matches 'grd_match', the
-  host solver's answer 'solved', and the forward's 'y_out' and 's_out'.  With pinned (another step's
-  'solved'), the solve returns that answer instead of solving."""
+  """One train step of any model on copies of model and opt_state: (loss,
+  grads, old params, new params, matches).  matches holds, where the model
+  has them, the step's Hungarian matchings 'match' and 'match_box', its
+  greedy matches 'grd_match', the host solver's answer 'solved', and the
+  forward's 'y_out' and 's_out'.  With pinned (another step's 'solved'),
+  the solve returns that answer instead of solving."""
   model = copy.deepcopy(model)
   opt_state = copy.deepcopy(opt_state)
   old = {k: v.detach().clone() for k, v in model.named_parameters()}
@@ -541,11 +615,17 @@ def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
     loss, aux, grads = ts.loss_and_grads(model, batch, draws, step, glimpse)
   ts.apply_updates(model, opt_state, grads, aux['new_bn'])
   new = {k: v.detach().clone() for k, v in model.named_parameters()}
-  (solution,) = solved
+  # The full and box models solve one Hungarian matching a step (the box
+  # model none with fixed_order); the fg model has none.
+  want = int('match_box' in aux and not model.cfg.fixed_order)
+  if len(solved) != want:
+    raise AssertionError(f'{len(solved)} Hungarian solves in one step, '
+                         f'want {want}')
   outs = aux['outputs']
-  matches = {'match': aux['match'], 'match_box': aux['match_box'],
-             'grd_match': outs['grd_match'], 'solved': solution,
-             'y_out': outs['y_out'].detach(), 's_out': outs['s_out'].detach()}
+  matches = {'solved': solved[0] if solved else None,
+             **{k: aux[k] for k in ('match', 'match_box') if k in aux},
+             **{k: outs[k].detach() for k in ('grd_match', 'y_out', 's_out')
+                if k in outs}}
   return loss.detach(), grads, old, new, matches
 
 
@@ -593,8 +673,8 @@ def held_steps(torch, model, run, want, lr, limits):
     stats['failed'] = step_gate_failures(stats, limits)
     return stats
   stats = diff(run(None))
-  agree = not (stats['matches_differ']['match']
-               or stats['matches_differ']['match_box'])
+  agree = not (stats['matches_differ'].get('match')
+               or stats['matches_differ'].get('match_box'))
   yield '', stats, agree
   if not agree:
     yield '_pinned', diff(run(want[4]['solved'])), True
@@ -629,9 +709,11 @@ def step_gates(torch, ts, matching, gk, model, opt, batch, draws, step, lr,
   stats = step_diff(torch, model, control, plain, lr)
   stats['failed'] = step_gate_failures(stats, limits)
   gates['dropped_filter_grads_vs_plain_pinned'] = stats
-  if not set(GRADIENT_GATES) & set(stats['failed']):
+  passed = [k for k in GRADIENT_GATES
+            if k in limits and k not in stats['failed']]
+  if passed:
     failures.append('dropped_filter_grads_vs_plain_pinned: the gradient '
-                    'gate passes it')
+                    f'gates {passed} pass it')
   return gates, failures
 
 
@@ -901,6 +983,321 @@ def chain_phase(torch, gk):
       'host_seconds_per_batch': per_batch}
 
 
+def opt_state_to(opt_state, dev):
+  """A copy of an optimizer state (``train_step.init_opt_state`` form) on
+  ``dev``."""
+  return {k: (v if k == 'count' else {n: t.to(dev) for n, t in v.items()})
+          for k, v in opt_state.items()}
+
+
+def run_steps(torch, gk, trainer, batches, n):
+  """``n`` steps of ``trainer``, one batch each, launches counted per step
+  (the counts set to 0 just before each, read just after), each step
+  timed with CUDA events on the card (None elsewhere)."""
+  steps = []
+  cuda = trainer.device.type == 'cuda'
+  for _ in range(n):
+    gk.reset_launch_counts()
+    if cuda:
+      start = torch.cuda.Event(enable_timing=True)
+      end = torch.cuda.Event(enable_timing=True)
+      start.record()
+    (metrics,) = trainer.run(1, batches)
+    if cuda:
+      end.record()
+      end.synchronize()
+    if not math.isfinite(metrics['loss']):
+      raise AssertionError(f'step {metrics["step"]}: loss {metrics["loss"]}')
+    steps.append({
+        'step': metrics['step'] - 1,
+        'ms': start.elapsed_time(end) if cuda else None,
+        'launches': gk.launch_counts(),
+        'backward_launches': gk.launch_counts(backward=True),
+        'extract_route_launches': {
+            k: v for k, v in gk.glimpse_extract.route_launches.items() if v},
+        'metrics': metrics})
+  for k, v in trainer.model.state_dict().items():
+    if not torch.isfinite(v).all():
+      raise AssertionError(f'non-finite parameter after training: {k}')
+  return steps
+
+
+def steps_summary(torch, steps, peak):
+  """The median step ms, the peak memory and the launches per step (all
+  steps must launch alike)."""
+  per_step = {(tuple(s['launches'].items()),
+               tuple(s['backward_launches'].items()),
+               tuple(s['extract_route_launches'].items())) for s in steps}
+  if len(per_step) != 1:
+    raise AssertionError(f'the steps launched differently: {per_step}')
+  ms_ = [s['ms'] for s in steps if s['ms'] is not None]
+  return {'steps': steps,
+          'step_ms_median': statistics.median(ms_) if ms_ else None,
+          'max_memory_allocated_bytes': peak,
+          'launches_per_step': steps[0]['launches'],
+          'backward_launches_per_step': steps[0]['backward_launches'],
+          'extract_route_launches_per_step':
+              steps[0]['extract_route_launches']}
+
+
+def want_launches(steps, total, backward, routes, label):
+  for s in steps:
+    if (s['launches'] != total or s['backward_launches'] != backward
+        or s['extract_route_launches'] != routes):
+      raise AssertionError(
+          f'{label} step {s["step"]}: launches {s["launches"]} (backward '
+          f'{s["backward_launches"]}, routes {s["extract_route_launches"]}),'
+          f' want {total} (backward {backward}, routes {routes})')
+
+
+def peak_memory(torch, dev):
+  return torch.cuda.max_memory_allocated() if dev.type == 'cuda' else None
+
+
+def reset_peak(torch, dev):
+  if dev.type == 'cuda':
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def cpu_gate(torch, ts, matching, model, opt_state, batch, draws, step, lr,
+             limits, nb=CHAIN_TRAIN_CPU_BATCH):
+  """One step of ``model`` (on its device) against the same step on the
+  CPU, on the batch's first ``nb`` examples (``draws`` are theirs), cuDNN
+  deterministic, the CPU's Hungarian matchings pinned where they differ
+  (``held_steps``).  Returns ({name: stats}, failures, the CPU step)."""
+  dev = model.device
+  cpu_model = copy.deepcopy(model).to('cpu')
+  cpu_model.device = torch.device('cpu')
+  small = {k: v[:nb] for k, v in batch.items()}
+  host = one_step(torch, ts, matching, cpu_model,
+                  opt_state_to(opt_state, 'cpu'),
+                  {k: v.cpu() for k, v in small.items()},
+                  to_device(draws, 'cpu'), step, 'kernel')
+  host = tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
+                 for k, v in x.items()} if isinstance(x, dict) else x.to(dev))
+               for x in host)
+
+  def card(pinned):
+    with deterministic_cudnn(torch):
+      return one_step(torch, ts, matching, model, opt_state, small,
+                      to_device(draws, dev), step, 'kernel', pinned)
+  gates, failures = {}, []
+  for name, stats, gated in held_steps(torch, model, card, host, lr, limits):
+    gates[f'card_vs_cpu{name}_b{nb}'] = stats
+    if gated and stats['failed']:
+      failures.append(f'card_vs_cpu{name}: fails {stats["failed"]}')
+  return gates, failures, host
+
+
+def fg_step_gates(torch, ts, matching, model, opt_state, batch, draws, step,
+                  lr, limits):
+  """The fg step held to ``limits``, card against CPU (b2).  Beside it the
+  float32 floor: the card's step on the batch in the other order (its
+  batch sums run in another order) against the card's step.  Two controls
+  must fail the gate: the step with the momentum trace reset (its update),
+  and the loss without the orientation CE (its gradients).  Returns
+  (gates, failures)."""
+  gates, failures, host = cpu_gate(torch, ts, matching, model, opt_state,
+                                   batch, draws, step, lr, limits)
+  small = {k: v[:CHAIN_TRAIN_CPU_BATCH] for k, v in batch.items()}
+
+  def card(m, opt, b=small):
+    with deterministic_cudnn(torch):
+      return one_step(torch, ts, matching, m, opt, b, draws, step, 'kernel')
+  gates['swapped_batch_vs_card'] = step_diff(
+      torch, model, card(model, opt_state,
+                         {k: v.flip(0) for k, v in small.items()}),
+      card(model, opt_state), lr)
+  reset = {'count': opt_state['count'], 'trace': {
+      k: torch.zeros_like(v) for k, v in opt_state['trace'].items()}}
+  no_ori = copy.deepcopy(model)
+  no_ori.cfg = model.cfg.replace(add_orientation=False)
+  for name, got, must_fail in (
+      ('trace_reset', card(model, reset), 'update_rel_l2_max'),
+      ('no_orientation_ce', card(no_ori, opt_state), 'grad_rel_l2_max')):
+    stats = step_diff(torch, model, got, host, lr)
+    stats['failed'] = step_gate_failures(stats, limits)
+    gates[f'{name}_vs_cpu'] = stats
+    if must_fail not in stats['failed']:
+      failures.append(f'control {name} passes the {must_fail} gate')
+  return gates, failures
+
+
+def box_step_gates(torch, ts, matching, gk, model, opt_state, batch, draws,
+                   step, lr, limits):
+  """The box step held to ``limits``: kernel against plain (b8, with the
+  reordered plain floor and the dropped-filter-gradient control,
+  ``step_gates``) and card against CPU (b2).  Returns (gates, failures)."""
+  gates, failures = step_gates(torch, ts, matching, gk, model, opt_state,
+                               batch, draws, step, lr, limits)
+  small_draws = {'aug': draws['aug'],
+                 'segm_noise': draws['segm_noise'][:, :CHAIN_TRAIN_CPU_BATCH]}
+  g, f, _ = cpu_gate(torch, ts, matching, model, opt_state, batch,
+                     small_draws, step, lr, limits)
+  gates.update(g)
+  return gates, failures + f
+
+
+def chain_batches(torch, get, keys, batch, n_batches):
+  """Batches of ``batch`` examples of get(indices), cycled over the first
+  ``n_batches``: {key: tensor of get's field src} for keys {key: src}."""
+  import numpy as np
+  i = 0
+  while True:
+    raw = get(range(i * batch, (i + 1) * batch))
+    yield {k: torch.from_numpy(np.ascontiguousarray(raw[src]))
+           for k, src in keys.items()}
+    i = (i + 1) % n_batches
+
+
+# The batch keys of the fg trainer and of the box and full trainers, from
+# the fields of SyntheticDataset and of its PackedDataset.
+FG_KEYS = {'x': 'x', 'c_gt': 'c_gt', 'd_gt': 'd_gt'}
+PACKED_KEYS = {'x': 'x', 'y_gt': 'y_gt', 's_gt': 's_gt', 'd_in': 'd_out',
+               'y_in': 'y_out'}
+
+
+def chain_train_phase(torch, gk, dev, cfgs=None, dirs=None,
+                      n_steps=CHAIN_TRAIN_STEPS, batch=CHAIN_TRAIN_BATCH,
+                      examples=CHAIN_TRAIN_EXAMPLES,
+                      limits=(FG_STEP_LIMITS, BOX_STEP_LIMITS,
+                              FULL_STEP_LIMITS)):
+  """The synth3 chain's training, each stage through its Trainer at b8
+  on ``dev``: fg (restored with its momentum trace), the in-memory pack of
+  the trained fg model, box (restored with Adam) on the packed channels,
+  full (started from the trained box's controller, then restored from its
+  checkpoint).  Each stage's steps are timed and their launches counted;
+  one step of each stage is gated before its steps (fg card against CPU;
+  box kernel against plain and card against CPU; full kernel against
+  plain), each with its controls.  ``cfgs`` and ``dirs`` ((fg, box, full)
+  configs and results folders) default to the KITTI presets and the
+  synth3 checkpoints, ``limits`` (fg, box, full) to the limits set from
+  the card's floor at those presets.  On the card, each stage's launches
+  per step must be those of its path.  Returns (results, the gates'
+  failures)."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli.pack import pack_fg
+  from rec_attend_tpu_torch.config import kitti_box_config
+  from rec_attend_tpu_torch.config import kitti_fg_config
+  from rec_attend_tpu_torch.config import kitti_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine import saver
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.box_model import draw_box_randoms
+  from rec_attend_tpu_torch.models.fg_model import draw_fg_randoms
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+
+  fg_cfg, box_cfg, full_cfg = cfgs or (kitti_fg_config(), kitti_box_config(),
+                                       kitti_full_config())
+  fg_dir, box_dir, full_dir = dirs or (CHAIN_FG_DIR, CHAIN_BOX_DIR,
+                                       CHAIN_FULL_DIR)
+  fg_limits, box_limits, full_limits = limits
+  T, H, W = full_cfg.timespan, full_cfg.inp_height, full_cfg.inp_width
+  ds = SyntheticDataset(examples, H, W, T, seed=5,
+                        max_objects=CHAIN_MAX_OBJECTS)
+  n_batches = examples // batch
+  out, failures = {}, []
+
+  def first_batch(get, keys):
+    return {k: v.to(dev) for k, v in next(chain_batches(
+        torch, get, keys, batch, n_batches)).items()}
+
+  # ---- fg ---------------------------------------------------------------
+  fg = Trainer(fg_cfg, device=dev)
+  ckpt = fg.restore(fg_dir)
+  if (fg.step != saver.checkpoint_step(ckpt) or fg.opt_state['count'] != fg.step
+      or 'trace' not in fg.opt_state):
+    raise AssertionError(f'fg restored step {fg.step}, state '
+                         f'{sorted(fg.opt_state)}')
+  gates, f = fg_step_gates(
+      torch, ts, matching, fg.model, fg.opt_state,
+      first_batch(ds.get_batch, FG_KEYS),
+      draw_fg_randoms(fg_cfg, torch.Generator(dev).manual_seed(1)), fg.step,
+      learn_rate(fg_cfg, fg.opt_state['count']), fg_limits)
+  failures += [f'fg {x}' for x in f]
+  reset_peak(torch, dev)
+  fg_steps = run_steps(torch, gk, fg, chain_batches(
+      torch, ds.get_batch, FG_KEYS, batch, n_batches), n_steps[0])
+  if dev.type == 'cuda':
+    want_launches(fg_steps, {'glimpse_extract': 0, 'glimpse_paste': 0},
+                  {'glimpse_extract': 0, 'glimpse_paste': 0}, {}, 'fg')
+  out['fg'] = {'weights': os.path.relpath(ckpt, REPO), 'gates': gates,
+               'limits': fg_limits,
+               'momentum_count': fg.opt_state['count'],
+               **steps_summary(torch, fg_steps, peak_memory(torch, dev))}
+
+  # ---- pack: the trained fg model's maps for the box's batches ---------
+  fg_exp = EvalExperiment(fg_dir, cfg=fg_cfg, device=dev, spec='fg')
+  fg_exp.model.load_state_dict(fg.model.state_dict())
+  t0 = time.time()
+  with deterministic_cudnn(torch):
+    packed = pack_fg(fg_exp, ds, batch)
+  out['pack'] = {'seconds': time.time() - t0, 'examples': examples}
+  del fg, fg_exp
+
+  # ---- box --------------------------------------------------------------
+  box = Trainer(box_cfg, device=dev)
+  ckpt = box.restore(box_dir)
+  if box.step != saver.checkpoint_step(ckpt) or 'mu' not in box.opt_state:
+    raise AssertionError(f'box restored step {box.step}')
+  gates, f = box_step_gates(
+      torch, ts, matching, gk, box.model, box.opt_state,
+      first_batch(packed.get_batch, PACKED_KEYS),
+      draw_box_randoms(box_cfg, batch, torch.Generator(dev).manual_seed(2)),
+      box.step, learn_rate(box_cfg, box.opt_state['count']), box_limits)
+  failures += [f'box {x}' for x in f]
+  reset_peak(torch, dev)
+  box_steps = run_steps(torch, gk, box, chain_batches(
+      torch, packed.get_batch, PACKED_KEYS, batch, n_batches), n_steps[1])
+  if dev.type == 'cuda':
+    # The box's paste, T a forward and T more in the recompute; its
+    # constant patch needs no d_p.
+    want_launches(box_steps, {'glimpse_extract': 0, 'glimpse_paste': 2 * T},
+                  {'glimpse_extract': 0, 'glimpse_paste': 0}, {}, 'box')
+  out['box'] = {'weights': os.path.relpath(ckpt, REPO), 'gates': gates,
+                'limits': box_limits,
+                **steps_summary(torch, box_steps, peak_memory(torch, dev))}
+
+  # ---- full: from the box's controller, then from its checkpoint --------
+  full = Trainer(full_cfg, device=dev)
+  full.load_pretrained(box.model)
+  state = full.model.state_dict()
+  for k, v in box.model.state_dict().items():
+    if k.startswith('ctrl_') and not torch.equal(state[k], v):
+      raise AssertionError(f'load_pretrained left {k} unloaded')
+  gates, f = step_gates(
+      torch, ts, matching, gk, full.model, full.opt_state,
+      first_batch(packed.get_batch, PACKED_KEYS),
+      draw_train_randoms(full_cfg, batch, torch.Generator(dev).manual_seed(3)),
+      0, learn_rate(full_cfg, 0), full_limits)
+  failures += [f'full {x}' for x in f]
+  reset_peak(torch, dev)
+  data = chain_batches(torch, packed.get_batch, PACKED_KEYS, batch,
+                       n_batches)
+  pretrained_steps = run_steps(torch, gk, full, data, n_steps[2])
+  peak = peak_memory(torch, dev)
+  ckpt = full.restore(full_dir)
+  restored_steps = run_steps(torch, gk, full, data, n_steps[3])
+  if dev.type == 'cuda':
+    # T extracts a forward and T in the recompute, 2T as the pastes' d_p;
+    # two pastes a timestep, forward and recompute; all on the strip route.
+    for steps in (pretrained_steps, restored_steps):
+      want_launches(steps, {'glimpse_extract': 4 * T, 'glimpse_paste': 4 * T},
+                    {'glimpse_extract': 2 * T, 'glimpse_paste': 0},
+                    {'extract_strip_kernel': 4 * T}, 'full')
+  out['full'] = {
+      'gates': gates, 'limits': full_limits,
+      'from_box': steps_summary(torch, pretrained_steps, peak),
+      'weights': os.path.relpath(ckpt, REPO),
+      'restored': steps_summary(torch, restored_steps,
+                                peak_memory(torch, dev))}
+  return out, failures
+
+
 def flagship_segmenter(cfg):
   """(InstanceSegmenter on the card, checkpoint path): the flagship
   checkpoint.  Raises where the checkout lacks it."""
@@ -917,7 +1314,6 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.data.synthetic import synthetic_instances
   from rec_attend_tpu_torch.engine.trainer import Trainer
-  from rec_attend_tpu_torch.models.full_model import FullModel
   from rec_attend_tpu_torch.models.full_model import draw_train_randoms
   from rec_attend_tpu_torch.models.full_model import learn_rate
   from rec_attend_tpu_torch.ops import matching
@@ -947,31 +1343,13 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
     gates.update({f'{k}_b{b}_step{step}': v for k, v in g.items()})
     failures += [f'step {step}: {x}' for x in f]
   # The card against the CPU, b2, at step 0.
-  cpu_model = FullModel(cfg, device='cpu')
-  cpu_model.load_state_dict(trainer.model.state_dict())
-  cpu_opt = {'count': trainer.opt_state['count'],
-             'mu': {k: v.cpu() for k, v in trainer.opt_state['mu'].items()},
-             'nu': {k: v.cpu() for k, v in trainer.opt_state['nu'].items()}}
   nb = TRAIN_CPU_BATCH
-  small = {k: v[:nb] for k, v in batch.items()}
-  small_draws = draw_train_randoms(cfg, nb,
-                                   torch.Generator(dev).manual_seed(2))
-  host = one_step(torch, ts, matching, cpu_model, cpu_opt,
-                  {k: v.cpu() for k, v in small.items()},
-                  to_device(small_draws, 'cpu'), 0, 'kernel')
-  host = tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
-                 for k, v in x.items()} if isinstance(x, dict) else x.to(dev))
-               for x in host)
-
-  def card(pinned):
-    with deterministic_cudnn(torch):
-      return one_step(torch, ts, matching, trainer.model, trainer.opt_state,
-                      small, small_draws, 0, 'kernel', pinned)
-  for name, stats, gated in held_steps(torch, trainer.model, card, host, lr,
-                                       STEP_LIMITS):
-    gates[f'card_vs_cpu{name}_b{nb}_step0'] = stats
-    if gated and stats['failed']:
-      failures.append(f'card_vs_cpu{name}: fails {stats["failed"]}')
+  g, f, _ = cpu_gate(torch, ts, matching, trainer.model, trainer.opt_state,
+                     batch, draw_train_randoms(
+                         cfg, nb, torch.Generator(dev).manual_seed(2)),
+                     0, lr, STEP_LIMITS, nb)
+  gates.update({f'{k}_step0': v for k, v in g.items()})
+  failures += f
   if failures:
     raise AssertionError(f'train step gates: {failures}; {gates}')
 
@@ -1111,6 +1489,15 @@ def main():
                                   chain_cfg.inp_width, 1,
                                   chain_cfg.filter_height,
                                   chain_cfg.filter_width)}
+  # The chain's training at b8: the box's and the full model's paste
+  # [8,48,48,1] -> 128x448, the full model's extract x [8,128,448,13] and
+  # its pastes' d_p, extract x [8,128,448,1].
+  chain_train_dims = {
+      'glimpse_extract': (CHAIN_TRAIN_BATCH,) + chain_dims[
+          'glimpse_extract'][1:],
+      'glimpse_paste': (CHAIN_TRAIN_BATCH,) + chain_dims['glimpse_paste'][1:],
+      'synth3_d1_b8': (CHAIN_TRAIN_BATCH,) + other_extracts['synth3_d1'][1:],
+  }
   checks = {}
   for name, dims in main_dims.items():
     checks[name] = check_kernel(torch, gk, attention, name, *dims, gen, dev,
@@ -1123,6 +1510,10 @@ def main():
   for key, dims in other_extracts.items():
     checks['glimpse_extract'][key] = check_kernel(
         torch, gk, attention, 'glimpse_extract', *dims, gen, dev, timed=True)
+  for key, dims in chain_train_dims.items():
+    name = 'glimpse_extract' if key == 'synth3_d1_b8' else key
+    checks[name]['synth3_b8' if key == name else key] = check_kernel(
+        torch, gk, attention, name, *dims, gen, dev, timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
@@ -1137,7 +1528,9 @@ def main():
                  'ragged': 'extract_kernel_general',
                  'synth3': 'extract_strip_kernel',
                  'cityscapes': 'extract_strip_kernel',
-                 'synth3_d1': 'extract_strip_kernel'}
+                 'synth3_d1': 'extract_strip_kernel',
+                 'synth3_b8': 'extract_strip_kernel',
+                 'synth3_d1_b8': 'extract_strip_kernel'}
   routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
             for k in want_routes}
   if routes != want_routes:
@@ -1293,6 +1686,12 @@ def main():
   chain = chain_phase(torch, gk)
   emit('chain', nvidia_smi=name_power, **chain)
 
+  chain_train, failures = chain_train_phase(torch, gk, dev)
+  emit('chain_train', nvidia_smi=name_power, failures=failures,
+       **chain_train)
+  if failures:
+    raise AssertionError(f'chain_train gates: {failures}')
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -1321,9 +1720,42 @@ def main():
     table.append(row(name, c['synth3'], 'forward, synth3 chain, '
                      + shape(name, chain_dims[name]),
                      {'chain': chain['launches'][name]}))
+  # The chain's training at b8 (launches per step of chain_train, times
+  # the steps taken): paste in the box and the full model, extract forward
+  # and recomputed in the full model, extract at D=1 as its pastes' d_p.
+  def train_launches(name, backward):
+    key = ('backward_launches_per_step' if backward
+           else 'launches_per_step')
+    by_path = {}
+    for label, summary in (('box', chain_train['box']),
+                           ('full_from_box', chain_train['full']['from_box']),
+                           ('full_restored', chain_train['full']['restored'])):
+      n = summary[key][name] * len(summary['steps'])
+      if not backward:
+        n -= summary['backward_launches_per_step'][name] * len(
+            summary['steps'])
+      if n:
+        by_path[f'chain_train_{label}'] = n
+    return by_path
+  table.append(row('glimpse_paste', checks['glimpse_paste']['synth3_b8'],
+                   'forward, chain training (box and full), '
+                   + shape('glimpse_paste', chain_train_dims['glimpse_paste']),
+                   train_launches('glimpse_paste', False)))
+  table.append(row('glimpse_extract', checks['glimpse_extract']['synth3_b8'],
+                   'forward, chain training (full), '
+                   + shape('glimpse_extract',
+                           chain_train_dims['glimpse_extract']),
+                   train_launches('glimpse_extract', False)))
+  table.append(row('glimpse_extract',
+                   checks['glimpse_extract']['synth3_d1_b8'],
+                   BACKWARD_USES['glimpse_extract'] + ', chain training '
+                   '(full), ' + shape('glimpse_extract',
+                                      chain_train_dims['synth3_d1_b8']),
+                   train_launches('glimpse_extract', True)))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
-  # size, the general route at the 48x64 glimpse, paste at that glimpse.
+  # size at b32, the general route at the 48x64 glimpse, paste at that
+  # glimpse.
   for key, dims in other_extracts.items():
     table.append(row('glimpse_extract', checks['glimpse_extract'][key],
                      f'{key}, ' + shape('glimpse_extract', dims), {}))

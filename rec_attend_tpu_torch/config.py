@@ -1,11 +1,11 @@
-"""Configuration of the full and fg models, as far as their forwards, loss
-and train step read it.
+"""Configuration of the full, box and fg models, as far as their forwards,
+losses and train steps read it.
 
 Counterpart of ``rec_attend_tpu/config.py``.  Field names and defaults are
-those of the JAX ``FullModelConfig`` and ``FGModelConfig``, so a
-``model_opt.yaml`` written by the JAX trainer loads here unchanged; keys the
-port does not read (pretrain paths, the Pallas and scan switches) are
-ignored on load.
+those of the JAX ``FullModelConfig``, ``BoxModelConfig`` and
+``FGModelConfig``, so a ``model_opt.yaml`` written by the JAX trainer loads
+here unchanged; keys the port does not read (the full model's pretrain
+paths, the Pallas and scan switches) are ignored on load.
 """
 
 from __future__ import annotations
@@ -256,13 +256,99 @@ FORWARD_FIELDS = tuple(f.name for f in dataclasses.fields(FullModelConfig))
 
 
 @dataclass(frozen=True)
-class FGModelConfig(_ConfigBase):
-  """Options of the fully-convolutional foreground and orientation model
-  (JAX config.py:403-441) that its eval forward reads; the training
-  options wait for the fg training."""
+class BoxModelConfig(_ConfigBase):
+  """Options of the box model, the controller pathway trained alone
+  (JAX config.py:313-398), restricted to the fields the port reads.
+  ``pretrain_cnn`` and ``pretrain_net`` name ``weights.h5`` files, which
+  the port does not read: ``BoxModel`` refuses a config that sets them."""
+  timespan: int = 21
   inp_height: int = 224
   inp_width: int = 224
   inp_depth: int = 3
+  padding: int = 16
+  filter_height: int = 48
+  filter_width: int = 48
+
+  ctrl_cnn_filter_size: Tuple[int, ...] = (3, 3, 3, 3, 3, 3, 3, 3)
+  ctrl_cnn_depth: Tuple[int, ...] = (8, 8, 16, 16, 32, 32, 64, 64)
+  ctrl_cnn_pool: Tuple[int, ...] = (1, 2, 1, 2, 1, 2, 2, 2)
+  ctrl_rnn_hid_dim: int = 256
+  num_ctrl_mlp_layers: int = 1
+  ctrl_mlp_dim: int = 256
+  num_ctrl_rnn_iter: int = 5
+  num_glimpse_mlp_layers: int = 2
+
+  attn_box_padding_ratio: float = 0.2
+  weight_decay: float = 5e-5
+  use_bn: bool = True
+  box_loss_fn: str = 'iou'
+  base_learn_rate: float = 0.001
+  learn_rate_decay: float = 0.9
+  steps_per_learn_rate_decay: int = 5000
+  clip_gradient: float = 1.0
+
+  squash_ctrl_params: bool = False
+  fixed_order: bool = False
+  fixed_var: bool = True
+  dynamic_var: bool = False
+  use_iou_box: bool = False
+  gt_segm_noise: float = 0.3
+
+  add_d_out: bool = False
+  add_y_out: bool = False
+  num_semantic_classes: int = 1
+
+  pretrain_cnn: Optional[str] = None
+  pretrain_net: Optional[str] = None
+
+  rnd_hflip: bool = False
+  rnd_vflip: bool = False
+  rnd_transpose: bool = False
+  rnd_colour: bool = False
+
+  dtype: str = 'float32'
+  remat: bool = False
+  accumulate_greedy_match: bool = False
+
+  @property
+  def ccnn_inp_depth(self):
+    """Image, canvas, then the packed orientation and foreground maps."""
+    return (self.inp_depth + 1 + (8 if self.add_d_out else 0)
+            + (self.num_semantic_classes if self.add_y_out else 0))
+
+  @property
+  def ccnn_subsample(self):
+    p = 1
+    for v in self.ctrl_cnn_pool:
+      p *= v
+    return p
+
+  @property
+  def crnn_h(self):
+    return self.inp_height // self.ccnn_subsample
+
+  @property
+  def crnn_w(self):
+    return self.inp_width // self.ccnn_subsample
+
+  @property
+  def glimpse_map_dim(self):
+    return self.crnn_h * self.crnn_w
+
+  @property
+  def glimpse_feat_dim(self):
+    return self.ctrl_cnn_depth[-1]
+
+
+@dataclass(frozen=True)
+class FGModelConfig(_ConfigBase):
+  """Options of the fully-convolutional foreground and orientation model
+  (JAX config.py:401-441).  It has no ``clip_gradient``: its optimizer
+  clips nothing."""
+  inp_height: int = 224
+  inp_width: int = 224
+  inp_depth: int = 3
+  padding: int = 16
   cnn_filter_size: Tuple[int, ...] = (3, 3, 3, 3, 3)
   cnn_depth: Tuple[int, ...] = (4, 8, 8, 12, 16)
   cnn_pool: Tuple[int, ...] = (2, 2, 2, 2, 2)
@@ -270,12 +356,23 @@ class FGModelConfig(_ConfigBase):
   dcnn_depth: Tuple[int, ...] = (8, 6, 4, 4, 2, 1)
   dcnn_pool: Tuple[int, ...] = (2, 2, 2, 2, 2, 1)
   use_bn: bool = True
+  weight_decay: float = 5e-5
+  base_learn_rate: float = 0.001
+  learn_rate_decay: float = 0.96
+  steps_per_learn_rate_decay: int = 5000
   add_skip_conn: bool = True
   cnn_skip_mask: Optional[Tuple[int, ...]] = None
   dcnn_skip_mask: Optional[Tuple[int, ...]] = None
+  segm_loss_fn: str = 'iou'
   add_orientation: bool = False
   num_orientation_classes: int = 8
   num_semantic_classes: int = 1
+  optimizer: str = 'adam'
+  rnd_hflip: bool = False
+  rnd_vflip: bool = False
+  rnd_transpose: bool = False
+  rnd_colour: bool = False
+  dtype: str = 'float32'
 
   def resolved_cnn_skip_mask(self):
     if self.cnn_skip_mask is not None:
@@ -368,7 +465,26 @@ def kitti_fg_config() -> FGModelConfig:
       dcnn_pool=(2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1),
       dcnn_skip_mask=(1, 0, 1, 0, 1, 0, 0, 0, 0, 1, 0),
       add_skip_conn=True,
-      add_orientation=True, num_orientation_classes=8)
+      add_orientation=True, num_orientation_classes=8,
+      optimizer='momentum', segm_loss_fn='bce', **DATASET_TRANSFORMS['kitti'])
+
+
+def kitti_box_config() -> BoxModelConfig:
+  """The KITTI box preset (JAX config.py:581-594, ref run_kitti.sh:44-60):
+  the controller of the full model at 128x448, T=20, on the image, the
+  canvas and the packed orientation and foreground channels (13 in all)."""
+  d = DATASET_DIMS['kitti']
+  return BoxModelConfig(
+      timespan=d['timespan'], inp_height=d['inp_height'],
+      inp_width=d['inp_width'],
+      ctrl_cnn_filter_size=(3,) * 8,
+      ctrl_cnn_depth=(16, 16, 32, 32, 64, 64, 64, 64),
+      ctrl_cnn_pool=(1, 2, 1, 2, 1, 2, 2, 2),
+      num_ctrl_mlp_layers=1, dynamic_var=True,
+      add_d_out=True, add_y_out=True,
+      base_learn_rate=0.001, learn_rate_decay=0.9,
+      steps_per_learn_rate_decay=5000, remat=True,
+      **DATASET_TRANSFORMS['kitti'])
 
 
 def tiny_full_config(**overrides) -> FullModelConfig:
@@ -390,10 +506,24 @@ def tiny_full_config(**overrides) -> FullModelConfig:
   return FullModelConfig(**base)
 
 
+def tiny_box_config(**overrides) -> BoxModelConfig:
+  """Small box config for tests: 64x64 images, T=4 (JAX
+  config.py:700-709)."""
+  base = dict(
+      timespan=4, inp_height=64, inp_width=64, padding=4,
+      filter_height=16, filter_width=16,
+      ctrl_cnn_filter_size=(3, 3, 3), ctrl_cnn_depth=(4, 8, 8),
+      ctrl_cnn_pool=(2, 2, 2), ctrl_rnn_hid_dim=32, num_ctrl_mlp_layers=1,
+      ctrl_mlp_dim=32, num_ctrl_rnn_iter=2, num_glimpse_mlp_layers=1,
+      squash_ctrl_params=True)
+  base.update(overrides)
+  return BoxModelConfig(**base)
+
+
 def tiny_fg_config(**overrides) -> FGModelConfig:
   """Small fg config for tests: 64x64 images (JAX config.py:712-718)."""
   base = dict(
-      inp_height=64, inp_width=64,
+      inp_height=64, inp_width=64, padding=4,
       cnn_filter_size=(3, 3, 3), cnn_depth=(4, 8, 8), cnn_pool=(2, 2, 2),
       dcnn_filter_size=(3, 3, 3), dcnn_depth=(8, 4, 1), dcnn_pool=(2, 2, 2))
   base.update(overrides)

@@ -2,12 +2,13 @@
 
 The JAX model keeps its parameters as a nested tree of dicts and lists of
 arrays (``rec_attend_tpu/nn/params.py`` names them for ``weights.h5``);
-``FullModel`` and ``FGModel`` register the same leaves under dotted names,
+``FullModel``, ``BoxModel`` and ``FGModel`` register the same leaves under
+dotted names,
 so a leaf at ``tree['ctrl_cnn'][0]['bn']['beta']`` is ``ctrl_cnn.0.bn.beta``
 here.  The JAX tree holds the BatchNorm EMA statistics among the
-parameters; here they are buffers, so the Adam state keeps moments for the
-trainable parameters only (the JAX moments of the EMA leaves stay zero:
-their gradient is 0).
+parameters; here they are buffers, so the optimizer state keeps Adam's
+moments or the momentum trace for the trainable parameters only (the JAX
+moments and trace of the EMA leaves stay zero: their gradient is 0).
 """
 
 from __future__ import annotations
@@ -15,9 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rec_attend_tpu_torch.config import FGModelConfig
-from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.engine import saver
+from rec_attend_tpu_torch.models.family import family
 
 
 def flatten_tree(tree, prefix=''):
@@ -35,22 +35,16 @@ def flatten_tree(tree, prefix=''):
 
 
 def params_from_jax(tree):
-  """State dict of ``FullModel`` or ``FGModel`` from a JAX parameter tree
-  of arrays."""
+  """State dict of ``FullModel``, ``BoxModel`` or ``FGModel`` from a JAX
+  parameter tree of arrays."""
   return {name: torch.from_numpy(np.array(leaf, dtype=np.float32))
           for name, leaf in flatten_tree(tree).items()}
 
 
 def model_class(cfg):
-  """``FGModel`` for an ``FGModelConfig``, ``FullModel`` for a
-  ``FullModelConfig``."""
-  if isinstance(cfg, FGModelConfig):
-    from rec_attend_tpu_torch.models.fg_model import FGModel
-    return FGModel
-  if isinstance(cfg, FullModelConfig):
-    from rec_attend_tpu_torch.models.full_model import FullModel
-    return FullModel
-  raise TypeError(f'no model for a {type(cfg).__name__}')
+  """``FGModel`` for an ``FGModelConfig``, ``BoxModel`` for a
+  ``BoxModelConfig``, ``FullModel`` for a ``FullModelConfig``."""
+  return family(cfg).model
 
 
 def param_shapes(cfg):
@@ -70,41 +64,59 @@ def params_from_checkpoint(path, cfg):
 
 def _trainable(cfg, state):
   """The entries of a {name: value} dict that are trainable parameters of
-  ``FullModel(cfg)``."""
-  from rec_attend_tpu_torch.models.full_model import FullModel
-  names = {k for k, _ in FullModel(cfg, device='meta').named_parameters()}
+  the model of ``cfg``."""
+  names = {k for k, _ in model_class(cfg)(cfg, device='meta')
+           .named_parameters()}
   return {k: v for k, v in state.items() if k in names}
 
 
-def _adam_to_torch(cfg, count, mu, nu, device):
-  def tensors(tree):
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
-            for k, v in _trainable(cfg, tree).items()}
-  return {'count': int(count), 'mu': tensors(mu), 'nu': tensors(nu)}
+def _to_torch(cfg, tree, device):
+  return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
+          for k, v in _trainable(cfg, tree).items()}
 
 
-def opt_state_from_checkpoint(path, cfg: FullModelConfig, device='cpu'):
+def opt_state_from_checkpoint(path, cfg, device='cpu'):
   """The port's optimizer state (``train_step.init_opt_state`` form) read
-  from a JAX ``ckpt-*.npz`` of the full model."""
-  adam = saver.load_adam_state(path, param_shapes(cfg))
-  return _adam_to_torch(cfg, adam['count'], adam['mu'], adam['nu'], device)
+  from a JAX ``ckpt-*.npz`` of the model of ``cfg``, onto ``device``:
+  Adam's count and moments, or, for a config with
+  ``optimizer='momentum'`` (the fg presets), the schedule's count and the
+  momentum trace."""
+  shapes = param_shapes(cfg)
+  if family(cfg).optimizer(cfg) == 'momentum':
+    state = saver.load_momentum_state(path, shapes)
+    return {'count': state['count'],
+            'trace': _to_torch(cfg, state['trace'], device)}
+  adam = saver.load_adam_state(path, shapes)
+  return {'count': adam['count'], 'mu': _to_torch(cfg, adam['mu'], device),
+          'nu': _to_torch(cfg, adam['nu'], device)}
 
 
-def opt_state_from_jax(opt_state, cfg: FullModelConfig, device='cpu'):
+def opt_state_from_jax(opt_state, cfg, device='cpu'):
   """The port's optimizer state from the JAX trainer's ``opt_state`` of
-  ``optax.chain(clip, adam(schedule))``: the Adam state is the one element
-  with ``mu`` and ``nu``."""
-  def find(node):
-    if hasattr(node, 'mu') and hasattr(node, 'nu'):
+  ``optax.chain(clip or identity, adam(schedule))`` (the element with
+  ``mu`` and ``nu``) or of ``optax.chain(identity, sgd(schedule,
+  momentum))`` (the element with ``trace``, then the schedule's count)."""
+  def find(node, fields):
+    # optax states are named tuples: look at their fields (every tuple has
+    # a ``count`` method).
+    if all(f in getattr(node, '_fields', ()) for f in fields):
       return node
     if isinstance(node, (list, tuple)):
       for child in node:
-        hit = find(child)
+        hit = find(child, fields)
         if hit is not None:
           return hit
     return None
-  adam = find(opt_state)
+  if family(cfg).optimizer(cfg) == 'momentum':
+    trace = find(opt_state, ('trace',))
+    sched = find(opt_state, ('count',))
+    if trace is None or sched is None:
+      raise ValueError('no momentum state (trace, count) in opt_state')
+    return {'count': int(np.asarray(sched.count)),
+            'trace': _to_torch(cfg, flatten_tree(trace.trace), device)}
+  adam = find(opt_state, ('mu', 'nu'))
   if adam is None:
     raise ValueError('no Adam state (mu, nu) in opt_state')
-  return _adam_to_torch(cfg, np.asarray(adam.count), flatten_tree(adam.mu),
-                        flatten_tree(adam.nu), device)
+  return {'count': int(np.asarray(adam.count)),
+          'mu': _to_torch(cfg, flatten_tree(adam.mu), device),
+          'nu': _to_torch(cfg, flatten_tree(adam.nu), device)}

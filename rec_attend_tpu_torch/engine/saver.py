@@ -113,3 +113,34 @@ def load_adam_state(path, shapes):
                            f'{tuple(shapes[name])}')
         out[key][name] = leaf
   return out
+
+
+def load_momentum_state(path, shapes):
+  """Read the momentum state of an fg-model checkpoint
+  (``optax.chain(identity, sgd(schedule, momentum=0.9))``).
+
+  Args:
+    shapes: {dotted name: shape} of the parameter tree.
+  Returns:
+    {'count': int, 'trace': {name: array}}: the schedule's update count and
+    the momentum trace.
+  Raises ValueError unless the file holds exactly the 2 * P + 1 leaves of
+  ``{'opt_state', 'params'}`` for this tree: the trace, the count, then the
+  parameters.
+  """
+  names = jax_leaf_order(shapes)
+  p = len(names)
+  with np.load(path) as data:
+    n = int(data['num_leaves'])
+    if n != 2 * p + 1:
+      raise ValueError(f'{path} has {n} leaves; momentum state and '
+                       f'parameters of this model make {2 * p + 1}')
+    out = {'count': int(data[f'leaf_{p}']), 'trace': {}}
+    for i, name in enumerate(names):
+      leaf = data[f'leaf_{i}']
+      if tuple(leaf.shape) != tuple(shapes[name]):
+        raise ValueError(f'{path}: trace leaf for {name} has shape '
+                         f'{leaf.shape}, the model wants '
+                         f'{tuple(shapes[name])}')
+      out['trace'][name] = leaf
+  return out

@@ -1,15 +1,24 @@
-"""The training loop of the full model.
+"""The training loop of the full, box and fg models.
 
 Counterpart of the step loop of ``TrainingExperiment.run``
 (``rec_attend_tpu/engine/experiment.py:369-440``): a step counter, one
 train step per batch and the step's metrics.  ``restore`` continues a JAX
-trainer's run from its latest checkpoint, parameters, Adam state and step
-(``experiment.py:445-449``).  Validation, plotting, the checkpoint cadence
-and the command line are not ported yet.
+trainer's run from its latest checkpoint, parameters, optimizer state
+(Adam's, or the fg model's momentum trace) and step
+(``experiment.py:445-449``); ``load_pretrained`` starts a full model's
+controller from a box model, as the JAX chain's full stage does
+(``pipelines/run_pipeline.py:283-375``, ``pretrain_ctrl_net``).
+Validation, plotting, the checkpoint cadence and the command line are not
+ported yet.
 
-    trainer = Trainer(cvppp_full_config())          # on the card
-    trainer.restore('results/full_model_synth-20260816104712')
-    history = trainer.run(5, batches)               # batches: an iterator
+    trainer = Trainer(kitti_fg_config())              # on the card
+    trainer.restore('results/fg_model_synth3-20260818a')
+    history = trainer.run(5, batches)                 # batches: an iterator
+
+    box = Trainer(kitti_box_config())                 # batches with the
+    box.run(5, packed_batches)                        # packed d_in, y_in
+    full = Trainer(kitti_full_config())
+    full.load_pretrained(box.model)
 """
 
 from __future__ import annotations
@@ -20,20 +29,21 @@ import torch
 
 from rec_attend_tpu_torch import convert
 from rec_attend_tpu_torch import train_step as ts
-from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.engine import saver
-from rec_attend_tpu_torch.models.full_model import FullModel
-from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+from rec_attend_tpu_torch.models import full_model
+from rec_attend_tpu_torch.models.family import family
 
 
 class Trainer:
-  """Trains ``FullModel(cfg)`` on ``device`` (``cuda`` unless asked for the
-  CPU).  ``seed`` seeds the initial parameters and the generator of every
-  random draw of training."""
+  """Trains the model of ``cfg`` (a ``FullModelConfig``, a
+  ``BoxModelConfig`` or an ``FGModelConfig``) on ``device`` (``cuda``
+  unless asked for the CPU).  ``seed`` seeds the initial parameters and
+  the generator of every random draw of training."""
 
-  def __init__(self, cfg: FullModelConfig, device=None, seed=0):
+  def __init__(self, cfg, device=None, seed=0):
     self.cfg = cfg
-    self.model = FullModel(cfg, seed=seed, device=device)
+    self.family = family(cfg)
+    self.model = self.family.model(cfg, seed=seed, device=device)
     self.device = self.model.device
     self.opt_state = ts.init_opt_state(self.model)
     self.step = 0
@@ -41,7 +51,7 @@ class Trainer:
 
   def restore(self, folder):
     """Load the latest ``ckpt-*.npz`` of a JAX results folder: parameters,
-    Adam state and step.  Returns the checkpoint's path."""
+    optimizer state and step.  Returns the checkpoint's path."""
     path = saver.latest_checkpoint(folder)
     state = convert.params_from_checkpoint(path, self.cfg)
     self.model.load_state_dict(state)
@@ -50,17 +60,36 @@ class Trainer:
     self.step = saver.checkpoint_step(path)
     return path
 
+  def load_pretrained(self, source, cfg=None):
+    """Start the full model's controller from a box model
+    (``full_model.load_pretrained``): ``source`` is a ``BoxModel``, its
+    state dict, or a box ``ckpt-*.npz`` (or a results folder, its latest
+    checkpoint) read with the box config ``cfg``."""
+    if not isinstance(self.model, full_model.FullModel):
+      raise TypeError('load_pretrained starts a full model')
+    if isinstance(source, str):
+      if cfg is None:
+        raise ValueError('reading a checkpoint needs its BoxModelConfig')
+      path = (source if saver.CKPT_RE.search(source)
+              else saver.latest_checkpoint(source))
+      source = convert.params_from_checkpoint(path, cfg)
+    full_model.load_pretrained(self.model, source)
+
   def run(self, num_steps, batches):
     """Take ``num_steps`` steps, one batch of the iterator ``batches``
-    each (dicts 'x', 'y_gt', 's_gt', float or uint8, on any device).
+    each: dicts of tensors, float or uint8, on any device (the full and box
+    models read 'x', 'y_gt', 's_gt' and the packed 'd_in' and 'y_in'
+    where the config reads them, the fg model 'x', 'c_gt' and 'd_gt'; other
+    keys are not read).
 
     Returns the list of per-step metrics ({name: float}, with 'step').
     Stops early, as the JAX loop does, at a non-finite loss."""
     history = []
     for _ in range(num_steps):
-      batch = {k: v.to(self.device) for k, v in next(batches).items()}
-      draws = draw_train_randoms(self.cfg, batch['x'].shape[0],
-                                 self.generator)
+      batch = {k: v.to(self.device) for k, v in next(batches).items()
+               if k in self.family.batch_keys}
+      draws = self.family.draws(self.cfg, batch['x'].shape[0],
+                                self.generator)
       self.opt_state, metrics = ts.train_step(
           self.model, self.opt_state, batch, draws, self.step)
       self.step += 1

@@ -36,6 +36,7 @@ from torch import nn
 
 from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.device import resolve_device
+from rec_attend_tpu_torch.models.family import Family
 from rec_attend_tpu_torch.nn import layers as L
 from rec_attend_tpu_torch.ops import attention, boxes, image_ops, losses
 from rec_attend_tpu_torch.ops import matching
@@ -43,6 +44,13 @@ from rec_attend_tpu_torch.ops.cuda import glimpse as gk
 
 ATTN_BOX_BETA = -5.0
 Y_OUT_BETA = -5.0
+# Batch keys a train step reads; 'd_in' and 'y_in' where the config reads
+# the packed maps (the box model's too).
+BATCH_KEYS = ('x', 'y_gt', 's_gt', 'd_in', 'y_in')
+METRIC_KEYS = ('loss', 'box_loss', 'segm_loss', 'conf_loss', 'wd_loss',
+               'iou_soft', 'iou_soft_box', 'iou_hard', 'dice', 'wt_cov_soft',
+               'unwt_cov_soft', 'wt_cov_hard', 'unwt_cov_hard', 'count_acc',
+               'dic', 'dic_abs', 'learn_rate')
 
 
 def _adcnn_skip_channels(cfg: FullModelConfig):
@@ -214,6 +222,73 @@ def _check_input(model, x, d_in, y_in):
     raise ValueError(f'x is on {x.device}, the model on {model.device}')
 
 
+def controller(model, ccnn_inp, t, stats=None):
+  """The controller of timestep t, shared by the full and box models (JAX
+  full_model.py:326-353, box_model.py:140-162): the controller CNN with
+  BatchNorm copy t over ``ccnn_inp`` [B,H,W,C], then ``num_ctrl_rnn_iter``
+  steps of the glimpse LSTM over its feature map, each reading the map
+  through the previous step's glimpse-MLP softmax (uniform at first), then
+  the controller MLP.  ``stats`` as in ``L.apply_cnn``.
+
+  Returns (h_crnn [B,hid], ctrl_out [B,9] float32, the glimpse maps read,
+  a list of [B,glimpse_map_dim,1])."""
+  cfg = model.cfg
+  B = ccnn_inp.shape[0]
+  hid = cfg.ctrl_rnn_hid_dim
+  relu = F.relu
+  gmlp_act = ([relu] * (cfg.num_glimpse_mlp_layers - 1)
+              + [lambda z: torch.softmax(z, dim=-1)])
+  cmlp_act = [relu] * (cfg.num_ctrl_mlp_layers - 1) + [None]
+  h_ccnn = L.apply_cnn(model.ctrl_cnn, L.nchw(ccnn_inp), cfg.ctrl_cnn_pool,
+                       [relu] * len(cfg.ctrl_cnn_filter_size), t, stats)
+  crnn_inp = L.nhwc(h_ccnn[-1]).reshape(B, cfg.glimpse_map_dim,
+                                        cfg.glimpse_feat_dim)
+  crnn_state = torch.zeros((B, 2 * hid), device=ccnn_inp.device)
+  glimpse_map = torch.ones((B, cfg.glimpse_map_dim, 1),
+                           device=ccnn_inp.device) / cfg.glimpse_map_dim
+  glimpse_maps = []
+  for it in range(cfg.num_ctrl_rnn_iter):
+    glimpse_maps.append(glimpse_map)
+    crnn_glimpse = torch.sum(crnn_inp * glimpse_map, dim=1)
+    crnn_state = model.ctrl_lstm(crnn_glimpse, crnn_state)
+    h_crnn = crnn_state[:, hid:]
+    if it < cfg.num_ctrl_rnn_iter - 1:
+      glimpse_map = L.apply_mlp(model.glimpse_mlp, h_crnn,
+                                gmlp_act)[-1][:, :, None]
+  ctrl_out = L.apply_mlp(model.ctrl_mlp, h_crnn, cmlp_act)[-1].float()
+  return h_crnn, ctrl_out, glimpse_maps
+
+
+def attention_params(cfg, ctrl_out):
+  """The attention box of the controller's output (JAX
+  full_model.py:354-372): (ctr_norm, lg_size, ctr, size, lg_var), each
+  [B,2]."""
+  H, W = cfg.inp_height, cfg.inp_width
+  attn_ctr_norm = ctrl_out[:, 0:2]
+  attn_lg_size = ctrl_out[:, 2:4]
+  if cfg.squash_ctrl_params:
+    attn_ctr_norm = torch.tanh(attn_ctr_norm)
+    attn_lg_size = -F.softplus(attn_lg_size)
+  attn_ctr, attn_size = attention.get_unnormalized_attn(
+      attn_ctr_norm, attn_lg_size, H, W)
+  if cfg.dynamic_var:
+    attn_lg_var = ctrl_out[:, 4:6]
+  elif cfg.fixed_var:
+    attn_lg_var = torch.zeros((ctrl_out.shape[0], 2), device=ctrl_out.device)
+  else:
+    attn_lg_var = attention.get_normalized_var(attn_size, cfg.filter_height,
+                                               cfg.filter_width)
+  return attn_ctr_norm, attn_lg_size, attn_ctr, attn_size, attn_lg_var
+
+
+def gaussian_filters(cfg, ctr, size, lg_var):
+  """(f_y [B,H,FH], f_x [B,W,FW]) of boxes ctr, size, lg_var [B,2]."""
+  return (attention.get_gaussian_filter(ctr[:, 0], size[:, 0], lg_var[:, 0],
+                                        cfg.inp_height, cfg.filter_height),
+          attention.get_gaussian_filter(ctr[:, 1], size[:, 1], lg_var[:, 1],
+                                        cfg.inp_width, cfg.filter_width))
+
+
 def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
               train=None):
   """One timestep of the model (JAX full_model.py:287-508).
@@ -234,16 +309,11 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   cfg = model.cfg
   flags = cfg.resolved_input_flags()
   B = x.shape[0]
-  H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
   dev = x.device
   cdt = torch.bfloat16 if cfg.dtype == 'bfloat16' else torch.float32
-  hid = cfg.ctrl_rnn_hid_dim
   n_adc = len(cfg.attn_dcnn_filter_size)
   relu = F.relu
-  gmlp_act = ([relu] * (cfg.num_glimpse_mlp_layers - 1)
-              + [lambda z: torch.softmax(z, dim=-1)])
-  cmlp_act = [relu] * (cfg.num_ctrl_mlp_layers - 1) + [None]
   stats = None if train is None else {
       'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []}
 
@@ -260,40 +330,9 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   ccnn_inp = inputs('ctrl').to(cdt)
   acnn_inp = inputs('attn')
 
-  # Controller CNN with this timestep's BN copy.
-  h_ccnn = L.apply_cnn(model.ctrl_cnn, L.nchw(ccnn_inp), cfg.ctrl_cnn_pool,
-                       [relu] * len(cfg.ctrl_cnn_filter_size), t,
-                       net_stats('ctrl_cnn'))
-  crnn_inp = L.nhwc(h_ccnn[-1]).reshape(B, cfg.glimpse_map_dim,
-                                        cfg.glimpse_feat_dim)
-
-  # Inner glimpse RNN (JAX full_model.py:336-349).
-  crnn_state = torch.zeros((B, 2 * hid), device=dev)
-  glimpse_map = torch.ones((B, cfg.glimpse_map_dim, 1),
-                           device=dev) / cfg.glimpse_map_dim
-  for it in range(cfg.num_ctrl_rnn_iter):
-    crnn_glimpse = torch.sum(crnn_inp * glimpse_map, dim=1)
-    crnn_state = model.ctrl_lstm(crnn_glimpse, crnn_state)
-    h_crnn = crnn_state[:, hid:]
-    if it < cfg.num_ctrl_rnn_iter - 1:
-      glimpse_map = L.apply_mlp(model.glimpse_mlp, h_crnn,
-                                gmlp_act)[-1][:, :, None]
-  ctrl_out = L.apply_mlp(model.ctrl_mlp, h_crnn, cmlp_act)[-1].float()
-
-  # 9-dof controller output (JAX full_model.py:354-378).
-  attn_ctr_norm = ctrl_out[:, 0:2]
-  attn_lg_size = ctrl_out[:, 2:4]
-  if cfg.squash_ctrl_params:
-    attn_ctr_norm = torch.tanh(attn_ctr_norm)
-    attn_lg_size = -F.softplus(attn_lg_size)
-  attn_ctr, attn_size = attention.get_unnormalized_attn(
-      attn_ctr_norm, attn_lg_size, H, W)
-  if cfg.dynamic_var:
-    attn_lg_var = ctrl_out[:, 4:6]
-  elif cfg.fixed_var:
-    attn_lg_var = torch.zeros((B, 2), device=dev)
-  else:
-    attn_lg_var = attention.get_normalized_var(attn_size, FH, FW)
+  h_crnn, ctrl_out, _ = controller(model, ccnn_inp, t, net_stats('ctrl_cnn'))
+  (attn_ctr_norm, attn_lg_size, attn_ctr, attn_size,
+   attn_lg_var) = attention_params(cfg, ctrl_out)
   if cfg.fixed_gamma:
     attn_lg_gamma = torch.zeros((B, 1), device=dev)
     y_out_lg_gamma = torch.full((B, 1), 2.0, device=dev)
@@ -303,10 +342,7 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   attn_box_lg_gamma = ctrl_out[:, 7:8]
 
   def filters(ctr, size):
-    return (attention.get_gaussian_filter(ctr[:, 0], size[:, 0],
-                                          attn_lg_var[:, 0], H, FH),
-            attention.get_gaussian_filter(ctr[:, 1], size[:, 1],
-                                          attn_lg_var[:, 1], W, FW))
+    return gaussian_filters(cfg, ctr, size, attn_lg_var)
 
   # Render the attention box from the predicted parameters.
   f_y, f_x = filters(attn_ctr, attn_size)
@@ -673,3 +709,89 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
          'outputs': outputs, 'new_bn': new_bn, 'match': match,
          'match_box': match_box}
   return total, aux
+
+
+def _frozen_nets(cfg: FullModelConfig):
+  """The nets that the config's freeze_* flags keep as they are."""
+  flags = {'ctrl_cnn': cfg.freeze_ctrl_cnn, 'ctrl_lstm': cfg.freeze_ctrl_rnn,
+           'glimpse_mlp': cfg.freeze_ctrl_rnn,
+           'ctrl_mlp': cfg.freeze_ctrl_mlp,
+           'attn_cnn': cfg.freeze_attn_net, 'attn_dcnn': cfg.freeze_attn_net}
+  return frozenset(net for net, frozen in flags.items() if frozen)
+
+
+FAMILY = Family(model=FullModel, loss=full_model_loss,
+                draws=draw_train_randoms, batch_keys=BATCH_KEYS,
+                metric_keys=lambda cfg: METRIC_KEYS,
+                frozen_nets=_frozen_nets, optimizer=lambda cfg: 'adam')
+
+
+# ---------------------------------------------------------------------------
+# Pretrained controller (JAX full_model.py:100-119, nn/params.py:131-153)
+# ---------------------------------------------------------------------------
+
+CTRL_NETS = ('ctrl_cnn', 'ctrl_mlp', 'glimpse_mlp', 'ctrl_lstm')
+
+
+def _net_layers(state, net):
+  """{layer index: {key under the layer: tensor}} of a layer-list net."""
+  layers = {}
+  for name, v in state.items():
+    head, _, rest = name.partition('.')
+    if head == net:
+      i, _, key = rest.partition('.')
+      layers.setdefault(int(i), {})[key] = v
+  return layers
+
+
+def merge_pretrained(state, loaded, net, timespan):
+  """``state`` (a full model's {name: tensor}) with the net ``net`` of
+  ``loaded`` (another model's, e.g. the box model's) laid over it, by JAX
+  ``merge_pretrained``'s rules: a net that ``loaded`` lacks leaves
+  ``state`` as it is; the LSTM is taken whole; of a layer list, the layers
+  that ``loaded`` has replace their counterparts, its missing tail layers
+  stay as they were; a layer's BatchNorm that ``loaded`` lacks stays, and
+  one that it holds with another number of timestep copies is its last copy
+  broadcast over the ``timespan`` copies.  Every shape must agree
+  otherwise."""
+  out = dict(state)
+  if net == 'ctrl_lstm':
+    keys = [k for k in state if k.startswith('ctrl_lstm.')]
+    if not any(k in loaded for k in keys):
+      return out
+    for k in keys:
+      out[k] = loaded[k]
+  else:
+    own, theirs = _net_layers(state, net), _net_layers(loaded, net)
+    for i, layer in theirs.items():
+      if i not in own:
+        continue
+      for key, v in layer.items():
+        if key not in own[i]:
+          raise ValueError(f'{net}.{i}.{key}: the model has no such '
+                           'parameter')
+        want = own[i][key].shape
+        if (key.startswith('bn.') and v.shape != want and len(want) == 2):
+          v = (v[-1] if v.dim() == 2 else v).expand(timespan, -1)
+        out[f'{net}.{i}.{key}'] = v
+  for k, v in out.items():
+    if tuple(v.shape) != tuple(state[k].shape):
+      raise ValueError(f'{k}: pretrained shape {tuple(v.shape)}, the '
+                       f'model takes {tuple(state[k].shape)}')
+  return out
+
+
+def load_pretrained(model: FullModel, source):
+  """Start the controller of ``model`` from another model's (JAX
+  ``load_pretrained`` with ``pretrain_ctrl_net``): ``ctrl_cnn``,
+  ``ctrl_mlp``, ``glimpse_mlp`` and ``ctrl_lstm``, by the rules of
+  ``merge_pretrained``.  ``source``: a module (a ``BoxModel``, say) or its
+  {name: tensor} state dict, e.g. ``convert.params_from_checkpoint`` of a
+  box checkpoint.  Copies, in place, onto the model's device."""
+  loaded = source.state_dict() if isinstance(source, nn.Module) else source
+  loaded = {k: v.detach().to(model.device) for k, v in loaded.items()}
+  state = {k: v.detach() for k, v in model.state_dict().items()}
+  for net in CTRL_NETS:
+    state = merge_pretrained(state, loaded, net, model.cfg.timespan)
+  model.load_state_dict(state)
+  return model

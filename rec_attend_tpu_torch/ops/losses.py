@@ -1,6 +1,7 @@
 """Loss and metric primitives of the recurrent-attention model.
 
-Counterpart of ``rec_attend_tpu/ops/losses.py:27-297``, with its numerical
+Counterpart of ``rec_attend_tpu/ops/losses.py:27-297`` (``f_iou_all`` and
+``f_ce`` of the fg model included), with its numerical
 contracts: ``f_union`` adds eps per pixel, so the pairwise union carries an
 ``eps * H * W`` term; Dice cardinalities add 1e-5 per pixel; the BCEs put
 eps = 1e-5 inside the log; Huber is the symmetric form; the greedy match
@@ -104,6 +105,13 @@ def f_dice(a, b, pairwise=False):
   return 2 * inter / (card_a[:, :, None] + card_b[:, None, :])
 
 
+def f_iou_all(a, b):
+  """IoU over every element at once (the fg model's dataset-level IoU);
+  eps once in the union."""
+  inter = torch.sum(a * b)
+  return inter / (torch.sum(a) + torch.sum(b) - inter + EPS)
+
+
 # ---------------------------------------------------------------------------
 # Box IoU
 # ---------------------------------------------------------------------------
@@ -154,6 +162,12 @@ def f_unweighted_coverage(iou, count):
 # ---------------------------------------------------------------------------
 # Cross-entropies
 # ---------------------------------------------------------------------------
+
+def f_ce(y_out, y_gt):
+  """Cross-entropy of probabilities, per element (summed by the caller
+  over the classes)."""
+  return -y_gt * torch.log(y_out + EPS)
+
 
 def f_bce(y_out, y_gt):
   return (-y_gt * torch.log(y_out + EPS)

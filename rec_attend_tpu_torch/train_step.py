@@ -1,31 +1,31 @@
-"""One optimisation step of the full model.
+"""One optimisation step of the full, box or fg model.
 
 Counterpart of ``rec_attend_tpu/parallel/train_step.py:28-130``
-(``make_train_step`` without a mesh): decode the batch, run the loss and
-its gradients, clip each gradient element to +-``clip_gradient``
-(``optax.clip``: per element, not by norm), take an Adam step (eps 1e-7, the
-staircase learning rate evaluated at the optimizer's update count, starting
-at 0, as optax's schedule is), leave the frozen subnets' parameters as they
-were, and write the forward's new BatchNorm EMA statistics back.
+(``make_train_step`` without a mesh): decode the batch, run the model's
+loss and its gradients, clip each gradient element to +-``clip_gradient``
+where the config has one (``optax.clip``: per element, not by norm; the fg
+config has none, and its gradients are not clipped), take the optimizer's
+step with the staircase learning rate evaluated at the optimizer's update
+count (starting at 0, as optax's schedule is), leave the frozen parameters
+as they were, and write the forward's new BatchNorm EMA statistics back.
 
-The optimizer state is a dict: 'count' (updates taken) and per trainable
-parameter 'mu' and 'nu', Adam's first and second moments, under the
-parameters' names.  The arithmetic is optax's ``scale_by_adam``:
-mu/(1 - b1^n) / (sqrt(nu/(1 - b2^n)) + eps).
+The optimizer state is a dict: 'count' (updates taken) and, under the
+parameters' names, for Adam (``optimizer='adam'``, eps 1e-7) 'mu' and 'nu',
+its first and second moments, and for momentum (``optimizer='momentum'``,
+``optax.sgd(momentum=0.9)``) 'trace'.  The arithmetic is optax's:
+Adam's update is mu/(1 - b1^n) / (sqrt(nu/(1 - b2^n)) + eps); momentum's
+trace <- g + 0.9 trace, update = -lr(count) trace.
 """
 
 from __future__ import annotations
 
 import torch
 
-from rec_attend_tpu_torch.models.full_model import full_model_loss
+from rec_attend_tpu_torch.models.family import family
 from rec_attend_tpu_torch.models.full_model import learn_rate
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
-METRIC_KEYS = ('loss', 'box_loss', 'segm_loss', 'conf_loss', 'wd_loss',
-               'iou_soft', 'iou_soft_box', 'iou_hard', 'dice', 'wt_cov_soft',
-               'unwt_cov_soft', 'wt_cov_hard', 'unwt_cov_hard', 'count_acc',
-               'dic', 'dic_abs', 'learn_rate')
+MOMENTUM = 0.9
 
 
 def decode_batch(batch):
@@ -35,30 +35,37 @@ def decode_batch(batch):
           for k, v in batch.items()}
 
 
+def optimizer_of(cfg):
+  """'adam' or 'momentum', as the model's family reads the config."""
+  opt = family(cfg).optimizer(cfg)
+  if opt not in ('adam', 'momentum'):
+    raise ValueError(f'Unknown optimizer: {opt}')
+  return opt
+
+
 def init_opt_state(model):
-  """Adam state of a fresh optimizer: count 0, zero moments."""
+  """The state of a fresh optimizer: count 0, zero moments or trace."""
   params = dict(model.named_parameters())
-  return {'count': 0,
-          'mu': {k: torch.zeros_like(p) for k, p in params.items()},
-          'nu': {k: torch.zeros_like(p) for k, p in params.items()}}
+  keys = (('trace',) if optimizer_of(model.cfg) == 'momentum'
+          else ('mu', 'nu'))
+  return {'count': 0, **{key: {k: torch.zeros_like(p)
+                               for k, p in params.items()} for key in keys}}
 
 
 def freeze_mask(model):
-  """{parameter name: True if it is not updated} from the freeze_* flags."""
-  cfg = model.cfg
-  frozen = {'ctrl_cnn': cfg.freeze_ctrl_cnn, 'ctrl_lstm': cfg.freeze_ctrl_rnn,
-            'glimpse_mlp': cfg.freeze_ctrl_rnn,
-            'ctrl_mlp': cfg.freeze_ctrl_mlp,
-            'attn_cnn': cfg.freeze_attn_net, 'attn_dcnn': cfg.freeze_attn_net,
-            'score_mlp': False}
-  return {k: frozen[k.split('.')[0]] for k, _ in model.named_parameters()}
+  """{parameter name: True if it is not updated}: the parameters of the
+  nets that the model's family freezes (the full model's freeze_* flags;
+  the fg and box models freeze nothing)."""
+  frozen = family(model.cfg).frozen_nets(model.cfg)
+  return {k: k.split('.')[0] in frozen for k, _ in model.named_parameters()}
 
 
 def loss_and_grads(model, batch, draws, step, glimpse='kernel'):
-  """(loss, aux, {parameter name: gradient}) of one batch."""
+  """(loss, aux, {parameter name: gradient}) of one batch, by the loss of
+  the model's family: aux holds the metrics, 'outputs' and 'new_bn'."""
   model.zero_grad(set_to_none=True)
-  loss, aux = full_model_loss(model, decode_batch(batch), draws, step,
-                              glimpse)
+  loss, aux = family(model.cfg).loss(model, decode_batch(batch), draws, step,
+                                     glimpse)
   loss.backward()
   grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
            for k, p in model.named_parameters()}
@@ -66,18 +73,7 @@ def loss_and_grads(model, batch, draws, step, glimpse='kernel'):
   return loss, aux, grads
 
 
-@torch.no_grad()
-def apply_updates(model, opt_state, grads, new_bn):
-  """Clip, take the Adam step in place on the model's parameters, write the
-  BatchNorm EMA back; returns the new optimizer state (the moments are
-  updated in place)."""
-  cfg = model.cfg
-  names = [k for k, _ in model.named_parameters()]
-  params = dict(model.named_parameters())
-  lr = learn_rate(cfg, opt_state['count'])
-  count = opt_state['count'] + 1
-  gs = [torch.clamp(grads[k], -cfg.clip_gradient, cfg.clip_gradient)
-        for k in names]
+def _adam_updates(opt_state, names, gs, count):
   mus = [opt_state['mu'][k] for k in names]
   nus = [opt_state['nu'][k] for k in names]
   torch._foreach_mul_(mus, ADAM_B1)
@@ -89,7 +85,33 @@ def apply_updates(model, opt_state, grads, new_bn):
   bc2 = 1 - torch.tensor(ADAM_B2, dtype=torch.float32) ** count
   denom = torch._foreach_add(torch._foreach_sqrt(
       torch._foreach_div(nus, float(bc2))), ADAM_EPS)
-  updates = torch._foreach_div(torch._foreach_div(mus, float(bc1)), denom)
+  return torch._foreach_div(torch._foreach_div(mus, float(bc1)), denom)
+
+
+def _momentum_updates(opt_state, names, gs):
+  traces = [opt_state['trace'][k] for k in names]
+  torch._foreach_mul_(traces, MOMENTUM)
+  torch._foreach_add_(traces, gs)
+  return traces
+
+
+@torch.no_grad()
+def apply_updates(model, opt_state, grads, new_bn):
+  """Clip where the config clips, take the optimizer's step in place on
+  the model's parameters, write the BatchNorm EMA back; returns the new
+  optimizer state (its moments or trace are updated in place)."""
+  cfg = model.cfg
+  names = [k for k, _ in model.named_parameters()]
+  params = dict(model.named_parameters())
+  lr = learn_rate(cfg, opt_state['count'])
+  count = opt_state['count'] + 1
+  clip = getattr(cfg, 'clip_gradient', None)
+  gs = [grads[k] if clip is None else torch.clamp(grads[k], -clip, clip)
+        for k in names]
+  if optimizer_of(cfg) == 'momentum':
+    updates = _momentum_updates(opt_state, names, gs)
+  else:
+    updates = _adam_updates(opt_state, names, gs, count)
   frozen = freeze_mask(model)
   live = [i for i, k in enumerate(names) if not frozen[k]]
   torch._foreach_add_([params[names[i]] for i in live],
@@ -97,17 +119,19 @@ def apply_updates(model, opt_state, grads, new_bn):
   buffers = dict(model.named_buffers())
   for k, v in new_bn.items():
     buffers[k].copy_(v)
-  return {'count': count, 'mu': opt_state['mu'], 'nu': opt_state['nu']}
+  return {**opt_state, 'count': count}
 
 
 def train_step(model, opt_state, batch, draws, step, glimpse='kernel'):
   """One step: returns (new optimizer state, {metric: 0-d tensor}).
 
-  batch: 'x', 'y_gt' (float, or uint8 as ``encode_batch`` leaves them),
-  's_gt' and, where the config reads them, the packed maps 'd_in' and
-  'y_in' (float or uint8) on the model's device; draws:
-  ``draw_train_randoms``; step: the global step (for the knob
-  schedule)."""
+  batch: the model's batch (float, or uint8 as ``encode_batch`` leaves
+  it) on the model's device: the full and box models' 'x', 'y_gt', 's_gt'
+  and, where the config reads them, the packed maps 'd_in' and 'y_in'; the
+  fg model's 'x', 'c_gt' and 'd_gt'.  draws: the model's draws (its
+  family's ``draws``); step: the global step (for the knob schedule and the
+  reported learning rate)."""
   _, aux, grads = loss_and_grads(model, batch, draws, step, glimpse)
   opt_state = apply_updates(model, opt_state, grads, aux['new_bn'])
-  return opt_state, {k: aux[k].detach() for k in METRIC_KEYS}
+  return opt_state, {k: aux[k].detach()
+                     for k in family(model.cfg).metric_keys(model.cfg)}

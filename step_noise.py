@@ -3,6 +3,7 @@
 batches.
 
     python3 step_noise.py [--batches 5] [--step 30000] [--batch 32]
+    python3 step_noise.py --chain [--batches 5]
 
 Restores the flagship CVPPP checkpoint with its Adam state on one CUDA card
 and, for each of several seeded synthetic batches and draws, runs
@@ -14,7 +15,17 @@ the gradient errors (worst leaf, all leaves at once, median leaf), the
 update error, how many examples' matchings differ and the forwards'
 differences, then the card's name and power limit.  chip_smoke.py gates one
 of these batches (seed 1000, draws seed 1); this script shows how the
-statistics spread over others.  Needs a card; exits 1 without one.
+statistics spread over others.
+
+With ``--chain``, the same for the gates of chip_smoke.py's chain_train
+phase, at b8 over synthetic 128x448 images: the synth3 fg checkpoint's step
+card against CPU (b2) with its floor (the batch in the other order) and
+controls (``chip_smoke.fg_step_gates``), the box checkpoint's step on the
+fg model's packed maps, kernel against plain and card against CPU
+(``box_step_gates``), and the KITTI full model's step at step 0 from the
+box's controller, kernel against plain (``step_gates``).  Batch i is
+examples 8i to 8i+7 of one seeded split; i = 0 is the batch that
+chip_smoke.py gates.  Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -31,11 +42,16 @@ def main():
   ap.add_argument('--batches', type=int, default=5)
   ap.add_argument('--step', type=int, default=30000)
   ap.add_argument('--batch', type=int, default=chip_smoke.TRAIN_BATCH)
+  ap.add_argument('--chain', action='store_true',
+                  help='the chain_train gates instead of the flagship step')
   args = ap.parse_args()
 
   import torch
   if not torch.cuda.is_available():
     sys.exit('step_noise: CUDA is not available; this script runs on a card')
+  if args.chain:
+    chain_noise(torch, args.batches)
+    return
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.config import cvppp_full_config
   from rec_attend_tpu_torch.data.synthetic import synthetic_instances
@@ -70,6 +86,80 @@ def main():
         'batch': args.batch, 'limits': limits, 'failures': failures,
         'gates': {name: {k: v[k] for k in keys}
                   for name, v in gates.items()}}), flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+KEYS = ('loss_rel_diff', 'grad_rel_l2_max', 'grad_rel_l2_all',
+        'grad_rel_l2_median', 'update_rel_l2_max', 'zero_grad_share_max',
+        'zero_update_in_lr_max', 'matches_differ', 'forward', 'failed')
+
+
+def chain_noise(torch, n):
+  """The chain_train gates' statistics over n batches (module docstring)."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli.pack import pack_fg
+  from rec_attend_tpu_torch.config import kitti_box_config
+  from rec_attend_tpu_torch.config import kitti_fg_config
+  from rec_attend_tpu_torch.config import kitti_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.box_model import draw_box_randoms
+  from rec_attend_tpu_torch.models.fg_model import draw_fg_randoms
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device('cuda')
+  fg_cfg, box_cfg, full_cfg = (kitti_fg_config(), kitti_box_config(),
+                               kitti_full_config())
+  b = chip_smoke.CHAIN_TRAIN_BATCH
+  ds = SyntheticDataset(n * b, full_cfg.inp_height, full_cfg.inp_width,
+                        full_cfg.timespan, seed=5,
+                        max_objects=chip_smoke.CHAIN_MAX_OBJECTS)
+  fg = Trainer(fg_cfg, device=dev)
+  fg.restore(chip_smoke.CHAIN_FG_DIR)
+  fg_exp = EvalExperiment(chip_smoke.CHAIN_FG_DIR, cfg=fg_cfg, device=dev,
+                          spec='fg')
+  with chip_smoke.deterministic_cudnn(torch):
+    packed = chip_smoke.chain_batches(
+        torch, pack_fg(fg_exp, ds, b).get_batch, chip_smoke.PACKED_KEYS, b, n)
+  fg_data = chip_smoke.chain_batches(torch, ds.get_batch, chip_smoke.FG_KEYS,
+                                     b, n)
+  box = Trainer(box_cfg, device=dev)
+  box.restore(chip_smoke.CHAIN_BOX_DIR)
+  full = Trainer(full_cfg, device=dev)
+  full.load_pretrained(box.model)
+  for i in range(n):
+    gen = lambda seed: torch.Generator(dev).manual_seed(seed + 10 * i)
+    fg_batch = {k: v.to(dev) for k, v in next(fg_data).items()}
+    batch = {k: v.to(dev) for k, v in next(packed).items()}
+    stages = {
+        'fg': chip_smoke.fg_step_gates(
+            torch, ts, matching, fg.model, fg.opt_state, fg_batch,
+            draw_fg_randoms(fg_cfg, gen(1)), fg.step,
+            learn_rate(fg_cfg, fg.opt_state['count']),
+            chip_smoke.FG_STEP_LIMITS),
+        'box': chip_smoke.box_step_gates(
+            torch, ts, matching, gk, box.model, box.opt_state, batch,
+            draw_box_randoms(box_cfg, b, gen(2)), box.step,
+            learn_rate(box_cfg, box.opt_state['count']),
+            chip_smoke.BOX_STEP_LIMITS),
+        'full': chip_smoke.step_gates(
+            torch, ts, matching, gk, full.model, full.opt_state, batch,
+            draw_train_randoms(full_cfg, b, gen(3)), 0,
+            learn_rate(full_cfg, 0), chip_smoke.FULL_STEP_LIMITS)}
+    print(json.dumps({
+        'batch_index': i, 'examples': [i * b, (i + 1) * b - 1],
+        'draws_seeds': [1 + 10 * i, 2 + 10 * i, 3 + 10 * i],
+        'stages': {stage: {'failures': failures,
+                           'gates': {name: {k: v[k] for k in KEYS if k in v}
+                                     for name, v in gates.items()}}
+                   for stage, (gates, failures) in stages.items()}}),
+          flush=True)
   print(chip_smoke.nvidia_smi_name_power(), flush=True)
 
 

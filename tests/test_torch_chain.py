@@ -290,7 +290,7 @@ def test_packed_train_step_matches_jax(variant):
   loss, aux, grads = TS.loss_and_grads(model, tbatch, draws, 0)
   np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-4,
                              atol=1e-5)
-  for k in TS.METRIC_KEYS:
+  for k in TF.METRIC_KEYS:
     np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-4,
                                atol=1e-5, err_msg=k)
   np.testing.assert_array_equal(aux['match'].numpy(),

@@ -2,10 +2,11 @@
 h5py, cv2, optax or triton, which the machine with the card may lack), reads
 YAML only inside its YAML reader, and never falls back to the CPU by
 itself.  Every module of the package is covered, the training path's
-(losses, matching, boxes, augmentation, train step, trainer) and the eval
-path's (postprocess, analyzers, eval experiment, eval_split) included, and
-a train step, an eval_split and the fg -> pack -> full chain run with
-those modules blocked."""
+(losses, matching, boxes, augmentation, train step, trainer, the box
+model, the orientation maps) and the eval path's (postprocess, analyzers,
+eval experiment, eval_split) included, and a train step of each model (fg
+with momentum, box, full started from the box), an eval_split and the fg ->
+pack -> full chain run with those modules blocked."""
 
 import ast
 import os
@@ -79,6 +80,24 @@ def test_port_imports_with_those_modules_missing(tmp_path):
       data = synthetic_instances(2, 64, 64, cfg.timespan, seed=1)
       history = trainer.run(1, iter([data]))
       assert trainer.step == 1 and history[0]['loss'] == history[0]['loss']
+      # The chain's training: fg with momentum, box on packed channels, a
+      # full model started from the box's controller.
+      fg = Trainer(config.tiny_fg_config(add_orientation=True,
+                                         dcnn_depth=(8, 4, 9),
+                                         optimizer='momentum'), device='cpu')
+      assert fg.run(1, iter([data]))[0]['orientation_acc'] >= 0
+      assert sorted(fg.opt_state) == ['count', 'trace']
+      packed = dict(data, d_in=torch.rand(2, 64, 64, 8),
+                    y_in=torch.rand(2, 64, 64, 1))
+      box = Trainer(config.tiny_box_config(add_d_out=True, add_y_out=True,
+                                           remat=True), device='cpu')
+      assert box.run(1, iter([packed]))[0]['iou_soft_box'] >= 0
+      full = Trainer(config.tiny_full_config(
+          add_d_out=True, add_y_out=True, ctrl_add_inp=True,
+          ctrl_add_canvas=True, use_knob=True), device='cpu')
+      full.load_pretrained(box.model)
+      history = full.run(1, iter([packed]))
+      assert full.step == 1 and history[0]['loss'] == history[0]['loss']
       # The eval path: a params-only checkpoint in the JAX layout, an
       # in-memory dataset, the postprocess chain and the analyzers.
       import os
@@ -230,6 +249,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
     FullModel(cfg)
   with pytest.raises(RuntimeError, match='CUDA'):
     Trainer(cfg)
+  for other in (C.tiny_box_config(), C.tiny_fg_config()):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      Trainer(other)
+    Trainer(other, device='cpu')
   params = FullModel(cfg, device='cpu').state_dict()
   with pytest.raises(RuntimeError, match='CUDA'):
     InstanceSegmenter(params, cfg)

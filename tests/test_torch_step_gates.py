@@ -75,7 +75,7 @@ def test_a_control_that_passes_the_limits_is_a_failure(setup):
   control = gates['dropped_filter_grads_vs_plain_pinned']
   assert control['failed'] == []
   assert failures == ['dropped_filter_grads_vs_plain_pinned: the gradient '
-                      'gate passes it']
+                      "gates ['grad_rel_l2_all'] pass it"]
 
 
 def test_a_pinned_step_uses_the_given_matching(setup):

@@ -224,7 +224,7 @@ def _run_steps(variant, n_steps):
                                          step0 + i)
     np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-4,
                                atol=1e-5, err_msg=what)
-    for k in TS.METRIC_KEYS:
+    for k in TF.METRIC_KEYS:
       np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-4,
                                  atol=1e-5, err_msg=f'{what} {k}')
     np.testing.assert_array_equal(aux['match'].numpy(),
