@@ -14,8 +14,9 @@ Phases, one JSON line each on stdout:
   kernels       each hand-written kernel against its plain PyTorch version,
                 at the serving path's shapes (CVPPP, b128, b8 and b1), at
                 the synth3 chain's (KITTI 128x448, b32, extract D=13, paste
-                D=1, 48x48 glimpse), at Cityscapes' extract (256x512, b32,
-                D=21), at paste's d_p of the KITTI size (extract D=1) and
+                D=1, 48x48 glimpse), at the synthcs chain's (256x512, b32,
+                extract D=15, paste D=1), at Cityscapes' extract (256x512,
+                b32, D=21), at paste's d_p of the KITTI size (extract D=1) and
                 at a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
                 CUDA-event times; each extract names its route (the tiled
                 kernel, the strip kernel and their output rows a block, or
@@ -91,7 +92,32 @@ Phases, one JSON line each on stdout:
                 box kernel against plain (b8, beside the reordered-plain
                 floor) and card against CPU (b2); full kernel against plain
                 (b8, at step 0); the box and full controls drop the filter
-                gradients.
+                gradients;
+  cs_chain      the Cityscapes-shaped synthcs chain (a checkout without its
+                full checkpoint fails): the multiclass fg model (weights
+                drawn from a seed: its checkpoint does not fit in the copy)
+                over 32 synthetic 256x512 images of 2 classes at b32, its
+                3-class pack, eval_split of the full model (score threshold
+                0.50, mask threshold 0.40) with the kernels, the plain
+                glimpses and reordered plain einsums (20 extracts, all on
+                the strip route at x [32,256,512,15], and 40 pastes into
+                [32,256,512,1] a forward), then with each of the three the
+                full model's pack, the model-free Cityscapes eval on the
+                card (mask threshold 0.6, regions of up to 100 pixels
+                removed) and the instance AP of its submission, all also
+                on a pack of the ground truth's maps (the seeded fg maps
+                carry no classes), and the pixel eval of the fg bytes;
+                held: per-example SBD and counts as in eval, the kernel
+                run's AP, AP_50% and per-class AP to the plain run's (equal
+                where the kernels give the plain bits at these shapes, else
+                within twice the reordered-plain floor plus 1e-4; on the
+                ground truth's maps person and rider swapped must fail), the
+                pixel eval of labels made on the card to the host's, the
+                b32 forward kernel against plain, fg maps and full forward
+                card against CPU (b2; the packed fg channels reversed must
+                fail), the pack's bytes the same on the host; host seconds
+                per batch of every stage; it runs last, so that the phases
+                before it run as they did without it.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -119,6 +145,14 @@ CHECKPOINT_DIR = os.path.join(REPO, 'results',
 CHAIN_FG_DIR = os.path.join(REPO, 'results', 'fg_model_synth3-20260818a')
 CHAIN_FULL_DIR = os.path.join(REPO, 'results', 'full_model_synth3-20260818a')
 CHAIN_BOX_DIR = os.path.join(REPO, 'results', 'box_model_synth3-20260818a')
+# The Cityscapes-shaped chain: the multiclass fg model, then the full model
+# at 256x512 on its packed predictions (RESULTS.md, the synthcs runs).  The
+# fg model's checkpoint (211 MB with its momentum trace) does not fit in a
+# copy of 256 MiB beside the checkpoints of the other phases, so its weights
+# here are drawn from CS_FG_SEED; the CPU tests run the committed one
+# (tests/test_torch_cityscapes_chain.py).
+CS_FULL_DIR = os.path.join(REPO, 'results', 'full_model_synthcs-20260818a')
+CS_FG_SEED = 14
 REPLACES = {
     'glimpse_extract': 'rec_attend_tpu/ops/pallas/glimpse.py:62',
     'glimpse_paste': 'rec_attend_tpu/ops/pallas/glimpse.py:75',
@@ -219,6 +253,18 @@ CHAIN_MASK_THRESHOLD, CHAIN_SCORE_THRESHOLD = 0.4, 0.15
 # The fg forward, card against CPU: its sigmoid and softmax maps, largest
 # difference (the port against JAX on the CPU: 1.3e-6 and 3.7e-6).
 FG_MAPS_ATOL = 1e-4
+# The Cityscapes-shaped chain: the synthcs valid split's generator knobs
+# (data/provider.py:42-53 with the model's data_opt.yaml: seed 4, up to 10
+# objects of 2 classes, 256x512) at b32, one batch; the calibrated
+# headline's thresholds (count_calibration.json); the pipeline's AP stage:
+# mask threshold 0.6, regions of at most 100 pixels removed
+# (pipelines/run_pipeline.py:642, cli/cityscapes_eval.py:111).
+CS_EXAMPLES, CS_BATCH, CS_MAX_OBJECTS, CS_CLASSES = 32, 32, 10, 2
+CS_MASK_THRESHOLD, CS_SCORE_THRESHOLD = 0.4, 0.5
+CS_AP_THRESHOLD, CS_AP_REMOVE_TINY = 0.6, 100
+# The AP gate where the kernels' patches are not the plain version's bits:
+# kernel against plain within twice the reordered-plain floor plus this.
+CS_AP_FLOOR_FACTOR, CS_AP_SLACK = 2.0, 1e-4
 # The chain's training: b8, the batch of the JAX pipeline's synth3 run
 # (pipelines/run_pipeline.py:283-375), over 16 synthetic 128x448 images (two
 # batches, cycled); fg, box, full from the box and full from its checkpoint
@@ -983,6 +1029,335 @@ def chain_phase(torch, gk):
       'host_seconds_per_batch': per_batch}
 
 
+def ap_difference(got, want):
+  """The largest difference of two AP results: AP, AP_50% and each class's
+  AP and AP_50% (NaN against NaN is 0, NaN against a number infinite)."""
+  def values(avg):
+    out = {'allAp': avg['allAp'], 'allAp50%': avg['allAp50%']}
+    for name, d in avg['classes'].items():
+      out.update({f'{name} ap': d['ap'], f'{name} ap50%': d['ap50%']})
+    return out
+
+  def diff(x, y):
+    if math.isnan(x) or math.isnan(y):
+      return 0.0 if math.isnan(x) and math.isnan(y) else math.inf
+    return abs(x - y)
+  a, b = values(got), values(want)
+  return max(diff(a[k], b[k]) for k in b)
+
+
+def pixel_result_equal(got, want):
+  """Two pixel-eval results hold the same scores (NaN equal to NaN)."""
+  def same(x, y):
+    return (math.isnan(x) and math.isnan(y)) or x == y
+  return all(same(got[f][k], v) for f, d in want.items()
+             if isinstance(d, dict) for k, v in d.items()) and all(
+                 same(got[f], v) for f, v in want.items()
+                 if not isinstance(v, dict))
+
+
+def params_checkpoint(model, folder, step=0):
+  """Write ``model``'s parameters to ``folder`` as a params-only
+  ``ckpt-{step}.npz`` in the JAX layout, which ``EvalExperiment``
+  restores."""
+  import numpy as np
+  from rec_attend_tpu_torch.engine import saver
+  state = model.state_dict()
+  names = saver.jax_leaf_order(state)
+  np.savez(os.path.join(folder, f'ckpt-{step}.npz'), num_leaves=len(names),
+           **{f'leaf_{i}': state[n].cpu().numpy()
+              for i, n in enumerate(names)})
+
+
+def cs_chain_phase(torch, gk, patches_bit_equal):
+  """The Cityscapes-shaped synthcs chain: the multiclass fg model (its
+  weights drawn from CS_FG_SEED) and its 3-class pack, eval_split of the
+  full model at 256x512 on the packed channels, the full model's pack, the
+  model-free Cityscapes eval, its submission's instance AP and the pixel
+  eval of the fg bytes; the full model's pack, the Cityscapes eval and the
+  AP also on a pack of the ground truth's maps.  The full model runs with
+  the kernel glimpses, the plain ones and the reordered plain ones (the
+  float32 floor), cuDNN deterministic; launches counted on the kernel
+  runs.
+  ``patches_bit_equal``: the kernels gave the plain versions' bits at this
+  chain's shapes, so the kernel run's AP must equal the plain run's; else
+  it is held to twice the floor plus CS_AP_SLACK."""
+  import numpy as np
+  from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
+  from rec_attend_tpu_torch.cli.pack import PackedDataset
+  from rec_attend_tpu_torch.cli.pack import pack_fg
+  from rec_attend_tpu_torch.cli.pack import pack_full
+  from rec_attend_tpu_torch.cli.pack import quantise
+  from rec_attend_tpu_torch.config import synthcs_fg_config
+  from rec_attend_tpu_torch.config import synthcs_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.eval_cityscapes import pixel_eval
+  from rec_attend_tpu_torch.eval_cityscapes.instance_eval import (
+      evaluate_instance_predictions)
+  from rec_attend_tpu_torch.models.fg_model import FGModel
+  from rec_attend_tpu_torch.models.fg_model import fg_model_forward
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+
+  fg_cfg, cfg = synthcs_fg_config(), synthcs_full_config()
+  T = cfg.timespan
+  n_batches = -(-CS_EXAMPLES // CS_BATCH)
+  ds = SyntheticDataset(CS_EXAMPLES, cfg.inp_height, cfg.inp_width, T,
+                        seed=4, max_objects=CS_MAX_OBJECTS,
+                        num_semantic_classes=CS_CLASSES)
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_cs_fg-',
+                                   dir=REPO) as fg_dir:
+    params_checkpoint(FGModel(fg_cfg, seed=CS_FG_SEED, device='cpu'), fg_dir)
+    fg = EvalExperiment(fg_dir, cfg=fg_cfg, device='cuda', spec='fg')
+  pack_timings = {}
+  t0 = time.time()
+  with deterministic_cudnn(torch):
+    packed = pack_fg(fg, ds, CS_BATCH, timings=pack_timings)
+  pack_seconds = time.time() - t0
+  if packed.y_out.shape[-1] != CS_CLASSES + 1:
+    raise AssertionError(f'the fg pack has {packed.y_out.shape[-1]} '
+                         'semantic channels')
+  runs, launches, stats, sbd_limit, failures = eval_runs(
+      torch, gk, CS_FULL_DIR, cfg, packed, CS_EXAMPLES, CS_BATCH,
+      CS_MASK_THRESHOLD, CS_SCORE_THRESHOLD, 'cs_chain')
+  kernel, plain, floor = (runs[k] for k in ('kernel', 'plain',
+                                            'reordered_plain'))
+  routes = kernel['extract_route_launches']
+  if routes != {'extract_strip_kernel': launches['glimpse_extract']}:
+    failures.append(f'the chain\'s extracts took {routes}')
+
+  # The full model's pack, the Cityscapes eval and its AP, with each
+  # glimpse form, on the fg model's pack (the path) and on a pack of the
+  # ground truth's maps ('oracle'): the fg model's weights are drawn from a
+  # seed, so its maps carry no classes and the full model matches few
+  # instances on them, where AP stays near 0 whatever the labels; on the
+  # ground truth's maps it works in its trained range, and there the AP
+  # gate's control must fail.
+  gt_ids = ds.get_instance_id_images(ds.img_ids)
+  oracle = PackedDataset(ds, quantise(torch.from_numpy(ds.d_gt)).numpy(),
+                         quantise(torch.from_numpy(ds.c_gt)).numpy())
+  forms = {'kernel': 'kernel', 'plain': 'plain',
+           'reordered_plain': reordered_plain(torch)}
+  cs = {'fg': {}, 'oracle': {}}
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_cs_chain-',
+                                   dir=REPO) as root:
+    for source, src_pack in (('fg', packed), ('oracle', oracle)):
+      for name, glimpse in forms.items():
+        exp = EvalExperiment(CS_FULL_DIR, cfg=cfg, device='cuda',
+                             glimpse=glimpse)
+        full_timings, cs_timings = {}, {}
+        gk.reset_launch_counts()
+        with deterministic_cudnn(torch):
+          full_packed = pack_full(exp, src_pack, CS_BATCH,
+                                  timings=full_timings)
+        pack_launches = gk.launch_counts()
+        pack_routes = {k: v for k, v in
+                       gk.glimpse_extract.route_launches.items() if v}
+        folder = os.path.join(root, f'{source}_{name}')
+        summary, rows = cityscapes_eval(
+            full_packed, folder, [CS_AP_THRESHOLD], ['sbd'],
+            remove_tiny=CS_AP_REMOVE_TINY, batch_size=CS_BATCH,
+            device='cuda', timings=cs_timings)
+        t0 = time.perf_counter()
+        ap = evaluate_instance_predictions(rows[CS_AP_THRESHOLD], gt_ids)
+        ap_seconds = time.perf_counter() - t0
+        cs[source][name] = {
+            'rows': rows[CS_AP_THRESHOLD], 'ap': ap,
+            'sbd': float(next(iter(summary[CS_AP_THRESHOLD].values()))[0]),
+            'sbd_per_example': read_scores(folder, 'sbd'),
+            'submitted': sum(len(r) for r in rows[CS_AP_THRESHOLD]),
+            'timings': {'full_pack_forward': full_timings['forward'],
+                        'full_pack': full_timings['pack'],
+                        **{f'cityscapes_{k}': v
+                           for k, v in cs_timings.items()},
+                        'ap': [ap_seconds]}}
+        if name != 'kernel':
+          continue
+        want = {'glimpse_extract': T * n_batches,
+                'glimpse_paste': 2 * T * n_batches}
+        if pack_launches != want:
+          failures.append(f'pack_full ({source}): kernel launches '
+                          f'{pack_launches}, want {want}')
+        if pack_routes != {'extract_strip_kernel': T * n_batches}:
+          failures.append(f'pack_full\'s extracts ({source}) took '
+                          f'{pack_routes}')
+        if source == 'fg':
+          full_pack_launches, full_pack_routes = pack_launches, pack_routes
+  ap_stats = {}
+  for source, by_form in cs.items():
+    ap_kernel, ap_plain = by_form['kernel']['ap'], by_form['plain']['ap']
+    if not (math.isfinite(ap_kernel['allAp'])
+            and math.isfinite(ap_kernel['allAp50%'])):
+      failures.append(f'AP ({source}) {ap_kernel}')
+    floor_diff = ap_difference(by_form['reordered_plain']['ap'], ap_plain)
+    limit = (0.0 if patches_bit_equal
+             else CS_AP_FLOOR_FACTOR * floor_diff + CS_AP_SLACK)
+    kernel_diff = ap_difference(ap_kernel, ap_plain)
+    if kernel_diff > limit:
+      failures.append(f'AP ({source}) kernel against plain differs by '
+                      f'{kernel_diff}, limit {limit}')
+    # Control: the kernel run's submission with person and rider swapped.
+    swap = {24: 25, 25: 24}
+    swapped = [[r._replace(label_id=swap.get(r.label_id, r.label_id))
+                for r in rows] for rows in by_form['kernel']['rows']]
+    swapped_diff = ap_difference(
+        evaluate_instance_predictions(swapped, gt_ids), ap_plain)
+    if source == 'oracle' and swapped_diff <= limit:
+      failures.append(f'the AP gate passes person and rider swapped: '
+                      f'{swapped_diff}, limit {limit}')
+    per_example = {k: v['sbd_per_example'] for k, v in by_form.items()}
+    ap_stats[source] = {
+        'ap': {k: v['ap'] for k, v in by_form.items()},
+        'submitted_rows': {k: v['submitted'] for k, v in by_form.items()},
+        'cityscapes_sbd': {k: v['sbd'] for k, v in by_form.items()},
+        'cityscapes_sbd_kernel_vs_plain_max_abs': max(
+            abs(per_example['kernel'][k] - v)
+            for k, v in per_example['plain'].items()),
+        'ap_kernel_vs_plain': kernel_diff,
+        'ap_reordered_plain_vs_plain': floor_diff,
+        'ap_person_rider_swapped_vs_plain': swapped_diff,
+        'ap_limit': limit}
+  if not cs['oracle']['kernel']['submitted']:
+    failures.append('nothing submitted on the ground truth\'s maps')
+
+  # The pixel eval of the card's fg bytes: labelled on the host and on
+  # the card, the same labels and the same result.
+  t0 = time.perf_counter()
+  host = pixel_eval.PixelEvaluator()
+  for fg_bytes, ids in zip(packed.y_out, gt_ids):
+    label, inst = pixel_eval.groundtruth_labels(ids)
+    host.add_pair(pixel_eval.prediction_labels(fg_bytes), label,
+                  instance_img=inst)
+  pixel = host.finalize()
+  pixel_seconds = time.perf_counter() - t0
+  card_labels = pixel_eval.prediction_labels(
+      torch.from_numpy(packed.y_out).cuda()).cpu().numpy()
+  card = pixel_eval.PixelEvaluator()
+  for pred, ids in zip(card_labels, gt_ids):
+    label, inst = pixel_eval.groundtruth_labels(ids)
+    card.add_pair(pred, label, instance_img=inst)
+  pixel_card = card.finalize()
+  labels_equal = bool(np.array_equal(
+      card_labels, np.stack([pixel_eval.prediction_labels(b)
+                             for b in packed.y_out])))
+  if not (labels_equal and np.array_equal(card.conf, host.conf)
+          and pixel_result_equal(pixel_card, pixel)):
+    failures.append('the pixel eval of labels made on the card differs '
+                    'from the host\'s')
+  if not math.isfinite(pixel['meanIoU']):
+    failures.append(f'pixel eval {pixel}')
+
+  # The b32 forward on the packed channels: kernel against plain, the
+  # reordered plain floor beside it; the card against the CPU (b2) for the
+  # fg maps and the full forward, with a control that must fail: the
+  # card's forward with the packed fg channels in reversed order.
+  exp = EvalExperiment(CS_FULL_DIR, cfg=cfg, device='cuda')
+  raw = packed.get_batch(range(CS_BATCH), timespan=T)
+  x, d_in, y_in = (torch.from_numpy(raw[k]).cuda()
+                   for k in ('x', 'd_out', 'y_out'))
+  route = gk.extract_route(CS_BATCH, cfg.inp_height, cfg.inp_width,
+                           cfg.acnn_inp_depth, cfg.filter_height,
+                           cfg.filter_width)
+  if route['kernel'] != 'extract_strip_kernel':
+    failures.append(f'the chain\'s extract takes {route}')
+  with deterministic_cudnn(torch), torch.inference_mode():
+    want = full_model_forward(exp.model, x, d_in, y_in, glimpse='plain')
+    reordered = forward_diff(full_model_forward(
+        exp.model, x, d_in, y_in, glimpse=reordered_plain(torch)), want)
+    gk.reset_launch_counts()
+    got = full_model_forward(exp.model, x, d_in, y_in, glimpse='kernel')
+    forward_routes = {k: v for k, v in
+                      gk.glimpse_extract.route_launches.items() if v}
+    if forward_routes != {'extract_strip_kernel': T}:
+      failures.append(f'the b32 forward\'s extracts took {forward_routes}')
+    kernel_vs_plain = forward_diff(got, want)
+    x2 = x[:2]
+    cpu_fg = FGModel(fg_cfg, device='cpu')
+    cpu_fg.load_state_dict(fg.model.state_dict())
+    fg_got = fg_model_forward(fg.model, x2)
+    fg_want = fg_model_forward(cpu_fg, x2.cpu())
+    fg_card_vs_cpu = {k: float((fg_got[k].cpu() - fg_want[k]).abs().max())
+                      for k in ('y_out', 'd_out')}
+    bytes_differ_share = {k: float((quantise(fg_got[k]).cpu()
+                                    != quantise(fg_want[k])).float().mean())
+                          for k in ('y_out', 'd_out')}
+    cpu_model = FullModel(exp.cfg, device='cpu')
+    cpu_model.load_state_dict(exp.model.state_dict())
+    full_cpu = full_model_forward(cpu_model, x2.cpu(), d_in[:2].cpu(),
+                                  y_in[:2].cpu())
+    full_card = full_model_forward(exp.model, x2, d_in[:2], y_in[:2])
+    full_card_vs_cpu = forward_diff(full_card, full_cpu)
+    reversed_y_in = forward_diff(full_model_forward(
+        exp.model, x2, d_in[:2], y_in[:2].flip(-1)), full_cpu)
+    reversed_y_in['failed'] = gate_failures(reversed_y_in)
+    quantised_on_host = {
+        f'fg_{k}': bool(torch.equal(quantise(fg_got[k]).cpu(),
+                                    quantise(fg_got[k].cpu())))
+        for k in ('y_out', 'd_out')}
+    quantised_on_host['full_y_out'] = bool(torch.equal(
+        quantise(full_card['y_out']).cpu(),
+        quantise(full_card['y_out'].cpu())))
+  for label, diff in (('kernel_vs_plain_b32', kernel_vs_plain),
+                      ('card_vs_cpu_b2', full_card_vs_cpu)):
+    if gate_failures(diff):
+      failures.append(f'{label}: {diff}')
+  if not reversed_y_in['failed']:
+    failures.append(f'the gates pass a reversed y_in: {reversed_y_in}')
+  if max(fg_card_vs_cpu.values()) > FG_MAPS_ATOL:
+    failures.append(f'fg card against CPU: {fg_card_vs_cpu}')
+  if not all(quantised_on_host.values()):
+    failures.append(f'the pack\'s bytes differ on the host: '
+                    f'{quantised_on_host}')
+  if failures:
+    raise AssertionError(f'cs_chain gates: {failures}; AP {ap_stats}')
+  median = lambda v: statistics.median(v) if v else None
+  per_batch = {'fg_forward': pack_timings['forward'],
+               'pack': pack_timings['pack'],
+               'full_forward': kernel['timings']['forward'],
+               'postprocess': kernel['timings']['postprocess'],
+               'analyzers': kernel['timings']['analyzers'],
+               **cs['fg']['kernel']['timings'],
+               'pixel_eval': [pixel_seconds]}
+  return {
+      'examples': CS_EXAMPLES, 'batch': CS_BATCH,
+      'weights': {'fg': f'seed {CS_FG_SEED}',
+                  'full': os.path.relpath(CS_FULL_DIR, REPO)},
+      'thresholds': {'score': CS_SCORE_THRESHOLD, 'mask': CS_MASK_THRESHOLD,
+                     'ap_mask': CS_AP_THRESHOLD,
+                     'ap_remove_tiny': CS_AP_REMOVE_TINY},
+      'launches': launches, 'full_pack_launches': full_pack_launches,
+      'extract_route': route, 'extract_route_launches': routes,
+      'full_pack_extract_route_launches': full_pack_routes,
+      'b32_forward_extract_route_launches': forward_routes,
+      'means': {'kernel': kernel['means'], 'plain': plain['means'],
+                'reordered_plain': floor['means']},
+      **stats,
+      'cityscapes': ap_stats,
+      'pixel_eval': pixel,
+      'pixel_labels_card_equal_host': labels_equal,
+      'kernel_vs_plain_b32': kernel_vs_plain,
+      'reordered_plain_vs_plain_b32': reordered,
+      'full_card_vs_cpu_b2': full_card_vs_cpu,
+      'reversed_y_in_card_vs_cpu_b2': reversed_y_in,
+      'fg_card_vs_cpu_b2_max_abs': fg_card_vs_cpu,
+      'fg_card_vs_cpu_b2_packed_bytes_differ_share': bytes_differ_share,
+      'pack_same_bytes_on_host': quantised_on_host,
+      'limits': {'sbd_max_abs_diff': sbd_limit, 'count_differ': 0,
+                 'patches_bit_equal': patches_bit_equal,
+                 'y_out_mean': Y_OUT_MEAN_ATOL,
+                 'y_out_moved_share': Y_OUT_MOVED_SHARE,
+                 'y_out_moved': Y_OUT_MOVED, 's_out_max': S_OUT_ATOL,
+                 'fg_maps_max_abs': FG_MAPS_ATOL},
+      'seconds': {'fg_and_pack': pack_seconds,
+                  **{k: v['seconds'] for k, v in (
+                      ('kernel', kernel), ('plain', plain),
+                      ('reordered_plain', floor))}},
+      'host_seconds_per_batch_median': {k: median(v)
+                                        for k, v in per_batch.items()},
+      'host_seconds_per_batch': per_batch}
+
+
 def opt_state_to(opt_state, dev):
   """A copy of an optimizer state (``train_step.init_opt_state`` form) on
   ``dev``."""
@@ -1425,6 +1800,7 @@ def main():
   import numpy as np
   from rec_attend_tpu_torch.config import cvppp_full_config
   from rec_attend_tpu_torch.config import kitti_full_config
+  from rec_attend_tpu_torch.config import synthcs_full_config
   from rec_attend_tpu_torch.data.synthetic import synthetic_images
   from rec_attend_tpu_torch.models.full_model import FullModel
   from rec_attend_tpu_torch.models.full_model import full_model_forward
@@ -1489,6 +1865,17 @@ def main():
                                   chain_cfg.inp_width, 1,
                                   chain_cfg.filter_height,
                                   chain_cfg.filter_width)}
+  # The Cityscapes-shaped chain's forward at b32: extract x [32,256,512,15]
+  # (image, canvas, orientation, 3 semantic channels), paste [32,48,48,1]
+  # -> 256x512.
+  cs_cfg = synthcs_full_config()
+  cs_dims = {
+      'glimpse_extract': (CS_BATCH, cs_cfg.inp_height, cs_cfg.inp_width,
+                          cs_cfg.acnn_inp_depth, cs_cfg.filter_height,
+                          cs_cfg.filter_width),
+      'glimpse_paste': (CS_BATCH, cs_cfg.inp_height, cs_cfg.inp_width, 1,
+                        cs_cfg.filter_height, cs_cfg.filter_width),
+  }
   # The chain's training at b8: the box's and the full model's paste
   # [8,48,48,1] -> 128x448, the full model's extract x [8,128,448,13] and
   # its pastes' d_p, extract x [8,128,448,1].
@@ -1507,6 +1894,9 @@ def main():
     checks[name]['synth3'] = check_kernel(torch, gk, attention, name,
                                           *chain_dims[name], gen, dev,
                                           timed=True)
+    checks[name]['synthcs'] = check_kernel(torch, gk, attention, name,
+                                           *cs_dims[name], gen, dev,
+                                           timed=True)
   for key, dims in other_extracts.items():
     checks['glimpse_extract'][key] = check_kernel(
         torch, gk, attention, 'glimpse_extract', *dims, gen, dev, timed=True)
@@ -1527,6 +1917,7 @@ def main():
                  'b1': 'extract_tiled_kernel',
                  'ragged': 'extract_kernel_general',
                  'synth3': 'extract_strip_kernel',
+                 'synthcs': 'extract_strip_kernel',
                  'cityscapes': 'extract_strip_kernel',
                  'synth3_d1': 'extract_strip_kernel',
                  'synth3_b8': 'extract_strip_kernel',
@@ -1692,6 +2083,11 @@ def main():
   if failures:
     raise AssertionError(f'chain_train gates: {failures}')
 
+  # Last, so that the phases before it run as they did without it.
+  cs_chain = cs_chain_phase(torch, gk, all(
+      checks[name]['synthcs']['max_abs_err'] == 0 for name in checks))
+  emit('cs_chain', nvidia_smi=name_power, **cs_chain)
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -1720,6 +2116,14 @@ def main():
     table.append(row(name, c['synth3'], 'forward, synth3 chain, '
                      + shape(name, chain_dims[name]),
                      {'chain': chain['launches'][name]}))
+  # The Cityscapes-shaped chain's forward shapes (their launches from the
+  # cs_chain phase: its eval_split and its full pack).
+  for name, c in checks.items():
+    table.append(row(name, c['synthcs'], 'forward, synthcs chain, '
+                     + shape(name, cs_dims[name]),
+                     {'cs_chain_eval': cs_chain['launches'][name],
+                      'cs_chain_full_pack':
+                          cs_chain['full_pack_launches'][name]}))
   # The chain's training at b8 (launches per step of chain_train, times
   # the steps taken): paste in the box and the full model, extract forward
   # and recomputed in the full model, extract at D=1 as its pastes' d_p.

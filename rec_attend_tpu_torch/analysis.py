@@ -14,11 +14,15 @@ They read host arrays and do the JAX package's numpy arithmetic in the same
 dtypes, so their per-example values, and the ``%.4f`` CSVs that
 ``StatsAnalyzer`` and ``CountAnalyzer`` write, are the JAX package's on the
 same inputs.  The renderers (``analysis.py:413-546``) write PNGs with cv2
-and are not ported.
+and are not ported; of the Cityscapes submission writer
+(``RenderCityScapesOutputAnalyzer``, ``:477-519``) the class decision is,
+as ``cityscapes_submission``, which returns its rows instead of writing
+them.
 """
 
 from __future__ import annotations
 
+import collections
 import logging
 import os
 import time
@@ -396,3 +400,54 @@ def create_analyzer(name, display_name=None, fname=None):
   if name in _ANALYZERS:
     return StatsAnalyzer(display_name, _ANALYZERS[name], fname=fname)
   raise ValueError(f'Analyzer not found: {name}')
+
+
+# ---------------------------------------------------------------------------
+# The Cityscapes submission (ref analysis.py:477-519)
+# ---------------------------------------------------------------------------
+
+# Semantic channel c + 1 of the fg maps -> (Cityscapes name, label id).
+CITYSCAPES_LABELS = [('person', 24), ('rider', 25), ('car', 26),
+                     ('truck', 27), ('bus', 28), ('train', 31),
+                     ('motorcycle', 32), ('bicycle', 33)]
+# A slot is submitted where its score is over this, its mask is not empty
+# and the mean background channel under it is at most BACKGROUND_MAX.
+SUBMIT_SCORE, BACKGROUND_MAX = 0.5, 0.7
+
+SubmissionRow = collections.namedtuple('SubmissionRow',
+                                       ['mask', 'label_id', 'score', 'slot'])
+
+
+def cityscapes_submission(y_out, fg, conf):
+  """The Cityscapes submission's rows of each image, as the JAX package's
+  writer decides them, in memory.
+
+  Args:
+    y_out: one [T, H, W] binary mask stack (numpy) per image;
+    fg: one [H, W, C] semantic map per image, channel 0 the background;
+    conf: [B, T] scores.
+  Returns: per image a list of ``SubmissionRow``s in slot order: the mask
+  as the writer's PNG holds it, ``(seg * 255)`` as uint8; the label id of
+  the argmax of the mean of mask * fg over the image in channels 1..C-1;
+  the score as the writer's text holds it (``%f``, six decimals); the
+  slot.  The instance AP (``eval_cityscapes.instance_eval``) reads the
+  first three.
+  """
+  rows = []
+  for ii in range(len(y_out)):
+    image_rows = []
+    for jj in range(y_out[ii].shape[0]):
+      if not conf[ii][jj] > SUBMIT_SCORE:
+        continue
+      seg = y_out[ii][jj]
+      if seg.sum() == 0:
+        continue
+      channel_vec = (np.expand_dims(seg, -1) * fg[ii]).mean(axis=0).mean(
+          axis=0)
+      if channel_vec[0] <= BACKGROUND_MAX:
+        sem_idx = int(np.argmax(channel_vec[1:]))
+        image_rows.append(SubmissionRow(
+            (seg * 255).astype('uint8'), CITYSCAPES_LABELS[sem_idx][1],
+            float(f'{conf[ii, jj]:f}'), jj))
+    rows.append(image_rows)
+  return rows

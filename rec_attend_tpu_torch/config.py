@@ -30,12 +30,15 @@ def _tuple(x):
 DATASET_DIMS = {
     'cvppp': dict(inp_height=224, inp_width=224, timespan=21),
     'kitti': dict(inp_height=128, inp_width=448, timespan=20),
+    'cityscapes': dict(inp_height=256, inp_width=512, timespan=20),
 }
 DATASET_TRANSFORMS = {
     'cvppp': dict(rnd_hflip=True, rnd_vflip=True, rnd_transpose=True,
                   rnd_colour=False),
     'kitti': dict(rnd_hflip=False, rnd_vflip=False, rnd_transpose=False,
                   rnd_colour=False),
+    'cityscapes': dict(rnd_hflip=False, rnd_vflip=False, rnd_transpose=False,
+                       rnd_colour=False),
 }
 
 
@@ -485,6 +488,85 @@ def kitti_box_config() -> BoxModelConfig:
       base_learn_rate=0.001, learn_rate_decay=0.9,
       steps_per_learn_rate_decay=5000, remat=True,
       **DATASET_TRANSFORMS['kitti'])
+
+
+def cityscapes_full_config() -> FullModelConfig:
+  """The Cityscapes preset (JAX config.py:631-637, ref
+  run_cityscapes.sh:61-109): the KITTI preset at 256x512, T=20, with 9
+  semantic channels (background and the 8 instance classes)."""
+  d = DATASET_DIMS['cityscapes']
+  return kitti_full_config().replace(
+      timespan=d['timespan'], inp_height=d['inp_height'],
+      inp_width=d['inp_width'], num_semantic_classes=9)
+
+
+def cityscapes_fg_config() -> FGModelConfig:
+  """The Cityscapes fg preset (JAX config.py:640-663, ref
+  run_cityscapes.sh:9-33): 20 conv and 13 transposed-conv layers at
+  256x512, 9 semantic and 8 orientation classes."""
+  d = DATASET_DIMS['cityscapes']
+  return FGModelConfig(
+      inp_height=d['inp_height'], inp_width=d['inp_width'],
+      cnn_filter_size=(3,) * 20,
+      cnn_depth=(64, 96, 96, 128, 128, 192, 192, 256, 256, 256, 256, 256,
+                 256, 256, 256, 512, 512, 512, 512, 512),
+      cnn_pool=(1, 2, 1, 2, 1, 2, 1, 2, 1, 1, 1, 1, 1, 1, 1, 2, 1, 1, 1, 2),
+      cnn_skip_mask=(1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 0, 0, 0, 0, 0, 0, 0, 1,
+                     0, 0),
+      dcnn_filter_size=(3,) * 13,
+      dcnn_depth=(512, 512, 256, 256, 192, 192, 128, 128, 96, 96, 64, 64,
+                  17),
+      dcnn_pool=(2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 2, 1, 1),
+      dcnn_skip_mask=(1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 1, 0, 0),
+      add_skip_conn=True, segm_loss_fn='bce',
+      add_orientation=True, num_orientation_classes=8,
+      num_semantic_classes=9,
+      optimizer='momentum', base_learn_rate=0.01, learn_rate_decay=0.8,
+      steps_per_learn_rate_decay=10000, **DATASET_TRANSFORMS['cityscapes'])
+
+
+def cityscapes_box_config() -> BoxModelConfig:
+  """The Cityscapes box preset (JAX config.py:666-679, ref
+  run_cityscapes.sh:40-56)."""
+  d = DATASET_DIMS['cityscapes']
+  return BoxModelConfig(
+      timespan=d['timespan'], inp_height=d['inp_height'],
+      inp_width=d['inp_width'],
+      ctrl_cnn_filter_size=(3,) * 8,
+      ctrl_cnn_depth=(16, 16, 32, 32, 64, 64, 64, 64),
+      ctrl_cnn_pool=(2, 2, 1, 2, 1, 2, 1, 2),
+      num_ctrl_mlp_layers=1, dynamic_var=True,
+      add_d_out=True, add_y_out=True, num_semantic_classes=9,
+      base_learn_rate=0.001, learn_rate_decay=0.85,
+      steps_per_learn_rate_decay=5000, remat=True,
+      **DATASET_TRANSFORMS['cityscapes'])
+
+
+# The synthcs chain (pipelines/run_pipeline.py:393-403): the Cityscapes
+# presets on synthetic data with 2 instance classes, so 3 semantic channels
+# (background first) and an fg head of 3 + 8 channels.
+SYNTHCS_SEMANTIC_CLASSES = 3
+
+
+def synthcs_full_config() -> FullModelConfig:
+  """``results/full_model_synthcs-20260818a``: 3 + 1 + 8 + 3 = 15 input
+  channels into both CNNs."""
+  return cityscapes_full_config().replace(
+      num_semantic_classes=SYNTHCS_SEMANTIC_CLASSES)
+
+
+def synthcs_fg_config() -> FGModelConfig:
+  """``results/fg_model_synthcs-20260818a``."""
+  cfg = cityscapes_fg_config()
+  return cfg.replace(
+      num_semantic_classes=SYNTHCS_SEMANTIC_CLASSES,
+      dcnn_depth=cfg.dcnn_depth[:-1] + (SYNTHCS_SEMANTIC_CLASSES + 8,))
+
+
+def synthcs_box_config() -> BoxModelConfig:
+  """``results/box_model_synthcs-20260818a``."""
+  return cityscapes_box_config().replace(
+      num_semantic_classes=SYNTHCS_SEMANTIC_CLASSES)
 
 
 def tiny_full_config(**overrides) -> FullModelConfig:

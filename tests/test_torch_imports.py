@@ -4,9 +4,12 @@ YAML only inside its YAML reader, and never falls back to the CPU by
 itself.  Every module of the package is covered, the training path's
 (losses, matching, boxes, augmentation, train step, trainer, the box
 model, the orientation maps) and the eval path's (postprocess, analyzers,
-eval experiment, eval_split) included, and a train step of each model (fg
-with momentum, box, full started from the box), an eval_split and the fg ->
-pack -> full chain run with those modules blocked."""
+eval experiment, eval_split) included, the Cityscapes eval's (the label
+table, the full pack, the model-free eval, the instance AP and the pixel
+eval) too, and a train step of each model (fg with momentum, box, full
+started from the box), an eval_split, the fg -> pack -> full chain and the
+Cityscapes-shaped chain to its AP and pixel eval run with those modules
+blocked."""
 
 import ast
 import os
@@ -196,6 +199,112 @@ def test_chain_runs_with_those_modules_missing(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+def test_cityscapes_chain_runs_with_those_modules_missing(tmp_path):
+  """The Cityscapes-shaped chain on tiny configs with 3 semantic channels:
+  fg -> pack -> full -> pack_full -> the Cityscapes eval -> instance AP and
+  pixel eval, with JAX, cv2, h5py, YAML and the rest blocked."""
+  script = textwrap.dedent(f"""
+      import os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import math
+      import numpy as np
+      from rec_attend_tpu_torch import config
+      from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
+      from rec_attend_tpu_torch.cli.pack import pack_fg, pack_full
+      from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+      from rec_attend_tpu_torch.engine import saver
+      from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+      from rec_attend_tpu_torch.eval_cityscapes import instance_eval
+      from rec_attend_tpu_torch.eval_cityscapes import pixel_eval
+      from rec_attend_tpu_torch.models.fg_model import FGModel
+      from rec_attend_tpu_torch.models.full_model import FullModel
+
+      def save(model, folder):
+        state = model.state_dict()
+        names = saver.jax_leaf_order(state)
+        os.makedirs(folder)
+        np.savez(os.path.join(folder, 'ckpt-3.npz'), num_leaves=len(names),
+                 **{{f'leaf_{{i}}': state[n].numpy()
+                    for i, n in enumerate(names)}})
+
+      root = {str(tmp_path)!r}
+      fg_cfg = config.tiny_fg_config(add_orientation=True,
+                                     num_semantic_classes=3,
+                                     dcnn_depth=(8, 4, 11))
+      full_cfg = config.tiny_full_config(add_d_out=True, add_y_out=True,
+                                         num_semantic_classes=3)
+      assert full_cfg.acnn_inp_depth == 15
+      save(FGModel(fg_cfg, device='cpu'), os.path.join(root, 'fg'))
+      save(FullModel(full_cfg, device='cpu'), os.path.join(root, 'full'))
+      fg = EvalExperiment(os.path.join(root, 'fg'), cfg=fg_cfg, device='cpu',
+                          spec='fg')
+      ds = SyntheticDataset(3, 64, 64, full_cfg.timespan, seed=2,
+                            num_semantic_classes=2)
+      packed = pack_fg(fg, ds, 2)
+      assert packed.y_out.shape == (3, 64, 64, 3)
+      full = EvalExperiment(os.path.join(root, 'full'), cfg=full_cfg,
+                            device='cpu')
+      packed = pack_full(full, packed, 2)
+      batch = packed.get_batch([0, 2], timespan=full_cfg.timespan)
+      assert batch['y_out_ins'].shape == (2, full_cfg.timespan, 64, 64)
+      assert batch['s_out'].shape == (2, full_cfg.timespan)
+      summary, rows = cityscapes_eval(
+          packed, os.path.join(root, 'cs'), [0.2, 0.6], ['sbd'],
+          remove_tiny=10, batch_size=2, device='cpu')
+      assert sorted(summary) == [0.2, 0.6] and len(rows[0.2]) == 3
+      assert os.path.exists(os.path.join(root, 'cs', 'sbd_20.csv'))
+      ap = instance_eval.evaluate_instance_predictions(
+          rows[0.2], ds.get_instance_id_images(ds.img_ids))
+      assert sorted(ap) == ['allAp', 'allAp50%', 'classes']
+      ev = pixel_eval.PixelEvaluator()
+      for fg_bytes, ids in zip(packed.y_out,
+                               ds.get_instance_id_images(ds.img_ids)):
+        label, inst = pixel_eval.groundtruth_labels(ids)
+        ev.add_pair(pixel_eval.prediction_labels(fg_bytes), label,
+                    instance_img=inst)
+      assert math.isfinite(ev.finalize()['meanIoU'])
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_cityscapes_entry_points_default_to_cuda(monkeypatch):
+  """Without a card, the Cityscapes eval and the synthcs models raise
+  unless asked for the CPU."""
+  from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
+  from rec_attend_tpu_torch.cli.pack import PackedDataset
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  ds = SyntheticDataset(1, 32, 32, 2, seed=1, num_semantic_classes=2)
+  packed = PackedDataset(ds, np.zeros((1, 32, 32, 8), np.uint8),
+                         np.zeros((1, 32, 32, 3), np.uint8),
+                         np.zeros((1, 2, 32, 32), np.uint8),
+                         np.zeros((1, 2), np.float32))
+  with pytest.raises(RuntimeError, match='CUDA'):
+    cityscapes_eval(packed, '/nonexistent')
+  for spec, folder, cfg in (
+      ('fg', 'fg_model_synthcs-20260818a', C.synthcs_fg_config()),
+      ('full', 'full_model_synthcs-20260818a', C.synthcs_full_config())):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      EvalExperiment(os.path.join(REPO, 'results', folder), cfg=cfg,
+                     spec=spec)
 
 
 def test_fg_entry_points_default_to_cuda(monkeypatch):
