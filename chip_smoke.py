@@ -116,8 +116,48 @@ Phases, one JSON line each on stdout:
                 b32 forward kernel against plain, fg maps and full forward
                 card against CPU (b2; the packed fg channels reversed must
                 fail), the pack's bytes the same on the host; host seconds
-                per batch of every stage; it runs last, so that the phases
-                before it run as they did without it.
+                per batch of every stage;
+  pipeline      the synth pipeline (rec_attend_tpu_torch/pipelines/
+                run_pipeline.py) as users launch it, at its paper widths
+                (224x224, T=21, up to 9 instances, b8) with its step counts
+                cut: 32 train and 8 valid examples, the box model's
+                TrainingExperiment with the split on the card (6 steps), the
+                full model's from the box's last checkpoint, host-fed with
+                prefetching worker threads (6 steps), checkpoints every 2
+                steps and valid and trainval passes every 3, then the eval
+                command line on the valid split and a restore of the full
+                run that takes 2 more steps; its results and logs go to a
+                temporary folder in the checkout, removed after.  Gates,
+                each with a control that must fail: ckpt-4 and ckpt-6 kept
+                and ckpt-2 pruned (control: a listing with ckpt-2); the live
+                parameters and optimizer state equal to ckpt-6's leaves bit
+                for bit (control: ckpt-4's); the box's uint8 index gather
+                from the split on the card equal to the host's batch of the
+                same examples, bit for bit (control: the next examples);
+                the full model's controller at step 0 equal to the box's
+                last checkpoint (control: a fresh model); model_opt.yaml
+                read back to the config (control: read as the other model's
+                config); the trained full model's eval step (the loss of
+                the valid and trainval passes) on a valid batch, kernel
+                against plain, each soft metric within 1e-5 relative
+                (control: glimpses with the window transposed); the eval
+                CSVs' 8 rows (control: the command line with --max_batches
+                0); the eval command line on the flagship checkpoint's
+                valid split (its first 8 images, thresholds 0.40), per
+                example SBD within 1e-3 and counts equal to eval_split with
+                the plain glimpses (control: the plain eval of the test
+                split); the restored run at step 6 with ckpt-6's state
+                (control: ckpt-4's), and its next step held to the same
+                step from the live state (control: the restored parameters
+                with a fresh Adam state), then 2 finite steps; extract and
+                paste launched in the full stage, the eval and (paste) the
+                box stage (its patch of ones needs no d_p: the box launches
+                no extract; control: the counts of a plain train step and
+                eval step of the full model, which must be 0).
+                Reported: step ms at the log cadence, the seconds of each
+                valid pass, checkpoint write and the restore, peak memory;
+                it runs last, so that the phases before it run as they did
+                without it.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -309,6 +349,30 @@ FULL_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.23,
                     'grad_rel_l2_all': 0.0122, 'grad_rel_l2_median': 2e-3,
                     'zero_grad_share_max': 1e-4,
                     'update_rel_l2_max': 0.63, 'zero_update_in_lr_max': 2.0}
+# The synth pipeline (rec_attend_tpu_torch/pipelines/run_pipeline.py) at
+# its paper widths, 224x224, T=21, up to 9 instances, b8, its step counts
+# cut: 32 train examples (8 valid), 6 box and 6 full steps, a checkpoint
+# every 2 (ckpt-4 and ckpt-6 kept), valid and trainval passes every 3 (one
+# batch), the loss and step time logged every step.
+PIPELINE_EXAMPLES, PIPELINE_STEPS = 32, 6
+PIPELINE_CKPT_STEPS, PIPELINE_EVAL_STEPS, PIPELINE_LOG_STEPS = 2, 3, 1
+# The eval step's metrics that vary smoothly with the forward, held kernel
+# against plain to EVAL_STEP_REL_LIMIT relative (kernel against plain read
+# 0.0, reordered plain up to 1.8e-7, the transposed-window control 2.5e-4
+# in box_loss, PR 15 run 5).
+EVAL_STEP_METRICS = ('loss', 'box_loss', 'segm_loss', 'conf_loss',
+                     'iou_soft', 'iou_soft_box', 'wt_cov_soft',
+                     'unwt_cov_soft')
+EVAL_STEP_REL_LIMIT = 1e-5
+# The eval command line on the flagship's valid split against eval_split
+# with the plain glimpses: per-example SBD within the CSVs' 4 decimals and
+# float noise (the eval phase's kernel against plain read 0.0 over 64
+# images, PR 15 run 3), counts equal.
+PIPELINE_CLI_EXAMPLES, PIPELINE_CLI_SBD_LIMIT = 8, 1e-3
+# A restored step against the same step from the live state: the same
+# parameters, Adam state, batch and draws, cuDNN deterministic.
+RESTORED_STEP_LIMITS = {'loss_rel_diff': 1e-6, 'grad_rel_l2_max': 1e-5,
+                        'update_rel_l2_max': 1e-5}
 
 
 def emit(phase, **fields):
@@ -1060,13 +1124,11 @@ def params_checkpoint(model, folder, step=0):
   """Write ``model``'s parameters to ``folder`` as a params-only
   ``ckpt-{step}.npz`` in the JAX layout, which ``EvalExperiment``
   restores."""
-  import numpy as np
   from rec_attend_tpu_torch.engine import saver
   state = model.state_dict()
-  names = saver.jax_leaf_order(state)
-  np.savez(os.path.join(folder, f'ckpt-{step}.npz'), num_leaves=len(names),
-           **{f'leaf_{i}': state[n].cpu().numpy()
-              for i, n in enumerate(names)})
+  saver.save_pytree(os.path.join(folder, f'ckpt-{step}.npz'),
+                    [state[n].cpu().numpy()
+                     for n in saver.jax_leaf_order(state)])
 
 
 def cs_chain_phase(torch, gk, patches_bit_equal):
@@ -1673,6 +1735,449 @@ def chain_train_phase(torch, gk, dev, cfgs=None, dirs=None,
   return out, failures
 
 
+def launches_now(gk):
+  """The kernel launches counted since the last reset: forward and
+  backward by kernel, extract by route."""
+  return {'launches': gk.launch_counts(),
+          'backward_launches': gk.launch_counts(backward=True),
+          'extract_route_launches': {
+              k: v for k, v in gk.glimpse_extract.route_launches.items()
+              if v}}
+
+
+def launch_gate(counts, want):
+  """Failures of a stage's launch counts: each (kind, kernel) in ``want``
+  must have been launched at least once."""
+  return [f'{kind} {name}: {counts[kind].get(name, 0)} launches'
+          for kind, name in want if not counts[kind].get(name)]
+
+
+def state_gate(torch, model, opt_state, path, cfg):
+  """Failures of a model and its optimizer state against checkpoint
+  ``path``, bit for bit (parameters, BatchNorm statistics, the
+  optimizer's count and its moments or trace)."""
+  from rec_attend_tpu_torch import convert
+  want = convert.params_from_checkpoint(path, cfg)
+  got = model.state_dict()
+  out = [k for k, v in want.items() if not torch.equal(got[k].cpu(), v)]
+  saved = convert.opt_state_from_checkpoint(path, cfg)
+  if saved['count'] != opt_state['count']:
+    out.append(f'count {opt_state["count"]} against {saved["count"]}')
+  for key in set(saved) - {'count'}:
+    out += [f'{key}.{k}' for k, v in saved[key].items()
+            if not torch.equal(opt_state[key][k].cpu(), v)]
+  return out
+
+
+def csv_example_rows(path):
+  """The per-example rows of an analyzer's CSV."""
+  with open(path) as f:
+    return [r for r in f.read().splitlines() if r.startswith('synth')]
+
+
+def timed_calls(torch, dev, fn, seconds):
+  """``fn`` that appends the host seconds of each call, the device
+  synchronised at its end, to ``seconds``."""
+  from rec_attend_tpu_torch.device import synchronize
+
+  def call(*args, **kw):
+    t0 = time.time()
+    out = fn(*args, **kw)
+    synchronize(dev)
+    seconds.append(time.time() - t0)
+    return out
+  return call
+
+
+def transposed_plain(torch):
+  """Plain glimpses with the window transposed (f_y and f_x swapped, for
+  square images and glimpses): the negative control of the eval step's
+  gate, a kernel that indexes its window the wrong way round."""
+  return (lambda x, f_y, f_x: torch.einsum('bhf,bhwd,bwg->bfgd', f_x, x,
+                                           f_y),
+          lambda p, f_y, f_x: torch.einsum('bhf,bfgd,bwg->bhwd', f_x, p,
+                                           f_y))
+
+
+def eval_step_metrics(torch, ts, matching, model, batch, glimpse,
+                      pinned=None):
+  """One eval step, cuDNN deterministic: ({metric: float}, its Hungarian
+  solves).  With pinned (another step's solves) the solves return those
+  answers instead."""
+  solved = []
+
+  def solve_fn(solve, w):
+    solved.append(solve(w) if pinned is None else pinned[len(solved)])
+    return solved[-1]
+  with hungarian_calls(matching, solve_fn), deterministic_cudnn(torch):
+    metrics = ts.eval_step(model, batch, None, glimpse)
+  return {k: float(v) for k, v in metrics.items()}, solved
+
+
+def metrics_rel_diff(got, want):
+  """{metric: relative difference} of the EVAL_STEP_METRICS."""
+  return {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+          for k in EVAL_STEP_METRICS}
+
+
+def pipeline_phase(torch, gk, dev, scale='paper',
+                   examples=PIPELINE_EXAMPLES, steps=PIPELINE_STEPS,
+                   cli_examples=PIPELINE_CLI_EXAMPLES):
+  """The port's synth pipeline (``run_pipeline.run_synth``'s stages)
+  at ``scale`` on ``dev``, its step counts cut: the box model's
+  ``TrainingExperiment`` with the split on the device, the full model's
+  from the box's last checkpoint with the host-fed, prefetched path, each
+  ``steps`` steps (checkpoints every PIPELINE_CKPT_STEPS, valid and
+  trainval passes every PIPELINE_EVAL_STEPS), then the eval command line on
+  the valid split, then a restore of the full run that takes two more
+  steps.  Results and logs go to a temporary folder in the checkout,
+  removed after.  Returns (results, the gates' failures); each gate's
+  control must fail, else it is a failure too."""
+  import numpy as np
+
+  from rec_attend_tpu_torch import convert
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.config import BoxModelConfig
+  from rec_attend_tpu_torch.config import DataConfig
+  from rec_attend_tpu_torch.config import FullModelConfig
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
+  from rec_attend_tpu_torch.models.full_model import CTRL_NETS
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+
+  out, failures = {}, []
+  cuda = dev.type == 'cuda'
+
+  def gate(name, got, control):
+    """A gate's failures, and its control's, which must fail."""
+    failures.extend(f'{name}: {x}' for x in got)
+    if not control:
+      failures.append(f'{name}: its control passed')
+    return {'failures': got, 'control_failures': control[:3]}
+
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_pipeline-',
+                                   dir=REPO) as root:
+    results = os.path.join(root, 'results')
+    data_cfg, box_cfg, full_base, train_cfg, _ = run_pipeline.synth_stages(
+        scale, results, os.path.join(root, 'logs'), num_steps=steps)
+    data_cfg = data_cfg.replace(num_examples=examples)
+    train_cfg = train_cfg.replace(
+        steps_per_ckpt=PIPELINE_CKPT_STEPS, steps_per_log=PIPELINE_LOG_STEPS,
+        steps_per_valid=PIPELINE_EVAL_STEPS,
+        steps_per_trainval=PIPELINE_EVAL_STEPS, num_batch_valid=1,
+        prefetch=True)
+    ckpts = [s for s in range(PIPELINE_CKPT_STEPS, steps + 1,
+                              PIPELINE_CKPT_STEPS)][-2:]
+
+    def stage(spec, cfg, tcfg):
+      reset_peak(torch, dev)
+      gk.reset_launch_counts()
+      t0 = time.time()
+      exp = TrainingExperiment(spec, cfg, tcfg, data_cfg, device=dev)
+      setup = time.time() - t0
+      valid_s, ckpt_s = [], []
+      exp._eval_pass = timed_calls(torch, dev, exp._eval_pass, valid_s)
+      exp.checkpoint = timed_calls(torch, dev, exp.checkpoint, ckpt_s)
+      return exp, {'setup_seconds': setup, 'eval_pass_seconds': valid_s,
+                   'checkpoint_seconds': ckpt_s}
+
+    def finish(exp, summary):
+      t0 = time.time()
+      exp.run()
+      exp.close()
+      summary['run_seconds'] = time.time() - t0
+      summary.update(launches_now(gk))
+      summary['max_memory_allocated_bytes'] = peak_memory(torch, dev)
+      with open(os.path.join(exp.logs_folder, 'step_time.csv')) as f:
+        summary['step_ms_at_log'] = {
+            int(r.split(',')[0]): float(r.split(',')[2])
+            for r in f.read().splitlines()[1:]}
+      with open(os.path.join(exp.logs_folder, 'loss.csv')) as f:
+        losses = [float(r.split(',')[2]) for r in f.read().splitlines()[1:]
+                  if r.split(',')[2]]
+      summary['train_loss_at_log'] = losses
+      if not all(math.isfinite(v) for v in losses):
+        failures.append(f'{exp.model_id}: loss {losses}')
+      kept = [s for s, _ in exp.saver.list_ckpts()]
+      summary['checkpoints'] = kept
+      return summary
+
+    def kept_failures(listing):
+      return [] if listing == ckpts else [f'{listing}, want {ckpts}']
+
+    def ckpt_gates(exp, cfg, summary):
+      kept = summary['checkpoints']
+      summary['kept_gate'] = gate(
+          f'{exp.model_id} kept checkpoints', kept_failures(kept),
+          kept_failures(sorted(kept + [PIPELINE_CKPT_STEPS])))
+      last, before = (os.path.join(exp.folder, f'ckpt-{s}.npz')
+                      for s in (ckpts[-1], ckpts[-2]))
+      model, opt = exp.trainer.model, exp.trainer.opt_state
+      summary['state_gate'] = gate(
+          f'{exp.model_id} live state against ckpt-{ckpts[-1]}',
+          state_gate(torch, model, opt, last, cfg),
+          state_gate(torch, model, opt, before, cfg))
+      path = os.path.join(exp.folder, 'model_opt.yaml')
+      other = (BoxModelConfig if isinstance(cfg, FullModelConfig)
+               else FullModelConfig)
+      summary['yaml_gate'] = gate(
+          f'{exp.model_id} model_opt.yaml',
+          [] if type(cfg).from_yaml(path) == cfg else ['differs'],
+          [] if other.from_yaml(path) == cfg else [f'as {other.__name__}'])
+      data_path = os.path.join(exp.folder, 'data_opt.yaml')
+      if DataConfig.from_yaml(data_path) != data_cfg:
+        failures.append(f'{exp.model_id} data_opt.yaml differs')
+
+    # ---- box: the split on the device -----------------------------------
+    box, out['box'] = stage('box', box_cfg, train_cfg.replace(
+        model_id='box_model_synth-chip', device_data=True))
+    out['box']['device_split_bytes'] = sum(
+        v.numel() * v.element_size() for v in box.device_train_data.values())
+    finish(box, out['box'])
+    ckpt_gates(box, box_cfg, out['box'])
+    _, box_ckpt = box.saver.get_latest_ckpt()
+    bs = train_cfg.batch_size
+    n_train = box.train_ds.get_dataset_size()
+    get_train = box.make_batch_fn(box.train_ds, box_cfg.timespan)
+
+    def gather_diff(idx, host_idx):
+      got = {k: v.index_select(0, torch.from_numpy(idx).to(dev)).cpu()
+             for k, v in box.device_train_data.items()}
+      want = ts.encode_batch(get_train(host_idx))
+      return [k for k in want if not (
+          got[k].dtype == torch.from_numpy(want[k]).dtype
+          and torch.equal(got[k], torch.from_numpy(want[k])))]
+    idx = np.random.RandomState(0).permutation(n_train)[:bs]
+    out['box']['gather_gate'] = gate(
+        'box device split gather against the host batch',
+        gather_diff(idx, idx), gather_diff(idx, (idx + 1) % n_train))
+
+    # ---- full: from the box's last checkpoint, host-fed -----------------
+    full_cfg = full_base.replace(pretrain_ctrl_net=box_ckpt)
+    full_train_cfg = train_cfg.replace(model_id='full_model_synth-chip',
+                                       device_data=False)
+    full, out['full'] = stage('full', full_cfg, full_train_cfg)
+    box_state = convert.params_from_checkpoint(box_ckpt, box_cfg)
+
+    def ctrl_diff(model):
+      state = model.state_dict()
+      return [k for k, v in box_state.items() if k.split('.')[0] in CTRL_NETS
+              and not torch.equal(state[k].cpu(), v)]
+    out['full']['pretrained_gate'] = gate(
+        'full step 0 controller against the box checkpoint',
+        ctrl_diff(full.trainer.model),
+        ctrl_diff(FullModel(full_base, device=dev)))
+    finish(full, out['full'])
+    ckpt_gates(full, full_cfg, out['full'])
+
+    # ---- the trained full model's eval step, kernel against plain -------
+    n_valid = full.valid_ds.get_dataset_size()
+    valid_batch = full._device_batch(full.make_batch_fn(
+        full.valid_ds, full_cfg.timespan)(np.arange(min(bs, n_valid))))
+    model = full.trainer.model
+    plain, plain_solved = eval_step_metrics(torch, ts, matching, model,
+                                            valid_batch, 'plain')
+    floor, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
+                                 reordered_plain(torch))
+    gk.reset_launch_counts()
+    kernel, kernel_solved = eval_step_metrics(torch, ts, matching, model,
+                                              valid_batch, 'kernel')
+    eval_step = {'kernel': kernel, 'plain': plain,
+                 'reordered_plain_rel_diff': metrics_rel_diff(floor, plain),
+                 'solves_agree': len(kernel_solved) == len(plain_solved)
+                 and all(np.array_equal(u, v) for a, b in zip(
+                     kernel_solved, plain_solved) for u, v in zip(a, b)),
+                 **launches_now(gk)}
+    if not eval_step['solves_agree']:
+      kernel, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
+                                    'kernel', pinned=plain_solved)
+    control, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
+                                   transposed_plain(torch),
+                                   pinned=plain_solved)
+    eval_step['kernel_rel_diff'] = metrics_rel_diff(kernel, plain)
+    eval_step['control_rel_diff'] = metrics_rel_diff(control, plain)
+
+    def over(diff):
+      return [f'{k} {v:.3g}' for k, v in diff.items()
+              if not v <= EVAL_STEP_REL_LIMIT]
+    eval_step['gate'] = gate('full eval step, kernel against plain',
+                             over(eval_step['kernel_rel_diff']),
+                             over(eval_step['control_rel_diff']))
+    out['full']['eval_step'] = eval_step
+
+    # The launch gates' control: a plain train step and eval step of the
+    # full model, which must launch no kernel.
+    gk.reset_launch_counts()
+    draws = full.trainer.family.draws(
+        full_cfg, bs, torch.Generator(device=dev).manual_seed(1))
+    one_step(torch, ts, matching, model, full.trainer.opt_state,
+             valid_batch, draws, full.step, 'plain')
+    eval_step_metrics(torch, ts, matching, model, valid_batch, 'plain')
+    plain_counts = launches_now(gk)
+    out['plain_launches'] = plain_counts
+    if cuda:
+      want = [('launches', 'glimpse_paste')]
+      out['box']['launch_gate'] = gate(
+          'box launches', launch_gate(out['box'], want),
+          launch_gate(plain_counts, want))
+      want = [('launches', 'glimpse_extract'), ('launches', 'glimpse_paste'),
+              ('backward_launches', 'glimpse_extract'),
+              ('extract_route_launches', 'extract_tiled_kernel')]
+      out['full']['launch_gate'] = gate(
+          'full launches', launch_gate(out['full'], want),
+          launch_gate(plain_counts, want))
+
+    # ---- eval: the command line on the valid split ----------------------
+    gk.reset_launch_counts()
+    argv = ['--model_id', full.model_id, '--results', results,
+            '--dataset', 'synth', '--split', 'valid',
+            '--batch_size', str(train_cfg.batch_size)]
+    t0 = time.time()
+    eval_cli.full_main(argv, device=dev)
+    out['eval'] = {'seconds': time.time() - t0, **launches_now(gk)}
+    csvs = os.path.join(full.folder, 'output_valid')
+    rows = csv_example_rows(os.path.join(csvs, 'sbd.csv'))
+    eval_cli.full_main(argv + ['--max_batches', '0', '--output',
+                               os.path.join(root, 'control')], device=dev)
+    control_rows = csv_example_rows(os.path.join(root, 'control', 'sbd.csv'))
+    out['eval']['rows_gate'] = gate(
+        'eval sbd.csv rows', (
+            [] if len(rows) == n_valid else [f'{len(rows)} rows']), (
+                [] if len(control_rows) == n_valid else ['no rows']))
+    sbd = [float(r.split(',')[1]) for r in rows]
+    out['eval']['sbd'] = statistics.mean(sbd) if sbd else None
+    if not all(math.isfinite(v) for v in sbd):
+      failures.append(f'eval sbd {sbd}')
+    if cuda:
+      want = [('launches', 'glimpse_extract'), ('launches', 'glimpse_paste')]
+      out['eval']['launch_gate'] = gate(
+          'eval launches', launch_gate(out['eval'], want),
+          launch_gate(plain_counts, want))
+
+    # ---- the eval command line on a trained model: the flagship ---------
+    # A results folder with its checkpoint, its model_opt.yaml and the data
+    # snapshot of the run that trained it (run_synth --scale paper; a
+    # checkout holds no data_opt.yaml there).  The command line's first
+    # images of the valid split, against eval_split with the plain glimpses
+    # over the same images, both with cuDNN deterministic (its default
+    # algorithms moved one image's SBD by 4e-3, PR 15 run 4).
+    flagship = os.path.basename(CHECKPOINT_DIR)
+    flagship_dir = os.path.join(root, 'flagship_results', flagship)
+    os.makedirs(flagship_dir)
+    for name in ('ckpt-30000.npz', 'model_opt.yaml'):
+      os.symlink(os.path.join(CHECKPOINT_DIR, name),
+                 os.path.join(flagship_dir, name))
+    flagship_data = run_pipeline.synth_stages('paper')[0]
+    flagship_data.save_yaml(os.path.join(flagship_dir, 'data_opt.yaml'))
+    cli_out = os.path.join(root, 'flagship_cli')
+    t0 = time.time()
+    with deterministic_cudnn(torch):
+      eval_cli.full_main(
+          ['--model_id', flagship, '--results',
+           os.path.dirname(flagship_dir), '--dataset', 'synth', '--split',
+           'valid', '--batch_size', str(cli_examples), '--max_batches', '1',
+           '--threshold_list', str(EVAL_THRESHOLD), '--score_threshold',
+           str(EVAL_THRESHOLD), '--output', cli_out], device=dev)
+    cli = {'seconds': time.time() - t0}
+    plain_exp = EvalExperiment(flagship_dir, device=dev, glimpse='plain')
+
+    def plain_scores(split):
+      folder = os.path.join(root, f'flagship_plain_{split}')
+      with deterministic_cudnn(torch):
+        eval_cli.eval_split(
+            plain_exp, provider.get('synth', flagship_data, split=split),
+            folder, [EVAL_THRESHOLD], eval_cli.DEFAULT_ANALYZERS,
+            batch_size=cli_examples, score_threshold=EVAL_THRESHOLD,
+            max_batches=1)
+      return {name: read_scores(folder, name) for name in ('sbd', 'dic')}
+    got = {name: read_scores(cli_out, name) for name in ('sbd', 'dic')}
+
+    def cli_diff(want):
+      if sorted(got['sbd']) != sorted(want['sbd']):
+        return [f'ids {sorted(got["sbd"])}']
+      return ([f'{k} sbd {got["sbd"][k]} against {want["sbd"][k]}'
+               for k in want['sbd'] if not abs(
+                   got['sbd'][k] - want['sbd'][k]) <= PIPELINE_CLI_SBD_LIMIT]
+              + [f'{k} dic {got["dic"][k]} against {want["dic"][k]}'
+                 for k in want['dic'] if got['dic'][k] != want['dic'][k]])
+    cli.update(examples=len(got['sbd']), sbd=got['sbd'], dic=got['dic'],
+               sbd_mean=statistics.mean(got['sbd'].values()))
+    cli['gate'] = gate('flagship eval command line against plain eval_split',
+                       cli_diff(plain_scores('valid')),
+                       cli_diff(plain_scores('test')))
+    if len(got['sbd']) != cli_examples or not cli['sbd_mean'] > 0:
+      failures.append(f'flagship eval command line: {got["sbd"]}')
+    out['eval']['flagship_cli'] = cli
+
+    # ---- restore: the full run goes on from its last checkpoint ---------
+    last = os.path.join(full.folder, f'ckpt-{ckpts[-1]}.npz')
+    before = os.path.join(full.folder, f'ckpt-{ckpts[-2]}.npz')
+    gk.reset_launch_counts()
+    t0 = time.time()
+    again = TrainingExperiment('full', full_cfg, full_train_cfg.replace(
+        restore=full.folder, num_steps=steps + 2), data_cfg, device=dev)
+    restore_setup = time.time() - t0
+    restore_s = []
+    timed_calls(torch, dev, again.restore_ckpt, restore_s)()
+    restored = {'setup_seconds': restore_setup,
+                'restore_seconds': restore_s[0], 'step': again.step}
+    restored['state_gate'] = gate(
+        f'restored state against ckpt-{ckpts[-1]}', (
+            ([] if again.step == ckpts[-1] else [f'step {again.step}'])
+            + state_gate(torch, again.trainer.model, again.trainer.opt_state,
+                         last, full_cfg)),
+        state_gate(torch, again.trainer.model, again.trainer.opt_state,
+                   before, full_cfg))
+
+    # The restored run's next step against the same step from the live
+    # state (on copies: neither run moves).
+    train_batch = again._device_batch(again.make_batch_fn(
+        again.train_ds, full_cfg.timespan)(np.arange(bs)))
+    draws = full.trainer.family.draws(
+        full_cfg, bs, torch.Generator(device=dev).manual_seed(2))
+
+    def step_from(model, opt_state):
+      with deterministic_cudnn(torch):
+        return one_step(torch, ts, matching, model, opt_state, train_batch,
+                        draws, again.step, 'kernel')
+    live = step_from(full.trainer.model, full.trainer.opt_state)
+    lr = learn_rate(full_cfg, full.trainer.opt_state['count'])
+    stats = step_diff(torch, model, step_from(
+        again.trainer.model, again.trainer.opt_state), live, lr)
+    control = step_diff(torch, model, step_from(
+        again.trainer.model, ts.init_opt_state(again.trainer.model)), live,
+        lr)
+    restored['step_gate'] = gate(
+        'restored step against the live step',
+        step_gate_failures(stats, RESTORED_STEP_LIMITS)
+        + [f'matchings differ {v}' for v in [stats['matches_differ']]
+           if any(v.values())],
+        step_gate_failures(control, RESTORED_STEP_LIMITS))
+    restored['step_stats'] = {k: stats[k] for k in RESTORED_STEP_LIMITS}
+    restored['control_stats'] = {k: control[k] for k in RESTORED_STEP_LIMITS}
+    again.run()
+    again.close()
+    restored.update(launches_now(gk))
+    with open(os.path.join(again.logs_folder, 'loss.csv')) as f:
+      tail = {int(r.split(',')[0]): float(r.split(',')[2])
+              for r in f.read().splitlines()[1:] if r.split(',')[2]}
+    restored['losses_after'] = {s: v for s, v in tail.items()
+                                if s > ckpts[-1]}
+    if (again.step != steps + 2 or sorted(restored['losses_after'])
+        != [steps + 1, steps + 2] or not all(
+            math.isfinite(v) for v in restored['losses_after'].values())):
+      failures.append(f'restored run: step {again.step}, losses '
+                      f'{restored["losses_after"]}')
+    out['restored'] = restored
+    out['folders'] = {'box': box.model_id, 'full': full.model_id}
+  return out, failures
+
+
 def flagship_segmenter(cfg):
   """(InstanceSegmenter on the card, checkpoint path): the flagship
   checkpoint.  Raises where the checkout lacks it."""
@@ -1876,6 +2381,10 @@ def main():
       'glimpse_paste': (CS_BATCH, cs_cfg.inp_height, cs_cfg.inp_width, 1,
                         cs_cfg.filter_height, cs_cfg.filter_width),
   }
+  # The synth pipeline's full model at b8: its pastes' d_p, extract x
+  # [8,224,224,1] (its forward extract and paste are the b8 request's).
+  pipeline_d1 = (8, cfg.inp_height, cfg.inp_width, 1, cfg.filter_height,
+                 cfg.filter_width)
   # The chain's training at b8: the box's and the full model's paste
   # [8,48,48,1] -> 128x448, the full model's extract x [8,128,448,13] and
   # its pastes' d_p, extract x [8,128,448,1].
@@ -1904,6 +2413,9 @@ def main():
     name = 'glimpse_extract' if key == 'synth3_d1_b8' else key
     checks[name]['synth3_b8' if key == name else key] = check_kernel(
         torch, gk, attention, name, *dims, gen, dev, timed=True)
+  checks['glimpse_extract']['pipeline_d1_b8'] = check_kernel(
+      torch, gk, attention, 'glimpse_extract', *pipeline_d1, gen, dev,
+      timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
@@ -2088,6 +2600,13 @@ def main():
       checks[name]['synthcs']['max_abs_err'] == 0 for name in checks))
   emit('cs_chain', nvidia_smi=name_power, **cs_chain)
 
+  # The synth pipeline's training run as users launch it: after the other
+  # phases, which run as they did without it.
+  pipeline, failures = pipeline_phase(torch, gk, dev)
+  emit('pipeline', nvidia_smi=name_power, failures=failures, **pipeline)
+  if failures:
+    raise AssertionError(f'pipeline gates: {failures}')
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -2156,6 +2675,27 @@ def main():
                    '(full), ' + shape('glimpse_extract',
                                       chain_train_dims['synth3_d1_b8']),
                    train_launches('glimpse_extract', True)))
+  # The synth pipeline at b8, 224x224 (launches of each stage's run, its
+  # valid and trainval passes included, of the eval command line and of
+  # the restored run's two steps).
+  def pipeline_launches(name, kind):
+    by_path = {}
+    for label in ('box', 'full', 'eval', 'restored'):
+      counts = pipeline[label]
+      n = counts['launches'][name] - counts['backward_launches'][name]
+      n = counts['backward_launches'][name] if kind == 'backward' else n
+      if n:
+        by_path[f'pipeline_{label}'] = n
+    return by_path
+  for name in checks:
+    table.append(row(name, checks[name]['b8'], 'forward, synth pipeline '
+                     '(box, full, eval), ' + shape(name, (8,) + main_dims[
+                         name][1:]), pipeline_launches(name, 'forward')))
+  table.append(row('glimpse_extract',
+                   checks['glimpse_extract']['pipeline_d1_b8'],
+                   BACKWARD_USES['glimpse_extract'] + ', synth pipeline '
+                   '(full), ' + shape('glimpse_extract', pipeline_d1),
+                   pipeline_launches('glimpse_extract', 'backward')))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
   # size at b32, the general route at the 48x64 glimpse, paste at that

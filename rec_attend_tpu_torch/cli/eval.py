@@ -7,20 +7,34 @@ gate) -> upsample to the labels' full size -> [morph] -> one-label ->
 threshold sweep -> [foreground mask, remove-tiny] -> analyzers, each
 threshold's analyzers writing their CSVs.  The chain runs on the tensors
 where the forward left them, on the card or the CPU; the analyzers read
-host arrays.  The command line, the foreground PNG reader and the render
-analyzers of that module need cv2, h5py or YAML and are not ported.
+host arrays.  ``full_main`` is the command line of the full model's eval
+(``:145-255``): a trained results folder (``--results``/``--model_id``), its
+``model_opt.yaml`` and ``data_opt.yaml``, the dataset's splits
+(``data.provider``) and the analyzers' CSVs in ``output_<split>`` there.
+The foreground PNG reader (``--foreground_folder``) and the render
+analyzers need cv2 and are not ported yet (ROADMAP A.4).
+
+    python -m rec_attend_tpu_torch.cli.eval --model_id <id> \
+        --dataset synth --split valid --batch_size 8
 """
 
 from __future__ import annotations
 
+import argparse
 import glob
 import os
+import sys
 import time
 
 import torch
 
 from rec_attend_tpu_torch import analysis
+from rec_attend_tpu_torch.cli import args as A
+from rec_attend_tpu_torch.config import FullModelConfig
+from rec_attend_tpu_torch.data import provider
 from rec_attend_tpu_torch.device import synchronize
+from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+from rec_attend_tpu_torch.utils import logger
 from rec_attend_tpu_torch.utils import postprocess as pp
 
 DEFAULT_ANALYZERS = ['sbd', 'wt_cov', 'unwt_cov', 'avg_fp', 'avg_fn',
@@ -146,3 +160,65 @@ def eval_split(exp, dataset, output_folder, threshold_list, analyzer_names,
       if r is not None:
         summary[thresh][a.name] = r
   return summary
+
+
+def full_main(argv=None, device=None):
+  """Evaluate a trained full model over the dataset's splits; returns the
+  ``EvalExperiment``.  ``device`` as the port's other entry points take
+  it."""
+  parser = argparse.ArgumentParser(description='Evaluate full model')
+  A.add_eval_args(parser)
+  A.add_data_args(parser)
+  parser.add_argument('--foreground_folder', default=None)
+  parser.add_argument('--threshold_list', default=None)
+  parser.add_argument('--analyzers', default=None)
+  parser.add_argument('--test', action='store_true')
+  parser.add_argument('--no_morph', action='store_true')
+  parser.add_argument('--remove_tiny', default=0, type=int)
+  parser.add_argument('--score_threshold', default=None, type=float,
+                      help='explicit stop-score gate (default: reference '
+                           'behaviour — score-weighted masks cut by the '
+                           'mask threshold)')
+  parser.add_argument('--max_batches', default=None, type=int,
+                      help='cap the number of eval batches (threshold '
+                           'calibration on the train split)')
+  parser.add_argument('--no_render', action='store_true',
+                      help='skip instance PNG rendering (calibration '
+                           'passes)')
+  args = parser.parse_args(argv)
+  log = logger.get()
+  log.log_args()
+  if args.foreground_folder is not None:
+    raise NotImplementedError('--foreground_folder: the foreground PNG '
+                              'reader is not ported yet (ROADMAP A.4)')
+  if not args.no_render:
+    log.info('The render analyzers are not ported yet (ROADMAP A.4): no '
+             'PNGs are written')
+
+  if args.threshold_list is None:
+    threshold_list = [0.3]
+  else:
+    threshold_list = [float(t) for t in args.threshold_list.split(',')]
+  if args.analyzers is None:
+    analyzer_names = [] if args.test else DEFAULT_ANALYZERS
+  else:
+    analyzer_names = args.analyzers.split(',') if args.analyzers else []
+
+  restore = os.path.join(args.results, args.model_id)
+  model_cfg = FullModelConfig.from_yaml(os.path.join(restore,
+                                                     'model_opt.yaml'))
+  data_cfg = A.make_data_config(args, restore=restore)
+  exp = EvalExperiment(restore, cfg=model_cfg, device=device)
+  for split in args.split.split(','):
+    out_folder = args.output or os.path.join(restore, f'output_{split}')
+    dataset = provider.get(data_cfg.dataset, data_cfg, split=split)
+    eval_split(exp, dataset, out_folder, threshold_list, analyzer_names,
+               no_morph=args.no_morph, remove_tiny=args.remove_tiny,
+               batch_size=args.batch_size,
+               score_threshold=args.score_threshold,
+               max_batches=args.max_batches)
+  return exp
+
+
+if __name__ == '__main__':
+  full_main(sys.argv[1:])

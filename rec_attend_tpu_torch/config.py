@@ -1,11 +1,15 @@
-"""Configuration of the full, box and fg models, as far as their forwards,
-losses and train steps read it.
+"""Configuration of the full, box and fg models, of the training loop and
+of the dataset.
 
 Counterpart of ``rec_attend_tpu/config.py``.  Field names and defaults are
-those of the JAX ``FullModelConfig``, ``BoxModelConfig`` and
-``FGModelConfig``, so a ``model_opt.yaml`` written by the JAX trainer loads
-here unchanged; keys the port does not read (the full model's pretrain
-paths, the Pallas and scan switches) are ignored on load.
+those of the JAX ``FullModelConfig``, ``BoxModelConfig``,
+``FGModelConfig``, ``TrainConfig`` and ``DataConfig``, so a
+``model_opt.yaml`` or ``data_opt.yaml`` written by either package loads in
+the other's class to the same config.  Keys that a config here lacks (the
+JAX compiler's switches ``use_pallas``, ``remat_policy``, ``scan_unroll``
+and ``parallel_decode``, say) are not read, but a config loaded from a
+snapshot carries them and ``to_dict`` writes them back.  YAML is read and
+written by ``utils.opt_yaml``, without PyYAML.
 """
 
 from __future__ import annotations
@@ -13,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+from rec_attend_tpu_torch.utils import opt_yaml
 
 
 def _tuple(x):
@@ -31,6 +37,7 @@ DATASET_DIMS = {
     'cvppp': dict(inp_height=224, inp_width=224, timespan=21),
     'kitti': dict(inp_height=128, inp_width=448, timespan=20),
     'cityscapes': dict(inp_height=256, inp_width=512, timespan=20),
+    'synth': dict(inp_height=64, inp_width=64, timespan=6),
 }
 DATASET_TRANSFORMS = {
     'cvppp': dict(rnd_hflip=True, rnd_vflip=True, rnd_transpose=True,
@@ -39,34 +46,47 @@ DATASET_TRANSFORMS = {
                   rnd_colour=False),
     'cityscapes': dict(rnd_hflip=False, rnd_vflip=False, rnd_transpose=False,
                        rnd_colour=False),
+    'synth': dict(rnd_hflip=False, rnd_vflip=False, rnd_transpose=False,
+                  rnd_colour=False),
 }
 
 
 class _ConfigBase:
   """Load, save and replace, shared by the configs."""
 
+  # The keys of the option dict this config was built from that it lacks:
+  # not read, not compared, written back by ``to_dict``.
+  _carried = {}
+
   @classmethod
   def from_dict(cls, d):
-    """Build from a flat option dict; keys this config lacks are ignored."""
+    """Build from a flat option dict; keys this config lacks are carried."""
     kwargs = {}
     for fld in dataclasses.fields(cls):
       if fld.name in d:
         v = d[fld.name]
         kwargs[fld.name] = _tuple(v) if 'Tuple' in str(fld.type) else v
-    return cls(**kwargs)
+    cfg = cls(**kwargs)
+    return cfg._carry({k: v for k, v in d.items() if k not in kwargs})
+
+  def _carry(self, carried):
+    object.__setattr__(self, '_carried', dict(carried))
+    return self
 
   @classmethod
   def from_yaml(cls, path):
-    import yaml   # only this reader needs it
-    with open(path) as f:
-      return cls.from_dict(yaml.safe_load(f))
+    return cls.from_dict(opt_yaml.read(path))
+
+  def save_yaml(self, path):
+    opt_yaml.write(path, self.to_dict())
 
   def to_dict(self):
-    return {k: (list(v) if isinstance(v, tuple) else v)
-            for k, v in dataclasses.asdict(self).items()}
+    return {**self._carried,
+            **{k: (list(v) if isinstance(v, tuple) else v)
+               for k, v in dataclasses.asdict(self).items()}}
 
   def replace(self, **kw):
-    return dataclasses.replace(self, **kw)
+    return dataclasses.replace(self, **kw)._carry(self._carried)
 
 
 @dataclass(frozen=True)
@@ -151,6 +171,12 @@ class FullModelConfig(_ConfigBase):
   attn_add_d_out: Optional[bool] = None
   attn_add_y_out: Optional[bool] = None
 
+  # Pretrained nets: ``pretrain_ctrl_net`` names the box model whose
+  # controller starts this one's (a results folder or one of its
+  # ``ckpt-*.npz``; see ``TrainingExperiment.load_pretrained``).
+  pretrain_ctrl_net: Optional[str] = None
+  pretrain_attn_net: Optional[str] = None
+  pretrain_net: Optional[str] = None
   # Freezing (True = the subnet's parameters are not updated)
   freeze_ctrl_cnn: bool = False
   freeze_ctrl_rnn: bool = False
@@ -162,6 +188,8 @@ class FullModelConfig(_ConfigBase):
   rnd_vflip: bool = False
   rnd_transpose: bool = False
   rnd_colour: bool = False
+
+  finetune: bool = False          # a restore restarts the step and optimizer
 
   dtype: str = 'float32'          # compute dtype of the conv/matmul stacks
   remat: bool = False             # recompute each timestep in the backward
@@ -254,16 +282,20 @@ class FullModelConfig(_ConfigBase):
     return tuple([self.add_skip_conn] * len(self.attn_cnn_filter_size))
 
 
-# Fields of FullModelConfig, i.e. the options the port reads.
-FORWARD_FIELDS = tuple(f.name for f in dataclasses.fields(FullModelConfig))
+# Fields of FullModelConfig that the forward, the loss and the train step
+# read; the others start a training run (the pretrained nets, finetune).
+FORWARD_FIELDS = tuple(
+    f.name for f in dataclasses.fields(FullModelConfig)
+    if f.name not in ('pretrain_ctrl_net', 'pretrain_attn_net',
+                      'pretrain_net', 'finetune'))
 
 
 @dataclass(frozen=True)
 class BoxModelConfig(_ConfigBase):
   """Options of the box model, the controller pathway trained alone
-  (JAX config.py:313-398), restricted to the fields the port reads.
-  ``pretrain_cnn`` and ``pretrain_net`` name ``weights.h5`` files, which
-  the port does not read: ``BoxModel`` refuses a config that sets them."""
+  (JAX config.py:313-398).  ``pretrain_cnn`` and ``pretrain_net`` name
+  ``weights.h5`` files, which the port does not read: ``BoxModel`` refuses
+  a config that sets them."""
   timespan: int = 21
   inp_height: int = 224
   inp_width: int = 224
@@ -309,6 +341,7 @@ class BoxModelConfig(_ConfigBase):
   rnd_transpose: bool = False
   rnd_colour: bool = False
 
+  finetune: bool = False
   dtype: str = 'float32'
   remat: bool = False
   accumulate_greedy_match: bool = False
@@ -388,9 +421,74 @@ class FGModelConfig(_ConfigBase):
     return self.resolved_cnn_skip_mask()[::-1]
 
 
+@dataclass(frozen=True)
+class TrainConfig(_ConfigBase):
+  """Options of the training loop (JAX config.py:445-475)."""
+  model_id: Optional[str] = None
+  num_steps: int = 500000
+  steps_per_ckpt: int = 1000
+  steps_per_valid: int = 50
+  steps_per_trainval: int = 50
+  steps_per_plot: int = 500
+  steps_per_log: int = 10
+  batch_size: int = 32
+  results: str = 'results'
+  logs: str = 'logs'
+  localhost: str = 'localhost'
+  restore: Optional[str] = None
+  num_samples_plot: int = 5
+  save_ckpt: bool = False
+  has_valid: bool = True
+  num_batch_valid: int = 10
+  h5_fname_train: Optional[str] = None
+  h5_fname_valid: Optional[str] = None
+  prefetch: bool = False
+  queue_size: int = 50
+  num_worker: int = 4
+  # The whole train split uint8 on the device, one index gather a step.
+  device_data: bool = False
+
+
+@dataclass(frozen=True)
+class DataConfig(_ConfigBase):
+  """Dataset options (JAX config.py:491-505).  The synthetic dataset's
+  knobs: the train split's size (the others get a quarter of it, at least
+  8), the most instances an image has and the number of semantic
+  classes."""
+  dataset: str = 'cvppp'
+  folder: Optional[str] = None
+  height: int = 224
+  width: int = 224
+  timespan: int = 21
+  num_examples: int = 32
+  max_objects: int = 4
+  num_semantic_classes: int = 1
+
+
+def data_config_for(dataset: str, folder: Optional[str] = None) -> DataConfig:
+  dims = DATASET_DIMS[dataset]
+  return DataConfig(dataset=dataset, folder=folder, height=dims['inp_height'],
+                    width=dims['inp_width'], timespan=dims['timespan'])
+
+
+def cvppp_box_config() -> BoxModelConfig:
+  """The CVPPP box preset (JAX config.py:516-528, ref run_cvppp.sh:15-28):
+  the flagship's controller, trained alone."""
+  d = DATASET_DIMS['cvppp']
+  return BoxModelConfig(
+      timespan=d['timespan'], inp_height=d['inp_height'],
+      inp_width=d['inp_width'],
+      ctrl_cnn_filter_size=(3,) * 8,
+      ctrl_cnn_depth=(8, 8, 16, 16, 32, 32, 64, 64),
+      ctrl_cnn_pool=(1, 2, 1, 2, 1, 2, 2, 2),
+      num_ctrl_mlp_layers=1,
+      base_learn_rate=0.001, learn_rate_decay=0.9,
+      steps_per_learn_rate_decay=5000, remat=True,
+      **DATASET_TRANSFORMS['cvppp'])
+
+
 def cvppp_full_config() -> FullModelConfig:
-  """The flagship CVPPP preset (JAX config.py:531-558, ref run_cvppp.sh),
-  restricted to the fields the port reads."""
+  """The flagship CVPPP preset (JAX config.py:531-558, ref run_cvppp.sh)."""
   d = DATASET_DIMS['cvppp']
   return FullModelConfig(
       timespan=d['timespan'], inp_height=d['inp_height'],

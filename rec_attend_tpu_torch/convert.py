@@ -120,3 +120,25 @@ def opt_state_from_jax(opt_state, cfg, device='cpu'):
   return {'count': int(np.asarray(adam.count)),
           'mu': _to_torch(cfg, flatten_tree(adam.mu), device),
           'nu': _to_torch(cfg, flatten_tree(adam.nu), device)}
+
+
+def checkpoint_leaves(model, opt_state):
+  """The leaves of the JAX trainer's ``{'opt_state', 'params'}`` for
+  ``model`` and its optimizer state (``train_step.init_opt_state`` form),
+  as numpy arrays in flatten order (``engine/saver.py``): with Adam the
+  count (int32, shape ()), the first and the second moments of every leaf
+  of the parameter tree, the schedule's count and the parameters; with
+  momentum the trace, the count and the parameters.  The BatchNorm EMA
+  statistics are leaves of the JAX parameter tree; their moments and trace
+  are zeros there, as their gradient is 0, and are written so here."""
+  state = model.state_dict()
+  names = saver.jax_leaf_order(state)
+  params = [state[n].detach().cpu().numpy() for n in names]
+  count = np.asarray(opt_state['count'], np.int32)
+
+  def per_leaf(key):
+    return [opt_state[key][n].detach().cpu().numpy() if n in opt_state[key]
+            else np.zeros_like(p) for n, p in zip(names, params)]
+  if family(model.cfg).optimizer(model.cfg) == 'momentum':
+    return per_leaf('trace') + [count] + params
+  return [count] + per_leaf('mu') + per_leaf('nu') + [count.copy()] + params

@@ -200,15 +200,16 @@ class SyntheticDataset:
       raise ValueError(f'timespan {timespan}: this split holds '
                        f'{self.timespan} instance slots')
 
-  def get_batch(self, idx, timespan=None):
+  def get_batch(self, idx, timespan=None, variables=None):
     """'x' [b,H,W,3], 'y_gt' [b,T,H,W], 's_gt' [b,T], 'c_gt' [b,H,W,C],
     'd_gt' [b,H,W,8] and 'idx_map' (the ids) of the examples at positions
-    ``idx``."""
+    ``idx``; only those named in ``variables`` where it is given."""
     self._check_timespan(timespan)
     idx = np.asarray(idx)
-    return {'x': self.x[idx], 'y_gt': self.y_gt[idx], 's_gt': self.s_gt[idx],
-            'c_gt': self.c_gt[idx], 'd_gt': self.d_gt[idx],
-            'idx_map': self.img_ids[idx]}
+    arrays = {'x': self.x, 'y_gt': self.y_gt, 's_gt': self.s_gt,
+              'c_gt': self.c_gt, 'd_gt': self.d_gt, 'idx_map': self.img_ids}
+    return {k: v[idx] for k, v in arrays.items()
+            if variables is None or k in variables}
 
   def get_full_size_labels(self, ids, timespan=None):
     """A list of [T, H, W] label arrays, one per id."""

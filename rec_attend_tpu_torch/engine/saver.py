@@ -1,17 +1,22 @@
-"""Read the JAX trainer's checkpoints without JAX.
+"""Checkpoints in the JAX trainer's layout: write, prune, find, read.
 
-Counterpart of the loading half of ``rec_attend_tpu/engine/saver.py:31-46``.
-A checkpoint ``ckpt-<step>.npz`` stores ``num_leaves`` and the leaves
-``leaf_<i>`` of a pytree in ``jax.tree_util`` flatten order: dict keys
-sorted, lists in order.  The trainer saves ``{'params', 'opt_state'}``, so
-the optimizer state comes first and the parameters are the last leaves; a
-params-only checkpoint holds just them.  The full model's optimizer,
+Counterpart of ``rec_attend_tpu/engine/saver.py:25-109``.  A results folder
+holds numbered checkpoints ``ckpt-<step>.npz`` (the last ``max_to_keep``,
+2, are kept) beside the ``model_opt.yaml`` and ``data_opt.yaml`` snapshots
+(written and read by ``utils.opt_yaml``, the bytes PyYAML writes).  A
+checkpoint stores ``num_leaves`` and the leaves ``leaf_<i>`` of a pytree in
+``jax.tree_util`` flatten order: dict keys sorted, lists in order.  The
+trainer saves ``{'params', 'opt_state'}``, so the optimizer state comes
+first and the parameters are the last leaves; a params-only checkpoint
+holds just them.  The full and box models' optimizer,
 ``optax.chain(clip, adam(schedule))``, flattens to Adam's update count, its
 first moments (one leaf per parameter, in parameter order), its second
 moments, and the schedule's count: 2 + 3 * P leaves in all.  The fg model's,
 ``optax.chain(clip, sgd(schedule, momentum=0.9))``, flattens to the
 momentum trace (one leaf per parameter) and the schedule's count, so its
 checkpoint holds 2 * P + 1 leaves, the parameters from leaf P + 1 on.
+``convert.checkpoint_leaves`` makes these leaves of a model and its
+optimizer state, and ``convert`` reads them back.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import re
 
 import numpy as np
 
+from rec_attend_tpu_torch.utils import logger
+from rec_attend_tpu_torch.utils import opt_yaml
+
 CKPT_RE = re.compile(r'ckpt-(\d+)\.npz$')
 
 
@@ -29,16 +37,22 @@ def checkpoint_step(path):
   return int(CKPT_RE.search(path).group(1))
 
 
-def latest_checkpoint(folder):
-  """Path of the highest-step ``ckpt-*.npz`` in ``folder``."""
-  ckpts = []
+def list_checkpoints(folder):
+  """[(step, path)] of the ``ckpt-*.npz`` in ``folder``, by step."""
+  out = []
   for name in os.listdir(folder):
     m = CKPT_RE.search(name)
     if m:
-      ckpts.append((int(m.group(1)), os.path.join(folder, name)))
+      out.append((int(m.group(1)), os.path.join(folder, name)))
+  return sorted(out)
+
+
+def latest_checkpoint(folder):
+  """Path of the highest-step ``ckpt-*.npz`` in ``folder``."""
+  ckpts = list_checkpoints(folder)
   if not ckpts:
     raise FileNotFoundError(f'No checkpoint in {folder}')
-  return max(ckpts)[1]
+  return ckpts[-1][1]
 
 
 def _tree_key(name):
@@ -144,3 +158,56 @@ def load_momentum_state(path, shapes):
                          f'{tuple(shapes[name])}')
       out['trace'][name] = leaf
   return out
+
+
+def save_pytree(path, leaves):
+  """Write ``leaves`` (arrays in ``jax.tree_util`` flatten order) as the
+  JAX ``save_pytree`` does."""
+  np.savez(path, num_leaves=len(leaves),
+           **{f'leaf_{i}': np.asarray(leaf) for i, leaf in enumerate(leaves)})
+
+
+class Saver:
+  """The checkpoints of one results folder (JAX ``Saver``): the option
+  snapshots are written when given, ``save`` writes ``ckpt-<step>.npz``
+  and keeps the last ``max_to_keep``."""
+
+  def __init__(self, folder, model_opt=None, data_opt=None, max_to_keep=2):
+    self.folder = folder
+    self.log = logger.get()
+    self.max_to_keep = max_to_keep
+    os.makedirs(folder, exist_ok=True)
+    if model_opt is not None:
+      self.save_opt_dict('model_opt.yaml', model_opt)
+    if data_opt is not None:
+      self.save_opt_dict('data_opt.yaml', data_opt)
+
+  def save_opt_dict(self, name, opt):
+    if hasattr(opt, 'to_dict'):
+      opt = opt.to_dict()
+    opt_yaml.write(os.path.join(self.folder, name), opt)
+
+  def load_opt_dict(self, name):
+    path = os.path.join(self.folder, name)
+    if not os.path.exists(path):
+      return None
+    return opt_yaml.read(path)
+
+  def save(self, leaves, step):
+    """Save the checkpoint of ``step`` (``convert.checkpoint_leaves``) and
+    prune the old ones; returns its path."""
+    path = os.path.join(self.folder, f'ckpt-{step}.npz')
+    save_pytree(path, leaves)
+    self.log.info(f'Saved checkpoint {path}')
+    for _, old in self.list_ckpts()[:-self.max_to_keep]:
+      os.remove(old)
+    return path
+
+  def list_ckpts(self):
+    """[(step, path)] of the folder's checkpoints, by step."""
+    return list_checkpoints(self.folder)
+
+  def get_latest_ckpt(self):
+    """(step, path) of the latest checkpoint, or None."""
+    ckpts = self.list_ckpts()
+    return ckpts[-1] if ckpts else None

@@ -7,9 +7,9 @@ trainer's run from its latest checkpoint, parameters, optimizer state
 (Adam's, or the fg model's momentum trace) and step
 (``experiment.py:445-449``); ``load_pretrained`` starts a full model's
 controller from a box model, as the JAX chain's full stage does
-(``pipelines/run_pipeline.py:283-375``, ``pretrain_ctrl_net``).
-Validation, plotting, the checkpoint cadence and the command line are not
-ported yet.
+(``pipelines/run_pipeline.py:283-375``, ``pretrain_ctrl_net``).  The
+cadenced training run (validation, logs, checkpoints) that the command
+line drives is ``engine.experiment.TrainingExperiment``, built on this.
 
     trainer = Trainer(kitti_fg_config())              # on the card
     trainer.restore('results/fg_model_synth3-20260818a')
@@ -75,6 +75,21 @@ class Trainer:
       source = convert.params_from_checkpoint(path, cfg)
     full_model.load_pretrained(self.model, source)
 
+  def draws(self, batch_size):
+    """The draws of one step or eval batch, from the trainer's generator."""
+    return self.family.draws(self.cfg, batch_size, self.generator)
+
+  def train_step(self, batch):
+    """One step on ``batch`` (as ``run`` reads it): returns the step's
+    metrics, {name: 0-d tensor} on the device, without waiting for them."""
+    batch = {k: v.to(self.device) for k, v in batch.items()
+             if k in self.family.batch_keys}
+    self.opt_state, metrics = ts.train_step(
+        self.model, self.opt_state, batch, self.draws(batch['x'].shape[0]),
+        self.step)
+    self.step += 1
+    return metrics
+
   def run(self, num_steps, batches):
     """Take ``num_steps`` steps, one batch of the iterator ``batches``
     each: dicts of tensors, float or uint8, on any device (the full and box
@@ -86,13 +101,7 @@ class Trainer:
     Stops early, as the JAX loop does, at a non-finite loss."""
     history = []
     for _ in range(num_steps):
-      batch = {k: v.to(self.device) for k, v in next(batches).items()
-               if k in self.family.batch_keys}
-      draws = self.family.draws(self.cfg, batch['x'].shape[0],
-                                self.generator)
-      self.opt_state, metrics = ts.train_step(
-          self.model, self.opt_state, batch, draws, self.step)
-      self.step += 1
+      metrics = self.train_step(next(batches))
       values = torch.stack(list(metrics.values())).tolist()
       history.append({'step': self.step, **dict(zip(metrics, values))})
       if not math.isfinite(history[-1]['loss']):

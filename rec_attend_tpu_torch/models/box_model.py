@@ -34,6 +34,8 @@ from rec_attend_tpu_torch.ops import matching
 from rec_attend_tpu_torch.models.family import Family
 from rec_attend_tpu_torch.models.full_model import ATTN_BOX_BETA
 from rec_attend_tpu_torch.models.full_model import BATCH_KEYS
+from rec_attend_tpu_torch.models.full_model import BATCH_MAP
+from rec_attend_tpu_torch.models.full_model import BATCH_VARIABLES
 from rec_attend_tpu_torch.models.full_model import _glimpse_fns
 from rec_attend_tpu_torch.models.full_model import _stack_steps
 from rec_attend_tpu_torch.models.full_model import attention_params
@@ -343,7 +345,10 @@ def box_model_loss(model: BoxModel, batch, draws, step, glimpse='kernel',
 
 # The box model reads the full model's batch keys; nothing is frozen (see
 # ``BoxModel``).
-FAMILY = Family(model=BoxModel, loss=box_model_loss, draws=draw_box_randoms,
-                batch_keys=BATCH_KEYS, metric_keys=lambda cfg: METRIC_KEYS,
-                frozen_nets=lambda cfg: frozenset(),
-                optimizer=lambda cfg: 'adam')
+FAMILY = Family(
+    name='box', model=BoxModel, loss=box_model_loss, draws=draw_box_randoms,
+    batch_keys=BATCH_KEYS, metric_keys=lambda cfg: METRIC_KEYS,
+    frozen_nets=lambda cfg: frozenset(), optimizer=lambda cfg: 'adam',
+    batch_variables=BATCH_VARIABLES, batch_map=BATCH_MAP,
+    eval_metrics=('loss', 'box_loss', 'conf_loss', 'iou_soft_box',
+                  'learn_rate'))

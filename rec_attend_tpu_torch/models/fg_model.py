@@ -157,8 +157,11 @@ def draw_fg_randoms(cfg: FGModelConfig, generator):
   return {'aug': image_ops.draw_transformation(cfg.padding, generator)}
 
 
-def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws):
-  """The train forward (JAX ``fg_model_forward(train=True)``).
+def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws,
+                           train=True):
+  """The forward with the targets (JAX ``fg_model_forward(train=True)``,
+  or with ``train=False`` its eval branch: no crop, BatchNorm on its EMA
+  statistics, no draws, which may then be None).
 
   Args:
     x: [B,H,W,inp_depth] images; c_gt: [B,H,W,num_semantic_classes]
@@ -170,7 +173,7 @@ def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws):
     (outputs, new_bn): outputs holds the maps of ``fg_model_forward`` and
     the cropped 'x_trans', 'y_gt_trans' (the foreground) and, with the
     orientation head, 'd_gt_trans'; new_bn maps each EMA buffer name
-    ('cnn.0.bn.ema_mean', ...) to its new [C] value.
+    ('cnn.0.bn.ema_mean', ...) to its new [C] value (empty in eval).
   """
   cfg = model.cfg
   _check_x(model, x)
@@ -180,12 +183,14 @@ def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws):
     d_gt = None
   elif d_gt is None:
     raise ValueError('the orientation head needs d_gt')
-  aug = image_ops.random_transformation(
-      x.float(), cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
-      rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
-      rnd_colour=cfg.rnd_colour, y=None,
-      d=None if d_gt is None else d_gt.float(), c=c_gt.float())
-  stats = []
+  d_gt = None if d_gt is None else d_gt.float()
+  aug = {'x': x.float(), 'c': c_gt.float(), 'd': d_gt}
+  if train:
+    aug = image_ops.random_transformation(
+        aug['x'], cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
+        rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
+        rnd_colour=cfg.rnd_colour, y=None, d=d_gt, c=aug['c'])
+  stats = [] if train else None
   outputs = _maps(cfg, _head(model, aug['x'], stats))
   outputs.update(x_trans=aug['x'], y_gt_trans=aug['c'])
   if cfg.add_orientation:
@@ -193,20 +198,21 @@ def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws):
   new_bn = {}
   layers = [f'cnn.{i}' for i in range(len(model.cnn))] + [
       f'dcnn.{i}' for i in range(len(model.dcnn))]
-  for name, pair in zip(layers, stats):
+  for name, pair in zip(layers, stats or ()):
     if pair is not None:
       new_bn[f'{name}.bn.ema_mean'], new_bn[f'{name}.bn.ema_var'] = pair
   return outputs, new_bn
 
 
-def fg_model_loss(model: FGModel, batch, draws, step):
-  """Total loss and metrics of one training batch (JAX ``fg_model_loss``).
+def fg_model_loss(model: FGModel, batch, draws, step, train=True):
+  """Total loss and metrics of one batch, in training or, with
+  ``train=False``, in eval (JAX ``fg_model_loss``).
 
   Args:
     batch: dict 'x' [B,H,W,D], 'c_gt' [B,H,W,C] and, with the orientation
       head, 'd_gt' [B,H,W,8], float, on the model's device.
     draws: ``draw_fg_randoms``; step: the global step (for the reported
-      learning rate).
+      learning rate); train: as in ``fg_model_train_forward``.
   Returns:
     (loss, aux): aux holds ``METRIC_KEYS`` (and, with the orientation
     head, ``ORIENTATION_METRIC_KEYS``) as 0-d tensors, 'outputs' and
@@ -215,7 +221,8 @@ def fg_model_loss(model: FGModel, batch, draws, step):
   from rec_attend_tpu_torch.models.full_model import learn_rate
   cfg = model.cfg
   outputs, new_bn = fg_model_train_forward(
-      model, batch['x'], batch['c_gt'], batch.get('d_gt'), draws)
+      model, batch['x'], batch['c_gt'], batch.get('d_gt'), draws,
+      train)
   y_out, y_gt = outputs['y_out'], outputs['y_gt_trans']
   num_pixel = y_out.shape[0] * y_out.shape[1] * y_out.shape[2]
   if cfg.num_semantic_classes > 1:
@@ -272,9 +279,13 @@ def metric_keys(cfg: FGModelConfig):
 # The fg model has no glimpse, its draws do not depend on the batch size,
 # and it freezes nothing.
 FAMILY = Family(
-    model=FGModel,
-    loss=lambda model, batch, draws, step, glimpse: fg_model_loss(
-        model, batch, draws, step),
+    name='fg', model=FGModel,
+    loss=lambda model, batch, draws, step, glimpse, train=True: fg_model_loss(
+        model, batch, draws, step, train),
     draws=lambda cfg, batch_size, generator: draw_fg_randoms(cfg, generator),
     batch_keys=BATCH_KEYS, metric_keys=metric_keys,
-    frozen_nets=lambda cfg: frozenset(), optimizer=lambda cfg: cfg.optimizer)
+    frozen_nets=lambda cfg: frozenset(), optimizer=lambda cfg: cfg.optimizer,
+    batch_variables=BATCH_KEYS,
+    batch_map={'x': 'x', 'c_gt': 'c_gt', 'd_gt': 'd_gt'},
+    eval_metrics=('loss', 'iou_soft', 'iou_hard', 'foreground_loss',
+                  'orientation_ce', 'orientation_acc', 'learn_rate'))

@@ -3,8 +3,9 @@
 Counterpart of ``rec_attend_tpu/models/full_model.py``: ``FullModel`` holds
 the parameters of ``init_full_model`` (``:44-76``) under the same names;
 ``full_model_forward`` is ``full_model_forward(train=False)`` (``:198-568``),
-``full_model_train_forward`` its train=True branch and ``full_model_loss``
-the loss (``:575-722``).  At each of T timesteps a CNN+LSTM controller looks
+``full_model_train_forward`` the forward with the ground truth, its
+train=True branch and, with ``train=False``, the eval forward that the loss
+in eval mode reads, and ``full_model_loss`` the loss (``:575-722``).  At each of T timesteps a CNN+LSTM controller looks
 at image (+) canvas and emits an attention box; a Gaussian glimpse is
 cropped (``glimpse_extract``), a CNN/D-CNN segments one instance inside it,
 the mask is pasted back (``glimpse_paste``, also used to render the box) and
@@ -47,6 +48,16 @@ Y_OUT_BETA = -5.0
 # Batch keys a train step reads; 'd_in' and 'y_in' where the config reads
 # the packed maps (the box model's too).
 BATCH_KEYS = ('x', 'y_gt', 's_gt', 'd_in', 'y_in')
+# The dataset's variables, and the batch key each becomes (the packed
+# predictions of the fg model, 'd_out' and 'y_out', are read as 'd_in' and
+# 'y_in' where the config reads them; JAX experiment.py:60-66).
+BATCH_VARIABLES = ('x', 'y_gt', 's_gt')
+BATCH_MAP = {'x': 'x', 'y_gt': 'y_gt', 's_gt': 's_gt', 'd_out': 'd_in',
+             'y_out': 'y_in'}
+# The metrics that the eval passes of a training run log (JAX :67-70).
+EVAL_METRICS = ('loss', 'segm_loss', 'conf_loss', 'box_loss', 'iou_soft',
+                'iou_hard', 'dice', 'count_acc', 'dic', 'dic_abs',
+                'wt_cov_soft', 'wt_cov_hard', 'learn_rate')
 METRIC_KEYS = ('loss', 'box_loss', 'segm_loss', 'conf_loss', 'wd_loss',
                'iou_soft', 'iou_soft_box', 'iou_hard', 'dice', 'wt_cov_soft',
                'unwt_cov_soft', 'wt_cov_hard', 'unwt_cov_hard', 'count_acc',
@@ -297,11 +308,14 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
     x: [B,H,W,D] image; packed: {'d_out': d_in, 'y_out': y_in}, either
       None where the config does not read it; canvas: [B,H,W,1]; t:
       timestep index.
-    train: None for eval; for training a dict of this step's inputs:
+    train: None for the serving forward; with the ground truth a dict of
+      this step's inputs: 'train' (True: BatchNorm on the batch and the
+      knob's mixes; False: the eval forward of the loss in eval mode),
       ground truth ('y_gt' [B,T,H,W], 'attn_box_gt' [B,T,H,W],
-      'attn_top_left_gt'/'attn_bot_right_gt'/'attn_ctr_gtn'/'attn_size_gtn'
-      [B,T,2]), knob draws 'knob_box'/'knob_segm' [B,1], 'segm_noise'
-      [B,H,W,1] and the greedy-match mask 'grd_cum' [B,T].
+      'attn_top_left_gt'/'attn_bot_right_gt' [B,T,2]), the greedy-match
+      mask 'grd_cum' [B,T] and, in training, 'attn_ctr_gtn'/'attn_size_gtn'
+      [B,T,2], the knob draws 'knob_box'/'knob_segm' [B,1] and
+      'segm_noise' [B,H,W,1].
   Returns:
     (canvas, grd_cum or None, step outputs, {net: new BN statistics} or
     None).
@@ -314,8 +328,9 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   cdt = torch.bfloat16 if cfg.dtype == 'bfloat16' else torch.float32
   n_adc = len(cfg.attn_dcnn_filter_size)
   relu = F.relu
-  stats = None if train is None else {
-      'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []}
+  training = train is not None and train['train']
+  stats = {'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []} if training else (
+      None)
 
   def inputs(prefix):
     parts = [v for key, v in (('inp', x), ('canvas', canvas),
@@ -366,7 +381,7 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
           / losses.f_union(attn_box[:, None], train['attn_box_gt']))
     step_out['iou_soft_box_t'] = iou_soft_box_t
     grd_cum = train['grd_cum']
-    if cfg.use_knob:
+    if cfg.use_knob and training:
       # Mix in the greedily matched, noisy ground-truth box (JAX :396-415);
       # the match does not accumulate unless accumulate_greedy_match.
       grd_match = losses.f_greedy_match(iou_soft_box_t, grd_cum)
@@ -418,7 +433,7 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
 
   # Knob: mix the ground-truth segmentation into the canvas (JAX :466-479).
   y_canvas = y_out
-  if train is not None and cfg.use_knob:
+  if training and cfg.use_knob:
     y_mix = torch.einsum('bt,bthw->bhw', grd_match, train['y_gt'])[..., None]
     y_mix = y_mix - y_mix * train['segm_noise']
     ks = train['knob_segm'][:, :, None, None]                  # [B,1,1,1]
@@ -481,8 +496,12 @@ def full_model_forward(model: FullModel, x, d_in=None, y_in=None,
 
 
 def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
-                             glimpse='kernel', d_in=None, y_in=None):
-  """Run the T-step training forward (JAX full_model_forward(train=True)).
+                             glimpse='kernel', d_in=None, y_in=None,
+                             train=True):
+  """Run the T-step forward with the ground truth (JAX
+  full_model_forward(train=True), or with ``train=False`` its eval branch:
+  no crop, BatchNorm on its EMA statistics, no knob and no draws, which
+  may then be None).
 
   Args:
     model: FullModel; x [B,H,W,inp_depth], y_gt [B,T,H,W], s_gt [B,T] on
@@ -495,11 +514,12 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
     glimpse: as in ``full_model_forward``.
   Returns:
     (outputs, new_bn): outputs holds the stacked per-step outputs of
-    ``full_model_forward`` plus 'iou_soft_box_t' [B,T,T], with the knob
-    the greedy matches 'grd_match' [B,T,T], the transformed
+    ``full_model_forward`` plus 'iou_soft_box_t' [B,T,T], in training
+    with the knob the greedy matches 'grd_match' [B,T,T], the transformed
     'x_trans'/'y_gt_trans', 's_gt', and the ground truth 'attn_box_gt',
     'attn_ctr_norm_gt', 'attn_lg_size_gt' and friends; new_bn maps each
-    EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value.
+    EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value
+    (empty in eval).
   """
   extract_fn, paste_fn = _glimpse_fns(glimpse)
   _check_input(model, x, d_in, y_in)
@@ -511,16 +531,20 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   B, T = x.shape[0], cfg.timespan
   H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
+  x, y_gt = x.float(), y_gt.float()
+  packed = {'d_out': None if d_in is None else d_in.float(),
+            'y_out': None if y_in is None else y_in.float()}
 
-  # Augmentation (JAX full_model.py:218-232).
-  aug = image_ops.random_transformation(
-      x.float(), cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
-      rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
-      rnd_colour=cfg.rnd_colour, y=y_gt.float(),
-      d=None if d_in is None else d_in.float(),
-      c=None if y_in is None else y_in.float())
-  x, y_gt = aug['x'], aug['y']
-  packed = {'d_out': aug.get('d'), 'y_out': aug.get('c')}
+  if train:
+    # Augmentation (JAX full_model.py:218-232); in eval the centre crop is
+    # the identity.
+    aug = image_ops.random_transformation(
+        x, cfg.padding, draws['aug'], rnd_hflip=cfg.rnd_hflip,
+        rnd_vflip=cfg.rnd_vflip, rnd_transpose=cfg.rnd_transpose,
+        rnd_colour=cfg.rnd_colour, y=y_gt, d=packed['d_out'],
+        c=packed['y_out'])
+    x, y_gt = aug['x'], aug['y']
+    packed = {'d_out': aug.get('d'), 'y_out': aug.get('c')}
 
   # Ground-truth attention boxes, clean and noisy (JAX :230-250).
   min_pad = cfg.padding + 4.0
@@ -528,31 +552,31 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
    attn_bot_right_gt) = boxes.get_gt_attn(
        y_gt, FH, FW, padding_ratio=cfg.attn_box_padding_ratio,
        center_shift_ratio=0.0, min_padding=min_pad)
-  attn_ctr_gtn, attn_size_gtn = boxes.get_gt_attn(
-      y_gt, FH, FW, padding_ratio=draws['pad_noise'],
-      center_shift_ratio=draws['ctr_noise'], min_padding=min_pad)[:2]
-
-  # Knob draws (JAX :255-262).
-  p_box, p_segm = knob_probs(cfg, step, x.device)
-  knob_box = (draws['knob_box'] <= p_box).float()
-  knob_segm = (draws['knob_segm'] <= p_segm).float()
-
-  gt = {'y_gt': y_gt, 'attn_box_gt': attn_box_gt,
+  gt = {'train': train, 'y_gt': y_gt, 'attn_box_gt': attn_box_gt,
         'attn_top_left_gt': attn_top_left_gt,
-        'attn_bot_right_gt': attn_bot_right_gt,
-        'attn_ctr_gtn': attn_ctr_gtn, 'attn_size_gtn': attn_size_gtn}
+        'attn_bot_right_gt': attn_bot_right_gt}
+  knob = {}
+  if train:
+    gt['attn_ctr_gtn'], gt['attn_size_gtn'] = boxes.get_gt_attn(
+        y_gt, FH, FW, padding_ratio=draws['pad_noise'],
+        center_shift_ratio=draws['ctr_noise'], min_padding=min_pad)[:2]
+    # Knob draws (JAX :255-262).
+    p_box, p_segm = knob_probs(cfg, step, x.device)
+    knob = {'knob_box': (draws['knob_box'] <= p_box).float(),
+            'knob_segm': (draws['knob_segm'] <= p_segm).float(),
+            'segm_noise': draws['segm_noise']}
 
   def body(canvas, grd_cum, t):
-    train = dict(gt, knob_box=knob_box[:, t], knob_segm=knob_segm[:, t],
-                 segm_noise=draws['segm_noise'][t], grd_cum=grd_cum)
+    inputs = dict(gt, grd_cum=grd_cum, **{k: v[:, t] if k != 'segm_noise'
+                                          else v[t] for k, v in knob.items()})
     return _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
-                     train)
+                     inputs)
 
   canvas = torch.zeros((B, H, W, 1), device=x.device)
   grd_cum = torch.zeros((B, T), device=x.device)
   steps, bn_steps = [], []
   for t in range(T):
-    if cfg.remat:
+    if cfg.remat and train:
       canvas, grd_cum, step_out, stats = torch.utils.checkpoint.checkpoint(
           body, canvas, grd_cum, t, use_reentrant=False,
           preserve_rng_state=False)
@@ -568,9 +592,11 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
       attn_top_left_gt=attn_top_left_gt,
       attn_bot_right_gt=attn_bot_right_gt, attn_box_gt=attn_box_gt,
       attn_ctr_norm_gt=attention.get_normalized_center(attn_ctr_gt, H, W),
-      attn_lg_size_gt=attention.get_normalized_size(attn_size_gt, H, W),
-      gt_knob_prob_box=p_box[0, 0, 0], gt_knob_prob_segm=p_segm[0, 0, 0])
-
+      attn_lg_size_gt=attention.get_normalized_size(attn_size_gt, H, W))
+  if not train:
+    return outputs, {}
+  outputs.update(gt_knob_prob_box=p_box[0, 0, 0],
+                 gt_knob_prob_segm=p_segm[0, 0, 0])
   new_bn = {}
   for net in ('ctrl_cnn', 'attn_cnn', 'attn_dcnn'):
     for i, pair in enumerate(bn_steps[0][net]):
@@ -586,14 +612,18 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
 # Loss (JAX full_model.py:575-722)
 # ---------------------------------------------------------------------------
 
-def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
-  """Total loss and metrics of one training batch.
+def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
+                    train=True):
+  """Total loss and metrics of one batch, in training or, with
+  ``train=False``, in eval (JAX ``full_model_loss(train=False)``, as
+  ``make_eval_step`` calls it: the eval forward, then the same matching and
+  losses).
 
   Args:
     batch: dict 'x' [B,H,W,D], 'y_gt' [B,T,H,W], 's_gt' [B,T], float, on
       the model's device, and 'd_in' and 'y_in' where the config reads them
       (as in ``full_model_forward``).
-    draws, step, glimpse: as in ``full_model_train_forward``.
+    draws, step, glimpse, train: as in ``full_model_train_forward``.
   Returns:
     (loss, aux): aux holds the scalar terms and metrics as 0-d tensors,
     'outputs', 'new_bn' (the new BN statistics), 'match' and 'match_box'.
@@ -601,7 +631,7 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel'):
   cfg = model.cfg
   outputs, new_bn = full_model_train_forward(
       model, batch['x'], batch['y_gt'], batch['s_gt'], draws, step, glimpse,
-      d_in=batch.get('d_in'), y_in=batch.get('y_in'))
+      d_in=batch.get('d_in'), y_in=batch.get('y_in'), train=train)
   y_out = outputs['y_out']
   y_gt = outputs['y_gt_trans']
   s_gt = outputs['s_gt']
@@ -720,10 +750,12 @@ def _frozen_nets(cfg: FullModelConfig):
   return frozenset(net for net, frozen in flags.items() if frozen)
 
 
-FAMILY = Family(model=FullModel, loss=full_model_loss,
-                draws=draw_train_randoms, batch_keys=BATCH_KEYS,
-                metric_keys=lambda cfg: METRIC_KEYS,
-                frozen_nets=_frozen_nets, optimizer=lambda cfg: 'adam')
+FAMILY = Family(
+    name='full', model=FullModel, loss=full_model_loss,
+    draws=draw_train_randoms, batch_keys=BATCH_KEYS,
+    metric_keys=lambda cfg: METRIC_KEYS, frozen_nets=_frozen_nets,
+    optimizer=lambda cfg: 'adam', batch_variables=BATCH_VARIABLES,
+    batch_map=BATCH_MAP, eval_metrics=EVAL_METRICS)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""One optimisation step of the full, box or fg model.
+"""One optimisation step of the full, box or fg model, and one eval step.
 
-Counterpart of ``rec_attend_tpu/parallel/train_step.py:28-130``
-(``make_train_step`` without a mesh): decode the batch, run the model's
+Counterpart of ``rec_attend_tpu/parallel/train_step.py:28-157``
+(``encode_batch``, ``make_train_step`` without a mesh and
+``make_eval_step``).  The train step: decode the batch, run the model's
 loss and its gradients, clip each gradient element to +-``clip_gradient``
 where the config has one (``optax.clip``: per element, not by norm; the fg
 config has none, and its gradients are not clipped), take the optimizer's
@@ -15,10 +16,16 @@ its first and second moments, and for momentum (``optimizer='momentum'``,
 ``optax.sgd(momentum=0.9)``) 'trace'.  The arithmetic is optax's:
 Adam's update is mu/(1 - b1^n) / (sqrt(nu/(1 - b2^n)) + eps); momentum's
 trace <- g + 0.9 trace, update = -lr(count) trace.
+
+The eval step is the model's loss in eval mode (no crop, BatchNorm on its
+EMA statistics, no knob; the box model still degrades the ground truth it
+paints into its canvas with its draws' noise) at step 0, and returns its
+metrics without the outputs or the matches.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from rec_attend_tpu_torch.models.family import family
@@ -26,6 +33,22 @@ from rec_attend_tpu_torch.models.full_model import learn_rate
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-7
 MOMENTUM = 0.9
+# Batch arrays sent to the device as uint8 (images and binary or PNG-born
+# maps round-trip exactly; JAX train_step.py:28).
+QUANTIZED_KEYS = ('x', 'y_gt', 'c_gt', 'd_gt', 'y_in', 'd_in')
+
+
+def encode_batch(batch):
+  """The float arrays in [0, 1] of a host batch under ``QUANTIZED_KEYS``
+  as uint8, round(v * 255); other entries as they are."""
+  out = {}
+  for k, v in batch.items():
+    if k in QUANTIZED_KEYS and np.issubdtype(np.asarray(v).dtype,
+                                             np.floating):
+      out[k] = np.round(np.asarray(v) * 255.0).astype(np.uint8)
+    else:
+      out[k] = v
+  return out
 
 
 def decode_batch(batch):
@@ -135,3 +158,16 @@ def train_step(model, opt_state, batch, draws, step, glimpse='kernel'):
   opt_state = apply_updates(model, opt_state, grads, aux['new_bn'])
   return opt_state, {k: aux[k].detach()
                      for k in family(model.cfg).metric_keys(model.cfg)}
+
+
+@torch.no_grad()
+def eval_step(model, batch, draws, glimpse='kernel'):
+  """The loss of ``batch`` in eval mode: returns {metric: 0-d tensor},
+  the metrics of a train step (``metric_keys``) with the learning rate at
+  step 0.  batch and glimpse as in ``train_step``; draws: the model's
+  draws (only the box model reads them, its canvas noise; the others take
+  None)."""
+  fam = family(model.cfg)
+  _, aux = fam.loss(model, decode_batch(batch), draws, 0, glimpse,
+                    train=False)
+  return {k: aux[k] for k in fam.metric_keys(model.cfg)}

@@ -98,22 +98,30 @@ def test_latest_checkpoint_needs_one(tmp_path):
 
 
 def test_cvppp_preset_matches_the_flagship_folder():
-  """Every field the port reads agrees between the port's preset, the
+  """Every field the forward reads agrees between the port's preset, the
   JAX preset and the flagship folder's model_opt.yaml (a field the yaml
-  predates, segm_weight_alpha, is read there as its default)."""
+  predates, segm_weight_alpha, is read there as its default); the port's
+  config has every field of JAX's but the JAX compiler's switches, and the
+  folder's yaml loads as the preset with the box model its run started
+  from."""
   with open(os.path.join(FLAGSHIP, 'model_opt.yaml')) as f:
     opt = yaml.safe_load(f)
   ours = C.cvppp_full_config().to_dict()
   jax_preset = JC.cvppp_full_config().to_dict()
   defaults = C.FullModelConfig().to_dict()
-  assert set(ours) == set(C.FORWARD_FIELDS)
+  jax_only = {'mlp_dropout', 'parallel_decode', 'remat_policy',
+              'scan_unroll', 'use_pallas'}
+  assert ours == {k: v for k, v in jax_preset.items() if k not in jax_only}
+  assert set(jax_preset) - set(ours) == jax_only
+  assert set(C.FORWARD_FIELDS) <= set(ours)
   assert set(C.FORWARD_FIELDS) - set(opt) == {'segm_weight_alpha'}
   for name in C.FORWARD_FIELDS:
     assert ours[name] == opt.get(name, defaults[name]), name
     assert ours[name] == jax_preset[name], name
   loaded = C.FullModelConfig.from_yaml(os.path.join(FLAGSHIP,
                                                     'model_opt.yaml'))
-  assert loaded == C.cvppp_full_config()
+  assert loaded == C.cvppp_full_config().replace(
+      pretrain_ctrl_net=opt['pretrain_ctrl_net'])
 
 
 def test_config_derived_shapes_match_jax():

@@ -6,10 +6,12 @@ itself.  Every module of the package is covered, the training path's
 model, the orientation maps) and the eval path's (postprocess, analyzers,
 eval experiment, eval_split) included, the Cityscapes eval's (the label
 table, the full pack, the model-free eval, the instance AP and the pixel
-eval) too, and a train step of each model (fg with momentum, box, full
-started from the box), an eval_split, the fg -> pack -> full chain and the
-Cityscapes-shaped chain to its AP and pixel eval run with those modules
-blocked."""
+eval) too, the training run's (the experiment, the checkpoint writer and
+its YAML, the batch iterators, the command lines, the pipeline), and a
+train step of each model (fg with momentum, box, full started from the
+box), an eval_split, the fg -> pack -> full chain, the Cityscapes-shaped
+chain to its AP and pixel eval, and the train command line and the synth
+pipeline run with those modules blocked."""
 
 import ast
 import os
@@ -134,6 +136,91 @@ def test_port_imports_with_those_modules_missing(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+def test_training_run_with_those_modules_missing(tmp_path):
+  """The training run as users launch it, with JAX, cv2, h5py, YAML and the
+  rest blocked: the train command line writes its checkpoints and option
+  snapshots and goes on from them, and the synth pipeline trains the box
+  model, the full model from the box's checkpoint, and evaluates it."""
+  script = textwrap.dedent(f"""
+      import os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import torch
+      torch.set_num_threads(1)
+      from rec_attend_tpu_torch.cli import train
+      from rec_attend_tpu_torch.pipelines import run_pipeline
+      root = {str(tmp_path)!r}
+      argv = ['--dataset', 'synth', '--num_steps', '2', '--batch_size', '2',
+              '--results', os.path.join(root, 'r'), '--logs',
+              os.path.join(root, 'l'), '--model_id', 'box_cli',
+              '--save_ckpt', '--steps_per_valid', '1', '--num_batch_valid',
+              '1', '--ctrl_cnn_depth', '4,8', '--ctrl_cnn_pool', '4,4',
+              '--ctrl_cnn_filter_size', '3,3', '--ctrl_rnn_hid_dim', '16',
+              '--filter_height', '8', '--filter_width', '8',
+              '--num_ctrl_rnn_iter', '2']
+      exp = train.box_main(argv, device='cpu')
+      assert exp.step == 2
+      exp = train.box_main(argv + ['--restore', exp.folder, '--num_steps',
+                                   '3'], device='cpu')
+      assert exp.step == 3
+      full_id = run_pipeline.main(
+          ['--dataset', 'synth', '--scale', 'tiny', '--num_steps', '1',
+           '--results', os.path.join(root, 'r'), '--logs',
+           os.path.join(root, 'l')], device='cpu')
+      assert os.path.exists(os.path.join(root, 'r', full_id, 'output_valid',
+                                         'sbd.csv'))
+      # The trained folder's model_opt.yaml read without PyYAML.
+      from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+      from rec_attend_tpu_torch.serving import InstanceSegmenter
+      folder = os.path.join(root, 'r', full_id)
+      assert EvalExperiment(folder, device='cpu').cfg.timespan == 6
+      seg = InstanceSegmenter.from_checkpoint(folder, device='cpu')
+      assert seg.predict(torch.rand(1, 64, 64, 3).numpy())['masks'].shape == (
+          1, 6, 64, 64)
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_training_entry_points_default_to_cuda(monkeypatch, tmp_path):
+  """Without a card, the training run, its command lines and the pipeline
+  raise unless asked for the CPU."""
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.cli import train
+  from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  out = ['--results', str(tmp_path / 'r'), '--logs', str(tmp_path / 'l')]
+  with pytest.raises(RuntimeError, match='CUDA'):
+    TrainingExperiment('fg', C.tiny_fg_config(), C.TrainConfig(
+        results=out[1], logs=out[3]), C.DataConfig())
+  for main in (train.full_main, train.box_main, train.fg_main):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      main(out)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    eval_cli.full_main(['--results', os.path.join(REPO, 'results'),
+                        '--model_id', 'full_model_synth-20260816104712',
+                        '--dataset', 'synth'])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    run_pipeline.main(['--dataset', 'synth'] + out)
+  # Nothing was written before the refusal.
+  assert not os.path.exists(out[1]) and not os.path.exists(out[3])
 
 
 def test_chain_runs_with_those_modules_missing(tmp_path):
