@@ -77,7 +77,8 @@ Phases, one JSON line each on stdout:
   chain_train   the synth3 chain's training at b8 on 16 synthetic 128x448
                 images, each stage through its Trainer: the fg model
                 restored from its checkpoint with its momentum trace, 5
-                steps; pack_fg of the trained fg model; the box model
+                steps (cuDNN deterministic, so every run packs the same
+                bytes); pack_fg of the trained fg model; the box model
                 restored with its Adam state on the packed channels, 5
                 steps; the KITTI full model started from the trained box's
                 controller (load_pretrained), 2 steps, then restored from
@@ -156,8 +157,44 @@ Phases, one JSON line each on stdout:
                 eval step of the full model, which must be 0).
                 Reported: step ms at the log cadence, the seconds of each
                 valid pass, checkpoint write and the restore, peak memory;
-                it runs last, so that the phases before it run as they did
-                without it.
+                it runs after the phases above, so that they run as they
+                did without it;
+  synth3_pipeline
+                the synth3 pipeline (run_pipeline --dataset synth3: fg ->
+                pack -> box -> full -> eval) through run_pipeline.main at
+                its paper widths (128x448, T=20, up to 12 instances, b8,
+                the KITTI presets), its scale cut (synth3_stages patched):
+                32 train and 8 valid examples, 6 + 6 + 6 steps, checkpoints
+                every 2, valid and trainval every 3 with one batch, each
+                split on the card; --stages fg,pack in this process,
+                --stages box,full,eval in a child process (`chip_smoke.py
+                synth3-child`, which counts its own launches; the packed
+                maps cross in the pack files), then a --resume relaunch
+                that skips fg, pack and box and takes 2 more full steps;
+                all under a temporary folder in the checkout, removed
+                after.  Gates, each with a
+                control that must fail: the fg stage's split on the card
+                against the host batch, bit for bit (control: the next
+                examples); the child's box stage's d_in and y_in on the
+                card against the pack file, bit for bit (control: the pack
+                rolled by one example); launches per step of the stages'
+                own runs, fg none, box 2T pastes, full 4T extracts on the
+                strip route (2T as d_p) and 4T pastes (control: a plain
+                step's, 0; of fg: a full step's);
+                fg_metrics_valid.json against the same checkpoint's metrics
+                on the CPU within 1e-3 (control: the CPU's of the test
+                split); the relaunch's stages (full only), its start step
+                (6) and end step (control: the prefix with the valid pack
+                file gone, and a run without --resume); the eval command
+                line at the six thresholds against eval_split with the
+                plain glimpses, per example SBD within 1e-3 and counts
+                equal, cuDNN deterministic, on the committed synth3 full
+                checkpoint and a pack file of the valid split's ground
+                truth maps (the six-step model finds no instance; control:
+                the pack rolled by one example).  Reported: step ms at the
+                log cadence per stage, the pack's seconds and bytes, the
+                child process's seconds and peak resident memory, each
+                stage run's seconds, peak device memory and launches.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -166,8 +203,10 @@ card's name and power limit, and as the last line
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -373,6 +412,22 @@ PIPELINE_CLI_EXAMPLES, PIPELINE_CLI_SBD_LIMIT = 8, 1e-3
 # parameters, Adam state, batch and draws, cuDNN deterministic.
 RESTORED_STEP_LIMITS = {'loss_rel_diff': 1e-6, 'grad_rel_l2_max': 1e-5,
                         'update_rel_l2_max': 1e-5}
+# The synth3 pipeline (rec_attend_tpu_torch/pipelines/run_pipeline.py
+# --dataset synth3) at its paper widths, 128x448, T=20, up to 12 instances,
+# b8, its scale cut: 32 train examples (8 valid), 6 fg, 6 box and 6 full
+# steps, checkpoints and passes on the synth pipeline's cadence, each split
+# on the device; the --resume relaunch takes 2 more full steps.  The eval
+# stage's thresholds are the JAX pipeline's (run_pipeline.py:366-371).
+SYNTH3_EXAMPLES, SYNTH3_STEPS, SYNTH3_MORE_STEPS = 32, 6, 2
+SYNTH3_THRESHOLDS = '0.2,0.3,0.4,0.5,0.6,0.7'
+SYNTH3_CHILD_TIMEOUT = 600
+# fg_metrics_valid.json on the card against the CPU's for the same
+# checkpoint: the file holds 4 decimals, and the fg maps card against CPU
+# agree to FG_MAPS_ATOL.
+FG_METRICS = ('iou_soft', 'iou_hard', 'orientation_acc')
+SYNTH3_METRICS_LIMIT = 1e-3
+# The eval command line's gate runs one batch of this many valid images.
+SYNTH3_CLI_EXAMPLES = 8
 
 
 def emit(phase, **fields):
@@ -1657,8 +1712,14 @@ def chain_train_phase(torch, gk, dev, cfgs=None, dirs=None,
       learn_rate(fg_cfg, fg.opt_state['count']), fg_limits)
   failures += [f'fg {x}' for x in f]
   reset_peak(torch, dev)
-  fg_steps = run_steps(torch, gk, fg, chain_batches(
-      torch, ds.get_batch, FG_KEYS, batch, n_batches), n_steps[0])
+  # cuDNN's deterministic algorithms, so that the trained fg model, its
+  # pack and with it the box gate's batch are the same bits in every run.
+  # With the default ones every run packed other bytes, and on some of
+  # them float32 itself lies past the box gate's limit from the float64
+  # step (`step_noise.py --box-repeats`).
+  with deterministic_cudnn(torch):
+    fg_steps = run_steps(torch, gk, fg, chain_batches(
+        torch, ds.get_batch, FG_KEYS, batch, n_batches), n_steps[0])
   if dev.type == 'cuda':
     want_launches(fg_steps, {'glimpse_extract': 0, 'glimpse_paste': 0},
                   {'glimpse_extract': 0, 'glimpse_paste': 0}, {}, 'fg')
@@ -1673,7 +1734,10 @@ def chain_train_phase(torch, gk, dev, cfgs=None, dirs=None,
   t0 = time.time()
   with deterministic_cudnn(torch):
     packed = pack_fg(fg_exp, ds, batch)
-  out['pack'] = {'seconds': time.time() - t0, 'examples': examples}
+  out['pack'] = {'seconds': time.time() - t0, 'examples': examples,
+                 'sha256': hashlib.sha256(packed.d_out.tobytes()
+                                          + packed.y_out.tobytes()
+                                          ).hexdigest()[:16]}
   del fg, fg_exp
 
   # ---- box --------------------------------------------------------------
@@ -1854,11 +1918,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   cuda = dev.type == 'cuda'
 
   def gate(name, got, control):
-    """A gate's failures, and its control's, which must fail."""
-    failures.extend(f'{name}: {x}' for x in got)
-    if not control:
-      failures.append(f'{name}: its control passed')
-    return {'failures': got, 'control_failures': control[:3]}
+    return gate_with_control(failures, name, got, control)
 
   with tempfile.TemporaryDirectory(prefix='.chip_smoke_pipeline-',
                                    dir=REPO) as root:
@@ -1943,19 +2003,11 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     _, box_ckpt = box.saver.get_latest_ckpt()
     bs = train_cfg.batch_size
     n_train = box.train_ds.get_dataset_size()
-    get_train = box.make_batch_fn(box.train_ds, box_cfg.timespan)
-
-    def gather_diff(idx, host_idx):
-      got = {k: v.index_select(0, torch.from_numpy(idx).to(dev)).cpu()
-             for k, v in box.device_train_data.items()}
-      want = ts.encode_batch(get_train(host_idx))
-      return [k for k in want if not (
-          got[k].dtype == torch.from_numpy(want[k]).dtype
-          and torch.equal(got[k], torch.from_numpy(want[k])))]
     idx = np.random.RandomState(0).permutation(n_train)[:bs]
     out['box']['gather_gate'] = gate(
         'box device split gather against the host batch',
-        gather_diff(idx, idx), gather_diff(idx, (idx + 1) % n_train))
+        split_gather_diff(torch, ts, box, idx, idx),
+        split_gather_diff(torch, ts, box, idx, (idx + 1) % n_train))
 
     # ---- full: from the box's last checkpoint, host-fed -----------------
     full_cfg = full_base.replace(pretrain_ctrl_net=box_ckpt)
@@ -2175,6 +2227,531 @@ def pipeline_phase(torch, gk, dev, scale='paper',
                       f'{restored["losses_after"]}')
     out['restored'] = restored
     out['folders'] = {'box': box.model_id, 'full': full.model_id}
+  return out, failures
+
+
+def split_gather_diff(torch, ts, exp, idx, host_idx):
+  """The batch keys whose index gather ``idx`` from the experiment's split
+  on the device differs from ``encode_batch`` of the host's batch of
+  ``host_idx``, bit for bit."""
+  got = {k: v.index_select(0, torch.from_numpy(idx).to(exp.device)).cpu()
+         for k, v in exp.device_train_data.items()}
+  want = ts.encode_batch(exp.make_batch_fn(
+      exp.train_ds, getattr(exp.model_cfg, 'timespan', None))(host_idx))
+  return [k for k in want if not (
+      got[k].dtype == torch.from_numpy(want[k]).dtype
+      and torch.equal(got[k], torch.from_numpy(want[k])))]
+
+
+def gate_with_control(failures, name, got, control):
+  """A gate's failures, and its control's, which must fail: both are
+  added to ``failures`` (the control's as one line, if it passed)."""
+  failures.extend(f'{name}: {x}' for x in got)
+  if not control:
+    failures.append(f'{name}: its control passed')
+  return {'failures': got, 'control_failures': control[:3]}
+
+
+@contextlib.contextmanager
+def patched(owner, name, wrap):
+  """``owner.name`` replaced by ``wrap(owner.name)`` inside the block."""
+  saved = getattr(owner, name)
+  setattr(owner, name, wrap(saved))
+  try:
+    yield
+  finally:
+    setattr(owner, name, saved)
+
+
+def counts_delta(before, after):
+  """The launches between two ``launches_now`` readings (extract routes
+  with none left out)."""
+  out = {kind: {k: v - before[kind].get(k, 0) for k, v in after[kind].items()}
+         for kind in ('launches', 'backward_launches')}
+  routes = after['extract_route_launches']
+  out['extract_route_launches'] = {
+      k: v - before['extract_route_launches'].get(k, 0)
+      for k, v in routes.items()
+      if v != before['extract_route_launches'].get(k, 0)}
+  return out
+
+
+@contextlib.contextmanager
+def recorded_runs(torch, gk, dev, before=None):
+  """Inside the block, each ``TrainingExperiment.run`` is recorded: the
+  experiment, its start step, its seconds, its peak memory, its kernel
+  launches (valid and trainval passes included) and, per train step, the
+  kernel launches (``counts_delta`` around the step).  ``before(exp)``, if
+  given, is called as each run starts.  Yields the list of records."""
+  from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  runs = []
+
+  def record_run(run):
+    def call(exp):
+      rec = {'exp': exp, 'spec': exp.spec.name, 'start_step': exp.step,
+             'step_launches': []}
+      runs.append(rec)
+      if before is not None:
+        before(exp)
+      reset_peak(torch, dev)
+      start = launches_now(gk)
+      t0 = time.time()
+      out = run(exp)
+      rec['run_seconds'] = time.time() - t0
+      rec['max_memory_allocated_bytes'] = peak_memory(torch, dev)
+      rec['launches_at_end'] = launches_now(gk)
+      rec['run_launches'] = counts_delta(start, rec['launches_at_end'])
+      return out
+    return call
+
+  def record_step(step):
+    def call(trainer, batch):
+      before = launches_now(gk)
+      out = step(trainer, batch)
+      if runs:
+        runs[-1]['step_launches'].append(counts_delta(before,
+                                                      launches_now(gk)))
+      return out
+    return call
+  with patched(TrainingExperiment, 'run', record_run), \
+      patched(Trainer, 'train_step', record_step):
+    yield runs
+
+
+def log_rows(logs_folder, name):
+  """{step: first value} of a run's log CSV, the rows that have one."""
+  with open(os.path.join(logs_folder, f'{name}.csv')) as f:
+    rows = [r.split(',') for r in f.read().splitlines()[1:]]
+  return {int(r[0]): float(r[2]) for r in rows if r[2]}
+
+
+def run_child(cmd, log_path, timeout):
+  """Run ``cmd`` from the checkout (the port on its path), its output to
+  ``log_path``: (exit code, seconds, its peak resident memory in bytes).
+  Killed at ``timeout`` seconds."""
+  env = dict(os.environ)
+  env['PYTHONPATH'] = os.pathsep.join(
+      [REPO] + ([env['PYTHONPATH']] if env.get('PYTHONPATH') else []))
+  t0 = time.time()
+  with open(log_path, 'w') as log:
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                            stderr=subprocess.STDOUT)
+  while True:
+    pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+    if pid:
+      break
+    if time.time() - t0 > timeout:
+      proc.kill()
+      _, status, usage = os.wait4(proc.pid, 0)
+      break
+    time.sleep(0.2)
+  proc.returncode = os.waitstatus_to_exitcode(status)
+  return proc.returncode, time.time() - t0, usage.ru_maxrss * 1024
+
+
+def synth3_cut(examples):
+  """A wrapper of ``run_pipeline.synth3_stages`` for ``patched``: the
+  stages' configs with the phase's scale cut, ``examples`` train examples,
+  checkpoints, log rows and one-batch valid and trainval passes on the
+  synth pipeline's cadence, and each split on the device."""
+  def wrap(stages):
+    def call(*args, **kw):
+      data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps = stages(
+          *args, **kw)
+      return (data_cfg.replace(num_examples=examples), fg_cfg, box_cfg,
+              full_base, train_cfg.replace(
+                  steps_per_ckpt=PIPELINE_CKPT_STEPS,
+                  steps_per_log=PIPELINE_LOG_STEPS,
+                  steps_per_valid=PIPELINE_EVAL_STEPS,
+                  steps_per_trainval=PIPELINE_EVAL_STEPS, num_batch_valid=1,
+                  device_data=True), steps)
+    return call
+  return wrap
+
+
+def synth3_child(spec_path):
+  """The second process of the ``synth3_pipeline`` phase, ``chip_smoke.py
+  synth3-child SPEC``: ``run_pipeline.main`` on the spec's 'argv' and
+  'device', its scale cut (``synth3_cut`` of 'examples'), inside
+  ``recorded_runs``.  Writes to the spec's 'out' the stages' ids, each
+  run's record and the launches of the stages after the runs (eval), and
+  to its 'split' the box stage's d_in and y_in as they lie on the device."""
+  import numpy as np
+  import torch
+
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+  with open(spec_path) as f:
+    spec = json.load(f)
+  dev = torch.device(spec['device'])
+  # As in the script's process.
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  if dev.type == 'cpu':
+    torch.set_num_threads(1)
+  split = {}
+
+  def keep_split(exp):
+    if exp.spec.name == 'box':
+      split.update({k: exp.device_train_data[k].cpu().numpy()
+                    for k in ('d_in', 'y_in')})
+  gk.reset_launch_counts()
+  t0 = time.time()
+  with recorded_runs(torch, gk, dev, keep_split) as runs, patched(
+      run_pipeline, 'synth3_stages', synth3_cut(spec['examples'])):
+    ids = run_pipeline.main(spec['argv'], device=dev)
+  seconds = time.time() - t0
+  np.savez(spec['split'], **split)
+  records = [{'model_id': r['exp'].model_id,
+              **{k: v for k, v in r.items() if k != 'exp'}} for r in runs]
+  with open(spec['out'], 'w') as f:
+    json.dump({'ids': ids, 'seconds': seconds, 'runs': records,
+               'after_runs': counts_delta(runs[-1]['launches_at_end'],
+                                          launches_now(gk))}, f)
+
+
+def synth3_pipeline_phase(torch, gk, dev, scale='paper',
+                          examples=SYNTH3_EXAMPLES, steps=SYNTH3_STEPS,
+                          cli_examples=SYNTH3_CLI_EXAMPLES):
+  """The port's synth3 pipeline (``run_pipeline.run_synth3``) at ``scale``
+  on ``dev`` through ``run_pipeline.main``, its scale cut (``synth3_cut``
+  of ``examples``, ``steps`` steps a stage), each split on the device:
+  ``--stages fg,pack`` in this process, ``--stages box,full,eval`` in a
+  ``chip_smoke.py synth3-child`` process (the pack crosses in its files;
+  the child counts its own launches), then a ``--resume`` relaunch that
+  goes on with the full stage.  Results, logs and pack files go to a
+  temporary folder in the checkout, removed after.  Returns (results, the
+  gates' failures); each gate's control must fail, else it is a failure
+  too."""
+  import numpy as np
+
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.cli.pack import quantise
+  from rec_attend_tpu_torch.config import DataConfig
+  from rec_attend_tpu_torch.config import FullModelConfig
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.data.provider import PackedDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.saver import list_checkpoints
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.pipelines import eval_fg_metrics
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+  from rec_attend_tpu_torch.utils import logger
+
+  out, failures = {}, []
+  cuda = dev.type == 'cuda'
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  def check(name, problems):
+    failures.extend(f'{name}: {x}' for x in problems)
+
+  def kept_diff(listing, want):
+    return [] if listing == want else [f'{listing}, want {want}']
+
+  start = time.time()
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_synth3-',
+                                   dir=REPO) as root:
+    results, logs, data = (os.path.join(root, d)
+                           for d in ('results', 'logs', 'data'))
+    argv = ['--dataset', 'synth3', '--scale', scale, '--results', results,
+            '--logs', logs, '--dataset_folder', data, '--model_id', 'chip',
+            '--data_examples', str(examples), '--fg_steps', str(steps),
+            '--box_steps', str(steps), '--full_steps', str(steps)]
+    cut = synth3_cut(examples)
+    data_cfg, _, _, full_base, train_cfg, _ = cut(run_pipeline.synth3_stages)(
+        scale, results, logs, data, data_examples=examples)
+    T, bs = full_base.timespan, train_cfg.batch_size
+    ckpts = list(range(PIPELINE_CKPT_STEPS, steps + 1,
+                       PIPELINE_CKPT_STEPS))[-2:]
+
+    def stage_summary(model_id, rec):
+      """Step ms and losses at the log cadence, the kept checkpoints, and
+      the run's record."""
+      folder = os.path.join(logs, model_id)
+      summary = {'step_ms_at_log': log_rows(folder, 'step_time'),
+                 'train_loss_at_log': log_rows(folder, 'loss')}
+      losses = list(summary['train_loss_at_log'].values())
+      if not losses or not all(math.isfinite(v) for v in losses):
+        failures.append(f'{model_id}: loss {losses}')
+      summary['checkpoints'] = [s for s, _ in list_checkpoints(
+          os.path.join(results, model_id))]
+      summary.update({k: rec[k] for k in (
+          'start_step', 'run_seconds', 'max_memory_allocated_bytes',
+          'run_launches')})
+      return summary
+
+    # ---- fg, pack: this process -----------------------------------------
+    gk.reset_launch_counts()
+    pack_seconds = []
+    with recorded_runs(torch, gk, dev) as runs, patched(
+        run_pipeline, 'synth3_stages', cut), patched(
+            run_pipeline.pack_cli, 'fg_main',
+            lambda fn: timed_calls(torch, dev, fn, pack_seconds)):
+      t0 = time.time()
+      ids = run_pipeline.main(argv + ['--stages', 'fg,pack'], device=dev)
+      first_seconds = time.time() - t0
+    (fg_run,) = runs
+    fg = fg_run['exp']
+    out['fg'] = {**stage_summary(ids['fg'], fg_run), **launches_now(gk),
+                 'device_split_bytes': sum(
+                     v.numel() * v.element_size()
+                     for v in fg.device_train_data.values())}
+    check('fg checkpoints', kept_diff(out['fg']['checkpoints'], ckpts))
+    out['pack'] = {'seconds': pack_seconds[0], 'bytes': {
+        s: os.path.getsize(provider.pack_path(data_cfg, s))
+        for s in ('train', 'valid')}}
+    out['first_process_seconds'] = first_seconds
+    n_train = fg.train_ds.get_dataset_size()
+    idx = np.random.RandomState(0).permutation(n_train)[:bs]
+    out['fg']['split_gate'] = gate(
+        'fg device split against the host batch',
+        split_gather_diff(torch, ts, fg, idx, idx),
+        split_gather_diff(torch, ts, fg, idx, (idx + 1) % n_train))
+
+    # ---- box, full, eval: a child process -------------------------------
+    spec = {'argv': argv + ['--stages', 'box,full,eval'],
+            'device': dev.type, 'examples': examples,
+            'out': os.path.join(root, 'child.json'),
+            'split': os.path.join(root, 'child_box_split.npz')}
+    spec_path = os.path.join(root, 'child_spec.json')
+    with open(spec_path, 'w') as f:
+      json.dump(spec, f)
+    cmd = [sys.executable, os.path.abspath(__file__), 'synth3-child',
+           spec_path]
+    child_log = os.path.join(root, 'child.log')
+    rc, seconds, rss = run_child(cmd, child_log, SYNTH3_CHILD_TIMEOUT)
+    out['child'] = {'command': ' '.join(cmd[1:]).replace(root, '<tmp>'),
+                    'exit_code': rc, 'seconds': seconds,
+                    'peak_host_rss_bytes': rss}
+    if rc != 0:
+      with open(child_log) as f:
+        tail = f.read()[-3000:]
+      raise AssertionError(f'the box,full,eval process exited {rc}: {tail}')
+    with open(spec['out']) as f:
+      child = json.load(f)
+    child_runs = {r['spec']: r for r in child['runs']}
+    if sorted(child_runs) != ['box', 'full'] or any(
+        child['ids'][k] != ids[k] for k in ('fg', 'box', 'full')):
+      failures.append(f'the child ran {sorted(child_runs)} of {child["ids"]}')
+    out['child'].update(pipeline_seconds=child['seconds'],
+                        eval_launches=child['after_runs'])
+    for stage in ('box', 'full'):
+      out[stage] = stage_summary(ids[stage], child_runs[stage])
+      check(f'{stage} checkpoints', kept_diff(out[stage]['checkpoints'],
+                                               ckpts))
+    full_folder = os.path.join(results, ids['full'])
+    n_valid = max(examples // 4, 8)
+    for tt in SYNTH3_THRESHOLDS.split(','):
+      rows = csv_example_rows(os.path.join(
+          full_folder, 'output_valid', f'sbd_{int(float(tt) * 100):02d}.csv'))
+      if len(rows) != n_valid:
+        failures.append(f'eval sbd at {tt}: {len(rows)} rows')
+    out['eval'] = {'sbd': {tt: read_scores(
+        os.path.join(full_folder, 'output_valid'),
+        f'sbd_{int(float(tt) * 100):02d}') for tt in
+        SYNTH3_THRESHOLDS.split(',')}}
+
+    # ---- box: its split on the device against the pack file -------------
+    with np.load(provider.pack_path(data_cfg, 'train')) as f:
+      packed = {'d_in': f['d_out'], 'y_in': f['y_out']}
+    with np.load(spec['split']) as f:
+      resident = {k: f[k] for k in f.files}
+
+    def pack_diff(want):
+      return [k for k in packed if not (
+          k in resident and resident[k].dtype == want[k].dtype
+          and np.array_equal(resident[k], want[k]))]
+    out['box']['pack_gate'] = gate(
+        'box device split d_in, y_in against the pack file',
+        pack_diff(packed),
+        pack_diff({k: np.roll(v, 1, axis=0) for k, v in packed.items()}))
+
+    # ---- fg metrics: the card's against the CPU's -----------------------
+    fg_folder = os.path.join(results, ids['fg'])
+    with open(os.path.join(fg_folder, 'fg_metrics_valid.json')) as f:
+      card = json.load(f)
+    metrics_argv = ['--model_id', ids['fg'], '--results', results,
+                    '--batch_size', str(bs), '--dataset_folder', data,
+                    '--data_examples', str(examples)]
+    t0 = time.time()
+    cpu = eval_fg_metrics.main(metrics_argv, device='cpu')
+    cpu_seconds = time.time() - t0
+    other = eval_fg_metrics.main(metrics_argv + ['--split', 'test'],
+                                 device='cpu')
+
+    def metrics_diff(want):
+      return [f'{k} {card[k]} against {want[k]}' for k in FG_METRICS
+              if not abs(card[k] - want[k]) <= SYNTH3_METRICS_LIMIT]
+    out['fg_metrics'] = {'card': card, 'cpu': cpu, 'cpu_test_split': other,
+                         'cpu_seconds': cpu_seconds}
+    out['fg_metrics']['gate'] = gate(
+        'fg_metrics_valid.json, card against CPU', metrics_diff(cpu),
+        metrics_diff(other))
+
+    # ---- full: a --resume relaunch goes on from its checkpoint ----------
+    log = logger.get()
+    with recorded_runs(torch, gk, dev) as runs, patched(
+        run_pipeline, 'synth3_stages', cut):
+      gk.reset_launch_counts()
+      t0 = time.time()
+      again = run_pipeline.main(
+          argv + ['--stages', 'fg,pack,box,full', '--resume',
+                  '--full_steps', str(steps + SYNTH3_MORE_STEPS)],
+          device=dev)
+      resumed_seconds = time.time() - t0
+    (full_run,) = runs
+    full = full_run['exp']
+    out['resumed'] = {'stages': again['stages'], 'seconds': resumed_seconds,
+                      **stage_summary(ids['full'], full_run),
+                      **launches_now(gk)}
+
+    def resumed_diff(stages, start, end):
+      return (([] if stages == ['full'] else [f'stages {stages}'])
+              + ([] if start == steps else [f'started at step {start}'])
+              + ([] if end == steps + SYNTH3_MORE_STEPS else
+                 [f'ended at step {end}']))
+    # Control: the prefix with the valid split's pack file gone, and the
+    # step a run without --resume starts from.
+    valid_pack = provider.pack_path(data_cfg, 'valid')
+    os.rename(valid_pack, valid_pack + '.aside')
+    kept = run_pipeline._skip_completed_prefix(
+        argparse.Namespace(resume=True, results=results),
+        {'fg', 'pack', 'box', 'full'}, ids['full'], data_cfg, log)
+    os.rename(valid_pack + '.aside', valid_pack)
+    fresh = run_pipeline._restore_folder(
+        argparse.Namespace(resume=False, results=results), ids['full'])
+    out['resumed']['gate'] = gate(
+        'the --resume relaunch', resumed_diff(
+            again['stages'], full_run['start_step'], full.step),
+        resumed_diff([s for s in run_pipeline.SYNTH3_STAGES if s in kept],
+                     0 if fresh is None else steps, full.step))
+
+    # ---- launches per step ----------------------------------------------
+    valid_batch = full._device_batch(full.make_batch_fn(
+        full.valid_ds, T)(np.arange(bs)))
+    draws = full.trainer.family.draws(
+        full.model_cfg, bs, torch.Generator(device=dev).manual_seed(1))
+    before = launches_now(gk)
+    one_step(torch, ts, matching, full.trainer.model, full.trainer.opt_state,
+             valid_batch, draws, full.step, 'plain')
+    plain_step = counts_delta(before, launches_now(gk))
+    out['plain_step_launches'] = plain_step
+    none = {'glimpse_extract': 0, 'glimpse_paste': 0}
+    want = {
+        'fg': {'launches': none, 'backward_launches': none,
+               'extract_route_launches': {}},
+        'box': {'launches': dict(none, glimpse_paste=2 * T),
+                'backward_launches': none, 'extract_route_launches': {}},
+        'full': {'launches': {'glimpse_extract': 4 * T,
+                              'glimpse_paste': 4 * T},
+                 'backward_launches': dict(none, glimpse_extract=2 * T),
+                 'extract_route_launches': {'extract_strip_kernel': 4 * T}}}
+
+    def steps_diff(stage, per_step):
+      return [f'{stage} step {i}: {s}' for i, s in enumerate(per_step)
+              if s != want[stage]] or ([] if per_step else ['no step'])
+    # Each stage's own run: fg here, box and full in the child, and the
+    # full stage's relaunch here.
+    recorded = {'fg': fg_run['step_launches'],
+                'box': child_runs['box']['step_launches'],
+                'full': (child_runs['full']['step_launches']
+                         + full_run['step_launches'])}
+    out['launches_per_step'] = recorded
+    if cuda:   # the plain glimpses of the CPU launch nothing
+      out['launch_gate'] = {
+          stage: gate(f'{stage} launches per step',
+                      steps_diff(stage, per_step),
+                      # Control: the plain step's launches (of the fg
+                      # stage: the full model's steps).
+                      steps_diff(stage, recorded['full'] if stage == 'fg'
+                                 else [plain_step]))
+          for stage, per_step in recorded.items()}
+
+    # ---- the eval command line against plain ----------------------------
+    # On a trained model: the committed synth3 full checkpoint (the
+    # pipeline's six-step model finds no instance: its SBD is 0 and its
+    # counts do not depend on its input), on a pack file that holds the
+    # ground truth's maps of the valid split at the model's size, at the
+    # pipeline's thresholds; the command line reads the pack file through
+    # the provider, eval_split with the plain glimpses the same split.
+    full_cfg = FullModelConfig.from_yaml(os.path.join(CHAIN_FULL_DIR,
+                                                      'model_opt.yaml'))
+    cli_data = DataConfig(
+        dataset='synth', folder=os.path.join(root, 'cli_data'),
+        height=full_cfg.inp_height, width=full_cfg.inp_width,
+        timespan=full_cfg.timespan, num_examples=SYNTH3_EXAMPLES,
+        max_objects=CHAIN_MAX_OBJECTS)
+    valid = provider.get('synth', cli_data, split='valid')
+    provider.write_pack(
+        provider.pack_path(cli_data, 'valid'), valid.img_ids,
+        quantise(torch.from_numpy(valid.d_gt)).numpy(),
+        quantise(torch.from_numpy(valid.c_gt)).numpy(),
+        provider.settings(cli_data, 'valid'))
+    name = os.path.basename(CHAIN_FULL_DIR)
+    cli_folder = os.path.join(root, 'committed', name)
+    os.makedirs(cli_folder)
+    for f in ('model_opt.yaml', os.path.basename(
+        list_checkpoints(CHAIN_FULL_DIR)[-1][1])):
+      os.symlink(os.path.join(CHAIN_FULL_DIR, f), os.path.join(cli_folder, f))
+    cli_data.save_yaml(os.path.join(cli_folder, 'data_opt.yaml'))
+    thresholds = [float(t) for t in SYNTH3_THRESHOLDS.split(',')]
+    cli_out = os.path.join(root, 'cli')
+    gk.reset_launch_counts()
+    t0 = time.time()
+    with deterministic_cudnn(torch):
+      eval_cli.full_main(
+          ['--model_id', name, '--results', os.path.dirname(cli_folder),
+           '--dataset', 'synth', '--split', 'valid', '--batch_size',
+           str(cli_examples), '--max_batches', '1', '--threshold_list',
+           SYNTH3_THRESHOLDS, '--output', cli_out], device=dev)
+    cli = {'seconds': time.time() - t0, **launches_now(gk)}
+    packed_valid = provider.get('synth', cli_data, split='valid')
+    if not isinstance(packed_valid, PackedDataset):
+      failures.append('the eval command line\'s pack file was not read')
+    plain_exp = EvalExperiment(cli_folder, device=dev, glimpse='plain')
+
+    def scores(folder):
+      return {(tt, name): read_scores(folder, f'{name}_{int(tt * 100):02d}')
+              for tt in thresholds for name in ('sbd', 'dic')}
+
+    def plain_scores(dataset, label):
+      folder = os.path.join(root, label)
+      with deterministic_cudnn(torch):
+        eval_cli.eval_split(plain_exp, dataset, folder, thresholds,
+                            eval_cli.DEFAULT_ANALYZERS,
+                            batch_size=cli_examples, max_batches=1)
+      return scores(folder)
+    got = scores(cli_out)
+
+    def cli_diff(want):
+      bad = []
+      for (tt, name), vals in want.items():
+        if sorted(got[tt, name]) != sorted(vals):
+          bad.append(f'{name} {tt} ids {sorted(got[tt, name])}')
+          continue
+        limit = PIPELINE_CLI_SBD_LIMIT if name == 'sbd' else 0
+        bad += [f'{name} {tt} {k}: {got[tt, name][k]} against {v}'
+                for k, v in vals.items()
+                if not abs(got[tt, name][k] - v) <= limit]
+      return bad
+    swapped = PackedDataset(packed_valid.dataset,
+                            np.roll(packed_valid.d_out, 1, axis=0),
+                            np.roll(packed_valid.y_out, 1, axis=0))
+    cli['gate'] = gate(
+        'the eval command line against plain eval_split',
+        cli_diff(plain_scores(packed_valid, 'plain')),
+        cli_diff(plain_scores(swapped, 'swapped')))
+    cli['sbd'] = {tt: got[tt, 'sbd'] for tt in thresholds}
+    sbd = [v for tt in thresholds for v in got[tt, 'sbd'].values()]
+    if len(got[thresholds[0], 'sbd']) != cli_examples or not max(sbd) > 0:
+      failures.append(f'the eval command line: {cli["sbd"]}')
+    out['eval']['command_line'] = cli
+    out['folders'] = ids
+  out['seconds'] = time.time() - start
   return out, failures
 
 
@@ -2607,6 +3184,14 @@ def main():
   if failures:
     raise AssertionError(f'pipeline gates: {failures}')
 
+  # The synth3 pipeline's training run as users launch it, in two
+  # processes: after the other phases, which run as they did without it.
+  synth3, failures = synth3_pipeline_phase(torch, gk, dev)
+  emit('synth3_pipeline', nvidia_smi=name_power, failures=failures,
+       **synth3)
+  if failures:
+    raise AssertionError(f'synth3_pipeline gates: {failures}')
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -2696,6 +3281,31 @@ def main():
                    BACKWARD_USES['glimpse_extract'] + ', synth pipeline '
                    '(full), ' + shape('glimpse_extract', pipeline_d1),
                    pipeline_launches('glimpse_extract', 'backward')))
+  # The synth3 pipeline at b8, 128x448: the box and full stages' runs and
+  # the eval stage, counted in the child process, and the full stage's
+  # --resume relaunch (each run's steps and valid and trainval passes).
+  def synth3_launches(name, backward):
+    by_path = {}
+    for label, counts in (('box', synth3['box']['run_launches']),
+                          ('full', synth3['full']['run_launches']),
+                          ('eval', synth3['child']['eval_launches']),
+                          ('full_resumed', synth3['resumed'])):
+      n = counts['backward_launches'][name]
+      if not backward:
+        n = counts['launches'][name] - n
+      if n:
+        by_path[f'synth3_pipeline_{label}'] = n
+    return by_path
+  for name in checks:
+    table.append(row(name, checks[name]['synth3_b8'], 'forward, synth3 '
+                     'pipeline, ' + shape(name, chain_train_dims[name]),
+                     synth3_launches(name, False)))
+  table.append(row('glimpse_extract',
+                   checks['glimpse_extract']['synth3_d1_b8'],
+                   BACKWARD_USES['glimpse_extract'] + ', synth3 pipeline '
+                   '(full), ' + shape('glimpse_extract',
+                                      chain_train_dims['synth3_d1_b8']),
+                   synth3_launches('glimpse_extract', True)))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
   # size at b32, the general route at the 48x64 glimpse, paste at that
@@ -2734,4 +3344,7 @@ def main():
 
 
 if __name__ == '__main__':
-  main()
+  if sys.argv[1:2] == ['synth3-child']:
+    synth3_child(sys.argv[2])
+  else:
+    main()

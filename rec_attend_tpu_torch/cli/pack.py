@@ -1,5 +1,5 @@
-"""Pack the fg model's predictions for the full model, and the full model's
-for the Cityscapes eval, in memory.
+"""Pack the fg model's predictions for the box and the full model, and the
+full model's for the Cityscapes eval.
 
 Counterpart of ``fg_main`` and ``full_main`` of
 ``rec_attend_tpu/cli/pack.py:26-83``.  The JAX
@@ -7,12 +7,18 @@ package writes each example's foreground and orientation maps into the
 dataset's H5 file as uint8 PNGs, ``(np.clip(a, 0, 1) * 255).astype('uint8')``
 (``data/dataset.py:262-274``, which truncates), and its dataset reads them
 back as ``uint8 / 255`` under 'y_out' and 'd_out' (``:235-245``), where the
-full model's experiment finds them.  Here the same bytes stay in memory:
-``pack_fg`` runs the fg model over a dataset and returns a view of it whose
-batches carry the maps that a JAX H5 pack would give back, bit for bit.
-``pack_full`` does the same with the full model's instance maps, packed as
-uint8 per slot, and its scores, kept as float32 (``data/dataset.py:
-264-298``): they come back as 'y_out_ins' and 's_out'.
+box and the full model's experiments find them.  ``pack_fg`` runs the fg
+model over a dataset and returns a ``data.provider.PackedDataset`` whose
+batches carry the maps that a JAX H5 pack would give back, bit for bit;
+``fg_main``, the command line, writes those bytes into each split's pack
+file (``data.provider.write_pack``), where ``provider.get`` finds them in
+any later process.  ``pack_full`` does the same in memory with the full
+model's instance maps, packed as uint8 per slot, and its scores, kept as
+float32 (``data/dataset.py:264-298``): they come back as 'y_out_ins' and
+'s_out'.
+
+    python -m rec_attend_tpu_torch.cli.pack --model_id <fg model id> \\
+        --dataset synth --split train,valid --batch_size 8
 
     fg = EvalExperiment('results/fg_model_synth3-20260818a', spec='fg')
     packed = pack_fg(fg, dataset, 32)
@@ -23,16 +29,21 @@ uint8 per slot, and its scores, kept as float32 (``data/dataset.py:
 
 from __future__ import annotations
 
+import argparse
+import os
+import sys
 import time
 
 import numpy as np
 import torch
 
+from rec_attend_tpu_torch.cli import args as A
+from rec_attend_tpu_torch.config import FGModelConfig
+from rec_attend_tpu_torch.data import provider
+from rec_attend_tpu_torch.data.provider import PackedDataset
 from rec_attend_tpu_torch.device import synchronize
-
-# uint8 -> float32 as the JAX dataset reads a packed PNG (a float32 division
-# by 255), as a table: the same values on the card and on the host.
-_DECODE = np.arange(256, dtype=np.float32) / 255
+from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+from rec_attend_tpu_torch.utils import logger
 
 
 def quantise(a):
@@ -40,37 +51,6 @@ def quantise(a):
   JAX pack writes them.  A float32 product and a truncation: the same bytes
   on the card as on the host."""
   return (torch.clamp(a.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
-
-
-class PackedDataset:
-  """A dataset with packed predictions: its ``get_batch`` adds to the
-  underlying dataset's batch the fg model's 'd_out' [b,H,W,8] and 'y_out'
-  [b,H,W,C] and, where the full model's are packed, 'y_out_ins' [b,T,H,W]
-  (float32, read from the uint8 maps as the JAX dataset does) and 's_out'
-  [b,T]."""
-
-  def __init__(self, dataset, d_out, y_out, y_out_ins=None, s_out=None):
-    self.dataset = dataset
-    self.d_out = d_out            # [N,H,W,8] uint8, in the dataset's order
-    self.y_out = y_out            # [N,H,W,C] uint8
-    self.y_out_ins = y_out_ins    # [N,T,H,W] uint8 or None
-    self.s_out = s_out            # [N,T] float32 or None
-
-  def get_dataset_size(self):
-    return self.dataset.get_dataset_size()
-
-  def get_batch(self, idx, timespan=None):
-    idx = np.asarray(idx)
-    batch = dict(self.dataset.get_batch(idx, timespan=timespan))
-    batch['d_out'] = _DECODE[self.d_out[idx]]
-    batch['y_out'] = _DECODE[self.y_out[idx]]
-    if self.y_out_ins is not None:
-      batch['y_out_ins'] = _DECODE[self.y_out_ins[idx]]
-      batch['s_out'] = self.s_out[idx]
-    return batch
-
-  def get_full_size_labels(self, ids, timespan=None):
-    return self.dataset.get_full_size_labels(ids, timespan=timespan)
 
 
 def pack_fg(fg_experiment, dataset, batch_size, timings=None):
@@ -134,3 +114,35 @@ def pack_full(full_experiment, dataset, batch_size, timings=None):
       timings['pack'].append(time.perf_counter() - t1)
   return PackedDataset(dataset.dataset, dataset.d_out, dataset.y_out,
                        np.concatenate(y_out_ins), np.concatenate(s_out))
+
+
+def fg_main(argv=None, device=None):
+  """The pack command line (JAX ``cli/pack.py:26-55``): the fg model of
+  ``--results``/``--model_id`` over each split of ``--split``, its maps
+  written into the split's pack file.  Returns {split: (path, bytes)}.
+  ``device`` as the port's other entry points take it."""
+  parser = argparse.ArgumentParser(description='Pack fg model output')
+  A.add_eval_args(parser)
+  A.add_data_args(parser)
+  args = parser.parse_args(argv)
+  log = logger.get()
+  restore = os.path.join(args.results, args.model_id)
+  model_cfg = FGModelConfig.from_yaml(os.path.join(restore,
+                                                   'model_opt.yaml'))
+  data_cfg = A.make_data_config(args, restore=restore)
+  exp = EvalExperiment(restore, cfg=model_cfg, device=device, spec='fg')
+  written = {}
+  for split in args.split.split(','):
+    ds = provider.get(data_cfg.dataset, data_cfg, split=split)
+    packed = pack_fg(exp, ds, args.batch_size)
+    ids = getattr(ds, 'dataset', ds).img_ids
+    path = provider.pack_path(data_cfg, split)
+    nbytes = provider.write_pack(path, ids, packed.d_out, packed.y_out,
+                                 provider.settings(data_cfg, split))
+    written[split] = (path, nbytes)
+    log.info(f'Packed fg predictions into {path} ({split})')
+  return written
+
+
+if __name__ == '__main__':
+  fg_main(sys.argv[1:])

@@ -474,3 +474,73 @@ def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
                           env=env)
     assert proc.returncode != 0
     assert proc.stdout == ''
+
+
+def test_synth3_pipeline_runs_with_those_modules_missing(tmp_path):
+  """The synth3 chain as users launch it, with JAX, cv2, h5py, YAML and
+  the rest blocked: fg and its pack files in one invocation, box, full and
+  the eval stage (the fg metrics, the full model's CSVs) in another."""
+  script = textwrap.dedent(f"""
+      import json, os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import torch
+      torch.set_num_threads(1)
+      from rec_attend_tpu_torch.data import provider
+      from rec_attend_tpu_torch.pipelines import run_pipeline
+      root = {str(tmp_path)!r}
+      argv = ['--dataset', 'synth3', '--scale', 'tiny', '--num_steps', '2',
+              '--results', os.path.join(root, 'r'), '--logs',
+              os.path.join(root, 'l'), '--dataset_folder',
+              os.path.join(root, 'd'), '--model_id', 'blocked']
+      run_pipeline.main(argv + ['--stages', 'fg,pack'], device='cpu')
+      data = dict(folder=os.path.join(root, 'd'), height=64, width=64,
+                  timespan=6, num_examples=32, max_objects=4)
+      assert isinstance(provider.get('synth', data, split='valid'),
+                        provider.PackedDataset)
+      out = run_pipeline.main(argv + ['--stages', 'box,full,eval'],
+                              device='cpu')
+      assert out['stages'] == ['box', 'full', 'eval']
+      r = os.path.join(root, 'r')
+      with open(os.path.join(r, out['fg'], 'fg_metrics_valid.json')) as f:
+        assert json.load(f)['n'] == 8
+      assert os.path.exists(os.path.join(r, out['full'], 'output_valid',
+                                         'sbd_70.csv'))
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_synth3_entry_points_default_to_cuda(monkeypatch, tmp_path):
+  """Without a card, the pack command line, the fg metrics and the synth3
+  pipeline raise unless asked for the CPU, and write nothing first."""
+  from rec_attend_tpu_torch.cli import pack
+  from rec_attend_tpu_torch.pipelines import eval_fg_metrics
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  fg = ['--model_id', 'fg_model_synth3-20260818a', '--results',
+        os.path.join(REPO, 'results'), '--dataset_folder',
+        str(tmp_path / 'd')]
+  with pytest.raises(RuntimeError, match='CUDA'):
+    pack.fg_main(fg + ['--dataset', 'synth', '--split', 'valid'])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    eval_fg_metrics.main(fg)
+  out = ['--results', str(tmp_path / 'r'), '--logs', str(tmp_path / 'l'),
+         '--dataset_folder', str(tmp_path / 'd')]
+  with pytest.raises(RuntimeError, match='CUDA'):
+    run_pipeline.main(['--dataset', 'synth3', '--scale', 'tiny'] + out)
+  assert not os.listdir(tmp_path)
