@@ -51,6 +51,32 @@ Phases, one JSON line each on stdout:
                 (b2) at step 0, with the matchings of each pair reported
                 and pinned where they differ; a step whose glimpse backward
                 drops the filter gradients must fail the same gates;
+  bf16          the flagship trained in bfloat16 (results/full_model_
+                synth1024bf16-r5, dtype from its model_opt.yaml; a
+                checkout without it fails): eval_split over the first 64
+                images of its valid split at b32 (mask 0.40, score 0.50)
+                with the kernels, the plain glimpses and the reordered
+                plain ones, per-example SBD and counts held as in eval, the
+                means printed beside the run's committed headline; the
+                b128 forward in bf16 and in f32 on the same weights
+                (CUDA events, not gated); each bf16 layer (convolutions,
+                BatchNorm in train mode, LSTM, MLP) and its gradients card
+                against CPU at the model's widths, with a control whose
+                weights are 2 % off; the Trainer restores it with its
+                Adam state and one step at step 0 is held kernel against
+                plain (b32, limits from step_noise.py --bf16) and card
+                against the float32 model's step in float64 on the CPU
+                (b2, limits from step_noise.py --bf16-exact), each beside
+                its floor and with the dropped-filter-gradient control,
+                then 5 steps at b32 (84
+                extracts, 42 as d_p, and 84 pastes a step), their ms,
+                instances/s and peak memory beside the train phase's
+                float32 ones; one step each of fixed_order and rnd_colour
+                training from the flagship checkpoint held kernel against
+                plain (b8) with the same control; a bf16 TrainingExperiment
+                of 2 steps whose checkpoint is float32 and whose
+                model_opt.yaml reads back dtype: bfloat16 (control: the
+                float32 preset must differ from it);
   eval          eval_split over 64 synthetic 224x224 images with labels at
                 b32, score and mask thresholds 0.40, with the kernels, the
                 plain glimpses and plain einsums that sum in another order
@@ -429,6 +455,77 @@ SYNTH3_METRICS_LIMIT = 1e-3
 # The eval command line's gate runs one batch of this many valid images.
 SYNTH3_CLI_EXAMPLES = 8
 
+# The flagship trained in bfloat16 (RESULTS.md:156-166): the synth1024 run
+# with ``dtype: bfloat16`` in its model_opt.yaml, and its headline
+# (count_calibration.json: its 256-example valid split, mask threshold
+# 0.40, score threshold 0.50).  Phase bf16 evaluates the first 64 of those
+# examples, which the headline does not describe alone: its means are
+# printed beside it, not gated.
+BF16_DIR = os.path.join(REPO, 'results', 'full_model_synth1024bf16-r5')
+BF16_HEADLINE = {'sbd': 0.8442, 'count_acc': 0.6875}
+BF16_EVAL_EXAMPLES = 64
+BF16_MASK_THRESHOLD, BF16_SCORE_THRESHOLD = 0.4, 0.5
+BF16_TRAIN_STEPS = 5
+# The bfloat16 step at step 0 (the ground truth fills the canvas), each
+# limit twice the largest floor that `step_noise.py --bf16` measured over
+# five b32 batches (one H100 80GB HBM3 at 700 W).  A float32
+# difference of 1e-7 that crosses a bfloat16 rounding boundary moves an
+# activation by 2^-8 of itself, so these floors stand far above float32's.
+# - Kernel against plain (b32).  Its floor, plain einsums that sum in the
+#   other order against plain, reached 6.0e-6 in the loss, 0.181 in the
+#   worst leaf's gradient, 0.0676 in all gradients at once, 0.0312 in the
+#   median leaf and 0.0277 in the worst leaf's update; kernel against plain
+#   reached 0, 2.45e-3, 7.7e-4, 7.4e-4 and 8.0e-4.  The zero-gradient
+#   biases and Adam's bound keep STEP_LIMITS' values (the floor's biases
+#   read 2.0e-6).  The control measured 1.0, 0.957 and 0.795 and more in
+#   the three gradient gates.
+BF16_STEP_LIMITS = {'loss_rel_diff': 1.2e-5, 'grad_rel_l2_max': 0.37,
+                    'grad_rel_l2_all': 0.14, 'grad_rel_l2_median': 0.063,
+                    'zero_grad_share_max': 1e-4,
+                    'update_rel_l2_max': 0.056, 'zero_update_in_lr_max': 2.0}
+# - Card against float64 (b2, the first two examples of the b32 batch): the
+#   card's step against the exact step's stand-in, the float32 model's
+#   step in float64 on the CPU (``float64_step``).  Its floor is what two
+#   other bfloat16 implementations read against the same step on the same
+#   batch: the CPU's step (oneDNN's convolutions, plain glimpses) and the
+#   card's with cuDNN off (PyTorch's own convolutions).  Each statistic of
+#   BF16_FLOOR_GATES is held to BF16_FLOOR_FACTOR times the larger of the
+#   two, computed in the run; the zero-gradient biases and Adam's bound
+#   keep STEP_LIMITS' values.  The floor moves from batch to batch (all
+#   gradients at once 0.203-1.21, the worst update 0.17-2.27 over five
+#   batches), so no fixed limit fits them all; over those five the card
+#   read at most 1.04 times the larger floor in each statistic, and on the
+#   gated batch 0.95-1.03 (`step_noise.py --bf16`, one H100 80GB HBM3 at
+#   700 W).  The control read 3.0-4.7 times it in the three
+#   gradient statistics there.  A bfloat16 step lies 0.2 or more from the
+#   exact one by its roundings alone, so this gate catches a card that
+#   computes the step worse than other implementations do, not an error
+#   of a few percent: BF16_LAYER_LIMIT holds each bfloat16 layer to that.
+#   The CPU's bfloat16 step alone is no reference: on one batch of five
+#   (seed 1001) the exact gradient is 20 times the others', and the CPU's
+#   step read 1.15 from it in all gradients, the card's 0.20 (ROADMAP
+#   C.12).
+BF16_FLOOR_GATES = ('loss_rel_diff', 'grad_rel_l2_max', 'grad_rel_l2_all',
+                    'grad_rel_l2_median', 'update_rel_l2_max')
+BF16_FLOOR_FACTOR = 2.0
+# The bfloat16 layers card against CPU at the flagship's widths (b2, or
+# b32 for the LSTM and the MLP): each result and each gradient as a
+# relative L2 error.  The card and the CPU sum in other orders, so a few
+# bfloat16 values land one rounding step apart, which moves each by 2^-8
+# to 2^-7 of itself: the limit, about 2^-9, lets a few through, not all.
+# Float32 results carry those steps too where a bfloat16 value feeds them
+# (the LSTM's state and weight gradients, which are bfloat16 products, as
+# in JAX).  On one H100 80GB HBM3 at 700 W the largest read 3.64e-4 at b8
+# (the LSTM's input gradient; the convolutions' 3.9e-5 and less, the
+# MLP's 0) and 1.04e-4 at b2, and the control, every weight scaled by
+# 1.02, read 8.6e-3 or more in each layer (`chip_smoke.py`).
+BF16_LAYER_LIMIT = 2e-3
+BF16_LAYER_CONTROL_SCALE = 1.02
+# The full model's other training options, one step each at step 0 from
+# the flagship checkpoint, kernel against plain at b8 (STEP_LIMITS, with
+# the dropped-filter-gradient control).
+OPTION_BATCH = 8
+
 
 def emit(phase, **fields):
   print(json.dumps({'phase': phase, **fields}), flush=True)
@@ -780,9 +877,11 @@ def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
     loss, aux, grads = ts.loss_and_grads(model, batch, draws, step, glimpse)
   ts.apply_updates(model, opt_state, grads, aux['new_bn'])
   new = {k: v.detach().clone() for k, v in model.named_parameters()}
-  # The full and box models solve one Hungarian matching a step (the box
-  # model none with fixed_order); the fg model has none.
-  want = int('match_box' in aux and not model.cfg.fixed_order)
+  # The full model solves one Hungarian matching a step (with fixed_order
+  # that of its masks alone), the box model one (none with fixed_order),
+  # the fg model none.
+  want = 1 if 'match' in aux else int('match_box' in aux
+                                      and not model.cfg.fixed_order)
   if len(solved) != want:
     raise AssertionError(f'{len(solved)} Hungarian solves in one step, '
                          f'want {want}')
@@ -824,6 +923,13 @@ def reordered_plain(torch):
 
 def to_device(draws, dev):
   return {k: (v if k == 'aug' else v.to(dev)) for k, v in draws.items()}
+
+
+def step_to(torch, step, dev):
+  """A step as one_step returns it, its tensors moved to ``dev``."""
+  return tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
+                 for k, v in x.items()} if isinstance(x, dict) else x.to(dev))
+               for x in step)
 
 
 def held_steps(torch, model, run, want, lr, limits):
@@ -1566,9 +1672,7 @@ def cpu_gate(torch, ts, matching, model, opt_state, batch, draws, step, lr,
                   opt_state_to(opt_state, 'cpu'),
                   {k: v.cpu() for k, v in small.items()},
                   to_device(draws, 'cpu'), step, 'kernel')
-  host = tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
-                 for k, v in x.items()} if isinstance(x, dict) else x.to(dev))
-               for x in host)
+  host = step_to(torch, host, dev)
 
   def card(pinned):
     with deterministic_cudnn(torch):
@@ -2755,6 +2859,439 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
   return out, failures
 
 
+def bf16_config():
+  """The bfloat16 run's config, from its model_opt.yaml.  Raises where the
+  checkout lacks it."""
+  from rec_attend_tpu_torch.config import FullModelConfig
+  cfg = FullModelConfig.from_yaml(os.path.join(BF16_DIR, 'model_opt.yaml'))
+  if cfg.dtype != 'bfloat16':
+    raise AssertionError(f'{BF16_DIR}: dtype {cfg.dtype}')
+  return cfg
+
+
+@contextlib.contextmanager
+def float64_everywhere(torch):
+  """Inside the block ``Tensor.float()`` gives float64 and new floating
+  tensors are float64, so a model written for float32 runs in float64."""
+  cast = torch.Tensor.float
+  torch.Tensor.float = lambda self, *a, **kw: self.double()
+  torch.set_default_dtype(torch.float64)
+  try:
+    yield
+  finally:
+    torch.Tensor.float = cast
+    torch.set_default_dtype(torch.float32)
+
+
+def float64_step(torch, ts, matching, model, opt_state, batch, draws, step,
+                 pinned):
+  """``one_step`` of a float32 model on the CPU in float64 with the
+  Hungarian answer ``pinned``, its floating results cast back to
+  float32."""
+  model = copy.deepcopy(model).to('cpu').double()
+  model.device = torch.device('cpu')
+  opt_state = {k: (v if k == 'count' else {n: t.cpu().double()
+                                           for n, t in v.items()})
+               for k, v in opt_state.items()}
+  draws = {k: (v if k == 'aug' else v.cpu().double())
+           for k, v in draws.items()}
+  with float64_everywhere(torch):
+    out = one_step(torch, ts, matching, model, opt_state,
+                   {k: v.cpu() for k, v in batch.items()}, draws, step,
+                   'kernel', pinned)
+
+  def f32(t):
+    return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
+  return tuple({k: f32(v) for k, v in x.items()} if isinstance(x, dict)
+               else f32(x) for x in out)
+
+
+def bf16_step_gates(torch, ts, matching, gk, trainer, batch, draws,
+                    small_draws, lr, limits=BF16_STEP_LIMITS,
+                    floor_gates=BF16_FLOOR_GATES):
+  """The bfloat16 step at step 0 from the trainer's state: kernel against
+  plain (b32, beside the reordered-plain floor, with the dropped-filter-
+  gradient control; ``step_gates``) at ``limits``, and the card's step on
+  the batch's first TRAIN_CPU_BATCH examples (``small_draws`` are theirs)
+  against the float32 model's step in float64 on the CPU, each statistic
+  of ``floor_gates`` held to BF16_FLOOR_FACTOR times its floor (the
+  larger of what the CPU's bfloat16 step and the card's with cuDNN off
+  read against the same step), the zero-gradient ones to STEP_LIMITS;
+  the dropped-filter-gradient control must fail the gradient gates.  The
+  CPU's bfloat16 step solves the matchings; the float64 step takes its
+  answer.  Returns (gates, failures)."""
+  model, opt = trainer.model, trainer.opt_state
+  gates, failures = step_gates(torch, ts, matching, gk, model, opt, batch,
+                               draws, 0, lr, limits)
+  nb, dev = TRAIN_CPU_BATCH, model.device
+  small = {k: v[:nb] for k, v in batch.items()}
+  cpu_model = copy.deepcopy(model).to('cpu')
+  cpu_model.device = torch.device('cpu')
+  host = step_to(torch, one_step(
+      torch, ts, matching, cpu_model, opt_state_to(opt, 'cpu'),
+      {k: v.cpu() for k, v in small.items()},
+      to_device(small_draws, 'cpu'), 0, 'kernel'), dev)
+  twin = copy.deepcopy(model)
+  twin.cfg = model.cfg.replace(dtype='float32')
+  exact = step_to(torch, float64_step(torch, ts, matching, twin, opt, small,
+                                      small_draws, 0, host[4]['solved']),
+                  dev)
+
+  def card(pinned, glimpse='kernel', cudnn=True):
+    saved = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = cudnn
+    try:
+      with deterministic_cudnn(torch):
+        return one_step(torch, ts, matching, model, opt, small,
+                        to_device(small_draws, dev), 0, glimpse, pinned)
+    finally:
+      torch.backends.cudnn.enabled = saved
+  floors = [step_diff(torch, model, got, exact, lr) for got in (
+      host, card(host[4]['solved'], cudnn=False))]
+  gates[f'cpu_vs_float64_b{nb}'], gates[
+      f'card_cudnn_off_vs_float64_b{nb}'] = floors
+
+  def value(v):
+    return v[1] if isinstance(v, (list, tuple)) else v
+  exact_limits = {
+      **{k: BF16_FLOOR_FACTOR * max(value(f[k]) for f in floors)
+         for k in floor_gates},
+      **{k: STEP_LIMITS[k] for k in ('zero_grad_share_max',
+                                     'zero_update_in_lr_max')}}
+  gates[f'card_vs_float64_limits_b{nb}'] = exact_limits
+  for name, stats, gated in held_steps(torch, model, card, exact, lr,
+                                       exact_limits):
+    gates[f'card_vs_float64{name}_b{nb}'] = stats
+    if gated and stats['failed']:
+      failures.append(f'card_vs_float64{name}: fails {stats["failed"]}')
+  control = card(host[4]['solved'], without_filter_grads(torch, gk))
+  stats = step_diff(torch, model, control, exact, lr)
+  stats['failed'] = step_gate_failures(stats, exact_limits)
+  gates[f'dropped_filter_grads_vs_float64_b{nb}'] = stats
+  passed = [k for k in GRADIENT_GATES
+            if k in exact_limits and k not in stats['failed']]
+  if passed:
+    failures.append('dropped_filter_grads_vs_float64: the gradient gates '
+                    f'{passed} pass it')
+  return gates, failures
+
+
+def bf16_layer_cases(torch, cfg, dev, batch=2, size=None):
+  """The bfloat16 layers at the widths of ``cfg`` (a bfloat16 full model)
+  as (name, inputs, fn): inputs a {name: tensor on dev} made from one seed
+  (the weights' names start with 'w', 'b', 'gamma' or 'beta'), fn(inputs)
+  the layer's outputs as a list.  ``batch`` images of ``size`` (default
+  the model's) for the convolutions and BatchNorm, 32 rows for the LSTM
+  and the MLP; the convolutions' channels are the controller CNN's first two
+  layers' and the attention DCNN's second and third layers', the
+  transposed convolution's input a quarter of the glimpse."""
+  import types
+  from torch.func import functional_call
+  from rec_attend_tpu_torch.nn import layers as L
+  bf = torch.bfloat16
+  g = torch.Generator().manual_seed(17)
+  h = w = size or cfg.inp_height
+
+  def rand(*shape, dtype=torch.float32, scale=1.0):
+    return (torch.randn(shape, generator=g) * scale).to(dtype).to(dev)
+  c0, c1, c2 = cfg.ccnn_inp_depth, *cfg.ctrl_cnn_depth[:2]
+  d_in, d_out = cfg.attn_dcnn_depth[1:3]
+  q = cfg.filter_height // 4
+  hid, feat = cfg.ctrl_rnn_hid_dim, cfg.glimpse_feat_dim
+  bn = L.BatchNorm(c1, None)
+  lstm = L.LSTM(feat, hid, torch.Generator().manual_seed(0))
+  lstm_w = {k: rand(*v.shape, scale=0.1) for k, v in lstm.named_parameters()}
+  mlp_dims = (hid, hid, cfg.glimpse_map_dim)
+  mlp = {**{f'w{i}': rand(mlp_dims[i], mlp_dims[i + 1], scale=0.1)
+            for i in range(2)},
+         **{f'b{i}': rand(mlp_dims[i + 1], scale=0.1) for i in range(2)}}
+
+  def batch_norm(p):
+    """The normalised bfloat16 result and the new EMA mean and variance."""
+    stats = []
+    y = functional_call(bn, {'gamma': p['gamma'], 'beta': p['beta'],
+                             'ema_mean': torch.zeros_like(p['gamma']),
+                             'ema_var': torch.ones_like(p['gamma'])},
+                        (p['x'], None, stats, bf))
+    return [y, *stats[0]]
+  return [
+      ('conv_float32_input', {'x': rand(batch, c0, h, w),
+                              'w': rand(3, 3, c0, c1, scale=0.2)},
+       lambda p: [L.conv2d_same(p['x'], p['w'], bf)]),
+      ('conv', {'x': rand(batch, c1, h, w, dtype=bf),
+                'w': rand(3, 3, c1, c2, scale=0.1)},
+       lambda p: [L.conv2d_same(p['x'], p['w'])]),
+      ('conv_transpose', {'x': rand(batch, d_in, q, q, dtype=bf),
+                          'w': rand(3, 3, d_out, d_in, scale=0.1)},
+       lambda p: [L.conv2d_transpose_same(p['x'], p['w'], 2)]),
+      ('batch_norm_train', {'x': rand(batch, c1, h, w, scale=3.0),
+                            'gamma': rand(c1) + 2, 'beta': rand(c1)},
+       batch_norm),
+      ('lstm', {'x': rand(32, feat, dtype=bf), 'state': rand(32, 2 * hid),
+                **{f'w_{k}': v for k, v in lstm_w.items()}},
+       lambda p: [functional_call(
+           lstm, {k: p[f'w_{k}'] for k in lstm_w}, (p['x'], p['state']))]),
+      ('mlp', {'x': rand(32, hid, dtype=bf), **mlp},
+       lambda p: L.apply_mlp(
+           [types.SimpleNamespace(w=p[f'w{i}'], b=p[f'b{i}'])
+            for i in range(2)], p['x'], [torch.relu, None])),
+  ]
+
+
+def layer_results(torch, inputs, fn):
+  """fn's outputs and the gradients of sum(output * r) (r seeded, one a
+  output) with respect to every floating input, as {name: tensor}."""
+  inputs = {k: v.detach().clone().requires_grad_() for k, v in
+            inputs.items()}
+  outs = fn(inputs)
+  g = torch.Generator().manual_seed(23)
+  loss = sum((o.float() * torch.randn(o.shape, generator=g).to(o.device)
+              ).sum() for o in outs if o.requires_grad)
+  grads = torch.autograd.grad(loss, list(inputs.values()))
+  return {**{f'out{i}': o.detach() for i, o in enumerate(outs)},
+          **{f'd_{k}': v for k, v in zip(inputs, grads)}}
+
+
+def bf16_layer_gates(torch, cfg, dev, batch=2, size=None,
+                     limit=BF16_LAYER_LIMIT):
+  """Each of ``bf16_layer_cases`` on ``dev`` against the CPU, cuDNN
+  deterministic: every output and gradient as a relative L2 error, held to
+  ``limit``, its dtype to the CPU's.  The control, the same layer with
+  every weight scaled by BF16_LAYER_CONTROL_SCALE, must fail.  Returns
+  (gates {case: {tensor: error}, ...}, failures)."""
+  gates, failures = {}, []
+
+  def rel(a, b):
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-300))
+  for name, inputs, fn in bf16_layer_cases(torch, cfg, dev, batch, size):
+    cpu_inputs = {k: v.cpu() for k, v in inputs.items()}
+    ref = layer_results(torch, cpu_inputs, fn)
+    with deterministic_cudnn(torch):
+      got = layer_results(torch, inputs, fn)
+      control = layer_results(torch, {
+          k: (v * BF16_LAYER_CONTROL_SCALE if k[0] in 'wbg' else v)
+          for k, v in inputs.items()}, fn)
+    errors, failed = {}, []
+    for k, want in ref.items():
+      if got[k].dtype != want.dtype:
+        failed.append(f'{k} is {got[k].dtype}, the CPU {want.dtype}')
+        continue
+      errors[k] = rel(got[k], want)
+      if errors[k] > limit:
+        failed.append(k)
+    control_errors = {k: rel(control[k], ref[k]) for k in ref}
+    control_passes = all(v <= limit for v in control_errors.values())
+    gates[name] = {'errors': errors, 'control_errors': control_errors,
+                   'dtypes': {k: str(v.dtype).split('.')[-1]
+                              for k, v in ref.items()},
+                   'failed': failed}
+    if failed:
+      failures.append(f'{name}: fails {failed}')
+    if control_passes:
+      failures.append(f'{name}: the control (weights x '
+                      f'{BF16_LAYER_CONTROL_SCALE}) passes')
+  return gates, failures
+
+
+def bf16_phase(torch, np, gk, dev, train):
+  """The flagship in bfloat16: the committed bfloat16 run's eval, its b128
+  forward beside float32's, its train step gated and 5 steps, the full
+  model's fixed_order and rnd_colour steps gated, and a bfloat16
+  TrainingExperiment with a checkpoint.  ``train``: the train phase's
+  summary (its float32 step ms and peak memory)."""
+  from rec_attend_tpu_torch import convert
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.config import DataConfig
+  from rec_attend_tpu_torch.config import FullModelConfig
+  from rec_attend_tpu_torch.config import TrainConfig
+  from rec_attend_tpu_torch.config import cvppp_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.data.synthetic import synthetic_images
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine import saver
+  from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+
+  cfg = bf16_config()
+  T = cfg.timespan
+  seconds, failures, out = {}, [], {}
+
+  # ---- eval: eval_split of the bf16 checkpoint, kernel against plain -----
+  t0 = time.time()
+  ds = SyntheticDataset(BF16_EVAL_EXAMPLES, cfg.inp_height, cfg.inp_width,
+                        T, seed=4)
+  runs, launches, stats, sbd_limit, f = eval_runs(
+      torch, gk, BF16_DIR, cfg, ds, BF16_EVAL_EXAMPLES, EVAL_BATCH,
+      BF16_MASK_THRESHOLD, BF16_SCORE_THRESHOLD, 'bf16_eval')
+  failures += [f'eval: {x}' for x in f]
+  routes = runs['kernel']['extract_route_launches']
+  if routes != {'extract_tiled_kernel': launches['glimpse_extract']}:
+    failures.append(f"eval: the extracts took {routes}")
+  out['eval'] = {
+      'examples': BF16_EVAL_EXAMPLES, 'batch': EVAL_BATCH,
+      'thresholds': {'mask': BF16_MASK_THRESHOLD,
+                     'score': BF16_SCORE_THRESHOLD},
+      'launches': launches, 'extract_route_launches': routes,
+      'means': {k: runs[k]['means'] for k in runs},
+      'committed_headline_256_examples': BF16_HEADLINE, **stats,
+      'limits': {'sbd_max_abs_diff': sbd_limit, 'count_differ': 0},
+      'seconds': {k: v['seconds'] for k, v in runs.items()}}
+  seconds['eval'] = time.time() - t0
+
+  # ---- forward times, b128, bfloat16 and float32, same weights -----------
+  t0 = time.time()
+  path = saver.latest_checkpoint(BF16_DIR)
+  state = convert.params_from_checkpoint(path, cfg)
+  x128 = synthetic_images(128, cfg.inp_height, cfg.inp_width,
+                          seed=128).to(dev)
+  forward_ms = {}
+  for dtype in ('bfloat16', 'float32'):
+    model = FullModel(cfg.replace(dtype=dtype), device=dev)
+    model.load_state_dict(state)
+    reset_peak(torch, dev)
+    with torch.inference_mode():
+      forward_ms[dtype] = ms(torch, lambda: full_model_forward(model, x128),
+                             iters=5, warmup=1, sleep=False)
+    forward_ms[f'{dtype}_max_memory_allocated_bytes'] = peak_memory(torch,
+                                                                    dev)
+    del model
+  out['forward_b128'] = {**forward_ms, 'instances_per_s': {
+      k: 128 * T / (forward_ms[k] / 1e3) for k in ('bfloat16', 'float32')}}
+  seconds['forward'] = time.time() - t0
+
+  # ---- train: restore with Adam, gate one step, take 5 steps -------------
+  t0 = time.time()
+  trainer = Trainer(cfg, device=dev, seed=0)
+  ckpt = trainer.restore(BF16_DIR)
+  if trainer.step != 30000 or trainer.opt_state['count'] != 30000:
+    failures.append(f'restored step {trainer.step}, Adam count '
+                    f'{trainer.opt_state["count"]}')
+  b = TRAIN_BATCH
+  batch = {k: v.to(dev) for k, v in synthetic_instances(
+      b, cfg.inp_height, cfg.inp_width, T, seed=1000).items()}
+  draws = draw_train_randoms(cfg, b, torch.Generator(dev).manual_seed(1))
+  small_draws = draw_train_randoms(cfg, TRAIN_CPU_BATCH,
+                                   torch.Generator(dev).manual_seed(2))
+  lr = learn_rate(cfg, trainer.opt_state['count'])
+  t1 = time.time()
+  layer_gates, f = bf16_layer_gates(torch, cfg, dev)
+  failures += [f'layers: {x}' for x in f]
+  seconds['layer_gates'] = time.time() - t1
+  gates, f = bf16_step_gates(torch, ts, matching, gk, trainer, batch, draws,
+                             small_draws, lr)
+  failures += [f'train step: {x}' for x in f]
+  seconds['train_gates'] = time.time() - t0
+  t0 = time.time()
+
+  def batches(seed):
+    while True:
+      yield synthetic_instances(b, cfg.inp_height, cfg.inp_width, T,
+                                seed=seed)
+      seed += 1
+  reset_peak(torch, dev)
+  steps = run_steps(torch, gk, trainer, batches(0), BF16_TRAIN_STEPS)
+  summary = steps_summary(torch, steps, peak_memory(torch, dev))
+  want_launches(steps, {'glimpse_extract': 4 * T, 'glimpse_paste': 4 * T},
+                {'glimpse_extract': 2 * T, 'glimpse_paste': 0},
+                {'extract_tiled_kernel': 4 * T}, 'bf16 train')
+  if trainer.opt_state['count'] != 30000 + BF16_TRAIN_STEPS:
+    failures.append(f'Adam count {trainer.opt_state["count"]}')
+  n = len(steps)
+  out['launches'] = {
+      'eval': launches,
+      'train_forward': {k: n * (v - summary['backward_launches_per_step'][k])
+                        for k, v in summary['launches_per_step'].items()},
+      'train_backward': {k: n * v for k, v in
+                         summary['backward_launches_per_step'].items()}}
+  f32_ms = train['step_ms_median']
+  out['train'] = {
+      'weights': os.path.relpath(ckpt, REPO), 'batch': b, 'gates': gates,
+      'limits': {'kernel_vs_plain': BF16_STEP_LIMITS,
+                 'card_vs_float64_floor_factor': BF16_FLOOR_FACTOR},
+      'layers': {'gates': layer_gates, 'limit': BF16_LAYER_LIMIT},
+      **summary,
+      'instances_per_s': b * T / (summary['step_ms_median'] / 1e3),
+      'float32_train_phase': {
+          'step_ms_median': f32_ms, 'instances_per_s': b * T / (f32_ms / 1e3),
+          'max_memory_allocated_bytes': train['max_memory_allocated_bytes']}}
+  for s_ in out['train']['steps']:
+    s_['metrics'] = {k: s_['metrics'][k] for k in ('loss', 'iou_soft',
+                                                   'count_acc')}
+  seconds['train_steps'] = time.time() - t0
+
+  # ---- the other training options: fixed_order, rnd_colour ---------------
+  t0 = time.time()
+  options = {}
+  for name, over in (('fixed_order', {'fixed_order': True}),
+                     ('rnd_colour', {'rnd_colour': True})):
+    ocfg = cvppp_full_config().replace(**over)
+    opt_trainer = Trainer(ocfg, device=dev, seed=0)
+    opt_trainer.restore(CHECKPOINT_DIR)
+    ob = {k: v[:OPTION_BATCH] for k, v in batch.items()}
+    odraws = draw_train_randoms(ocfg, OPTION_BATCH,
+                                torch.Generator(dev).manual_seed(3))
+    g, f = step_gates(torch, ts, matching, gk, opt_trainer.model,
+                      opt_trainer.opt_state, ob, odraws, 0,
+                      learn_rate(ocfg, opt_trainer.opt_state['count']),
+                      STEP_LIMITS)
+    failures += [f'{name}: {x}' for x in f]
+    options[name] = {'gates': g, 'limits': STEP_LIMITS,
+                     'colour_draws': odraws['aug'].get('colour')}
+  out['options'] = options
+  seconds['options'] = time.time() - t0
+
+  # ---- TrainingExperiment in bfloat16: 2 steps and a checkpoint ----------
+  t0 = time.time()
+  exp_cfg = cvppp_full_config().replace(dtype='bfloat16')
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_bf16-',
+                                   dir=REPO) as root:
+    train_cfg = TrainConfig(
+        num_steps=2, batch_size=OPTION_BATCH,
+        results=os.path.join(root, 'results'),
+        logs=os.path.join(root, 'logs'), steps_per_valid=0,
+        steps_per_trainval=0, steps_per_log=1, steps_per_ckpt=2,
+        steps_per_plot=0, save_ckpt=True, model_id='full_model_bf16')
+    data_cfg = DataConfig(dataset='synth', folder=os.path.join(root, 'data'),
+                          height=exp_cfg.inp_height, width=exp_cfg.inp_width,
+                          timespan=T, num_examples=2 * OPTION_BATCH)
+    exp = TrainingExperiment('full', exp_cfg, train_cfg, data_cfg,
+                             device=dev)
+    gk.reset_launch_counts()
+    exp.run()
+    counts = gk.launch_counts()
+    backward = gk.launch_counts(backward=True)
+    out['launches']['experiment_forward'] = {k: v - backward[k]
+                                             for k, v in counts.items()}
+    out['launches']['experiment_backward'] = backward
+    ckpts = [step for step, _ in exp.saver.list_ckpts()]
+    yaml_path = os.path.join(exp.folder, 'model_opt.yaml')
+    read = FullModelConfig.from_yaml(yaml_path)
+    with open(yaml_path) as fh:
+      dtype_lines = [l.strip() for l in fh if l.startswith('dtype:')]
+    leaves = np.load(exp.saver.get_latest_ckpt()[1])
+    leaf_dtypes = sorted({str(leaves[k].dtype) for k in leaves.files})
+    control = read == cvppp_full_config()
+    experiment = {'checkpoints': ckpts, 'model_opt_dtype': dtype_lines,
+                  'read_back_equal': read == exp_cfg,
+                  'read_back_equal_float32_preset': control,
+                  'checkpoint_leaf_dtypes': leaf_dtypes,
+                  'steps': exp.trainer.step}
+    if (ckpts != [2] or dtype_lines != ['dtype: bfloat16']
+        or read != exp_cfg or control or exp.trainer.step != 2
+        or 'bfloat16' in leaf_dtypes):
+      failures.append(f'TrainingExperiment: {experiment}')
+  out['training_experiment'] = experiment
+  seconds['training_experiment'] = time.time() - t0
+  out['seconds'] = seconds
+  return out, failures
+
+
 def flagship_segmenter(cfg):
   """(InstanceSegmenter on the card, checkpoint path): the flagship
   checkpoint.  Raises where the checkout lacks it."""
@@ -3160,6 +3697,13 @@ def main():
   train = train_phase(torch, np, cfg, dev, gk, name_power)
   emit('train', **train)
 
+  t0 = time.time()
+  bf16, failures = bf16_phase(torch, np, gk, dev, train)
+  emit('bf16', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **bf16)
+  if failures:
+    raise AssertionError(f'bf16 gates: {failures}')
+
   evals = eval_phase(torch, cfg, gk)
   emit('eval', nvidia_smi=name_power, **evals)
 
@@ -3206,11 +3750,14 @@ def main():
     return '{} [{}]'.format('x' if name == 'glimpse_extract' else 'out',
                             ','.join(str(v) for v in dims[:4]))
   table = []
+  bf16_launches = bf16['launches']
   for name, c in checks.items():
     table.append({
         **row(name, c, 'forward', {
             'serve': launches[name], 'train': train['forward_launches'][name],
-            'eval': evals['launches'][name]}),
+            'eval': evals['launches'][name],
+            'bf16_eval': bf16_launches['eval'][name],
+            'bf16_train': bf16_launches['train_forward'][name]}),
         **{f'b{b}': {k: c[f'b{b}'][k] for k in (
             'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
             'bound_share', 'route', 'max_abs_err') if k in c[f'b{b}']}
@@ -3263,6 +3810,7 @@ def main():
   # The synth pipeline at b8, 224x224 (launches of each stage's run, its
   # valid and trainval passes included, of the eval command line and of
   # the restored run's two steps).
+  # With them, the bf16 phase's TrainingExperiment at b8.
   def pipeline_launches(name, kind):
     by_path = {}
     for label in ('box', 'full', 'eval', 'restored'):
@@ -3271,6 +3819,9 @@ def main():
       n = counts['backward_launches'][name] if kind == 'backward' else n
       if n:
         by_path[f'pipeline_{label}'] = n
+    n = bf16_launches[f'experiment_{kind}'][name]
+    if n:
+      by_path['bf16_training_experiment'] = n
     return by_path
   for name in checks:
     table.append(row(name, checks[name]['b8'], 'forward, synth pipeline '
@@ -3322,13 +3873,15 @@ def main():
   for fn_name, c in grad_checks.items():
     use = c['backward_use']
     name = use['kernel']
-    launched = train['backward_launches'][name]
-    if not launched:
+    by_path = {k: v for k, v in (
+        ('train', train['backward_launches'][name]),
+        ('bf16_train', bf16_launches['train_backward'][name])) if v}
+    if not by_path:
       continue
     table.append({
         'name': name, 'route': 'cuda', 'source': SOURCE,
         'replaces': REPLACES[name], 'use': BACKWARD_USES[name],
-        'launches': launched, 'launches_by_path': {'train': launched},
+        'launches': sum(by_path.values()), 'launches_by_path': by_path,
         'max_abs_err': max(c['d_operand']['max_abs_err'],
                            c['ragged']['d_operand']['max_abs_err']),
         'ms': use['kernel_ms'], 'plain_ms': use['plain_ms'],

@@ -3,13 +3,14 @@
 time.
 
     python3 profile_port.py [--batch 128] [--trace trace.json]
-    python3 profile_port.py --train [--batch 32]
+    python3 profile_port.py --train [--batch 32] [--bf16]
 
 Runs the flagship CVPPP checkpoint (a checkout without it fails) on one
 CUDA card.  Serving (the default): one warm-up forward, then one forward
 under torch.profiler.  ``--train``: the Trainer restores the checkpoint with
 its Adam state, takes two warm-up steps on seeded synthetic batches, then
-one step under torch.profiler.  Prints one JSON line: the forward's or the
+one step under torch.profiler; with ``--bf16`` the committed bfloat16
+run's checkpoint and config (``dtype: bfloat16``) instead.  Prints one JSON line: the forward's or the
 step's wall time unprofiled (CUDA events on an idle stream, median of
 three), the profiled call's own wall time (CUDA events around it), the
 device time summed over all kernels of the profiled call, the device's busy
@@ -26,14 +27,15 @@ import sys
 import chip_smoke
 
 
-def train_step_fn(cfg, batch):
-  """(one train step of the flagship on the card, checkpoint path)."""
+def train_step_fn(cfg, batch, directory):
+  """(one train step of the flagship on the card from the checkpoint in
+  ``directory``, checkpoint path)."""
   import os
   import torch
   from rec_attend_tpu_torch.data.synthetic import synthetic_instances
   from rec_attend_tpu_torch.engine.trainer import Trainer
   trainer = Trainer(cfg, device='cuda')
-  ckpt = trainer.restore(chip_smoke.CHECKPOINT_DIR)
+  ckpt = trainer.restore(directory)
   data = synthetic_instances(batch, cfg.inp_height, cfg.inp_width,
                              cfg.timespan, seed=0)
 
@@ -51,6 +53,8 @@ def main():
                   help='batch size (128 serving, 32 training)')
   ap.add_argument('--train', action='store_true',
                   help='profile a train step instead of a forward')
+  ap.add_argument('--bf16', action='store_true',
+                  help="with --train, the bfloat16 run's step")
   ap.add_argument('--trace', help='write a Chrome trace to this path')
   ap.add_argument('--top', type=int, default=25)
   args = ap.parse_args()
@@ -69,7 +73,11 @@ def main():
   cfg = cvppp_full_config()
   if args.train:
     args.batch = args.batch or chip_smoke.TRAIN_BATCH
-    run, weights = train_step_fn(cfg, args.batch)
+    if args.bf16:
+      cfg = chip_smoke.bf16_config()
+    run, weights = train_step_fn(
+        cfg, args.batch,
+        chip_smoke.BF16_DIR if args.bf16 else chip_smoke.CHECKPOINT_DIR)
   else:
     args.batch = args.batch or 128
     seg, weights = chip_smoke.flagship_segmenter(cfg)
@@ -103,7 +111,8 @@ def main():
   device_ms = sum(kernels.values())
   top = sorted(kernels.items(), key=lambda kv: -kv[1])[:args.top]
   print(json.dumps({
-      'mode': 'train' if args.train else 'serve', 'batch': args.batch,
+      'mode': 'train' if args.train else 'serve', 'dtype': cfg.dtype,
+      'batch': args.batch,
       'weights': weights, 'forward_ms' if not args.train else 'step_ms': wall,
       'profiled_ms': profiled_ms, 'device_ms': device_ms,
       'device_busy_share': device_ms / profiled_ms,

@@ -89,7 +89,8 @@ def draw_box_randoms(cfg: BoxModelConfig, batch_size, generator):
   'segm_noise' [T,B,H,W,1], uniform in [0, gt_segm_noise), on the
   generator's device."""
   dev = generator.device
-  aug = image_ops.draw_transformation(cfg.padding, generator)
+  aug = image_ops.draw_transformation(cfg.padding, generator,
+                                     colour=cfg.rnd_colour)
   noise = torch.rand((cfg.timespan, batch_size, cfg.inp_height,
                       cfg.inp_width, 1), generator=generator, device=dev)
   return {'aug': aug, 'segm_noise': noise * cfg.gt_segm_noise}
@@ -209,8 +210,6 @@ def box_model_forward(model: BoxModel, batch, draws, train=True,
   x, y_gt, s_gt = batch['x'], batch['y_gt'], batch['s_gt']
   d_in, y_in = batch.get('d_in'), batch.get('y_in')
   _check_input(model, x, d_in, y_in)
-  if cfg.dtype != 'float32':
-    raise NotImplementedError('the box model runs in float32 only so far')
   B, T = x.shape[0], cfg.timespan
   H, W = cfg.inp_height, cfg.inp_width
   x, y_gt = x.float(), y_gt.float()

@@ -154,7 +154,8 @@ def fg_model_forward(model: FGModel, x):
 def draw_fg_randoms(cfg: FGModelConfig, generator):
   """The draws of one training forward: 'aug', the crop offset and flip
   coins (``image_ops.draw_transformation``)."""
-  return {'aug': image_ops.draw_transformation(cfg.padding, generator)}
+  return {'aug': image_ops.draw_transformation(cfg.padding, generator,
+                                               colour=cfg.rnd_colour)}
 
 
 def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws,
@@ -177,8 +178,6 @@ def fg_model_train_forward(model: FGModel, x, c_gt, d_gt, draws,
   """
   cfg = model.cfg
   _check_x(model, x)
-  if cfg.dtype != 'float32':
-    raise NotImplementedError('training runs in float32 only so far')
   if not cfg.add_orientation:
     d_gt = None
   elif d_gt is None:

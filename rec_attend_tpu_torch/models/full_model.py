@@ -16,6 +16,13 @@ foreground ``y_in`` [B,H,W,C], join the image and the canvas as input
 channels of the controller and attention CNNs, in the order x, canvas,
 d_in, y_in (JAX ``:303-324``).
 
+With ``dtype: bfloat16`` the controller's and attention's CNNs run in
+bfloat16 (JAX :288, :324, :434, :440, :451) with the roundings that XLA
+keeps when it compiles them (``nn/layers.py``); the glimpses, the LSTM's
+input, the MLPs, the canvas and the losses stay float32.  With
+``fixed_order`` timestep t is held to instance t (JAX :398-401, :468-469,
+:597-600, :643-658).
+
 The JAX ``lax.scan`` over T is a Python loop carrying the canvas; with
 ``cfg.remat`` each timestep of training runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as
@@ -168,7 +175,8 @@ def draw_train_randoms(cfg: FullModelConfig, batch_size, generator):
     u = torch.rand(shape, generator=generator, device=dev)
     return u * (hi - lo) + lo
 
-  aug = image_ops.draw_transformation(cfg.padding, generator)
+  aug = image_ops.draw_transformation(cfg.padding, generator,
+                                     colour=cfg.rnd_colour)
   pad = cfg.attn_box_padding_ratio
   return {
       'aug': aug,
@@ -233,13 +241,14 @@ def _check_input(model, x, d_in, y_in):
     raise ValueError(f'x is on {x.device}, the model on {model.device}')
 
 
-def controller(model, ccnn_inp, t, stats=None):
+def controller(model, ccnn_inp, t, stats=None, dtype=torch.float32):
   """The controller of timestep t, shared by the full and box models (JAX
   full_model.py:326-353, box_model.py:140-162): the controller CNN with
   BatchNorm copy t over ``ccnn_inp`` [B,H,W,C], then ``num_ctrl_rnn_iter``
   steps of the glimpse LSTM over its feature map, each reading the map
   through the previous step's glimpse-MLP softmax (uniform at first), then
-  the controller MLP.  ``stats`` as in ``L.apply_cnn``.
+  the controller MLP.  ``stats`` and ``dtype`` (the CNN's) as in
+  ``L.apply_cnn``.
 
   Returns (h_crnn [B,hid], ctrl_out [B,9] float32, the glimpse maps read,
   a list of [B,glimpse_map_dim,1])."""
@@ -251,7 +260,8 @@ def controller(model, ccnn_inp, t, stats=None):
               + [lambda z: torch.softmax(z, dim=-1)])
   cmlp_act = [relu] * (cfg.num_ctrl_mlp_layers - 1) + [None]
   h_ccnn = L.apply_cnn(model.ctrl_cnn, L.nchw(ccnn_inp), cfg.ctrl_cnn_pool,
-                       [relu] * len(cfg.ctrl_cnn_filter_size), t, stats)
+                       [relu] * len(cfg.ctrl_cnn_filter_size), t, stats,
+                       dtype=dtype)
   crnn_inp = L.nhwc(h_ccnn[-1]).reshape(B, cfg.glimpse_map_dim,
                                         cfg.glimpse_feat_dim)
   crnn_state = torch.zeros((B, 2 * hid), device=ccnn_inp.device)
@@ -342,10 +352,8 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   def net_stats(net):
     return None if stats is None else stats[net]
 
-  ccnn_inp = inputs('ctrl').to(cdt)
-  acnn_inp = inputs('attn')
-
-  h_crnn, ctrl_out, _ = controller(model, ccnn_inp, t, net_stats('ctrl_cnn'))
+  h_crnn, ctrl_out, _ = controller(model, inputs('ctrl'), t,
+                                   net_stats('ctrl_cnn'), cdt)
   (attn_ctr_norm, attn_lg_size, attn_ctr, attn_size,
    attn_lg_var) = attention_params(cfg, ctrl_out)
   if cfg.fixed_gamma:
@@ -382,15 +390,20 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
     step_out['iou_soft_box_t'] = iou_soft_box_t
     grd_cum = train['grd_cum']
     if cfg.use_knob and training:
-      # Mix in the greedily matched, noisy ground-truth box (JAX :396-415);
-      # the match does not accumulate unless accumulate_greedy_match.
-      grd_match = losses.f_greedy_match(iou_soft_box_t, grd_cum)
-      step_out['grd_match'] = grd_match
-      if cfg.accumulate_greedy_match:
-        grd_cum = torch.clamp_max(grd_cum + grd_match, 1.0)
-      ctr_gtm = torch.sum(grd_match[:, :, None] * train['attn_ctr_gtn'], 1)
-      size_gtm = torch.sum(grd_match[:, :, None] * train['attn_size_gtn'],
-                           1)
+      # Mix in the noisy ground-truth box (JAX :396-415): with fixed_order
+      # timestep t's, else the greedily matched one; the match does not
+      # accumulate unless accumulate_greedy_match.
+      if cfg.fixed_order:
+        ctr_gtm = train['attn_ctr_gtn'][:, t]
+        size_gtm = train['attn_size_gtn'][:, t]
+      else:
+        grd_match = losses.f_greedy_match(iou_soft_box_t, grd_cum)
+        step_out['grd_match'] = grd_match
+        if cfg.accumulate_greedy_match:
+          grd_cum = torch.clamp_max(grd_cum + grd_match, 1.0)
+        ctr_gtm = torch.sum(grd_match[:, :, None] * train['attn_ctr_gtn'], 1)
+        size_gtm = torch.sum(grd_match[:, :, None] * train['attn_size_gtn'],
+                             1)
       kb = train['knob_box']
       attn_ctr = kb * ctr_gtm + (1 - kb) * attn_ctr
       attn_size = kb * size_gtm + (1 - kb) * attn_size
@@ -399,24 +412,23 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
 
   # Glimpse crop and attention CNN (compute dtype).
   x_patch = torch.exp(attn_lg_gamma).view(B, 1, 1, 1) * extract_fn(
-      acnn_inp, f_y, f_x)
-  x_patch_c = L.nchw(x_patch.to(cdt))
-  h_acnn = L.apply_cnn(model.attn_cnn, x_patch_c, cfg.attn_cnn_pool,
+      inputs('attn'), f_y, f_x)
+  h_acnn = L.apply_cnn(model.attn_cnn, L.nchw(x_patch), cfg.attn_cnn_pool,
                        [relu] * len(cfg.attn_cnn_filter_size), t,
-                       net_stats('attn_cnn'))
+                       net_stats('attn_cnn'), dtype=cdt)
   h_core = L.nhwc(h_acnn[-1]).reshape(B, cfg.core_dim)
 
   # D-CNN with skip connections (JAX full_model.py:439-452).
   adcnn_skip = None
   if cfg.add_skip_conn:
     skip_rev = list(cfg.resolved_attn_cnn_skip())[::-1]
-    h_rev = h_acnn[::-1][1:] + [x_patch_c]
+    h_rev = h_acnn[::-1][1:] + [L.nchw(x_patch)]
     adcnn_skip = [None] + [hc if sk else None
                            for sk, hc in zip(skip_rev, h_rev)]
     adcnn_skip = (adcnn_skip + [None] * n_adc)[:n_adc]
   h_adcnn = L.apply_dcnn(model.attn_dcnn, h_acnn[-1], cfg.attn_dcnn_pool,
                          [relu] * n_adc, t, skip=adcnn_skip,
-                         stats=net_stats('attn_dcnn'))
+                         stats=net_stats('attn_dcnn'), dtype=cdt)
   y_out_patch = L.nhwc(h_adcnn[-1]).float().contiguous()     # [B,FH,FW,1]
 
   # Paste the mask back to full resolution (JAX full_model.py:454-460).
@@ -431,10 +443,15 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   s_out = L.apply_mlp(model.score_mlp, smlp_inp,
                       [torch.sigmoid])[-1][:, 0].float()
 
-  # Knob: mix the ground-truth segmentation into the canvas (JAX :466-479).
+  # Knob: mix the ground-truth segmentation into the canvas (JAX :466-479),
+  # with fixed_order timestep t's, else the greedily matched one.
   y_canvas = y_out
   if training and cfg.use_knob:
-    y_mix = torch.einsum('bt,bthw->bhw', grd_match, train['y_gt'])[..., None]
+    if cfg.fixed_order:
+      y_mix = train['y_gt'][:, t, :, :, None]
+    else:
+      y_mix = torch.einsum('bt,bthw->bhw', grd_match,
+                           train['y_gt'])[..., None]
     y_mix = y_mix - y_mix * train['segm_noise']
     ks = train['knob_segm'][:, :, None, None]                  # [B,1,1,1]
     y_canvas = ks * y_mix + (1 - ks) * y_out
@@ -515,7 +532,8 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   Returns:
     (outputs, new_bn): outputs holds the stacked per-step outputs of
     ``full_model_forward`` plus 'iou_soft_box_t' [B,T,T], in training
-    with the knob the greedy matches 'grd_match' [B,T,T], the transformed
+    with the knob (without ``fixed_order``) the greedy matches
+    'grd_match' [B,T,T], the transformed
     'x_trans'/'y_gt_trans', 's_gt', and the ground truth 'attn_box_gt',
     'attn_ctr_norm_gt', 'attn_lg_size_gt' and friends; new_bn maps each
     EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value
@@ -524,10 +542,6 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   extract_fn, paste_fn = _glimpse_fns(glimpse)
   _check_input(model, x, d_in, y_in)
   cfg = model.cfg
-  if cfg.fixed_order:
-    raise NotImplementedError('fixed_order training is not ported yet')
-  if cfg.dtype != 'float32':
-    raise NotImplementedError('training runs in float32 only so far')
   B, T = x.shape[0], cfg.timespan
   H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
@@ -638,21 +652,30 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
   s_out = outputs['s_out']
   B = y_out.shape[0]
 
-  # Both matchings in one Hungarian solve over [2B, T, T].
+  # The matchings (JAX :596-612): with fixed_order the identity for the
+  # boxes and the segmentation losses and a Hungarian solve of the masks
+  # for the hard metrics; else both Hungarian, in one solve over [2B,T,T].
   iou_soft_pairwise = losses.f_iou(y_out, y_gt, pairwise=True)
-  if cfg.use_knob:
-    iou_soft_box = outputs['iou_soft_box_t']
+  if cfg.fixed_order:
+    iou_soft_box = losses.f_iou(outputs['attn_box'],
+                                outputs['attn_box_gt'])            # [B,T]
+    match_box = matching.get_identity_match(cfg.timespan, s_gt)
+    real_match = matching.f_segm_match(iou_soft_pairwise, s_gt)
   else:
-    iou_soft_box = losses.f_iou(outputs['attn_box'], outputs['attn_box_gt'],
-                                pairwise=True)
-  both = matching.f_segm_match(
-      torch.cat([iou_soft_box, iou_soft_pairwise], dim=0),
-      torch.cat([s_gt, s_gt], dim=0))
-  match_box, match = both[:B], both[B:]
+    if cfg.use_knob:
+      iou_soft_box = outputs['iou_soft_box_t']
+    else:
+      iou_soft_box = losses.f_iou(outputs['attn_box'],
+                                  outputs['attn_box_gt'], pairwise=True)
+    both = matching.f_segm_match(
+        torch.cat([iou_soft_box, iou_soft_pairwise], dim=0),
+        torch.cat([s_gt, s_gt], dim=0))
+    match_box, real_match = both[:B], both[B:]
 
   # Box loss.
   match_count_box = torch.clamp_min(torch.sum(match_box, dim=(1, 2)), 1.0)
-  iou_soft_box_mask = torch.sum(iou_soft_box * match_box, dim=1)
+  iou_soft_box_mask = (iou_soft_box if cfg.fixed_order
+                       else torch.sum(iou_soft_box * match_box, dim=1))
   iou_soft_box_scalar = torch.sum(
       torch.sum(iou_soft_box_mask, dim=1) / match_count_box) / B
   attn_params = torch.cat([outputs['attn_ctr_norm'],
@@ -677,12 +700,18 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
   else:
     raise ValueError(f'Unknown box_loss_fn: {cfg.box_loss_fn}')
 
-  # Segmentation loss.
+  # Segmentation loss (JAX :643-681): with fixed_order timestep t's mask
+  # against instance t.
+  if cfg.fixed_order:
+    match = matching.get_identity_match(cfg.timespan, s_gt)
+    iou_soft_mask = losses.f_iou(y_out, y_gt)                      # [B,T]
+  else:
+    match = real_match
+    iou_soft_mask = torch.sum(iou_soft_pairwise * match, dim=1)
   match_count = torch.clamp_min(torch.sum(match, dim=(1, 2)), 1.0)
   wt_cov_soft = losses.f_weighted_coverage(iou_soft_pairwise, y_gt)
   unwt_cov_soft = losses.f_unweighted_coverage(iou_soft_pairwise,
                                                match_count)
-  iou_soft_mask = torch.sum(iou_soft_pairwise * match, dim=1)
   iou_soft_scalar = torch.sum(
       torch.sum(iou_soft_mask, dim=1) / match_count) / B
   if cfg.segm_loss_fn == 'iou':
@@ -713,10 +742,10 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
   with torch.no_grad():
     y_out_hard = (y_out > 0.5).float()
     iou_hard_pair = losses.f_iou(y_out_hard, y_gt, pairwise=True)
-    iou_hard_mask = torch.sum(iou_hard_pair * match, dim=1)
+    iou_hard_mask = torch.sum(iou_hard_pair * real_match, dim=1)
     iou_hard = torch.sum(torch.sum(iou_hard_mask, dim=1) / match_count) / B
     dice_pair = losses.f_dice(y_out_hard, y_gt, pairwise=True)
-    dice = torch.sum(torch.sum(dice_pair * match, dim=(1, 2))
+    dice = torch.sum(torch.sum(dice_pair * real_match, dim=(1, 2))
                      / match_count) / B
     metrics = {
         'wt_cov_soft': wt_cov_soft.detach(),

@@ -35,21 +35,77 @@ def _trunc_normal(shape, generator, stddev=0.01):
 # Primitive ops
 # ---------------------------------------------------------------------------
 
-def conv2d_same(x, w):
-  """Stride-1 SAME convolution.  x [B,C,H,W], w [F,F,in,out] (HWIO).
+class _Bf16Conv(torch.autograd.Function):
+  """Convolution (or transposed convolution) in bfloat16 of x, bfloat16 or
+  a float32 tensor that JAX casts to bfloat16 at this point, with the
+  float32 weight w cast to bfloat16, as JAX's ``conv2d`` casts it.
+
+  Its gradients are those of the compiled JAX program, which computes the
+  convolution's transposes in float32 over the bfloat16 operands: the
+  weight gradient of a convolution is that float32 sum, unrounded (XLA
+  drops the round trip through bfloat16 that the weight's cast implies),
+  that of a transposed convolution is rounded to bfloat16 (there the
+  kernel's flip stands between the two casts, and XLA keeps them); the
+  input gradient of a float32 x is unrounded (the cast's round trip is
+  dropped), that of a bfloat16 x is rounded to bfloat16."""
+
+  @staticmethod
+  def forward(ctx, x, w, stride, padding, transposed):
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    ctx.save_for_backward(xb, wb)
+    ctx.x_dtype, ctx.transposed = x.dtype, transposed
+    # bias, stride, padding, dilation, transposed, output padding, groups
+    ctx.args = (None, stride, padding, (1, 1), transposed, (0, 0), 1)
+    return torch.ops.aten.convolution(xb, wb, *ctx.args)
+
+  @staticmethod
+  def backward(ctx, g):
+    xb, wb = ctx.saved_tensors
+    bwd = torch.ops.aten.convolution_backward
+    need_x, need_w = ctx.needs_input_grad[:2]
+    gx = gw = None
+    if need_x and ctx.x_dtype == torch.bfloat16:
+      gx = bwd(g, xb, wb, *ctx.args, (True, False, False))[0]
+      need_x = False
+    if need_x or need_w:
+      wide = bwd(g.float(), xb.float(), wb.float(), *ctx.args,
+                 (need_x, need_w, False))
+      gx = wide[0] if need_x else gx
+      gw = wide[1]
+      if gw is not None and ctx.transposed:
+        gw = gw.to(torch.bfloat16).float()
+    return gx, gw, None, None, None
+
+
+def _conv(x, weight, stride, padding, transposed, dtype):
+  """Convolution of x [B,C,H,W] with the [out,in,F,F] (transposed: [in,
+  out,F,F]) float32 weight, in ``dtype`` (float32, or bfloat16 by
+  ``_Bf16Conv``)."""
+  if dtype == torch.bfloat16:
+    return _Bf16Conv.apply(x, weight, stride, padding, transposed)
+  if transposed:
+    return F.conv_transpose2d(x, weight, stride=stride, padding=padding)
+  return F.conv2d(x, weight, stride=stride, padding=padding)
+
+
+def conv2d_same(x, w, dtype=None):
+  """Stride-1 SAME convolution.  x [B,C,H,W], w [F,F,in,out] (HWIO), in
+  ``dtype`` (default x's).
 
   SAME puts the odd pad row/column at the bottom/right."""
   k_h, k_w = w.shape[0], w.shape[1]
   pt, pl = (k_h - 1) // 2, (k_w - 1) // 2
   pb, pr = k_h - 1 - pt, k_w - 1 - pl
-  weight = w.permute(3, 2, 0, 1).to(x.dtype)
-  if (pt, pl) == (pb, pr):
-    return F.conv2d(x, weight, padding=(pt, pl))
-  return F.conv2d(F.pad(x, (pl, pr, pt, pb)), weight)
+  weight = w.permute(3, 2, 0, 1)
+  if (pt, pl) != (pb, pr):
+    x = F.pad(x, (pl, pr, pt, pb))
+    pt = pl = 0
+  return _conv(x, weight, (1, 1), (pt, pl), False, dtype or x.dtype)
 
 
-def conv2d_transpose_same(x, w, stride):
-  """SAME transposed convolution with output H*stride x W*stride.
+def conv2d_transpose_same(x, w, stride, dtype=None):
+  """SAME transposed convolution with output H*stride x W*stride, in
+  ``dtype`` (default x's).
 
   x [B,in,H,W], w [F,F,out,in] (the ``tf.nn.conv2d_transpose`` layout that
   JAX applies with ``transpose_kernel=True``).  JAX's SAME result is the full
@@ -59,8 +115,8 @@ def conv2d_transpose_same(x, w, stride):
   k = w.shape[0]
   if k < stride:
     raise NotImplementedError(f'filter {k} narrower than stride {stride}')
-  full = F.conv_transpose2d(x, w.permute(3, 2, 0, 1).to(x.dtype),
-                            stride=stride)
+  full = _conv(x, w.permute(3, 2, 0, 1), (stride, stride), (0, 0), True,
+               dtype or x.dtype)
   o = (k - stride) // 2
   h, wd = x.shape[2] * stride, x.shape[3] * stride
   return full[:, :, o:o + h, o:o + wd]
@@ -105,15 +161,17 @@ class BatchNorm(nn.Module):
     self.register_buffer('ema_mean', torch.zeros(shape))
     self.register_buffer('ema_var', torch.ones(shape))
 
-  def forward(self, x, t, stats=None):
+  def forward(self, x, t, stats=None, out_dtype=None):
     """Normalise channel dim 1 of x ([B,C,H,W] or [B,C]) with copy ``t``
-    (None for a single copy); computed in float32, returned in x's dtype.
+    (None for a single copy); computed in float32, returned in
+    ``out_dtype`` (default x's).
 
     Eval (``stats`` None): with the EMA statistics.  Train (``stats`` a
     list): with the batch mean and biased variance, and the new EMA
     statistics of copy t, ``BN_DECAY * ema + (1 - BN_DECAY) * batch``, are
     appended to ``stats`` as a (mean, var) pair instead of being written
     here, so that a recomputed forward does not apply them twice."""
+    out_dtype = x.dtype if out_dtype is None else out_dtype
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = x.float()
     copy = (lambda p: p) if t is None else (lambda p: p[t])
@@ -130,7 +188,7 @@ class BatchNorm(nn.Module):
     inv = torch.rsqrt(var + BN_EPS).view(shape)
     normed = ((xf - mean.view(shape)) * inv * copy(self.gamma).view(shape)
               + copy(self.beta).view(shape))
-    return normed.to(x.dtype)
+    return normed.to(out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +229,28 @@ def init_dcnn(filter_sizes, channels, use_bn, skip_ch, num_bn_copies,
   return nn.ModuleList(layers)
 
 
-def apply_cnn(layers, x, pool, act, t, stats=None):
-  """conv -> +b -> BN(copy t) -> act -> SAME max-pool, per layer.
+def _conv_bias_bn(layer, h, t, stats):
+  """A conv layer's output h [B,C,H,W] plus its bias, then its BatchNorm
+  (copy t; ``stats`` as in ``apply_cnn``), in h's dtype.
+
+  In bfloat16 the bias, cast to bfloat16, is added in float32 where a
+  BatchNorm follows, and that sum reaches the BatchNorm unrounded: the
+  compiled JAX program fuses ``conv + b`` with the BatchNorm's cast to
+  float32 and drops the sum's bfloat16 rounding (XLA keeps the rounding
+  of the conv's output, of the bias and of the BatchNorm's result).  In
+  float32 this is the plain ``conv + b``."""
+  b = layer.b.to(h.dtype).view(1, -1, 1, 1)
+  if layer.bn is None:
+    if stats is not None:
+      stats.append(None)
+    return h + b
+  return layer.bn(h.float() + b.float(), t, stats, out_dtype=h.dtype)
+
+
+def apply_cnn(layers, x, pool, act, t, stats=None, dtype=None):
+  """conv -> +b -> BN(copy t) -> act -> SAME max-pool, per layer, in
+  ``dtype`` (default x's; a float32 x with ``dtype`` bfloat16 is cast by
+  the first convolution, see ``_Bf16Conv``).
 
   x [B,C,H,W]; returns the list of per-layer activations.  With ``stats``
   a list, BatchNorm runs in train mode and appends each layer's new EMA
@@ -180,11 +258,7 @@ def apply_cnn(layers, x, pool, act, t, stats=None):
   h = x
   h_list = []
   for i, layer in enumerate(layers):
-    h = conv2d_same(h, layer.w) + layer.b.to(h.dtype).view(1, -1, 1, 1)
-    if layer.bn is not None:
-      h = layer.bn(h, t, stats)
-    elif stats is not None:
-      stats.append(None)
+    h = _conv_bias_bn(layer, conv2d_same(h, layer.w, dtype), t, stats)
     if act[i] is not None:
       h = act[i](h)
     h = max_pool_same(h, pool[i])
@@ -192,21 +266,17 @@ def apply_cnn(layers, x, pool, act, t, stats=None):
   return h_list
 
 
-def apply_dcnn(layers, x, pool, act, t, skip=None, stats=None):
+def apply_dcnn(layers, x, pool, act, t, skip=None, stats=None, dtype=None):
   """Transposed-conv net; skip[i] (may be None) is concatenated on the
   channel axis before layer i.  Returns the per-layer activations;
-  ``stats`` as in ``apply_cnn``."""
+  ``stats`` and ``dtype`` as in ``apply_cnn``."""
   h = x
   h_list = []
   for i, layer in enumerate(layers):
     if skip is not None and skip[i] is not None:
       h = torch.cat([h, skip[i]], dim=1)
-    h = (conv2d_transpose_same(h, layer.w, pool[i])
-         + layer.b.to(h.dtype).view(1, -1, 1, 1))
-    if layer.bn is not None:
-      h = layer.bn(h, t, stats)
-    elif stats is not None:
-      stats.append(None)
+    h = _conv_bias_bn(layer, conv2d_transpose_same(h, layer.w, pool[i],
+                                                   dtype), t, stats)
     if act[i] is not None:
       h = act[i](h)
     h_list.append(h)
@@ -263,8 +333,10 @@ class LSTM(nn.Module):
     w_x = torch.cat([getattr(self, f'w_x{g}') for g in _LSTM_GATES], dim=1)
     w_h = torch.cat([getattr(self, f'w_h{g}') for g in _LSTM_GATES], dim=1)
     b = torch.cat([getattr(self, f'b_{g}') for g in _LSTM_GATES])
-    z = (inp @ w_x.to(inp.dtype) + h.to(inp.dtype) @ w_h.to(inp.dtype)
-         + b).float()
+    # In bfloat16 the two products are rounded and summed with the bias in
+    # float32, as the compiled JAX program does.
+    z = ((inp @ w_x.to(inp.dtype)).float()
+         + (h.to(inp.dtype) @ w_h.to(inp.dtype)).float() + b)
     zi, zf, zu, zo = torch.chunk(z, 4, dim=1)
     c = torch.sigmoid(zf) * c + torch.sigmoid(zi) * torch.tanh(zu)
     h = torch.sigmoid(zo) * torch.tanh(c)

@@ -28,7 +28,9 @@ viewed as [B,FH,FW,D]), the general one contiguous.
 A CUDA tensor goes to the kernel, or the call raises: there is no fallback
 to the einsum forms on the card.  A CPU tensor goes to the plain two-einsum
 version of ``ops/attention.py``, in the forward and in the backward, so the
-Functions' own backward formulas run on the CPU too.  Each wrapper counts
+Functions' own backward formulas run on the CPU too.  A bfloat16 or float16
+operand is refused on either device: the bfloat16 model keeps its glimpses
+in float32, as JAX's does.  Each wrapper counts
 the launches of its kernel, backward launches included, in its
 ``launches`` attribute, and the backward ones also in
 ``backward_launches``; ``glimpse_extract.route_launches`` splits its
@@ -60,6 +62,13 @@ def _check(name, a, f_y, f_x):
   if f_y.shape[0] != a.shape[0] or f_x.shape[0] != a.shape[0]:
     raise ValueError(f'{name}: batch sizes differ: {tuple(a.shape)}, '
                      f'{tuple(f_y.shape)}, {tuple(f_x.shape)}')
+  low = [t.dtype for t in (a, f_y, f_x)
+         if t.dtype in (torch.bfloat16, torch.float16)]
+  if low:
+    # JAX's bfloat16 model keeps its glimpses in float32; a cast here would
+    # hide a cast missed before it.
+    raise TypeError(f'{name}: the glimpse takes float32 operands, got '
+                    f'{low[0]}')
   devices = {t.device for t in (a, f_y, f_x)}
   if len(devices) != 1:
     raise ValueError(f'{name}: operands on several devices: {devices}')

@@ -5,6 +5,8 @@ batches.
     python3 step_noise.py [--batches 5] [--step 30000] [--batch 32]
     python3 step_noise.py --chain [--batches 5]
     python3 step_noise.py --box-repeats 8
+    python3 step_noise.py --bf16 [--batches 5]
+    python3 step_noise.py --bf16-exact [--batches 2]
 
 Restores the flagship CVPPP checkpoint with its Adam state on one CUDA card
 and, for each of several seeded synthetic batches and draws, runs
@@ -35,6 +37,26 @@ algorithms in those steps and twice with its deterministic ones.  Each
 repeat prints the pack's digest, the gate (card against CPU, both float32)
 and each side against the same step on the CPU in float64 (the exact
 answer's stand-in), and whether the card's step repeats bit for bit.
+With ``--bf16``, the gates of chip_smoke.py's bf16 phase over several
+b32 batches: the committed bfloat16 run's checkpoint restored with its
+Adam state, one step at step 0 (the ground truth fills the canvas) held
+kernel against plain beside the reordered-plain floor, and card against
+the float32 model's step in float64 on the CPU (b2) beside its floor, the
+CPU's bfloat16 step and the card's with cuDNN off against the same step
+(``chip_smoke.bf16_step_gates``), each with the dropped-filter-gradient
+control, and the card's statistics over the larger floor's.  Batch 0 is
+the one that chip_smoke.py gates.
+
+With ``--bf16-exact``, the bf16 phase's card-against-CPU step (b2, the
+first two examples of each of the first ``--batches`` b32 batches, step 0,
+the CPU's matchings pinned) taken five ways: bfloat16 on the CPU,
+bfloat16 on the card (cuDNN deterministic, as gated), bfloat16 on the card
+with cuDNN off and with cuBLAS's reduced-precision bfloat16 sums off, and
+float32 on the card and on the CPU.  Each is held to the float64 step on
+the CPU (the float32 model run in float64: the exact answer's stand-in)
+and to the bfloat16 CPU step, with each step's five largest gradient
+norms.
+
 Needs a card; exits 1 without one.
 """
 
@@ -60,6 +82,12 @@ def main():
   ap.add_argument('--box-repeats', type=int, default=0,
                   help="chain_train's box card-against-CPU gate over this "
                        'many fg trainings')
+  ap.add_argument('--bf16', action='store_true',
+                  help="the bf16 phase's train gates instead of the "
+                       'flagship step')
+  ap.add_argument('--bf16-exact', action='store_true',
+                  help="the bf16 phase's card-against-CPU step against a "
+                       'float64 step')
   args = ap.parse_args()
 
   import torch
@@ -70,6 +98,12 @@ def main():
     return
   if args.box_repeats:
     box_repeats(torch, args.box_repeats)
+    return
+  if args.bf16:
+    bf16_noise(torch, args.batches)
+    return
+  if args.bf16_exact:
+    bf16_exact(torch, args.batches)
     return
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.config import cvppp_full_config
@@ -182,42 +216,6 @@ def chain_noise(torch, n):
   print(chip_smoke.nvidia_smi_name_power(), flush=True)
 
 
-@contextlib.contextmanager
-def float64_everywhere(torch):
-  """Inside the block ``Tensor.float()`` gives float64 and new floating
-  tensors are float64, so a model written for float32 runs in float64."""
-  cast = torch.Tensor.float
-  torch.Tensor.float = lambda self, *a, **kw: self.double()
-  torch.set_default_dtype(torch.float64)
-  try:
-    yield
-  finally:
-    torch.Tensor.float = cast
-    torch.set_default_dtype(torch.float32)
-
-
-def float64_step(torch, ts, matching, model, opt_state, batch, draws, step,
-                 pinned):
-  """``chip_smoke.one_step`` on the CPU in float64 with the Hungarian
-  answer ``pinned``, its floating results cast back to float32."""
-  model = copy.deepcopy(model).to('cpu').double()
-  model.device = torch.device('cpu')
-  opt_state = {k: (v if k == 'count' else {n: t.cpu().double()
-                                           for n, t in v.items()})
-               for k, v in opt_state.items()}
-  draws = {k: (v if k == 'aug' else v.cpu().double())
-           for k, v in draws.items()}
-  with float64_everywhere(torch):
-    out = chip_smoke.one_step(torch, ts, matching, model, opt_state,
-                              {k: v.cpu() for k, v in batch.items()}, draws,
-                              step, 'kernel', pinned)
-
-  def f32(t):
-    return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
-  return tuple({k: f32(v) for k, v in x.items()} if isinstance(x, dict)
-               else f32(x) for x in out)
-
-
 def box_repeats(torch, n):
   """chain_train's box card-against-CPU gate over n + 2 fg trainings
   (module docstring)."""
@@ -280,8 +278,9 @@ def box_repeats(torch, n):
                                    chip_smoke.to_device(small_draws, dev),
                                    box.step, 'kernel', host[4]['solved'])
     got, again = card(), card()
-    exact = float64_step(torch, ts, matching, box.model, box.opt_state,
-                         small, small_draws, box.step, host[4]['solved'])
+    exact = chip_smoke.float64_step(torch, ts, matching, box.model,
+                                    box.opt_state, small, small_draws,
+                                    box.step, host[4]['solved'])
     exact = tuple(({k: (v.to(dev) if torch.is_tensor(v) else v)
                     for k, v in x.items()} if isinstance(x, dict)
                    else x.to(dev)) for x in exact)
@@ -300,6 +299,149 @@ def box_repeats(torch, n):
         'cpu_vs_float64': diff(host, exact),
         'card_repeats_bitwise': all(torch.equal(got[1][k], again[1][k])
                                     for k in got[1])}), flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+def bf16_noise(torch, n):
+  """chip_smoke.py's bf16 train gates over n b32 batches (module
+  docstring)."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device('cuda')
+  cfg = chip_smoke.bf16_config()
+  trainer = Trainer(cfg, device=dev)
+  trainer.restore(chip_smoke.BF16_DIR)
+  lr = learn_rate(cfg, trainer.opt_state['count'])
+  b, nb = chip_smoke.TRAIN_BATCH, chip_smoke.TRAIN_CPU_BATCH
+  keys = ('loss_rel_diff', 'grad_rel_l2_max', 'grad_rel_l2_all',
+          'grad_rel_l2_median', 'zero_grad_share_max', 'update_rel_l2_max',
+          'zero_update_in_lr_max', 'matches_differ', 'failed')
+  for i in range(n):
+    batch = {k: v.to(dev) for k, v in synthetic_instances(
+        b, cfg.inp_height, cfg.inp_width, cfg.timespan,
+        seed=1000 + i).items()}
+    draws = draw_train_randoms(cfg, b,
+                               torch.Generator(dev).manual_seed(1 + 10 * i))
+    small = draw_train_randoms(cfg, nb,
+                               torch.Generator(dev).manual_seed(2 + 10 * i))
+    gates, failures = chip_smoke.bf16_step_gates(
+        torch, ts, matching, gk, trainer, batch, draws, small, lr)
+    print(json.dumps({
+        'batch': i, 'failures': failures,
+        'card_over_floor': card_over_floor(gates, nb),
+        'gates': {name: {k: v[k] for k in keys if k in v}
+                  for name, v in gates.items()}}), flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+def card_over_floor(gates, nb):
+  """Each statistic of the card's bf16 step against float64 over the
+  larger of its floor's two readings (the CPU's bf16 step and the card's
+  with cuDNN off against the same step)."""
+  def value(v):
+    return v[1] if isinstance(v, (list, tuple)) else v
+  card = gates[f'card_vs_float64_b{nb}']
+  floors = [gates[f'{name}_vs_float64_b{nb}']
+            for name in ('cpu', 'card_cudnn_off')]
+  return {k: value(card[k]) / max(max(value(f[k]) for f in floors), 1e-30)
+          for k in chip_smoke.BF16_FLOOR_GATES}
+
+
+def bf16_exact(torch, n):
+  """The bf16 phase's card-against-CPU step five ways against float64
+  (module docstring)."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device('cuda')
+  cfg = chip_smoke.bf16_config()
+  trainer = Trainer(cfg, device=dev)
+  trainer.restore(chip_smoke.BF16_DIR)
+  f32 = Trainer(cfg.replace(dtype='float32'), device=dev)
+  f32.model.load_state_dict(trainer.model.state_dict())
+  opt = trainer.opt_state
+  lr = learn_rate(cfg, opt['count'])
+  nb = chip_smoke.TRAIN_CPU_BATCH
+  keys = ('loss', 'loss_ref', 'loss_rel_diff', 'grad_rel_l2_max',
+          'grad_rel_l2_all', 'grad_rel_l2_median', 'update_rel_l2_max',
+          'matches_differ', 'forward')
+  matmul = torch.backends.cuda.matmul
+
+  def on(d, x):
+    return tuple(({k: (v.to(d) if torch.is_tensor(v) else v)
+                   for k, v in y.items()} if isinstance(y, dict)
+                  else y.to(d)) for y in x)
+  for i in range(n):
+    batch = {k: v[:nb].to(dev) for k, v in synthetic_instances(
+        chip_smoke.TRAIN_BATCH, cfg.inp_height, cfg.inp_width,
+        cfg.timespan, seed=1000 + i).items()}
+    draws = draw_train_randoms(cfg, nb,
+                               torch.Generator(dev).manual_seed(2 + 10 * i))
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    cpu_draws = chip_smoke.to_device(draws, 'cpu')
+
+    def cpu_step(model):
+      m = copy.deepcopy(model).to('cpu')
+      m.device = torch.device('cpu')
+      return on(dev, chip_smoke.one_step(
+          torch, ts, matching, m, chip_smoke.opt_state_to(opt, 'cpu'),
+          cpu_batch, cpu_draws, 0, 'kernel', pinned))
+
+    def card_step(model, cudnn=True, reduced=True):
+      saved = (torch.backends.cudnn.enabled,
+               matmul.allow_bf16_reduced_precision_reduction)
+      torch.backends.cudnn.enabled = cudnn
+      matmul.allow_bf16_reduced_precision_reduction = reduced
+      try:
+        with chip_smoke.deterministic_cudnn(torch):
+          return chip_smoke.one_step(torch, ts, matching, model, opt, batch,
+                                     draws, 0, 'kernel', pinned)
+      finally:
+        (torch.backends.cudnn.enabled,
+         matmul.allow_bf16_reduced_precision_reduction) = saved
+    pinned = None
+    host = cpu_step(trainer.model)
+    pinned = host[4]['solved']
+    exact = on(dev, chip_smoke.float64_step(torch, ts, matching, f32.model,
+                                            opt, batch, draws, 0, pinned))
+    steps = {
+        'cpu_bf16': host,
+        'card_bf16': card_step(trainer.model),
+        'card_bf16_cudnn_off': card_step(trainer.model, cudnn=False),
+        'card_bf16_no_reduced_bf16_sums': card_step(trainer.model,
+                                                    reduced=False),
+        'card_f32': card_step(f32.model),
+        'cpu_f32': cpu_step(f32.model)}
+    out = {}
+    for name, got in steps.items():
+      norms = {k: float(g.norm()) for k, g in got[1].items()}
+      out[name] = {
+          'vs_float64': {k: v for k, v in chip_smoke.step_diff(
+              torch, trainer.model, got, exact, lr).items() if k in keys},
+          'grad_norms_top5': sorted(norms.items(), key=lambda kv: -kv[1])[:5]}
+      if name != 'cpu_bf16':
+        out[name]['vs_cpu_bf16'] = {k: v for k, v in chip_smoke.step_diff(
+            torch, trainer.model, got, host, lr).items() if k in keys}
+    out['float64_grad_norms_top5'] = sorted(
+        ((k, float(g.norm())) for k, g in exact[1].items()),
+        key=lambda kv: -kv[1])[:5]
+    print(json.dumps({'batch': i, 'batch_seed': 1000 + i,
+                      'draws_seed': 2 + 10 * i, 'examples': nb,
+                      'steps': out}), flush=True)
   print(chip_smoke.nvidia_smi_name_power(), flush=True)
 
 

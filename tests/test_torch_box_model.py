@@ -66,6 +66,10 @@ VARIANTS = {
                          remat=True),
     'flips_iou_box': dict(rnd_hflip=True, rnd_vflip=True,
                           rnd_transpose=True, use_iou_box=True),
+    # JAX's box model reads no dtype: a bfloat16 config trains in float32.
+    'packed_remat_bf16_config': dict(add_d_out=True, add_y_out=True,
+                                     dynamic_var=True, remat=True,
+                                     dtype='bfloat16'),
 }
 
 

@@ -86,8 +86,13 @@ def test_random_transformation_flags_and_limits():
   assert torch.equal(got['x'], padded[:, 2:10, 3:13])
   with pytest.raises(ValueError, match='square'):
     TI.random_transformation(x, 2, draws)
-  with pytest.raises(NotImplementedError, match='rnd_colour'):
+  with pytest.raises(ValueError, match='colour'):
     TI.random_transformation(x, 2, draws, rnd_transpose=False,
                              rnd_colour=True)
   draws = TI.draw_transformation(2, torch.Generator().manual_seed(0))
   assert all(0 <= o < 4 for o in draws['offset'])
+  assert 'colour' not in draws
+  colour = TI.draw_transformation(2, torch.Generator().manual_seed(0),
+                                  colour=True)['colour']
+  for name, lo, hi in TI.COLOUR_RANGES:
+    assert lo <= colour[name] < hi, name

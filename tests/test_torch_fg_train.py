@@ -81,6 +81,10 @@ VARIANTS = {
         segm_loss_fn='bce', optimizer='momentum'),
     'iou_adam_flips': dict(rnd_hflip=True, rnd_vflip=True,
                            rnd_transpose=True),
+    # JAX's fg model reads no dtype: a bfloat16 config trains in float32.
+    'orientation_momentum_bf16_config': dict(
+        add_orientation=True, dcnn_depth=(8, 4, 9), segm_loss_fn='bce',
+        optimizer='momentum', dtype='bfloat16'),
 }
 
 

@@ -52,6 +52,12 @@ CONFIGS = {
     'fg': (C.tiny_fg_config(optimizer='momentum', **SMALL),
            JC.tiny_fg_config(optimizer='momentum', **SMALL),
            JG.init_fg_model),
+    # A bfloat16 run: float32 checkpoints, ``dtype: bfloat16`` in its
+    # model_opt.yaml, and JAX trains on from them in bfloat16.
+    'full_bfloat16': (
+        C.tiny_full_config(use_knob=True, dtype='bfloat16', **GLIMPSE),
+        JC.tiny_full_config(use_knob=True, dtype='bfloat16', **GLIMPSE),
+        JF.init_full_model),
 }
 
 
@@ -77,6 +83,7 @@ def _names(tree):
 @pytest.mark.parametrize('spec', sorted(CONFIGS))
 def test_port_checkpoints_restore_in_jax(tmp_path, spec):
   cfg, jcfg, init = CONFIGS[spec]
+  spec = spec.split('_')[0]
   timespan = getattr(cfg, 'timespan', 4)
   train_cfg, jtrain_cfg = _train_cfgs(tmp_path, spec, 2)
   data_cfg, jdata_cfg = _data_cfgs(tmp_path, timespan)
@@ -84,6 +91,10 @@ def test_port_checkpoints_restore_in_jax(tmp_path, spec):
   exp.run()
   folder = exp.folder
   assert [s for s, _ in exp.saver.list_ckpts()] == [1, 2]
+  with open(os.path.join(folder, 'model_opt.yaml')) as f:
+    written = yaml.safe_load(f)
+  assert written['dtype'] == cfg.dtype
+  assert type(jcfg).from_dict(written) == jcfg
 
   params = init(jax.random.PRNGKey(0), jcfg)
   template = {'params': params, 'opt_state': make_optimizer(jcfg).init(

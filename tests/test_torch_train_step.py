@@ -11,9 +11,7 @@ the ``jax.random.split`` sequence of ``full_model.py:218-262``,
 Both sides match with the same host Hungarian solver.
 
 Compared, with their tolerances (float32 on both sides; the conv stacks and
-the contractions sum in other orders in XLA and in PyTorch, and XLA's jit
-reassociates ``1 - s + eps`` in the confidence BCE, which near s = 1 moves
-the loss by about 1e-5 and every gradient by about 1e-4 of itself):
+the contractions sum in other orders in XLA and in PyTorch):
   loss and aux metrics      rtol 1e-4, atol 1e-5
   every gradient leaf       rtol 1e-3, atol 1e-4 times the leaf's largest
                             magnitude (the gradient tolerance of the
@@ -45,6 +43,7 @@ from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch import convert
 from rec_attend_tpu_torch import train_step as TS
 from rec_attend_tpu_torch.models import full_model as TF
+from test_torch_image_ops import jax_colour_draws
 
 torch.set_num_threads(1)
 
@@ -59,6 +58,23 @@ VARIANTS = {
     'no_knob_canvas_grad': (dict(use_knob=False, remat=True,
                                  stop_canvas_grad=False,
                                  segm_weight_alpha=0.5), 0.0),
+    # The loss options (full_model.py:627-681), at step 0.
+    'box_mse': (dict(use_knob=True, box_loss_fn='mse'), 0.0),
+    'box_huber': (dict(use_knob=True, box_loss_fn='huber'), 0.0),
+    'box_wt_cov': (dict(use_knob=True, box_loss_fn='wt_cov'), 0.0),
+    'box_bce': (dict(use_knob=True, box_loss_fn='bce'), 0.0),
+    'segm_wt_cov': (dict(use_knob=True, segm_loss_fn='wt_cov'), 0.0),
+    'segm_bce': (dict(use_knob=True, segm_loss_fn='bce'), 0.0),
+    'accumulate_greedy_match': (dict(use_knob=True, remat=True,
+                                     accumulate_greedy_match=True), 0.0),
+    # Timestep t against instance t (full_model.py:398-401, :468-469,
+    # :597-600, :644-658): with the knob, the ground truth of timestep t is
+    # mixed in; without it, only the identity matchings remain.
+    'fixed_order_knob_on': (dict(use_knob=True, remat=True,
+                                 fixed_order=True), 0.0),
+    'fixed_order_knob_off': (dict(use_knob=False, fixed_order=True), 0.0),
+    # The colour jitter of the augmentation (image_ops.py:167-174).
+    'rnd_colour': (dict(use_knob=True, rnd_colour=True), 0.0),
 }
 AUG = dict(rnd_hflip=True, rnd_vflip=True, rnd_transpose=True)
 
@@ -107,11 +123,14 @@ def jax_draws(key, jcfg, b):
   k_n1, k_n2 = jax.random.split(k_noise)
   pad = jcfg.attn_box_padding_ratio
   scan_keys = jax.random.split(k_scan, t)
+  aug = {'offset': (int(off[0]), int(off[1])),
+         'hflip': bool(jax.random.uniform(k_h) < 0.5),
+         'vflip': bool(jax.random.uniform(k_v) < 0.5),
+         'transpose': bool(jax.random.uniform(k_t) < 0.5)}
+  if jcfg.rnd_colour:
+    aug['colour'] = jax_colour_draws(k_aug)
   return {
-      'aug': {'offset': (int(off[0]), int(off[1])),
-              'hflip': bool(jax.random.uniform(k_h) < 0.5),
-              'vflip': bool(jax.random.uniform(k_v) < 0.5),
-              'transpose': bool(jax.random.uniform(k_t) < 0.5)},
+      'aug': aug,
       'pad_noise': jax.random.uniform(
           k_n1, (b, t, 1), minval=pad - jcfg.gt_box_pad_noise,
           maxval=pad + jcfg.gt_box_pad_noise),
