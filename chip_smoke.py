@@ -4,7 +4,8 @@ and check them.
 
     python3 chip_smoke.py            # from the repository root
 
-Phases, one JSON line each on stdout:
+Phases, one JSON line each on stdout, each with the seconds since the
+script started ('script_seconds'):
   device        the card, and its name and power limit from nvidia-smi;
   build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and the C++
                 compiler csrc/hungarian.cc, both at once (seconds taken),
@@ -15,7 +16,9 @@ Phases, one JSON line each on stdout:
                 at the serving path's shapes (CVPPP, b128, b8 and b1), at
                 the synth3 chain's (KITTI 128x448, b32, extract D=13, paste
                 D=1, 48x48 glimpse), at the synthcs chain's (256x512, b32,
-                extract D=15, paste D=1), at Cityscapes' extract (256x512,
+                extract D=15, paste D=1) and at the synthcs pipeline's
+                train shapes (256x512, b4, extract D=15 and D=1, paste D=1),
+                at Cityscapes' extract (256x512,
                 b32, D=21), at paste's d_p of the KITTI size (extract D=1) and
                 at a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
                 CUDA-event times; each extract names its route (the tiled
@@ -166,8 +169,8 @@ Phases, one JSON line each on stdout:
                 read back to the config (control: read as the other model's
                 config); the trained full model's eval step (the loss of
                 the valid and trainval passes) on a valid batch, kernel
-                against plain, each soft metric within 1e-5 relative
-                (control: glimpses with the window transposed); the eval
+                against plain, each soft metric within 1e-6 relative
+                (control: glimpses whose window is 8 pixels off); the eval
                 CSVs' 8 rows (control: the command line with --max_batches
                 0); the eval command line on the flagship checkpoint's
                 valid split (its first 8 images, thresholds 0.40), per
@@ -181,8 +184,8 @@ Phases, one JSON line each on stdout:
                 box stage (its patch of ones needs no d_p: the box launches
                 no extract; control: the counts of a plain train step and
                 eval step of the full model, which must be 0).
-                Reported: step ms at the log cadence, the seconds of each
-                valid pass, checkpoint write and the restore, peak memory;
+                Reported: step ms from CUDA events and at the log cadence
+                (host clock), the seconds of each valid pass, checkpoint write and the restore, peak memory;
                 it runs after the phases above, so that they run as they
                 did without it;
   synth3_pipeline
@@ -217,10 +220,54 @@ Phases, one JSON line each on stdout:
                 equal, cuDNN deterministic, on the committed synth3 full
                 checkpoint and a pack file of the valid split's ground
                 truth maps (the six-step model finds no instance; control:
-                the pack rolled by one example).  Reported: step ms at the
-                log cadence per stage, the pack's seconds and bytes, the
+                the pack rolled by one example).  Reported: step ms from
+                CUDA events and at the log cadence (host clock) per stage,
+                the pack's seconds and bytes, the
                 child process's seconds and peak resident memory, each
-                stage run's seconds, peak device memory and launches.
+                stage run's seconds, peak device memory and launches;
+  synthcs_pipeline
+                the synthcs pipeline (run_pipeline --dataset synthcs: fg ->
+                pack -> box -> full -> eval -> ap -> pixel) through
+                run_pipeline.main, every stage in this process, at its
+                paper widths (256x512, T=20, up to 10 instances of 2
+                classes, the synthcs presets, fg at b8, box and full at
+                b4), its scale cut (synthcs_stages patched): 16 train and 8
+                valid examples, 2 steps a stage, a checkpoint and valid
+                and trainval passes every step, each split on the card;
+                then
+                --stages ap,pixel again under the chain's full id on
+                the committed synthcs full checkpoint over a pack file of
+                the valid split's ground-truth maps, with the kernel
+                glimpses and (--stages ap) the plain ones; all under a
+                temporary folder in the checkout, removed after.  Gates,
+                each with a control that must fail: the fg step at step 0,
+                card against CPU (b2) beside its floor (the batch in the
+                other order; control: the softmax CE as the per-channel
+                BCE); the committed synthcs box checkpoint with its Adam
+                state, one b4 step kernel against plain (control: dropped
+                filter gradients) and one b2 step card against CPU
+                (control: the score head through a sigmoid); the full
+                controller at step 0 = the trained box's last checkpoint
+                (control: its first) and one b4 step kernel against plain
+                at step 0 (control: dropped filter gradients), limits from
+                `step_noise.py --synthcs`; the fg bytes quantised on the
+                card = the host's (control: rounded, not truncated); the
+                full pack read back from the pack file = pack_full's in
+                memory, bit for bit (control: the slots shifted by one);
+                launches per step, fg none, box 2T pastes, full 4T
+                extracts on the strip route (2T as d_p) and 4T pastes
+                (control: a plain step's, 0; of fg: a full step's);
+                ap.json of the kernel run against the plain run (AP,
+                AP_50% and per class, equal where the kernels give the
+                plain bits at these shapes; control: person and rider
+                swapped); pixel_eval.json of the trained fg pack against
+                the host's labels of the same bytes (control: the class
+                channels rolled).  Reported: step ms per stage from CUDA
+                events and at the log cadence (host clock), peak device
+                memory, launches per step, host
+                seconds of the pack, the eval, the full pack, the ap and
+                the pixel stages, the pack files' bytes, the phase's
+                seconds.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -243,6 +290,7 @@ import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+SCRIPT_START = time.time()
 CHECKPOINT_DIR = os.path.join(REPO, 'results',
                               'full_model_synth-20260816104712')
 # The KITTI-shaped chain: the fg model, then the full model on its packed
@@ -422,13 +470,20 @@ FULL_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.23,
 PIPELINE_EXAMPLES, PIPELINE_STEPS = 32, 6
 PIPELINE_CKPT_STEPS, PIPELINE_EVAL_STEPS, PIPELINE_LOG_STEPS = 2, 3, 1
 # The eval step's metrics that vary smoothly with the forward, held kernel
-# against plain to EVAL_STEP_REL_LIMIT relative (kernel against plain read
-# 0.0, reordered plain up to 1.8e-7, the transposed-window control 2.5e-4
-# in box_loss, PR 15 run 5).
+# against plain to EVAL_STEP_REL_LIMIT relative.  On one H100 80GB HBM3 at
+# 700 W kernel against plain and reordered plain read 0.0 in eight runs
+# (reordered plain up to 1.8e-7 in one earlier run).  After 6 steps the
+# model's masks barely depend on where its glimpses look: the window
+# transposed, near a symmetry of such a model, moved the metrics by 1.3e-5
+# to 1.7e-3 in seven runs and by less than 1e-5 in one, and a window one
+# pixel off by 5.3e-6 in one run.  So the limit is 1e-6, five times the
+# highest floor, and the control is a window EVAL_STEP_CONTROL_SHIFT
+# pixels off, which no symmetry undoes.
 EVAL_STEP_METRICS = ('loss', 'box_loss', 'segm_loss', 'conf_loss',
                      'iou_soft', 'iou_soft_box', 'wt_cov_soft',
                      'unwt_cov_soft')
-EVAL_STEP_REL_LIMIT = 1e-5
+EVAL_STEP_REL_LIMIT = 1e-6
+EVAL_STEP_CONTROL_SHIFT = 8
 # The eval command line on the flagship's valid split against eval_split
 # with the plain glimpses: per-example SBD within the CSVs' 4 decimals and
 # float noise (the eval phase's kernel against plain read 0.0 over 64
@@ -454,6 +509,63 @@ FG_METRICS = ('iou_soft', 'iou_hard', 'orientation_acc')
 SYNTH3_METRICS_LIMIT = 1e-3
 # The eval command line's gate runs one batch of this many valid images.
 SYNTH3_CLI_EXAMPLES = 8
+
+# The synthcs pipeline (rec_attend_tpu_torch/pipelines/run_pipeline.py
+# --dataset synthcs) at its paper widths, 256x512, T=20, up to 10 instances
+# of 2 classes, the synthcs presets, fg at b8 and box and full at b4 (JAX
+# run_pipeline.py:392-415), its scale cut: 16 train examples (8 valid, the
+# provider's least), 2 steps a stage (the script's time), a checkpoint
+# every step (ckpt-1 and ckpt-2 kept), valid and trainval passes every step
+# with one batch, each split on the device, every stage in one process (the
+# synth3 phase runs a chain across processes).
+SYNTHCS_EXAMPLES, SYNTHCS_STEPS, SYNTHCS_EVERY = 16, 2, 1
+SYNTHCS_TRAIN_BATCH = 4
+# The box gate restores the committed synthcs box checkpoint with its Adam
+# state (7 MB; its weights.h5 stays out of the copy).
+SYNTHCS_BOX_DIR = os.path.join(REPO, 'results', 'box_model_synthcs-20260818a')
+# The phase's step gates, each limit twice the largest float32 floor that
+# `step_noise.py --synthcs` measured over five batches (one H100 80GB HBM3
+# at 700 W):
+# - fg at step 0 (its seed-0 initial parameters), card against CPU (b2).
+#   Its floor, the card's step on the batch in the other order against the
+#   card's step, reached 0.0177 in the worst leaf's gradient (a BatchNorm
+#   leaf of 33 layers over two images), 0.00775 in all gradients at once
+#   and 0.128 in the worst leaf's update; card against CPU reached 0.0232,
+#   0.0114 and 0.103.  The control (the per-channel BCE) read 0.49 and more
+#   in the worst leaf's gradient and 0.25 in the loss.
+SYNTHCS_FG_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.036,
+                          'grad_rel_l2_all': 0.016,
+                          'zero_grad_share_max': 1e-4,
+                          'update_rel_l2_max': 0.26,
+                          'zero_update_in_lr_max': 2.0}
+# - box from the committed synthcs checkpoint, kernel against plain (b4)
+#   and card against CPU (b2).  Kernel against plain stays below 1.3e-6 in
+#   any leaf's gradient.  Card against CPU reached 3.94e-3 in the worst
+#   leaf (the first convolution's weight, a sum over 20 timesteps of
+#   256x512 pixels), and that is the CPU's own float32 error: against the
+#   same step in float64 the CPU read up to 3.97e-3 there (3.25e-3 in all
+#   gradients, 2.77e-2 in the worst update, 1.14e-4 in the loss), the card
+#   3.8e-4 at most.  The limits are twice the CPU's distance; the controls
+#   read 0.59 and more (the sigmoid score head) and 1.0 (dropped filter
+#   gradients) in the worst leaf's gradient.
+SYNTHCS_BOX_STEP_LIMITS = {'loss_rel_diff': 2.3e-4, 'grad_rel_l2_max': 8e-3,
+                           'grad_rel_l2_all': 6.5e-3,
+                           'zero_grad_share_max': 1e-4,
+                           'update_rel_l2_max': 0.056,
+                           'zero_update_in_lr_max': 2.0}
+# - full at step 0 from the controller of a box near its initial
+#   parameters, kernel against plain (b4).  The floor (reordered plain
+#   against plain) reached 7.87e-3 in the worst leaf's gradient, 8.93e-4 in
+#   the median leaf's and 0.0472 in the worst update; kernel against plain
+#   1.2e-5, 5.4e-7 and 1.8e-3.  The dropped-filter-gradient control read
+#   0.36, 3.1e-3 and 0.92 and more.  All gradients at once are not gated:
+#   the fresh attention nets' gradients outweigh the controller's, so the
+#   control moves them by 3.4e-4 to 6.4e-4 only, below the floor's 1.67e-3.
+SYNTHCS_FULL_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.016,
+                            'grad_rel_l2_median': 1.8e-3,
+                            'zero_grad_share_max': 1e-4,
+                            'update_rel_l2_max': 0.095,
+                            'zero_update_in_lr_max': 2.0}
 
 # The flagship trained in bfloat16 (RESULTS.md:156-166): the synth1024 run
 # with ``dtype: bfloat16`` in its model_opt.yaml, and its headline
@@ -528,7 +640,11 @@ OPTION_BATCH = 8
 
 
 def emit(phase, **fields):
-  print(json.dumps({'phase': phase, **fields}), flush=True)
+  """One phase's JSON line, with the seconds since the script started
+  ('script_seconds': the phases' times are its differences)."""
+  print(json.dumps({'phase': phase, **fields,
+                    'script_seconds': time.time() - SCRIPT_START}),
+        flush=True)
 
 
 def nvidia_smi_name_power():
@@ -1957,14 +2073,16 @@ def timed_calls(torch, dev, fn, seconds):
   return call
 
 
-def transposed_plain(torch):
-  """Plain glimpses with the window transposed (f_y and f_x swapped, for
-  square images and glimpses): the negative control of the eval step's
-  gate, a kernel that indexes its window the wrong way round."""
-  return (lambda x, f_y, f_x: torch.einsum('bhf,bhwd,bwg->bfgd', f_x, x,
-                                           f_y),
-          lambda p, f_y, f_x: torch.einsum('bhf,bfgd,bwg->bhwd', f_x, p,
-                                           f_y))
+def shifted_plain(torch, shift):
+  """Plain glimpses whose window is ``shift`` pixels down and right (f_y
+  and f_x rolled by that many rows): the negative control of the eval
+  step's gate, a kernel that misplaces its window."""
+  def roll(f):
+    return torch.roll(f, shift, dims=1)
+  return (lambda x, f_y, f_x: torch.einsum('bhf,bhwd,bwg->bfgd', roll(f_y),
+                                           x, roll(f_x)),
+          lambda p, f_y, f_x: torch.einsum('bhf,bfgd,bwg->bhwd', roll(f_y),
+                                           p, roll(f_x)))
 
 
 def eval_step_metrics(torch, ts, matching, model, batch, glimpse,
@@ -2052,9 +2170,11 @@ def pipeline_phase(torch, gk, dev, scale='paper',
 
     def finish(exp, summary):
       t0 = time.time()
-      exp.run()
+      with recorded_runs(torch, gk, dev) as runs:
+        exp.run()
       exp.close()
       summary['run_seconds'] = time.time() - t0
+      summary.update(step_ms_summary(runs[0]))
       summary.update(launches_now(gk))
       summary['max_memory_allocated_bytes'] = peak_memory(torch, dev)
       with open(os.path.join(exp.logs_folder, 'step_time.csv')) as f:
@@ -2152,9 +2272,9 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     if not eval_step['solves_agree']:
       kernel, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
                                     'kernel', pinned=plain_solved)
-    control, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
-                                   transposed_plain(torch),
-                                   pinned=plain_solved)
+    control, _ = eval_step_metrics(
+        torch, ts, matching, model, valid_batch,
+        shifted_plain(torch, EVAL_STEP_CONTROL_SHIFT), pinned=plain_solved)
     eval_step['kernel_rel_diff'] = metrics_rel_diff(kernel, plain)
     eval_step['control_rel_diff'] = metrics_rel_diff(control, plain)
 
@@ -2367,6 +2487,19 @@ def patched(owner, name, wrap):
     setattr(owner, name, saved)
 
 
+@contextlib.contextmanager
+def chain_patched(run_pipeline, dataset, wrap):
+  """The configs function of ``run_pipeline.CHAINS[dataset]`` replaced
+  by ``wrap(it)`` inside the block."""
+  chains = run_pipeline.CHAINS
+  saved = chains[dataset]
+  chains[dataset] = (saved[0], wrap(saved[1]))
+  try:
+    yield
+  finally:
+    chains[dataset] = saved
+
+
 def counts_delta(before, after):
   """The launches between two ``launches_now`` readings (extract routes
   with none left out)."""
@@ -2385,8 +2518,10 @@ def recorded_runs(torch, gk, dev, before=None):
   """Inside the block, each ``TrainingExperiment.run`` is recorded: the
   experiment, its start step, its seconds, its peak memory, its kernel
   launches (valid and trainval passes included) and, per train step, the
-  kernel launches (``counts_delta`` around the step).  ``before(exp)``, if
-  given, is called as each run starts.  Yields the list of records."""
+  kernel launches (``counts_delta`` around the step) and, on the card, its
+  ms between CUDA events recorded around it ('step_ms').
+  ``before(exp)``, if given, is called as each run starts.  Yields the
+  list of records."""
   from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
   from rec_attend_tpu_torch.engine.trainer import Trainer
   runs = []
@@ -2402,6 +2537,10 @@ def recorded_runs(torch, gk, dev, before=None):
       start = launches_now(gk)
       t0 = time.time()
       out = run(exp)
+      if rec.get('step_events'):
+        torch.cuda.synchronize()
+        rec['step_ms'] = [a.elapsed_time(b) for a, b in
+                          rec.pop('step_events')]
       rec['run_seconds'] = time.time() - t0
       rec['max_memory_allocated_bytes'] = peak_memory(torch, dev)
       rec['launches_at_end'] = launches_now(gk)
@@ -2412,15 +2551,32 @@ def recorded_runs(torch, gk, dev, before=None):
   def record_step(step):
     def call(trainer, batch):
       before = launches_now(gk)
+      events = None
+      if dev.type == 'cuda':
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record()
       out = step(trainer, batch)
+      if events is not None:
+        events[1].record()
       if runs:
         runs[-1]['step_launches'].append(counts_delta(before,
                                                       launches_now(gk)))
+        if events is not None:
+          runs[-1].setdefault('step_events', []).append(events)
       return out
     return call
   with patched(TrainingExperiment, 'run', record_run), \
       patched(Trainer, 'train_step', record_step):
     yield runs
+
+
+def step_ms_summary(rec):
+  """A ``recorded_runs`` record's step ms from CUDA events and their
+  median (None off the card)."""
+  got = rec.get('step_ms')
+  return {'step_ms': got,
+          'step_ms_median': statistics.median(got) if got else None}
 
 
 def log_rows(logs_folder, name):
@@ -2454,22 +2610,23 @@ def run_child(cmd, log_path, timeout):
   return proc.returncode, time.time() - t0, usage.ru_maxrss * 1024
 
 
-def synth3_cut(examples):
-  """A wrapper of ``run_pipeline.synth3_stages`` for ``patched``: the
-  stages' configs with the phase's scale cut, ``examples`` train examples,
-  checkpoints, log rows and one-batch valid and trainval passes on the
-  synth pipeline's cadence, and each split on the device."""
+def chain_cut(examples, ckpt_steps=PIPELINE_CKPT_STEPS,
+              eval_steps=PIPELINE_EVAL_STEPS):
+  """A wrapper of ``run_pipeline.synth3_stages`` or ``synthcs_stages`` for
+  ``chain_patched``: the stages' configs with the phase's scale cut, ``examples``
+  train examples, checkpoints every ``ckpt_steps``, log rows every step,
+  one-batch valid and trainval passes every ``eval_steps``, and each split
+  on the device."""
   def wrap(stages):
     def call(*args, **kw):
-      data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps = stages(
+      data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps, batch = stages(
           *args, **kw)
       return (data_cfg.replace(num_examples=examples), fg_cfg, box_cfg,
               full_base, train_cfg.replace(
-                  steps_per_ckpt=PIPELINE_CKPT_STEPS,
+                  steps_per_ckpt=ckpt_steps,
                   steps_per_log=PIPELINE_LOG_STEPS,
-                  steps_per_valid=PIPELINE_EVAL_STEPS,
-                  steps_per_trainval=PIPELINE_EVAL_STEPS, num_batch_valid=1,
-                  device_data=True), steps)
+                  steps_per_valid=eval_steps, steps_per_trainval=eval_steps,
+                  num_batch_valid=1, device_data=True), steps, batch)
     return call
   return wrap
 
@@ -2477,7 +2634,7 @@ def synth3_cut(examples):
 def synth3_child(spec_path):
   """The second process of the ``synth3_pipeline`` phase, ``chip_smoke.py
   synth3-child SPEC``: ``run_pipeline.main`` on the spec's 'argv' and
-  'device', its scale cut (``synth3_cut`` of 'examples'), inside
+  'device', its scale cut (``chain_cut`` of 'examples'), inside
   ``recorded_runs``.  Writes to the spec's 'out' the stages' ids, each
   run's record and the launches of the stages after the runs (eval), and
   to its 'split' the box stage's d_in and y_in as they lie on the device."""
@@ -2502,8 +2659,8 @@ def synth3_child(spec_path):
                     for k in ('d_in', 'y_in')})
   gk.reset_launch_counts()
   t0 = time.time()
-  with recorded_runs(torch, gk, dev, keep_split) as runs, patched(
-      run_pipeline, 'synth3_stages', synth3_cut(spec['examples'])):
+  with recorded_runs(torch, gk, dev, keep_split) as runs, chain_patched(
+      run_pipeline, 'synth3', chain_cut(spec['examples'])):
     ids = run_pipeline.main(spec['argv'], device=dev)
   seconds = time.time() - t0
   np.savez(spec['split'], **split)
@@ -2518,8 +2675,8 @@ def synth3_child(spec_path):
 def synth3_pipeline_phase(torch, gk, dev, scale='paper',
                           examples=SYNTH3_EXAMPLES, steps=SYNTH3_STEPS,
                           cli_examples=SYNTH3_CLI_EXAMPLES):
-  """The port's synth3 pipeline (``run_pipeline.run_synth3``) at ``scale``
-  on ``dev`` through ``run_pipeline.main``, its scale cut (``synth3_cut``
+  """The port's synth3 pipeline (``run_pipeline.run_chain``) at ``scale``
+  on ``dev`` through ``run_pipeline.main``, its scale cut (``chain_cut``
   of ``examples``, ``steps`` steps a stage), each split on the device:
   ``--stages fg,pack`` in this process, ``--stages box,full,eval`` in a
   ``chip_smoke.py synth3-child`` process (the pack crosses in its files;
@@ -2565,18 +2722,21 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
             '--logs', logs, '--dataset_folder', data, '--model_id', 'chip',
             '--data_examples', str(examples), '--fg_steps', str(steps),
             '--box_steps', str(steps), '--full_steps', str(steps)]
-    cut = synth3_cut(examples)
-    data_cfg, _, _, full_base, train_cfg, _ = cut(run_pipeline.synth3_stages)(
+    cut = chain_cut(examples)
+    data_cfg, _, _, full_base, train_cfg, _, _ = cut(
+        run_pipeline.synth3_stages)(
         scale, results, logs, data, data_examples=examples)
     T, bs = full_base.timespan, train_cfg.batch_size
     ckpts = list(range(PIPELINE_CKPT_STEPS, steps + 1,
                        PIPELINE_CKPT_STEPS))[-2:]
 
     def stage_summary(model_id, rec):
-      """Step ms and losses at the log cadence, the kept checkpoints, and
-      the run's record."""
+      """Step ms from CUDA events and at the log cadence (host clock),
+      losses at the log cadence, the kept checkpoints, and the run's
+      record."""
       folder = os.path.join(logs, model_id)
-      summary = {'step_ms_at_log': log_rows(folder, 'step_time'),
+      summary = {**step_ms_summary(rec),
+                 'step_ms_at_log': log_rows(folder, 'step_time'),
                  'train_loss_at_log': log_rows(folder, 'loss')}
       losses = list(summary['train_loss_at_log'].values())
       if not losses or not all(math.isfinite(v) for v in losses):
@@ -2591,8 +2751,8 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
     # ---- fg, pack: this process -----------------------------------------
     gk.reset_launch_counts()
     pack_seconds = []
-    with recorded_runs(torch, gk, dev) as runs, patched(
-        run_pipeline, 'synth3_stages', cut), patched(
+    with recorded_runs(torch, gk, dev) as runs, chain_patched(
+        run_pipeline, 'synth3', cut), patched(
             run_pipeline.pack_cli, 'fg_main',
             lambda fn: timed_calls(torch, dev, fn, pack_seconds)):
       t0 = time.time()
@@ -2698,8 +2858,8 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
 
     # ---- full: a --resume relaunch goes on from its checkpoint ----------
     log = logger.get()
-    with recorded_runs(torch, gk, dev) as runs, patched(
-        run_pipeline, 'synth3_stages', cut):
+    with recorded_runs(torch, gk, dev) as runs, chain_patched(
+        run_pipeline, 'synth3', cut):
       gk.reset_launch_counts()
       t0 = time.time()
       again = run_pipeline.main(
@@ -2854,6 +3014,479 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
     if len(got[thresholds[0], 'sbd']) != cli_examples or not max(sbd) > 0:
       failures.append(f'the eval command line: {cli["sbd"]}')
     out['eval']['command_line'] = cli
+    out['folders'] = ids
+  out['seconds'] = time.time() - start
+  return out, failures
+
+
+class SigmoidScores:
+  """``torch`` as the box model's module sees it, but its softmax a sigmoid
+  of each channel: the control of the multiclass score head (channel 0,
+  the background, through a sigmoid of its own logit)."""
+
+  def __init__(self, torch):
+    self._torch = torch
+
+  def __getattr__(self, name):
+    return getattr(self._torch, name)
+
+  def softmax(self, x, dim=-1):
+    return self._torch.sigmoid(x)
+
+
+def synthcs_fg_gates(torch, ts, matching, model, opt_state, batch, draws,
+                     step, lr, limits):
+  """The multiclass fg step held to ``limits``, card against CPU (b2),
+  beside its floor (the card's step on the batch in the other order against
+  the card's step).  Control: the step whose softmax CE over the classes
+  is the per-channel BCE of the one-class branch, which must fail the
+  worst leaf's gradient gate where the CE is the segmentation loss
+  (``segm_loss_fn`` 'bce', as in the synthcs preset; the tiny config's IoU
+  loss leaves it out, and there the control is reported only).  Returns
+  (gates, failures)."""
+  from rec_attend_tpu_torch.models import fg_model
+  gates, failures, host = cpu_gate(torch, ts, matching, model, opt_state,
+                                   batch, draws, step, lr, limits)
+  small = {k: v[:CHAIN_TRAIN_CPU_BATCH] for k, v in batch.items()}
+
+  def card(b=small):
+    with deterministic_cudnn(torch):
+      return one_step(torch, ts, matching, model, opt_state, b, draws, step,
+                      'kernel')
+  gates['swapped_batch_vs_card'] = step_diff(
+      torch, model, card({k: v.flip(0) for k, v in small.items()}), card(),
+      lr)
+  nsc = model.cfg.num_semantic_classes
+
+  def bce(f_ce):
+    return lambda y, t: (fg_model.losses.f_bce(y, t) if y.shape[-1] == nsc
+                         else f_ce(y, t))
+  with patched(fg_model.losses, 'f_ce', bce):
+    control = card()
+  stats = step_diff(torch, model, control, host, lr)
+  stats['failed'] = step_gate_failures(stats, limits)
+  gates['per_channel_bce_vs_cpu'] = stats
+  if (model.cfg.segm_loss_fn == 'bce'
+      and 'grad_rel_l2_max' not in stats['failed']):
+    failures.append('control per_channel_bce passes the grad_rel_l2_max '
+                    'gate')
+  return gates, failures
+
+
+def synthcs_box_gates(torch, ts, matching, gk, model, opt_state, batch,
+                      draws, step, lr, limits):
+  """The multiclass box step held to ``limits``: kernel against plain (b4,
+  with the reordered plain floor and the dropped-filter-gradient control,
+  ``step_gates``) and card against CPU (b2), beside the card's step on the
+  batch in the other order against the card's step, where the card's step
+  with its score head through a sigmoid (``SigmoidScores``, the CPU's
+  matchings pinned) must fail the worst leaf's gradient gate.  Returns
+  (gates, failures, the CPU's step)."""
+  from rec_attend_tpu_torch.models import box_model
+  gates, failures = step_gates(torch, ts, matching, gk, model, opt_state,
+                               batch, draws, step, lr, limits)
+  nb = CHAIN_TRAIN_CPU_BATCH
+  small_draws = {'aug': draws['aug'],
+                 'segm_noise': draws['segm_noise'][:, :nb]}
+  g, f, host = cpu_gate(torch, ts, matching, model, opt_state, batch,
+                        small_draws, step, lr, limits)
+  gates.update(g)
+  failures += f
+  small = {k: v[:nb] for k, v in batch.items()}
+  noise = to_device(small_draws, model.device)
+
+  def card(b=small, draws=noise, pinned=None):
+    with deterministic_cudnn(torch):
+      return one_step(torch, ts, matching, model, opt_state, b, draws,
+                      step, 'kernel', pinned)
+  gates['swapped_batch_vs_card'] = step_diff(
+      torch, model, card({k: v.flip(0) for k, v in small.items()},
+                         dict(noise, segm_noise=noise['segm_noise'].flip(1))),
+      card(), lr)
+  with patched(box_model, 'torch', SigmoidScores):
+    control = card(pinned=host[4]['solved'])
+  stats = step_diff(torch, model, control, host, lr)
+  stats['failed'] = step_gate_failures(stats, limits)
+  gates['sigmoid_scores_vs_cpu_pinned'] = stats
+  if 'grad_rel_l2_max' not in stats['failed']:
+    failures.append('control sigmoid_scores passes the grad_rel_l2_max gate')
+  return gates, failures, host
+
+
+def read_json(*path):
+  with open(os.path.join(*path)) as f:
+    return json.load(f)
+
+
+def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
+                           examples=SYNTHCS_EXAMPLES, steps=SYNTHCS_STEPS,
+                           bit_equal=False, oracle_dir=CS_FULL_DIR,
+                           ap_remove_tiny=CS_AP_REMOVE_TINY,
+                           limits=(SYNTHCS_FG_STEP_LIMITS,
+                                   SYNTHCS_BOX_STEP_LIMITS,
+                                   SYNTHCS_FULL_STEP_LIMITS)):
+  """The port's synthcs pipeline (``run_pipeline.run_chain``) at
+  ``scale`` on ``dev`` through ``run_pipeline.main``, all its stages in
+  this process, its scale cut (``chain_cut`` of ``examples``, ``steps``
+  steps a stage, checkpoints and passes every SYNTHCS_EVERY), each split
+  on the device; then ``--stages ap,pixel --ap_remove_tiny
+  <ap_remove_tiny>`` again (the first run ran the eval stage) on the
+  trained full model of ``oracle_dir``
+  (the committed synthcs one) over a pack file of the ground truth's maps,
+  with the kernel glimpses and (``--stages ap``) the plain ones.  The box
+  gate restores SYNTHCS_BOX_DIR at the paper scale, the pipeline's own box
+  at the tiny one; ``limits`` are the (fg, box, full) step gates'.
+  ``bit_equal``: the kernels gave the
+  plain versions' bits at this phase's shapes (the kernels phase), so the
+  AP of the two must be equal; else it is held to the reordered-plain
+  floor as in cs_chain.  Results, logs and pack files go to a temporary
+  folder in the checkout, removed after.  Returns (results, the gates'
+  failures); each gate's control must fail, else it is a failure too."""
+  import numpy as np
+
+  from rec_attend_tpu_torch import convert
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import pack as pack_cli
+  from rec_attend_tpu_torch.cli.pack import quantise
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.saver import checkpoint_step
+  from rec_attend_tpu_torch.engine.saver import list_checkpoints
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.eval_cityscapes import pixel_eval
+  from rec_attend_tpu_torch.eval_cityscapes.instance_eval import (
+      evaluate_instance_predictions)
+  from rec_attend_tpu_torch.models.box_model import draw_box_randoms
+  from rec_attend_tpu_torch.models.fg_model import draw_fg_randoms
+  from rec_attend_tpu_torch.models.fg_model import fg_model_forward
+  from rec_attend_tpu_torch.models.full_model import CTRL_NETS
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+
+  out, failures = {}, []
+  cuda = dev.type == 'cuda'
+  paper = scale == 'paper'
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  def check(name, problems):
+    failures.extend(f'{name}: {x}' for x in problems)
+
+  def tensors(raw, keys=None):
+    return {dst: torch.from_numpy(np.ascontiguousarray(raw[src])).to(dev)
+            for dst, src in (keys or {k: k for k in raw}).items()}
+
+  start = time.time()
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_synthcs-',
+                                   dir=REPO) as root:
+    results, logs, data = (os.path.join(root, d)
+                           for d in ('results', 'logs', 'data'))
+    argv = ['--dataset', 'synthcs', '--scale', scale, '--results', results,
+            '--logs', logs, '--dataset_folder', data, '--model_id', 'chip',
+            '--data_examples', str(examples), '--fg_steps', str(steps),
+            '--box_steps', str(steps), '--full_steps', str(steps)]
+    cut = chain_cut(examples, SYNTHCS_EVERY, SYNTHCS_EVERY)
+    data_cfg, fg_cfg, box_cfg, full_base, _, _, batch = cut(
+        run_pipeline.synthcs_stages)(scale, results, logs, data,
+                                     data_examples=examples)
+    T = full_base.timespan
+    if paper and (batch['box'], batch['full']) != (SYNTHCS_TRAIN_BATCH,) * 2:
+      raise AssertionError(f'the synthcs stages train at {batch}: the '
+                           f'kernels phase checks b{SYNTHCS_TRAIN_BATCH}')
+    ids = {s: f'{s}_model_synthcs-chip' for s in ('fg', 'box', 'full')}
+    ckpts = list(range(SYNTHCS_EVERY, steps + 1, SYNTHCS_EVERY))[-2:]
+
+    # ---- gates as the fg and full runs start (step 0) -------------------
+    def first_batch(exp, b):
+      return tensors(exp.make_batch_fn(exp.train_ds, getattr(
+          exp.model_cfg, 'timespan', None))(np.arange(b)))
+
+    gate_seconds = {}
+
+    def before(exp):
+      t0 = time.time()
+      gated(exp)
+      gate_seconds[exp.spec.name] = time.time() - t0
+
+    def gated(exp):
+      trainer, name = exp.trainer, exp.spec.name
+      if name == 'fg':
+        gates, f = synthcs_fg_gates(
+            torch, ts, matching, trainer.model, trainer.opt_state,
+            first_batch(exp, batch['fg']),
+            draw_fg_randoms(fg_cfg, torch.Generator(dev).manual_seed(1)), 0,
+            learn_rate(fg_cfg, 0), limits[0])
+        out['fg_gates'] = gates
+        failures.extend(f'fg {x}' for x in f)
+      elif name == 'full':
+        box_ckpts = list_checkpoints(os.path.join(results, ids['box']))
+        state = trainer.model.state_dict()
+
+        def ctrl_diff(path):
+          want = convert.params_from_checkpoint(path, box_cfg)
+          return [k for k, v in want.items() if k.split('.')[0] in CTRL_NETS
+                  and not torch.equal(state[k].cpu(), v)]
+        out['full_controller_gate'] = gate(
+            'full step 0 controller against the box\'s last checkpoint',
+            ctrl_diff(box_ckpts[-1][1]), ctrl_diff(box_ckpts[0][1]))
+        gates, f = step_gates(
+            torch, ts, matching, gk, trainer.model, trainer.opt_state,
+            first_batch(exp, batch['full']),
+            draw_train_randoms(full_base, batch['full'],
+                               torch.Generator(dev).manual_seed(3)),
+            0, learn_rate(full_base, 0), limits[2])
+        out['full_gates'] = gates
+        failures.extend(f'full {x}' for x in f)
+
+    # ---- the pipeline, every stage in this process ----------------------
+    seconds = {k: [] for k in ('pack', 'eval', 'full_pack', 'ap', 'pixel')}
+    in_memory = []
+
+    def keep(fn):
+      def call(*args, **kw):
+        in_memory.append(fn(*args, **kw))
+        return in_memory[-1]
+      return call
+
+    def timed(key):
+      return lambda fn: timed_calls(torch, dev, fn, seconds[key])
+    gk.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+      runs = stack.enter_context(recorded_runs(torch, gk, dev, before))
+      stack.enter_context(chain_patched(run_pipeline, 'synthcs', cut))
+      for owner, name, wrap in (
+          (run_pipeline.pack_cli, 'fg_main', timed('pack')),
+          (run_pipeline.eval_fg_metrics, 'main', timed('eval')),
+          (run_pipeline.eval_cli, 'full_main', timed('eval')),
+          (run_pipeline.pack_cli, 'full_main', timed('full_pack')),
+          (run_pipeline.pack_cli, 'pack_full', keep),
+          (run_pipeline, 'run_ap_stage', timed('ap')),
+          (run_pipeline, 'run_pixel_stage', timed('pixel'))):
+        stack.enter_context(patched(owner, name, wrap))
+      got = run_pipeline.main(argv, device=dev)
+    out['pipeline_seconds'] = time.time() - t0
+    out['stages'] = got['stages']
+    if got['stages'] != list(run_pipeline.SYNTHCS_STAGES) or any(
+        got[k] != v for k, v in ids.items()):
+      failures.append(f'the pipeline ran {got["stages"]} of {got}')
+    by_stage = {r['spec']: r for r in runs}
+    for stage in ('fg', 'box', 'full'):
+      rec = by_stage[stage]
+      folder = os.path.join(logs, ids[stage])
+      out[stage] = {
+          'batch': batch[stage], **step_ms_summary(rec),
+          'step_ms_at_log': log_rows(folder, 'step_time'),
+          'train_loss_at_log': log_rows(folder, 'loss'),
+          'checkpoints': [s for s, _ in list_checkpoints(
+              os.path.join(results, ids[stage]))],
+          **{k: rec[k] for k in ('start_step', 'run_seconds',
+                                 'max_memory_allocated_bytes',
+                                 'run_launches')}}
+      losses = list(out[stage]['train_loss_at_log'].values())
+      if not losses or not all(math.isfinite(v) for v in losses):
+        failures.append(f'{stage}: loss {losses}')
+      check(f'{stage} checkpoints', [] if out[stage]['checkpoints'] == ckpts
+            else [f'{out[stage]["checkpoints"]}, want {ckpts}'])
+    out['eval_ap_pixel_launches'] = counts_delta(
+        runs[-1]['launches_at_end'], launches_now(gk))
+    out['stage_host_seconds'] = seconds
+    out['pack'] = {'bytes': {s: os.path.getsize(provider.pack_path(
+        data_cfg, s)) for s in ('train', 'valid')}}
+    fg_folder, full_folder = (os.path.join(results, ids[s])
+                              for s in ('fg', 'full'))
+    out['fg_metrics'] = read_json(fg_folder, 'fg_metrics_valid.json')
+    valid_out = os.path.join(full_folder, 'output_valid')
+    out['ap'] = {'trained': read_json(valid_out, 'ap.json')['averages']}
+    pixel_trained = read_json(valid_out, 'pixel_eval.json')
+    out['eval_sbd'] = {
+        tt: read_scores(valid_out, f'sbd_{int(float(tt) * 100):02d}')
+        for tt in run_pipeline.EVAL_THRESHOLDS.split(',')}
+
+    # ---- launches per step ----------------------------------------------
+    full = by_stage['full']['exp']
+    valid_batch = full._device_batch(full.make_batch_fn(
+        full.valid_ds, T)(np.arange(batch['full'])))
+    draws = full.trainer.family.draws(
+        full.model_cfg, batch['full'], torch.Generator(dev).manual_seed(1))
+    before_plain = launches_now(gk)
+    one_step(torch, ts, matching, full.trainer.model, full.trainer.opt_state,
+             valid_batch, draws, full.step, 'plain')
+    plain_step = counts_delta(before_plain, launches_now(gk))
+    out['plain_step_launches'] = plain_step
+    none = {'glimpse_extract': 0, 'glimpse_paste': 0}
+    want = {
+        'fg': {'launches': none, 'backward_launches': none,
+               'extract_route_launches': {}},
+        'box': {'launches': dict(none, glimpse_paste=2 * T),
+                'backward_launches': none, 'extract_route_launches': {}},
+        'full': {'launches': {'glimpse_extract': 4 * T,
+                              'glimpse_paste': 4 * T},
+                 'backward_launches': dict(none, glimpse_extract=2 * T),
+                 'extract_route_launches': {'extract_strip_kernel': 4 * T}}}
+    recorded = {s: by_stage[s]['step_launches'] for s in ('fg', 'box', 'full')}
+    out['launches_per_step'] = {s: v[0] if v else None
+                                for s, v in recorded.items()}
+
+    def steps_diff(stage, per_step):
+      return [f'{stage} step {i}: {s}' for i, s in enumerate(per_step)
+              if s != want[stage]] or ([] if per_step else ['no step'])
+    if cuda:   # the plain glimpses of the CPU launch nothing
+      out['launch_gate'] = {
+          stage: gate(f'{stage} launches per step',
+                      steps_diff(stage, per_step),
+                      steps_diff(stage, recorded['full'] if stage == 'fg'
+                                 else [plain_step]))
+          for stage, per_step in recorded.items()}
+
+    # ---- packs ----------------------------------------------------------
+    # The fg maps quantised on the card against the host's quantisation of
+    # the same maps (control: the host's rounded to the nearest byte, as
+    # encode_batch rounds, where the pack truncates).
+    fg_exp = EvalExperiment(fg_folder, device=dev, spec='fg')
+    valid = provider.get('synth', data_cfg, split='valid')
+    x2 = torch.from_numpy(valid.dataset.x[:2]).to(dev)
+    with torch.inference_mode():
+      fg_maps = fg_model_forward(fg_exp.model, x2)
+
+    def fg_bytes_diff(host_bytes):
+      return [k for k in ('y_out', 'd_out') if not torch.equal(
+          quantise(fg_maps[k]).cpu(), host_bytes(fg_maps[k].cpu()))]
+    packs = {'fg_gate': gate(
+        'fg bytes on the card against the host', fg_bytes_diff(quantise),
+        fg_bytes_diff(lambda a: torch.from_numpy(ts.encode_batch(
+            {'y_in': a.clamp(0, 1).numpy()})['y_in'])))}
+    # The full pack read back from the disk against pack_full's in memory
+    # (control: its slots shifted by one).
+    (mem,) = in_memory
+
+    def full_pack_diff(shift):
+      return [k for k in ('d_out', 'y_out', 'y_out_ins', 's_out')
+              if not (getattr(valid, k) is not None and np.array_equal(
+                  getattr(valid, k), np.roll(getattr(mem, k), shift,
+                                             axis=1)))]
+    packs['full_gate'] = gate('the full pack read back against pack_full',
+                              full_pack_diff(0), full_pack_diff(1))
+    out['packs'] = packs
+
+    # ---- box: from the committed synthcs checkpoint with Adam -----------
+    box = Trainer(box_cfg, device=dev)
+    ckpt = box.restore(SYNTHCS_BOX_DIR if paper
+                       else os.path.join(results, ids['box']))
+    if box.step != checkpoint_step(ckpt) or 'mu' not in box.opt_state:
+      failures.append(f'box restored step {box.step}')
+    train = provider.get('synth', data_cfg, split='train')
+    t0 = time.time()
+    gates, f, _ = synthcs_box_gates(
+        torch, ts, matching, gk, box.model, box.opt_state,
+        tensors(train.get_batch(np.arange(batch['box']), timespan=T),
+                PACKED_KEYS),
+        draw_box_randoms(box_cfg, batch['box'],
+                         torch.Generator(dev).manual_seed(2)),
+        box.step, learn_rate(box_cfg, box.opt_state['count']), limits[1])
+    gate_seconds['box'] = time.time() - t0
+    out['gate_seconds'] = gate_seconds
+    out['box_gates'] = {'weights': os.path.relpath(ckpt, REPO), **gates}
+    failures.extend(f'box {x}' for x in f)
+    del box
+
+    # ---- pixel: the trained fg pack against the host's labels -----------
+    def host_pixel(maps):
+      ev = pixel_eval.PixelEvaluator()
+      for fg_bytes, inst_ids in zip(maps, valid.dataset.get_instance_id_images(
+          valid.dataset.img_ids)):
+        label, inst = pixel_eval.groundtruth_labels(inst_ids)
+        ev.add_pair(pixel_eval.prediction_labels(fg_bytes), label,
+                    instance_img=inst)
+      return ev.finalize()
+
+    def pixel_diff(want_result):
+      return [] if pixel_result_equal(pixel_trained, want_result) else [
+          f'meanIoU {pixel_trained["meanIoU"]} against '
+          f'{want_result["meanIoU"]}']
+    out['pixel'] = {'trained': pixel_trained, 'gate': gate(
+        'pixel_eval.json against the host\'s labels of the same bytes',
+        pixel_diff(host_pixel(valid.y_out)),
+        pixel_diff(host_pixel(np.roll(valid.y_out, 1, axis=-1))))}
+
+    # ---- eval, ap, pixel again on a trained full model ------------------
+    # The committed synthcs full checkpoint (the pipeline's two-step model
+    # finds no instance) under the chain's full id, over a pack file of the
+    # ground truth's maps of the valid split, as cs_chain's oracle.
+    results2, data2 = (os.path.join(root, d) for d in ('results2', 'data2'))
+    cfg2 = data_cfg.replace(folder=data2)
+    src = oracle_dir or full_folder
+    folder2 = os.path.join(results2, ids['full'])
+    os.makedirs(folder2)
+    os.symlink(list_checkpoints(src)[-1][1], os.path.join(
+        folder2, os.path.basename(list_checkpoints(src)[-1][1])))
+    full_base.save_yaml(os.path.join(folder2, 'model_opt.yaml'))
+    cfg2.save_yaml(os.path.join(folder2, 'data_opt.yaml'))
+    os.symlink(fg_folder, os.path.join(results2, ids['fg']))
+    gt = valid.dataset
+    provider.write_pack(
+        provider.pack_path(cfg2, 'valid'), gt.img_ids,
+        quantise(torch.from_numpy(gt.d_gt)).numpy(),
+        quantise(torch.from_numpy(gt.c_gt)).numpy(),
+        provider.settings(cfg2, 'valid'))
+    argv2 = ['--dataset', 'synthcs', '--scale', scale, '--results', results2,
+             '--logs', os.path.join(root, 'logs2'), '--dataset_folder',
+             data2, '--model_id', 'chip', '--data_examples', str(examples),
+             '--ap_remove_tiny', str(ap_remove_tiny)]
+    forms = {'kernel': 'kernel', 'plain': 'plain'}
+    if not bit_equal:
+      forms['reordered_plain'] = reordered_plain(torch)
+    ap2, rows2, seconds2 = {}, {}, {}
+    for name, glimpse in forms.items():
+      kept = []
+
+      def keep_rows(fn):
+        def call(*args, **kw):
+          summary, rows = fn(*args, **kw)
+          kept.append(rows[run_pipeline.AP_THRESHOLD])
+          return summary, rows
+        return call
+
+      def with_glimpse(cls, glimpse=glimpse):
+        return lambda *args, **kw: cls(*args, glimpse=glimpse, **kw)
+      gk.reset_launch_counts()
+      t0 = time.time()
+      with patched(run_pipeline, 'cityscapes_eval', keep_rows), patched(
+          pack_cli, 'EvalExperiment', with_glimpse), deterministic_cudnn(
+              torch):
+        run_pipeline.main(argv2 + ['--stages', 'ap,pixel'
+                                   if name == 'kernel' else 'ap'],
+                          device=dev)
+      seconds2[name] = time.time() - t0
+      if name == 'kernel':
+        out['oracle_launches'] = launches_now(gk)
+      ap2[name] = read_json(folder2, 'output_valid', 'ap.json')['averages']
+      rows2[name] = kept[0]
+    limit = (0.0 if bit_equal else CS_AP_FLOOR_FACTOR * ap_difference(
+        ap2['reordered_plain'], ap2['plain']) + CS_AP_SLACK)
+    gt_ids = gt.get_instance_id_images(gt.img_ids)
+    swap = {24: 25, 25: 24}
+    swapped = evaluate_instance_predictions(
+        [[r._replace(label_id=swap.get(r.label_id, r.label_id)) for r in rows]
+         for rows in rows2['kernel']], gt_ids)
+
+    def ap_diff(got_ap):
+      diff = ap_difference(got_ap, ap2['plain'])
+      return [] if diff <= limit else [f'differs by {diff}, limit {limit}']
+    out['ap'].update(
+        oracle=ap2, limit=limit, seconds=seconds2,
+        kernel_vs_plain=ap_difference(ap2['kernel'], ap2['plain']),
+        person_rider_swapped_vs_plain=ap_difference(swapped, ap2['plain']),
+        submitted_rows={k: sum(len(r) for r in v) for k, v in rows2.items()},
+        gate=gate('ap.json of the kernel run against the plain run',
+                  ap_diff(ap2['kernel']), ap_diff(swapped)))
+    if not ap2['kernel']['allAp'] > 0:
+      failures.append(f'AP on the ground truth\'s maps {ap2["kernel"]}')
+    out['oracle_pixel'] = read_json(folder2, 'output_valid',
+                                    'pixel_eval.json')['meanIoU']
     out['folders'] = ids
   out['seconds'] = time.time() - start
   return out, failures
@@ -3530,6 +4163,19 @@ def main():
   checks['glimpse_extract']['pipeline_d1_b8'] = check_kernel(
       torch, gk, attention, 'glimpse_extract', *pipeline_d1, gen, dev,
       timed=True)
+  # The synthcs pipeline's box and full model at b4: extract x
+  # [4,256,512,15], its pastes' d_p, extract x [4,256,512,1], and paste
+  # [4,48,48,1] -> 256x512.
+  synthcs_train_dims = {
+      'glimpse_extract': (SYNTHCS_TRAIN_BATCH,) + cs_dims[
+          'glimpse_extract'][1:],
+      'glimpse_paste': (SYNTHCS_TRAIN_BATCH,) + cs_dims['glimpse_paste'][1:],
+      'synthcs_d1_b4': (SYNTHCS_TRAIN_BATCH,) + cs_dims['glimpse_paste'][1:],
+  }
+  for key, dims in synthcs_train_dims.items():
+    name = 'glimpse_extract' if key == 'synthcs_d1_b4' else key
+    checks[name]['synthcs_b4' if key == name else key] = check_kernel(
+        torch, gk, attention, name, *dims, gen, dev, timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
@@ -3547,7 +4193,9 @@ def main():
                  'cityscapes': 'extract_strip_kernel',
                  'synth3_d1': 'extract_strip_kernel',
                  'synth3_b8': 'extract_strip_kernel',
-                 'synth3_d1_b8': 'extract_strip_kernel'}
+                 'synth3_d1_b8': 'extract_strip_kernel',
+                 'synthcs_b4': 'extract_strip_kernel',
+                 'synthcs_d1_b4': 'extract_strip_kernel'}
   routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
             for k in want_routes}
   if routes != want_routes:
@@ -3736,6 +4384,16 @@ def main():
   if failures:
     raise AssertionError(f'synth3_pipeline gates: {failures}')
 
+  # The synthcs pipeline's training run as users launch it, all its stages
+  # in one process: after the other phases, which run as they did without
+  # it.
+  synthcs, failures = synthcs_pipeline_phase(torch, gk, dev, bit_equal=all(
+      checks[name]['synthcs_b4']['max_abs_err'] == 0 for name in checks))
+  emit('synthcs_pipeline', nvidia_smi=name_power, failures=failures,
+       **synthcs)
+  if failures:
+    raise AssertionError(f'synthcs_pipeline gates: {failures}')
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -3857,6 +4515,31 @@ def main():
                    '(full), ' + shape('glimpse_extract',
                                       chain_train_dims['synth3_d1_b8']),
                    synth3_launches('glimpse_extract', True)))
+  # The synthcs pipeline at b4, 256x512: the box and full stages' runs
+  # (their steps and valid and trainval passes), the eval and ap stages
+  # after them, and the eval and ap stages on the ground truth's maps.
+  def synthcs_launches(name, backward):
+    by_path = {}
+    for label, counts in (('box', synthcs['box']['run_launches']),
+                          ('full', synthcs['full']['run_launches']),
+                          ('eval_ap', synthcs['eval_ap_pixel_launches']),
+                          ('oracle_eval_ap', synthcs['oracle_launches'])):
+      n = counts['backward_launches'][name]
+      if not backward:
+        n = counts['launches'][name] - n
+      if n:
+        by_path[f'synthcs_pipeline_{label}'] = n
+    return by_path
+  for name in checks:
+    table.append(row(name, checks[name]['synthcs_b4'], 'forward, synthcs '
+                     'pipeline, ' + shape(name, synthcs_train_dims[name]),
+                     synthcs_launches(name, False)))
+  table.append(row('glimpse_extract',
+                   checks['glimpse_extract']['synthcs_d1_b4'],
+                   BACKWARD_USES['glimpse_extract'] + ', synthcs pipeline '
+                   '(full), ' + shape('glimpse_extract',
+                                      synthcs_train_dims['synthcs_d1_b4']),
+                   synthcs_launches('glimpse_extract', True)))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
   # size at b32, the general route at the 48x64 glimpse, paste at that

@@ -15,10 +15,13 @@ file (``data.provider.write_pack``), where ``provider.get`` finds them in
 any later process.  ``pack_full`` does the same in memory with the full
 model's instance maps, packed as uint8 per slot, and its scores, kept as
 float32 (``data/dataset.py:264-298``): they come back as 'y_out_ins' and
-'s_out'.
+'s_out'; ``full_main``, its command line, writes them into the split's
+pack file beside the fg model's maps.
 
     python -m rec_attend_tpu_torch.cli.pack --model_id <fg model id> \\
         --dataset synth --split train,valid --batch_size 8
+    python -m rec_attend_tpu_torch.cli.pack full --model_id <full model id> \\
+        --dataset synth --split valid --batch_size 4
 
     fg = EvalExperiment('results/fg_model_synth3-20260818a', spec='fg')
     packed = pack_fg(fg, dataset, 32)
@@ -39,6 +42,7 @@ import torch
 
 from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.config import FGModelConfig
+from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.data import provider
 from rec_attend_tpu_torch.data.provider import PackedDataset
 from rec_attend_tpu_torch.device import synchronize
@@ -116,15 +120,23 @@ def pack_full(full_experiment, dataset, batch_size, timings=None):
                        np.concatenate(y_out_ins), np.concatenate(s_out))
 
 
+def _parse(description, argv):
+  parser = argparse.ArgumentParser(description=description)
+  A.add_eval_args(parser)
+  A.add_data_args(parser)
+  return parser.parse_args(argv)
+
+
 def fg_main(argv=None, device=None):
   """The pack command line (JAX ``cli/pack.py:26-55``): the fg model of
   ``--results``/``--model_id`` over each split of ``--split``, its maps
   written into the split's pack file.  Returns {split: (path, bytes)}.
-  ``device`` as the port's other entry points take it."""
-  parser = argparse.ArgumentParser(description='Pack fg model output')
-  A.add_eval_args(parser)
-  A.add_data_args(parser)
-  args = parser.parse_args(argv)
+  ``device`` as the port's other entry points take it.
+
+  The file is written anew with the fg model's maps only: the full model's
+  maps that ``full_main`` packed beside them came from a model fed the old
+  maps, so a re-pack drops them (run ``full_main`` again)."""
+  args = _parse('Pack fg model output', argv)
   log = logger.get()
   restore = os.path.join(args.results, args.model_id)
   model_cfg = FGModelConfig.from_yaml(os.path.join(restore,
@@ -144,5 +156,39 @@ def fg_main(argv=None, device=None):
   return written
 
 
+def full_main(argv=None, device=None):
+  """The full model's pack command line (JAX ``cli/pack.py:57-83``): the
+  full model of ``--results``/``--model_id``, its knob off, over each split
+  of ``--split`` as ``pack_fg`` left it in the split's pack file, its
+  instance maps and scores written into that file beside the fg model's
+  maps.  Returns {split: (path, bytes)}; ``device`` as ``fg_main``."""
+  args = _parse('Pack full model output', argv)
+  log = logger.get()
+  restore = os.path.join(args.results, args.model_id)
+  model_cfg = FullModelConfig.from_yaml(os.path.join(restore,
+                                                     'model_opt.yaml'))
+  data_cfg = A.make_data_config(args, restore=restore)
+  exp = EvalExperiment(restore, cfg=model_cfg, device=device)
+  written = {}
+  for split in args.split.split(','):
+    ds = provider.get(data_cfg.dataset, data_cfg, split=split)
+    if not isinstance(ds, PackedDataset):
+      raise FileNotFoundError(
+          f'no pack file of the fg model for the {split!r} split at '
+          f'{provider.pack_path(data_cfg, split)}: run the fg pack first')
+    packed = pack_full(exp, ds, args.batch_size)
+    path = provider.pack_path(data_cfg, split)
+    nbytes = provider.write_pack(
+        path, ds.dataset.img_ids, packed.d_out, packed.y_out,
+        provider.settings(data_cfg, split), y_out_ins=packed.y_out_ins,
+        s_out=packed.s_out)
+    written[split] = (path, nbytes)
+    log.info(f'Packed instance predictions into {path} ({split})')
+  return written
+
+
 if __name__ == '__main__':
-  fg_main(sys.argv[1:])
+  if sys.argv[1:2] == ['full']:
+    full_main(sys.argv[2:])
+  else:
+    fg_main(sys.argv[1:])

@@ -28,9 +28,18 @@ its H5 then, and the packed maps are lost): it is ignored, with a warning,
 and the bare split comes back, until a pack for these settings replaces
 it.  Nothing is cached between calls, so a re-pack is seen.
 
+The full model's pack (JAX ``cli/pack.py:57-83``) writes its instance maps
+into the same H5 file beside the fg model's, as uint8 PNGs quantised as
+those are, and its scores as float32 (``data/dataset.py:290-298``); here
+they go into the split's pack file beside the fg model's maps, as
+'y_out_ins' [N,T,H,W] uint8 and 's_out' [N,T] float32, and ``get`` hands
+them on in its ``PackedDataset``.
+
     write_pack(pack_path(data_cfg, 'valid'), ids, d_out, y_out,
                settings(data_cfg, 'valid'))
     packed = get('synth', data_cfg, split='valid')   # a PackedDataset
+    write_pack(pack_path(data_cfg, 'valid'), ids, d_out, y_out,
+               settings(data_cfg, 'valid'), y_out_ins=y_ins, s_out=s)
 """
 
 from __future__ import annotations
@@ -117,20 +126,29 @@ def pack_path(data_opt, split):
       split, opt['height'], opt['width']))
 
 
-def write_pack(path, ids, d_out, y_out, gen):
+def write_pack(path, ids, d_out, y_out, gen, y_out_ins=None, s_out=None):
   """Write a split's packed maps (uint8 'd_out' [N,H,W,8] and 'y_out'
-  [N,H,W,C], in the order of ``ids``) with its generation settings
-  ``gen``; the file is replaced whole, so a reader in another process sees
-  the old file or the new one.  Returns the bytes written."""
-  for name, maps in (('d_out', d_out), ('y_out', y_out)):
-    if maps.dtype != np.uint8 or len(maps) != len(ids):
+  [N,H,W,C] of the fg model and, where given, the full model's uint8
+  'y_out_ins' [N,T,H,W] and float32 's_out' [N,T], in the order of
+  ``ids``) with its generation settings ``gen``; the file is replaced
+  whole, so a reader in another process sees the old file or the new one.
+  Returns the bytes written."""
+  arrays = {'d_out': (d_out, np.uint8), 'y_out': (y_out, np.uint8)}
+  if (y_out_ins is None) != (s_out is None):
+    raise ValueError('the full model\'s pack holds y_out_ins and s_out')
+  if y_out_ins is not None:
+    arrays.update(y_out_ins=(y_out_ins, np.uint8), s_out=(s_out, np.float32))
+  for name, (maps, dtype) in arrays.items():
+    if maps.dtype != dtype or len(maps) != len(ids):
       raise ValueError(f'{name}: {maps.dtype} {maps.shape} for {len(ids)} '
-                       'ids; the pack holds uint8 maps, one an example')
+                       f'ids; the pack holds {np.dtype(dtype)} arrays, one '
+                       'an example')
   os.makedirs(os.path.dirname(path) or '.', exist_ok=True)
   tmp = f'{path}.{os.getpid()}.tmp'
   with open(tmp, 'wb') as f:
-    np.savez(f, ids=np.asarray(ids, dtype=str), d_out=d_out, y_out=y_out,
-             settings=np.array(json.dumps(gen, sort_keys=True)))
+    np.savez(f, ids=np.asarray(ids, dtype=str),
+             settings=np.array(json.dumps(gen, sort_keys=True)),
+             **{k: v for k, (v, _) in arrays.items()})
   os.replace(tmp, path)
   return os.path.getsize(path)
 
@@ -152,8 +170,8 @@ def has_pack(data_opt, split):
 def get(dataset_name, data_opt, split='train', h5_fname=None):
   """The ``split`` of ``dataset_name``; ``data_opt`` is a ``DataConfig``
   or its dict.  A ``PackedDataset`` where the split's pack file holds the
-  fg model's maps for these settings.  ``h5_fname`` names a JAX H5 file,
-  which is not read."""
+  fg model's maps for these settings (and the full model's, where
+  packed).  ``h5_fname`` names a JAX H5 file, which is not read."""
   opt = _opt(data_opt)
   if dataset_name != 'synth':
     raise NotImplementedError(
@@ -178,4 +196,6 @@ def get(dataset_name, data_opt, split='train', h5_fname=None):
   with np.load(path) as f:
     if not np.array_equal(f['ids'], ds.img_ids):
       raise ValueError(f'{path}: its ids are not those of the split')
-    return PackedDataset(ds, f['d_out'], f['y_out'])
+    full = ({'y_out_ins': f['y_out_ins'], 's_out': f['s_out']}
+            if 'y_out_ins' in f.files else {})
+    return PackedDataset(ds, f['d_out'], f['y_out'], **full)

@@ -17,11 +17,15 @@ the algorithm of the official ``evalInstanceLevelSemanticLabeling.py``:
 The JAX package reads a ground-truth instance-id PNG and a text file of
 (mask PNG, label id, confidence) rows an image; here the caller hands over
 the arrays: an instance-id image and rows of (mask, label id, confidence)
-an image, as ``analysis.cityscapes_submission`` returns them.  The file
-finders and the command line wait.
+an image, as ``analysis.cityscapes_submission`` returns them, and the
+result may be exported in the JAX package's JSON layout.  The file finders
+and the command line wait.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 import numpy as np
 
@@ -274,13 +278,16 @@ def compute_averages(aps, inst_labels, distance_available=False):
 
 
 def evaluate_instance_predictions(predictions, gt_images,
-                                  distance_images=None):
+                                  distance_images=None, export_file=None):
   """AP over images: ``predictions`` holds each image's rows (mask, label
   id, confidence), ``gt_images`` its [H, W] instance-id image, and
   ``distance_images``, optional, its [H, W] distances in metres (NaN
   invalid; see ``disparity_to_distance``) or None, which adds the 100 m
   and 50 m rows.  Returns the averages: 'allAp', 'allAp50%', per class
-  'ap' and 'ap50%', and with distances 'allAp100m' and 'allAp50m'."""
+  'ap' and 'ap50%', and with distances 'allAp100m' and 'allAp50m'.
+  ``export_file``, where given, gets ``{'averages': ..., 'aps': [distance
+  row][class][overlap]}`` as JSON, the JAX package's layout
+  (``instance_eval.py:366-369``)."""
   inst_labels = instance_labels()
   distance_available = bool(distance_images) and any(
       d is not None for d in distance_images)
@@ -294,5 +301,10 @@ def evaluate_instance_predictions(predictions, gt_images,
     matches.append({'groundTruth': gts, 'prediction': preds})
   aps = evaluate_matches(matches, inst_labels,
                          distance_available=distance_available)
-  return compute_averages(aps, inst_labels,
-                          distance_available=distance_available)
+  avg = compute_averages(aps, inst_labels,
+                         distance_available=distance_available)
+  if export_file:
+    os.makedirs(os.path.dirname(export_file) or '.', exist_ok=True)
+    with open(export_file, 'w') as f:
+      json.dump({'averages': avg, 'aps': aps.tolist()}, f, indent=2)
+  return avg

@@ -1,8 +1,9 @@
 """The synthetic datasets' training pipelines: box -> full -> eval, and
-fg -> pack -> box -> full -> eval.
+fg -> pack -> box -> full -> eval (-> ap -> pixel).
 
-Counterpart of ``run_synth`` and ``run_synth3`` of
-``pipelines/run_pipeline.py:198-372``.  ``--dataset synth``: the box model
+Counterpart of ``run_synth``, ``run_synth3`` and ``run_synth_cs`` (here
+both chains are ``run_chain``), ``run_pixel_stage`` and ``run_ap_stage``
+of ``pipelines/run_pipeline.py:198-610``.  ``--dataset synth``: the box model
 trains on the synthetic split, the full model starts from the box's
 controller and trains, and the eval command line scores the full model on
 the valid split.  ``--scale paper`` is the CVPPP-shaped run (224x224, T=21,
@@ -17,20 +18,41 @@ train on the packed channels, and the eval stage scores the fg model
 ``--scale paper`` is 128x448, T=20, up to 12 instances, the KITTI presets,
 b8, 3,000 fg, 12,000 box and 16,000 full steps on 256 examples
 (``--data_examples``), each split kept on the device; ``--scale tiny`` a
-64x64 smoke run on 32 examples.  ``--stages`` picks stages and
-``--model_id`` names the chain, so a chain can go on in another process:
-no stage hands another anything in memory, each reads its split through
-``data.provider``, as the JAX stages read the H5.  ``--fg_from`` and
-``--box_from`` reuse a trained stage; ``--resume`` restores each trained
-stage from its folder (its data snapshot must match), and skips fg, pack
-and box once a full checkpoint and both pack files exist.
+64x64 smoke run on 32 examples.
+
+``--dataset synthcs`` is the Cityscapes-shaped chain on images of two
+instance classes (3 config classes with the background): the same stages
+with the Cityscapes presets, the fg model's softmax over the classes and
+the box model's softmax score head, then two more.  ``ap``: the full
+model's pack (``cli.pack.full_main``) of the valid split into its pack
+file, the model-free Cityscapes eval of that file
+(``cli.cityscapes_eval``, mask threshold 0.6, regions of up to
+``--ap_remove_tiny`` pixels removed) and the official instance AP of its
+submission against the split's instance-id images, written to
+``results/<full id>/output_valid/ap.json`` in the JAX layout.  ``pixel``:
+the official pixel-level eval of the fg model's packed bytes against the
+same images, written to ``output_valid/pixel_eval.json``.  The JAX stage
+also writes the submission's ``.txt`` and PNG files and the gtFine PNGs
+through cv2; here the rows and images stay in memory (ROADMAP A.5, with
+the PNG codec).  ``--scale paper`` is 256x512, T=20, up to 10 instances,
+the synthcs presets (``config.synthcs_*_config``), fg at b8 and box and
+full at b4, 1,500 fg, 4,000 box and 6,000 full steps on 256 examples;
+``--scale tiny`` a 64x64 smoke run on 32 examples.
+
+For both chains ``--stages`` picks stages and ``--model_id`` names the
+chain, so a chain can go on in another process: no stage hands another
+anything in memory, each reads its split through ``data.provider``, as the
+JAX stages read the H5.  ``--fg_from`` and ``--box_from`` reuse a trained
+stage; ``--resume`` restores each trained stage from its folder (its data
+snapshot must match), and skips fg, pack and box once a full checkpoint
+and both pack files exist.
 
 The full model starts from the box's last ``ckpt-*.npz``
 (``pretrain_ctrl_net``), where the JAX pipeline exports and reads
 ``weights.h5``, which needs h5py (``cli/read_weights.py``, ROADMAP A.4).
-The pipelines of the other datasets (``run_synth_cs``, CVPPP, KITTI,
-Cityscapes) are not ported yet (ROADMAP A.3, A.5).  The command line runs
-on the card; ``main(argv, device='cpu')`` runs on the host.
+The pipelines of the real datasets (CVPPP, KITTI, Cityscapes) are not
+ported yet (ROADMAP A.5).  The command line runs on the card;
+``main(argv, device='cpu')`` runs on the host.
 
     python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset synth \\
         --scale tiny --num_steps 20
@@ -38,25 +60,42 @@ on the card; ``main(argv, device='cpu')`` runs on the host.
         --scale tiny --stages fg,pack --model_id chain
     python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset synth3 \\
         --scale tiny --stages box,full,eval --model_id chain
+    python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset synthcs \\
+        --scale tiny --model_id cs
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
+import torch
+
 from rec_attend_tpu_torch import config as C
+from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.cli import eval as eval_cli
 from rec_attend_tpu_torch.cli import pack as pack_cli
+from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
 from rec_attend_tpu_torch.data import provider
+from rec_attend_tpu_torch.data.provider import PackedDataset
+from rec_attend_tpu_torch.device import resolve_device
 from rec_attend_tpu_torch.engine import saver
 from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
 from rec_attend_tpu_torch.engine.experiment import assign_model_id
+from rec_attend_tpu_torch.eval_cityscapes import instance_eval
+from rec_attend_tpu_torch.eval_cityscapes import pixel_eval
 from rec_attend_tpu_torch.pipelines import eval_fg_metrics
 from rec_attend_tpu_torch.utils import logger
 
 SYNTH3_STAGES = ('fg', 'pack', 'box', 'full', 'eval')
+SYNTHCS_STAGES = SYNTH3_STAGES + ('ap', 'pixel')
+# The eval stage's thresholds (JAX run_pipeline.py:366-371, :463-468); the
+# AP stage's mask threshold, the Cityscapes command line's default
+# (cli/cityscapes_eval.py:111).
+EVAL_THRESHOLDS = '0.2,0.3,0.4,0.5,0.6,0.7'
+AP_THRESHOLD = 0.6
 # The paper scale's cadence (JAX run_pipeline.py:222-224, :314-316).
 PAPER_CADENCE = dict(steps_per_valid=250, steps_per_trainval=250,
                      steps_per_plot=0, num_batch_valid=4, prefetch=True,
@@ -102,7 +141,7 @@ def synth3_stages(scale, results='results', logs='logs', dataset_folder=None,
   """The configs of ``run_synth3`` at ``scale`` (JAX
   ``run_pipeline.py:304-334``): (data config, fg config, box config, full
   config before its pretrained controller is named, the train config of
-  the fg stage, {stage: its step count})."""
+  the fg stage, {stage: its step count}, {stage: its batch size})."""
   if scale == 'paper':
     data_cfg = C.DataConfig(dataset='synth', folder=dataset_folder,
                             height=128, width=448, timespan=20,
@@ -133,7 +172,59 @@ def synth3_stages(scale, results='results', logs='logs', dataset_folder=None,
   train_cfg = C.TrainConfig(num_steps=steps['fg'], batch_size=bs,
                             save_ckpt=True, results=results, logs=logs,
                             **cadence)
-  return data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps
+  return (data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps,
+          dict.fromkeys(('fg', 'box', 'full'), bs))
+
+
+def synthcs_stages(scale, results='results', logs='logs',
+                   dataset_folder=None, num_steps=None, data_examples=None,
+                   fg_steps=None, box_steps=None, full_steps=None):
+  """The configs of ``run_synth_cs`` at ``scale`` (JAX
+  ``run_pipeline.py:392-431``), as ``synth3_stages`` returns them: 2
+  instance classes in the data, 3 config classes with the background."""
+  nsc_data = 2
+  nsc_cfg = nsc_data + 1
+  if scale == 'paper':
+    data_cfg = C.DataConfig(dataset='synth', folder=dataset_folder,
+                            height=256, width=512, timespan=20,
+                            num_examples=data_examples or 256,
+                            max_objects=10, num_semantic_classes=nsc_data)
+    fg_cfg = C.synthcs_fg_config()
+    box_cfg = C.synthcs_box_config()
+    full_base = C.synthcs_full_config()
+    batch = {'fg': 8, 'box': 4, 'full': 4}
+    steps = {'fg': fg_steps or 1500, 'box': box_steps or 4000,
+             'full': full_steps or 6000}
+    cadence = PAPER_CADENCE
+  else:
+    data_cfg = C.DataConfig(dataset='synth', folder=dataset_folder,
+                            height=64, width=64, timespan=6,
+                            num_examples=32, max_objects=4,
+                            num_semantic_classes=nsc_data)
+    fg_cfg = C.tiny_fg_config(add_orientation=True,
+                              num_semantic_classes=nsc_cfg,
+                              dcnn_depth=(8, 4, nsc_cfg + 8))
+    box_cfg = C.tiny_box_config(timespan=6, add_d_out=True, add_y_out=True,
+                                num_semantic_classes=nsc_cfg)
+    full_base = C.tiny_full_config(
+        timespan=6, use_knob=True, add_d_out=True, add_y_out=True,
+        num_semantic_classes=nsc_cfg, ctrl_add_inp=True,
+        ctrl_add_canvas=True, attn_add_inp=True, attn_add_canvas=True)
+    batch = dict.fromkeys(('fg', 'box', 'full'), 4)
+    n = num_steps or 20
+    steps = {'fg': fg_steps or n, 'box': box_steps or n,
+             'full': full_steps or n}
+    cadence = _tiny_cadence(steps['fg'])
+  train_cfg = C.TrainConfig(num_steps=steps['fg'], batch_size=batch['fg'],
+                            save_ckpt=True, results=results, logs=logs,
+                            **cadence)
+  return data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps, batch
+
+
+# The chains of run_chain: {dataset: (its stages, the function of its
+# stages' configs)}.
+CHAINS = {'synth3': (SYNTH3_STAGES, synth3_stages),
+          'synthcs': (SYNTHCS_STAGES, synthcs_stages)}
 
 
 def _data_flags(args):
@@ -231,37 +322,129 @@ def run_synth(args, device=None):
   return full_id
 
 
-def run_synth3(args, device=None):
-  """The KITTI-shaped chain's stages of ``--stages``; returns {'fg', 'box',
-  'full': the model ids, 'stages': the stages that ran, in order}."""
+def _snapshot_data_config(args, full_id, data_cfg):
+  """The data config that the full model's run wrote (its data_opt.yaml),
+  with --dataset_folder and --data_examples over it, else ``data_cfg``:
+  the ground truth of the AP and pixel stages must come from the split the
+  predictions were packed for (JAX ``run_pipeline.py:501-511``,
+  ``:590-598``)."""
+  folder = os.path.join(args.results, full_id)
+  if not os.path.exists(os.path.join(folder, 'data_opt.yaml')):
+    return data_cfg
+  return A.make_data_config(args, restore=folder)
+
+
+def _packed_split(data_cfg, split, full_maps=False):
+  packed = provider.get('synth', data_cfg, split=split)
+  if not isinstance(packed, PackedDataset) or (
+      full_maps and packed.y_out_ins is None):
+    raise FileNotFoundError(
+        f'{provider.pack_path(data_cfg, split)} holds no '
+        f'{"full" if full_maps else "fg"} model maps for these settings: '
+        'run the pack stage first')
+  return packed
+
+
+def run_ap_stage(args, full_id, data_cfg, batch_size, split='valid',
+                 device=None):
+  """The official Cityscapes instance-level AP of a trained full model
+  (JAX ``run_ap_stage``, ``run_pipeline.py:560-610``): its instance maps
+  and scores packed into the split's pack file (``cli.pack.full_main``),
+  the split read back, the model-free Cityscapes eval of the pack
+  (``cs_output_<split>/sbd.csv``), and the AP of its submission against
+  the split's instance-id images, written to
+  ``results/<full_id>/output_<split>/ap.json``.  The submission's text and
+  PNG files and the gtFine PNGs that the JAX stage writes through cv2 are
+  not written (ROADMAP A.5).  Returns the averages."""
+  pack_cli.full_main(['--model_id', full_id, '--results', args.results,
+                      '--dataset', 'synth', '--split', split,
+                      '--batch_size', str(batch_size)] + _data_flags(args),
+                     device=device)
+  packed = _packed_split(_snapshot_data_config(args, full_id, data_cfg),
+                         split, full_maps=True)
+  folder = os.path.join(args.results, full_id)
+  _, rows = cityscapes_eval(
+      packed, os.path.join(folder, f'cs_output_{split}'), [AP_THRESHOLD],
+      ['sbd'], remove_tiny=args.ap_remove_tiny, batch_size=batch_size,
+      device=device)
+  ds = packed.dataset
+  export = os.path.join(folder, f'output_{split}', 'ap.json')
+  avg = instance_eval.evaluate_instance_predictions(
+      rows[AP_THRESHOLD], ds.get_instance_id_images(ds.img_ids),
+      export_file=export)
+  logger.get().info(f"AP {avg['allAp']:.4f} AP_50% {avg['allAp50%']:.4f} "
+                    f'-> {export}')
+  return avg
+
+
+def run_pixel_stage(args, full_id, data_cfg, split='valid', device=None):
+  """The official Cityscapes pixel-level eval of the fg model's packed
+  bytes (JAX ``run_pixel_stage``, ``run_pipeline.py:476-558``): each
+  example's labels from its packed maps (``pixel_eval.prediction_labels``,
+  made on ``device``) against its instance-id image
+  (``groundtruth_labels``), written to
+  ``results/<full_id>/output_<split>/pixel_eval.json``.  Returns the
+  result."""
+  packed = _packed_split(_snapshot_data_config(args, full_id, data_cfg),
+                         split)
+  labels = pixel_eval.prediction_labels(torch.from_numpy(packed.y_out).to(
+      resolve_device(device))).cpu().numpy()
+  ds = packed.dataset
+  ev = pixel_eval.PixelEvaluator()
+  for pred, ids in zip(labels, ds.get_instance_id_images(ds.img_ids)):
+    gt_label, gt_inst = pixel_eval.groundtruth_labels(ids)
+    ev.add_pair(pred, gt_label, instance_img=gt_inst)
+  result = ev.finalize()
+  export = os.path.join(args.results, full_id, f'output_{split}',
+                        'pixel_eval.json')
+  os.makedirs(os.path.dirname(export), exist_ok=True)
+  with open(export, 'w') as f:
+    json.dump(result, f, indent=2)
+  logger.get().info(f'Pixel-level eval over {len(labels)} images: meanIoU '
+                    f'{result["meanIoU"]:.4f} -> {export}')
+  return result
+
+
+def run_chain(args, dataset, device=None):
+  """The stages of ``--stages`` of the synth3 or the synthcs chain
+  (``dataset``; JAX ``run_synth3``, ``run_synth_cs``); returns {'fg',
+  'box', 'full': the model ids, 'stages': the stages that ran, in order,
+  and 'ap', 'pixel': those stages' results where they ran}."""
   log = logger.get()
-  stages = set(args.stages.split(','))
-  unknown = stages - set(SYNTH3_STAGES)
+  all_stages, stages_fn = CHAINS[dataset]
+  stages = set((args.stages or ','.join(all_stages)).split(','))
+  unknown = stages - set(all_stages)
   if unknown:
     raise ValueError(f'--stages: {sorted(unknown)} are not stages of the '
-                     f'synth3 pipeline {SYNTH3_STAGES}')
+                     f'{dataset} pipeline {all_stages}')
   model_id = args.model_id or assign_model_id()
-  fg_id = args.fg_from or f'fg_model_synth3-{model_id}'
-  box_id = args.box_from or f'box_model_synth3-{model_id}'
-  full_id = f'full_model_synth3-{model_id}'
-  data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps = synth3_stages(
+  fg_id = args.fg_from or f'fg_model_{dataset}-{model_id}'
+  box_id = args.box_from or f'box_model_{dataset}-{model_id}'
+  full_id = f'full_model_{dataset}-{model_id}'
+  data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps, batch = stages_fn(
       args.scale, args.results, args.logs, args.dataset_folder,
       args.num_steps, args.data_examples, args.fg_steps, args.box_steps,
       args.full_steps)
-  bs = str(train_cfg.batch_size)
+  bs = {k: str(v) for k, v in batch.items()}
+
+  def stage_cfg(stage, model_id):
+    # _restore_folder (and its data snapshot check) only for the stages
+    # that train: a reused stage is not held to the current data flags.
+    return train_cfg.replace(model_id=model_id, num_steps=steps[stage],
+                             batch_size=batch[stage],
+                             restore=_restore_folder(args, model_id,
+                                                     data_cfg))
 
   stages = _reuse_stages(args, stages, log)
   stages = _skip_completed_prefix(args, stages, full_id, data_cfg, log)
+  out = {'fg': fg_id, 'box': box_id, 'full': full_id}
   if 'fg' in stages:
-    # _restore_folder (and its data snapshot check) only for the stages
-    # that train: a reused stage is not held to the current data flags.
-    _train('fg', fg_cfg, train_cfg.replace(
-        model_id=fg_id, num_steps=steps['fg'],
-        restore=_restore_folder(args, fg_id, data_cfg)), data_cfg, device)
+    _train('fg', fg_cfg, stage_cfg('fg', fg_id), data_cfg, device)
   if 'pack' in stages:
     pack_cli.fg_main(['--model_id', fg_id, '--results', args.results,
                       '--dataset', 'synth', '--split', 'train,valid',
-                      '--batch_size', bs] + _data_flags(args), device=device)
+                      '--batch_size', bs['fg']] + _data_flags(args),
+                     device=device)
   if 'box' in stages or 'full' in stages:
     missing = [s for s in ('train', 'valid')
                if not provider.has_pack(data_cfg, s)]
@@ -271,63 +454,70 @@ def run_synth3(args, device=None):
           f'{missing} split(s) at {provider.pack_path(data_cfg, missing[0])}'
           ': run the pack stage first')
   if 'box' in stages:
-    _train('box', box_cfg, train_cfg.replace(
-        model_id=box_id, num_steps=steps['box'],
-        restore=_restore_folder(args, box_id, data_cfg)), data_cfg, device)
+    _train('box', box_cfg, stage_cfg('box', box_id), data_cfg, device)
   if 'full' in stages:
     box_ckpt = saver.latest_checkpoint(os.path.join(args.results, box_id))
     _train('full', full_base.replace(pretrain_ctrl_net=box_ckpt),
-           train_cfg.replace(model_id=full_id, num_steps=steps['full'],
-                             restore=_restore_folder(args, full_id,
-                                                     data_cfg)),
-           data_cfg, device)
+           stage_cfg('full', full_id), data_cfg, device)
   if 'eval' in stages:
     eval_fg_metrics.main(['--model_id', fg_id, '--results', args.results,
-                          '--batch_size', bs] + _data_flags(args),
+                          '--batch_size', bs['fg']] + _data_flags(args),
                          device=device)
     eval_cli.full_main(['--model_id', full_id, '--results', args.results,
                         '--dataset', 'synth', '--split', 'valid',
-                        '--batch_size', bs,
-                        '--threshold_list', '0.2,0.3,0.4,0.5,0.6,0.7']
+                        '--batch_size', bs['full'],
+                        '--threshold_list', EVAL_THRESHOLDS]
                        + _data_flags(args), device=device)
+  if 'ap' in stages:
+    out['ap'] = run_ap_stage(args, full_id, data_cfg, batch['full'],
+                             device=device)
+  if 'pixel' in stages:
+    out['pixel'] = run_pixel_stage(args, full_id, data_cfg, device=device)
   log.info(f'Pipeline done: {fg_id} -> {box_id} -> {full_id}')
-  return {'fg': fg_id, 'box': box_id, 'full': full_id,
-          'stages': [s for s in SYNTH3_STAGES if s in stages]}
+  out['stages'] = [s for s in all_stages if s in stages]
+  return out
 
 
 def main(argv=None, device=None):
   """``device``: the card unless it names another."""
   parser = argparse.ArgumentParser()
   parser.add_argument('--dataset', default='synth',
-                      choices=['synth', 'synth3'],
-                      help='the synth and synth3 pipelines are ported '
-                           '(ROADMAP A.3, A.5)')
+                      choices=['synth', 'synth3', 'synthcs'],
+                      help='the synthetic pipelines are ported (the real '
+                           'datasets\' wait: ROADMAP A.5)')
   parser.add_argument('--dataset_folder', default=None)
   parser.add_argument('--results', default='results')
   parser.add_argument('--logs', default='logs')
   parser.add_argument('--scale', default='paper', choices=['paper', 'tiny'])
   parser.add_argument('--num_steps', default=None, type=int,
                       help='steps per stage (default: the scale\'s own)')
-  synth3 = parser.add_argument_group('synth3')
-  synth3.add_argument('--model_id', default=None,
-                      help='reuse an id (go on with a chain)')
-  synth3.add_argument('--stages', default=','.join(SYNTH3_STAGES))
-  synth3.add_argument('--fg_steps', default=None, type=int)
-  synth3.add_argument('--box_steps', default=None, type=int)
-  synth3.add_argument('--full_steps', default=None, type=int)
-  synth3.add_argument('--data_examples', default=None, type=int,
-                      help='the train split\'s size (paper scale)')
-  synth3.add_argument('--fg_from', default=None,
-                      help='reuse this trained fg model id')
-  synth3.add_argument('--box_from', default=None,
-                      help='reuse this trained box model id (its last '
-                           'checkpoint starts the full model)')
-  synth3.add_argument('--resume', action='store_true',
-                      help='restore each trained stage from its '
-                           'results/<id> checkpoint')
+  chain = parser.add_argument_group('synth3 and synthcs')
+  chain.add_argument('--model_id', default=None,
+                     help='reuse an id (go on with a chain)')
+  chain.add_argument('--stages', default=None,
+                     help='the stages to run (default: all of the '
+                          'dataset\'s, ' + ', '.join(
+                              f'{k}: {",".join(v)}'
+                              for k, (v, _) in CHAINS.items()) + ')')
+  chain.add_argument('--fg_steps', default=None, type=int)
+  chain.add_argument('--box_steps', default=None, type=int)
+  chain.add_argument('--full_steps', default=None, type=int)
+  chain.add_argument('--data_examples', default=None, type=int,
+                     help='the train split\'s size (paper scale)')
+  chain.add_argument('--fg_from', default=None,
+                     help='reuse this trained fg model id')
+  chain.add_argument('--box_from', default=None,
+                     help='reuse this trained box model id (its last '
+                          'checkpoint starts the full model)')
+  chain.add_argument('--resume', action='store_true',
+                     help='restore each trained stage from its '
+                          'results/<id> checkpoint')
+  chain.add_argument('--ap_remove_tiny', default=100, type=int,
+                     help='the ap stage\'s least region size in pixels '
+                          '(synthcs)')
   args = parser.parse_args(argv)
-  if args.dataset == 'synth3':
-    return run_synth3(args, device=device)
+  if args.dataset in CHAINS:
+    return run_chain(args, args.dataset, device=device)
   return run_synth(args, device=device)
 
 

@@ -4,6 +4,7 @@ batches.
 
     python3 step_noise.py [--batches 5] [--step 30000] [--batch 32]
     python3 step_noise.py --chain [--batches 5]
+    python3 step_noise.py --synthcs [--batches 5]
     python3 step_noise.py --box-repeats 8
     python3 step_noise.py --bf16 [--batches 5]
     python3 step_noise.py --bf16-exact [--batches 2]
@@ -29,6 +30,21 @@ fg model's packed maps, kernel against plain and card against CPU
 box's controller, kernel against plain (``step_gates``).  Batch i is
 examples 8i to 8i+7 of one seeded split; i = 0 is the batch that
 chip_smoke.py gates.
+
+With ``--synthcs``, the same for the step gates of chip_smoke.py's
+synthcs_pipeline phase at 256x512: the synthcs fg model at step 0 (the
+pipeline's seed-0 initial parameters), card against CPU (b2) with its floor
+(the batch in the other order) and its control (the per-channel BCE,
+``chip_smoke.synthcs_fg_gates``); the committed synthcs box checkpoint's
+step on the packed maps of that fg model, kernel against plain (b4) and
+card against CPU (b2) with the sigmoid score head control
+(``synthcs_box_gates``), and the box's card and CPU steps each against
+the same step in float64 on the CPU; and the synthcs full model's step at
+step 0 from the controller of a box at its initial parameters (the
+phase's box took four steps from them), kernel against plain (b4,
+``step_gates``).  Batch i
+holds the first examples of a 16-example split of seed 3 + 100 i: i = 0 is
+the phase's train split, whose first examples it gates.
 
 With ``--box-repeats N``, chip_smoke.py's chain_train box card-against-CPU
 gate N times over, each time on the pack of a fg model that took the
@@ -79,6 +95,9 @@ def main():
   ap.add_argument('--batch', type=int, default=chip_smoke.TRAIN_BATCH)
   ap.add_argument('--chain', action='store_true',
                   help='the chain_train gates instead of the flagship step')
+  ap.add_argument('--synthcs', action='store_true',
+                  help='the synthcs_pipeline gates instead of the flagship '
+                       'step')
   ap.add_argument('--box-repeats', type=int, default=0,
                   help="chain_train's box card-against-CPU gate over this "
                        'many fg trainings')
@@ -95,6 +114,9 @@ def main():
     sys.exit('step_noise: CUDA is not available; this script runs on a card')
   if args.chain:
     chain_noise(torch, args.batches)
+    return
+  if args.synthcs:
+    synthcs_noise(torch, args.batches)
     return
   if args.box_repeats:
     box_repeats(torch, args.box_repeats)
@@ -207,6 +229,99 @@ def chain_noise(torch, n):
             learn_rate(full_cfg, 0), chip_smoke.FULL_STEP_LIMITS)}
     print(json.dumps({
         'batch_index': i, 'examples': [i * b, (i + 1) * b - 1],
+        'draws_seeds': [1 + 10 * i, 2 + 10 * i, 3 + 10 * i],
+        'stages': {stage: {'failures': failures,
+                           'gates': {name: {k: v[k] for k in KEYS if k in v}
+                                     for name, v in gates.items()}}
+                   for stage, (gates, failures) in stages.items()}}),
+          flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+def synthcs_noise(torch, n, dev='cuda'):
+  """The synthcs_pipeline step gates' statistics over n batches (module
+  docstring); ``dev`` the CPU in the tests."""
+  import tempfile
+
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli.pack import pack_fg
+  from rec_attend_tpu_torch.config import synthcs_box_config
+  from rec_attend_tpu_torch.config import synthcs_fg_config
+  from rec_attend_tpu_torch.config import synthcs_full_config
+  from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.box_model import draw_box_randoms
+  from rec_attend_tpu_torch.models.fg_model import draw_fg_randoms
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  dev = torch.device(dev)
+  fg_cfg, box_cfg, full_cfg = (synthcs_fg_config(), synthcs_box_config(),
+                               synthcs_full_config())
+  b_fg, b = 8, chip_smoke.SYNTHCS_TRAIN_BATCH
+  fg = Trainer(fg_cfg, device=dev, seed=0)
+  with tempfile.TemporaryDirectory() as folder:
+    chip_smoke.params_checkpoint(fg.model, folder)
+    fg_exp = EvalExperiment(folder, cfg=fg_cfg, device=dev, spec='fg')
+  box = Trainer(box_cfg, device=dev)
+  box.restore(chip_smoke.SYNTHCS_BOX_DIR)
+  # The phase's full model starts from a box that took four steps from its
+  # initial parameters: here from those parameters.
+  full = Trainer(full_cfg, device=dev)
+  full.load_pretrained(Trainer(box_cfg, device=dev, seed=0).model)
+  nb = chip_smoke.CHAIN_TRAIN_CPU_BATCH
+  for i in range(n):
+    gen = lambda seed: torch.Generator(dev).manual_seed(seed + 10 * i)
+    ds = SyntheticDataset(
+        chip_smoke.SYNTHCS_EXAMPLES, full_cfg.inp_height, full_cfg.inp_width,
+        full_cfg.timespan, seed=3 + 100 * i,
+        max_objects=chip_smoke.CS_MAX_OBJECTS,
+        num_semantic_classes=chip_smoke.CS_CLASSES)
+    fg_batch = {k: v.to(dev) for k, v in next(chip_smoke.chain_batches(
+        torch, ds.get_batch, chip_smoke.FG_KEYS, b_fg, 1)).items()}
+    with chip_smoke.deterministic_cudnn(torch):
+      packed = pack_fg(fg_exp, ds, b)
+    batch = {k: v.to(dev) for k, v in next(chip_smoke.chain_batches(
+        torch, packed.get_batch, chip_smoke.PACKED_KEYS, b, 1)).items()}
+    box_draws = draw_box_randoms(box_cfg, b, gen(2))
+    box_lr = learn_rate(box_cfg, box.opt_state['count'])
+    *box_gates, host = chip_smoke.synthcs_box_gates(
+        torch, ts, matching, gk, box.model, box.opt_state, batch, box_draws,
+        box.step, box_lr, chip_smoke.SYNTHCS_BOX_STEP_LIMITS)
+    # The box's card and CPU steps (b2) each against the same step in
+    # float64 on the CPU, the CPU's matchings pinned.
+    small_draws = {'aug': box_draws['aug'],
+                   'segm_noise': box_draws['segm_noise'][:, :nb]}
+    small = {k: v[:nb] for k, v in batch.items()}
+    with chip_smoke.deterministic_cudnn(torch):
+      got = chip_smoke.one_step(torch, ts, matching, box.model,
+                                box.opt_state, small,
+                                chip_smoke.to_device(small_draws, dev),
+                                box.step, 'kernel', host[4]['solved'])
+    exact = chip_smoke.step_to(torch, chip_smoke.float64_step(
+        torch, ts, matching, box.model, box.opt_state, small, small_draws,
+        box.step, host[4]['solved']), dev)
+    box_gates[0]['card_vs_float64'] = chip_smoke.step_diff(
+        torch, box.model, got, exact, box_lr)
+    box_gates[0]['cpu_vs_float64'] = chip_smoke.step_diff(
+        torch, box.model, chip_smoke.step_to(torch, host, dev), exact, box_lr)
+    stages = {
+        'fg': chip_smoke.synthcs_fg_gates(
+            torch, ts, matching, fg.model, fg.opt_state, fg_batch,
+            draw_fg_randoms(fg_cfg, gen(1)), 0, learn_rate(fg_cfg, 0),
+            chip_smoke.SYNTHCS_FG_STEP_LIMITS),
+        'box': box_gates,
+        'full': chip_smoke.step_gates(
+            torch, ts, matching, gk, full.model, full.opt_state, batch,
+            draw_train_randoms(full_cfg, b, gen(3)), 0,
+            learn_rate(full_cfg, 0), chip_smoke.SYNTHCS_FULL_STEP_LIMITS)}
+    print(json.dumps({
+        'batch_index': i, 'split_seed': 3 + 100 * i,
         'draws_seeds': [1 + 10 * i, 2 + 10 * i, 3 + 10 * i],
         'stages': {stage: {'failures': failures,
                            'gates': {name: {k: v[k] for k in KEYS if k in v}

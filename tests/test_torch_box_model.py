@@ -26,7 +26,9 @@ Compared, with their tolerances (float32 on both sides, as in
 The Adam state read from the committed ``ckpt-12000.npz`` equals the JAX
 ``Saver``'s restore, and the full model's controller loaded from that
 checkpoint equals JAX ``load_pretrained`` from the committed
-``weights.h5``.
+``weights.h5``: the synth3 box's, and the multiclass synthcs box's (its
+15-channel controller) into the synthcs full model.  The ``multiclass``
+variant holds the softmax score head and its confidence loss.
 """
 
 import functools
@@ -37,6 +39,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 import torch
+import yaml
 
 from rec_attend_tpu import config as JC
 from rec_attend_tpu.engine.saver import Saver
@@ -59,6 +62,8 @@ torch.set_num_threads(1)
 
 RESULTS = os.path.join(os.path.dirname(__file__), '..', 'results')
 BOX_SYNTH3 = os.path.join(RESULTS, 'box_model_synth3-20260818a')
+BOX_SYNTHCS = os.path.join(RESULTS, 'box_model_synthcs-20260818a')
+FULL_SYNTHCS = os.path.join(RESULTS, 'full_model_synthcs-20260818a')
 B = 2
 SCALE = 10
 VARIANTS = {
@@ -70,6 +75,11 @@ VARIANTS = {
     'packed_remat_bf16_config': dict(add_d_out=True, add_y_out=True,
                                      dynamic_var=True, remat=True,
                                      dtype='bfloat16'),
+    # The synthcs shape: 3 semantic channels packed, the softmax score head
+    # [B,T,3] and the 1 - s_out[..., 0] confidence loss (JAX box_model.py:
+    # 206-209, :314-318).
+    'multiclass': dict(num_semantic_classes=3, add_d_out=True,
+                       add_y_out=True, dynamic_var=True, remat=True),
 }
 
 
@@ -319,17 +329,21 @@ def test_kitti_box_preset_matches_the_synth3_folder():
   assert got.ccnn_inp_depth == 13 and got.glimpse_map_dim == 56
 
 
-def test_adam_state_of_the_synth3_checkpoint_matches_jax():
-  cfg, jcfg = C.kitti_box_config(), JC.kitti_box_config()
-  path = saver.latest_checkpoint(BOX_SYNTH3)
+def _jax_config(cls, folder, **replace):
+  with open(os.path.join(folder, 'model_opt.yaml')) as f:
+    return cls.from_dict(yaml.safe_load(f)).replace(**replace)
+
+
+def _assert_adam_state_matches_jax(folder, cfg, jcfg, step):
+  path = saver.latest_checkpoint(folder)
   params = JB.init_box_model(jax.random.PRNGKey(0), jcfg)
-  tree, step = Saver(BOX_SYNTH3).restore(
+  tree, jstep = Saver(folder).restore(
       {'params': params, 'opt_state': JT.make_optimizer(jcfg).init(params)})
   want = convert.opt_state_from_jax(tree['opt_state'], cfg)
   trainer = Trainer(cfg, device='cpu')
-  assert trainer.restore(BOX_SYNTH3) == path
+  assert trainer.restore(folder) == path
   got = trainer.opt_state
-  assert step == trainer.step == got['count'] == want['count'] == 12000
+  assert jstep == trainer.step == got['count'] == want['count'] == step
   for key in ('mu', 'nu'):
     assert sorted(got[key]) == sorted(want[key])
     for k, v in want[key].items():
@@ -339,19 +353,34 @@ def test_adam_state_of_the_synth3_checkpoint_matches_jax():
     np.testing.assert_array_equal(state[k].numpy(), np.asarray(v), k)
 
 
-def test_load_pretrained_from_the_box_checkpoint_matches_jax():
-  """The full model's controller from ckpt-12000 (the port: no h5py on the
-  card) equals JAX load_pretrained from the committed weights.h5; the
-  attention nets and the score MLP keep their initial values."""
-  jcfg = JC.kitti_full_config().replace(
-      pretrain_ctrl_net=os.path.join(BOX_SYNTH3, 'weights.h5'))
+def test_adam_state_of_the_synth3_checkpoint_matches_jax():
+  _assert_adam_state_matches_jax(BOX_SYNTH3, C.kitti_box_config(),
+                                 JC.kitti_box_config(), 12000)
+
+
+def test_adam_state_of_the_synthcs_checkpoint_matches_jax():
+  """The multiclass box's ckpt-12000: its score head of 3 outputs and its
+  15-channel controller input."""
+  cfg = C.synthcs_box_config()
+  assert cfg.ccnn_inp_depth == 15
+  _assert_adam_state_matches_jax(
+      BOX_SYNTHCS, cfg, _jax_config(JC.BoxModelConfig, BOX_SYNTHCS), 12000)
+
+
+def _assert_load_pretrained_matches_jax(box_folder, jcfg, cfg, box_cfg):
+  """The full model's controller from the box's ckpt-*.npz (the port: no
+  h5py on the card) equals JAX load_pretrained from the committed
+  weights.h5; the attention nets and the score MLP keep their initial
+  values."""
+  jcfg = jcfg.replace(pretrain_ctrl_net=os.path.join(box_folder,
+                                                     'weights.h5'))
   init = JF.init_full_model(jax.random.PRNGKey(0), jcfg)
   want = convert.flatten_tree(jax.tree_util.tree_map(
       np.asarray, JF.load_pretrained(dict(init), jcfg)))
   init = convert.flatten_tree(jax.tree_util.tree_map(np.asarray, init))
-  trainer = Trainer(C.kitti_full_config(), device='cpu')
+  trainer = Trainer(cfg, device='cpu')
   trainer.model.load_state_dict(convert.params_from_jax(init))
-  trainer.load_pretrained(BOX_SYNTH3, cfg=C.kitti_box_config())
+  trainer.load_pretrained(box_folder, cfg=box_cfg)
   got = trainer.model.state_dict()
   assert sorted(got) == sorted(want)
   loaded = 0
@@ -365,6 +394,23 @@ def test_load_pretrained_from_the_box_checkpoint_matches_jax():
   # ctrl_cnn: 8 layers of w, b and 4 BatchNorm leaves; ctrl_mlp: 1 dense
   # layer; glimpse_mlp: 2; the LSTM's 12 matrices.
   assert loaded == 8 * 6 + 1 * 2 + 2 * 2 + 12
+
+
+def test_load_pretrained_from_the_box_checkpoint_matches_jax():
+  _assert_load_pretrained_matches_jax(BOX_SYNTH3, JC.kitti_full_config(),
+                                      C.kitti_full_config(),
+                                      C.kitti_box_config())
+
+
+def test_load_pretrained_from_the_synthcs_box_checkpoint_matches_jax():
+  """The synthcs full model's 15-channel controller from the multiclass
+  box's ckpt-12000, against JAX from its weights.h5 (the JAX config read
+  from the committed synthcs full model's model_opt.yaml)."""
+  cfg = C.synthcs_full_config()
+  assert cfg.ccnn_inp_depth == 15
+  _assert_load_pretrained_matches_jax(
+      BOX_SYNTHCS, _jax_config(JC.FullModelConfig, FULL_SYNTHCS), cfg,
+      C.synthcs_box_config())
 
 
 def test_merge_pretrained_rules():

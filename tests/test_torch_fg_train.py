@@ -5,7 +5,8 @@ Tiny fg configs (64x64): the KITTI shape of the model (one foreground
 class, the orientation head, BCE, momentum), a three-class softmax with the
 orientation head (the Cityscapes shape: CE over the classes, the
 orientation CE over the foreground classes), and one class without the
-orientation head under the IoU loss and Adam, with the flips on.  JAX
+orientation head under the IoU loss and Adam, with the flips on; and the
+synthcs fg preset's layers at a 64x128 input (one momentum step).  JAX
 ``init_fg_model`` parameters with the weights scaled by up to 21x (out of
 the near-constant regime of the 0.01 init), a numpy-seeded batch of
 rectangle instances with its foreground and orientation targets, and JAX's
@@ -72,6 +73,9 @@ FG_SYNTH3 = os.path.join(os.path.dirname(__file__), '..', 'results',
                          'fg_model_synth3-20260818a')
 B = 2
 SCALE = 20
+# The synthcs layers' gradients against their float32 floor (see
+# test_one_momentum_step_of_the_synthcs_layers_matches_jax).
+FLOOR_FACTOR = 3.0
 VARIANTS = {
     'orientation_momentum': dict(
         add_orientation=True, dcnn_depth=(8, 4, 9), segm_loss_fn='bce',
@@ -88,8 +92,24 @@ VARIANTS = {
 }
 
 
+def _synthcs_layers():
+  """The synthcs fg preset's layers (JAX run_pipeline.py:396-399: the
+  Cityscapes preset, 3 classes; 20 conv and 13 transposed-conv layers up
+  to 512 channels, BCE over the classes' softmax, momentum) at a 64x128
+  input instead of 256x512, so that a step takes seconds."""
+  jcfg = JC.cityscapes_fg_config()
+  return jcfg.replace(num_semantic_classes=3,
+                      dcnn_depth=jcfg.dcnn_depth[:-1] + (11,),
+                      inp_height=64, inp_width=128)
+
+
+# Configs other than the tiny one's variants.
+PRESETS = {'synthcs_layers_64x128': _synthcs_layers}
+
+
 def _configs(variant):
-  jcfg = JC.tiny_fg_config(**VARIANTS[variant])
+  jcfg = (PRESETS[variant]() if variant in PRESETS
+          else JC.tiny_fg_config(**VARIANTS[variant]))
   return jcfg, C.FGModelConfig.from_dict(jcfg.to_dict())
 
 
@@ -272,6 +292,90 @@ def test_one_step_matches_jax(variant):
 
 def test_two_momentum_steps_match_jax():
   _run_steps('orientation_momentum', 2)
+
+
+def test_one_momentum_step_of_the_synthcs_layers_matches_jax():
+  """One momentum step of the synthcs fg preset's 33 layers at 64x128, b2.
+  The loss, the metrics and the BatchNorm EMA are held at the file's
+  tolerances.  The gradients are not: through 28 train-mode BatchNorms
+  over two images, float32 alone moves them by up to 1.4e-2 from the
+  float64 step, JAX's and the port's alike (measured against the port's
+  step in float64).  So each leaf's gradient and update (at step 0 the
+  update is -lr times the gradient) is held, by its relative L2 error, to
+  FLOOR_FACTOR times that leaf's float32 floor: the two steps on the batch
+  in the other order (its BatchNorm sums run in another order) against
+  the two steps, JAX's and the port's errors added.  On this batch the
+  port against JAX reads at most 1.9 times the floor; a fault of the port
+  reads about 1 in the leaves it touches."""
+  import dataclasses
+  variant = 'synthcs_layers_64x128'
+  jcfg, cfg = _configs(variant)
+  assert dataclasses.asdict(cfg) == dataclasses.asdict(
+      C.synthcs_fg_config().replace(inp_height=64, inp_width=128))
+  assert cfg.optimizer == 'momentum' and cfg.segm_loss_fn == 'bce'
+  jax_fn, tx = _jax_fns(variant)
+  params = _params(jcfg)
+  batch = _batch(cfg, seed=10)
+  flipped = {k: np.ascontiguousarray(v[::-1]) for k, v in batch.items()}
+  key = jax.random.PRNGKey(100)
+  draws = fg_jax_draws(key, jcfg)
+
+  def jax_step(b):
+    return jax_fn(params, tx.init(params), _jax_batch(b, jcfg), key,
+                  jnp.asarray(0.0, jnp.float32))
+
+  def port_step(b):
+    model = TG.FGModel(cfg, device='cpu')
+    model.load_state_dict(convert.params_from_jax(params))
+    tbatch = {k: torch.from_numpy(v) for k, v in b.items()}
+    loss, aux, grads = TS.loss_and_grads(model, tbatch, draws, 0)
+    opt, metrics = TS.train_step(model, TS.init_opt_state(model), tbatch,
+                                 draws, 0)
+    return loss, aux, grads, model, opt
+  ((j_loss, j_aux), j_grads), (j_params, j_opt_state, _) = jax_step(batch)
+  (_, j_grads_f), (j_params_f, _, _) = jax_step(flipped)
+  loss, aux, grads, model, port_opt = port_step(batch)
+  _, _, grads_f, model_f, _ = port_step(flipped)
+  np.testing.assert_allclose(float(loss.detach()), float(j_loss), rtol=1e-4,
+                             atol=1e-5)
+  for k in _metric_keys(cfg):
+    np.testing.assert_allclose(float(aux[k]), float(j_aux[k]), rtol=1e-4,
+                               atol=1e-5, err_msg=k)
+  assert float(aux['outputs']['y_out'].detach().std()) > 1e-3
+
+  old = _flat(params)
+  j_new, j_new_f = _flat(j_params), _flat(j_params_f)
+  new = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+  new_f = {k: v.detach().numpy() for k, v in model_f.state_dict().items()}
+  j_grads, j_grads_f = _flat(j_grads), _flat(j_grads_f)
+  zero = _zero_grad_leaves(model)
+
+  def rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+  worst = 0.0
+  for k, g in grads.items():
+    if k in zero:
+      limit = 1e-4 * float(np.abs(j_grads[zero[k]]).max())
+      assert np.abs(g.numpy()).max() <= limit, k
+      assert np.abs(j_grads[k]).max() <= limit, k
+      continue
+    floor = rel(j_grads_f[k], j_grads[k]) + rel(grads_f[k].numpy(),
+                                                g.numpy())
+    got = rel(g.numpy(), j_grads[k])
+    assert got <= FLOOR_FACTOR * floor, (k, got, floor)
+    up_floor = (rel(j_new_f[k] - old[k], j_new[k] - old[k])
+                + rel(new_f[k] - old[k], new[k] - old[k]))
+    up = rel(new[k] - old[k], j_new[k] - old[k])
+    assert up <= FLOOR_FACTOR * up_floor, (k, up, up_floor)
+    worst = max(worst, floor)
+  # The floor is float32's, not a fault's.
+  assert worst < 0.05
+  for k in j_new:
+    if k.endswith(('ema_mean', 'ema_var')):
+      _close(new[k], j_new[k], 1e-4, k)
+  j_opt = convert.opt_state_from_jax(j_opt_state, cfg)
+  assert port_opt['count'] == j_opt['count'] == 1
+  assert sorted(port_opt) == ['count', 'trace']
 
 
 def test_gradients_are_not_clipped():

@@ -10,8 +10,9 @@ eval) too, the training run's (the experiment, the checkpoint writer and
 its YAML, the batch iterators, the command lines, the pipeline), and a
 train step of each model (fg with momentum, box, full started from the
 box), an eval_split, the fg -> pack -> full chain, the Cityscapes-shaped
-chain to its AP and pixel eval, and the train command line and the synth
-pipeline run with those modules blocked."""
+chain to its AP and pixel eval, and the train command line, the synth
+pipeline and the synthcs pipeline (to its ap.json and pixel_eval.json) run
+with those modules blocked."""
 
 import ast
 import os
@@ -544,3 +545,45 @@ def test_synth3_entry_points_default_to_cuda(monkeypatch, tmp_path):
   with pytest.raises(RuntimeError, match='CUDA'):
     run_pipeline.main(['--dataset', 'synth3', '--scale', 'tiny'] + out)
   assert not os.listdir(tmp_path)
+
+
+def test_synthcs_pipeline_with_those_modules_missing(tmp_path):
+  """The synthcs chain as users launch it, with JAX, cv2, h5py, YAML and
+  the rest blocked: fg, pack, box, full, eval, the full model's pack with
+  its AP and the pixel eval write their files."""
+  script = textwrap.dedent(f"""
+      import json, os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import torch
+      torch.set_num_threads(1)
+      from rec_attend_tpu_torch.pipelines import run_pipeline
+      root = {str(tmp_path)!r}
+      out = run_pipeline.main(
+          ['--dataset', 'synthcs', '--scale', 'tiny', '--num_steps', '2',
+           '--results', os.path.join(root, 'r'), '--logs',
+           os.path.join(root, 'l'), '--dataset_folder',
+           os.path.join(root, 'd'), '--model_id', 'blocked'], device='cpu')
+      assert out['stages'] == list(run_pipeline.SYNTHCS_STAGES), out
+      folder = os.path.join(root, 'r', out['full'], 'output_valid')
+      for name in ('ap.json', 'pixel_eval.json', 'sbd_40.csv'):
+        assert os.path.exists(os.path.join(folder, name)), name
+      with open(os.path.join(folder, 'ap.json')) as f:
+        assert sorted(json.load(f)) == ['aps', 'averages']
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')

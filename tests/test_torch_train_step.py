@@ -75,12 +75,22 @@ VARIANTS = {
     'fixed_order_knob_off': (dict(use_knob=False, fixed_order=True), 0.0),
     # The colour jitter of the augmentation (image_ops.py:167-174).
     'rnd_colour': (dict(use_knob=True, rnd_colour=True), 0.0),
+    # The synthcs shape: the fg model's orientation and 3 semantic channels
+    # packed into both nets beside the image and the canvas, 15 input
+    # channels; no flips, as with every packed orientation map
+    # (image_ops.py:98-101).
+    'packed_multiclass': (dict(use_knob=True, remat=True, add_d_out=True,
+                               add_y_out=True, num_semantic_classes=3,
+                               ctrl_add_inp=True, ctrl_add_canvas=True,
+                               attn_add_inp=True, attn_add_canvas=True,
+                               rnd_hflip=False, rnd_vflip=False,
+                               rnd_transpose=False), 0.0),
 }
 AUG = dict(rnd_hflip=True, rnd_vflip=True, rnd_transpose=True)
 
 
 def _configs(variant):
-  over = dict(VARIANTS[variant][0], **AUG)
+  over = dict(AUG, **VARIANTS[variant][0])
   return JC.tiny_full_config(**over), C.tiny_full_config(**over)
 
 
@@ -94,7 +104,8 @@ def _params(jcfg, seed=0):
 
 def _batch(cfg, seed):
   """Rectangles as instances, later ones occluding earlier ones; the last
-  slot of the first image stays empty."""
+  slot of the first image stays empty; random packed maps where the config
+  reads them."""
   rng = np.random.RandomState(seed)
   t, h, w = cfg.timespan, cfg.inp_height, cfg.inp_width
   x = (rng.rand(B, h, w, 3) * 0.2).astype(np.float32)
@@ -108,7 +119,13 @@ def _batch(cfg, seed):
       y[b, k, y0:y0 + dy, x0:x0 + dx] = 1
       x[b, y0:y0 + dy, x0:x0 + dx] = rng.rand(3) * 0.5 + 0.5
       s[b, k] = 1
-  return {'x': x, 'y_gt': y, 's_gt': s}
+  batch = {'x': x, 'y_gt': y, 's_gt': s}
+  if cfg.add_d_out:
+    batch['d_in'] = rng.rand(B, h, w, 8).astype(np.float32)
+  if cfg.add_y_out:
+    batch['y_in'] = rng.rand(B, h, w, cfg.num_semantic_classes).astype(
+        np.float32)
+  return batch
 
 
 def jax_draws(key, jcfg, b):
