@@ -151,8 +151,9 @@ script started ('script_seconds'):
                 run_pipeline.py) as users launch it, at its paper widths
                 (224x224, T=21, up to 9 instances, b8) with its step counts
                 cut: 32 train and 8 valid examples, the box model's
-                TrainingExperiment with the split on the card (6 steps), the
-                full model's from the box's last checkpoint, host-fed with
+                TrainingExperiment with the split on the card (6 steps),
+                read_weights of its last checkpoint to its weights.h5, the
+                full model's from that file (pretrain_ctrl_net), host-fed with
                 prefetching worker threads (6 steps), checkpoints every 2
                 steps and valid and trainval passes every 3, then the eval
                 command line on the valid split and a restore of the full
@@ -165,7 +166,8 @@ script started ('script_seconds'):
                 from the split on the card equal to the host's batch of the
                 same examples, bit for bit (control: the next examples);
                 the full model's controller at step 0 equal to the box's
-                last checkpoint (control: a fresh model); model_opt.yaml
+                weights.h5 as the port reads it (control: a fresh model);
+                model_opt.yaml
                 read back to the config (control: read as the other model's
                 config); the trained full model's eval step (the loss of
                 the valid and trainval passes) on a valid batch, kernel
@@ -247,8 +249,9 @@ script started ('script_seconds'):
                 state, one b4 step kernel against plain (control: dropped
                 filter gradients) and one b2 step card against CPU
                 (control: the score head through a sigmoid); the full
-                controller at step 0 = the trained box's last checkpoint
-                (control: its first) and one b4 step kernel against plain
+                controller at step 0 = the trained box's weights.h5 (the
+                pipeline's handoff; control: the box's first checkpoint)
+                and one b4 step kernel against plain
                 at step 0 (control: dropped filter gradients), limits from
                 `step_noise.py --synthcs`; the fg bytes quantised on the
                 card = the host's (control: rounded, not truncated); the
@@ -267,7 +270,30 @@ script started ('script_seconds'):
                 memory, launches per step, host
                 seconds of the pack, the eval, the full pack, the ap and
                 the pixel stages, the pack files' bytes, the phase's
-                seconds.
+                seconds;
+  weights_h5    the weights.h5 files, read and written by the port's own
+                HDF5 codec (no h5py on the card): (a) the committed box
+                files the copy holds, the flagship box's against a
+                SHA-256 table per key made with h5py (control: a copy with
+                one float's bytes flipped), synth3's and synthcs's against
+                the nets of their ckpt-12000 bit for bit (control: the
+                other box's checkpoint); (b) the flagship's committed
+                start: its model_opt.yaml as committed (pretrain_ctrl_net,
+                the box's weights.h5, resolved against the checkout) in a
+                TrainingExperiment at b32 on synthetic 224x224 images, its
+                controller equal to the file's arrays and every other leaf
+                to its seed-0 value (control: the seed-0 controller), one
+                step gated kernel against plain at PRETRAINED_STEP_LIMITS
+                (control: dropped filter gradients), then 3 steps (84
+                extracts, 42 as d_p, and 84 pastes each; step ms, peak
+                memory); (c) read_weights full of the flagship's
+                ckpt-30000 (against the checkpoint's nets, bit for bit) and
+                box of the synth3 box (against its committed file), then
+                the ft2 finetune's committed model_opt.yaml (finetune,
+                pretrain_net the exported file) in a TrainingExperiment:
+                its parameters and b32 eval forward equal to ckpt-30000's
+                bit for bit (cuDNN deterministic; control: the file
+                without score_mlp), then 2 steps.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -566,6 +592,38 @@ SYNTHCS_FULL_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.016,
                             'zero_grad_share_max': 1e-4,
                             'update_rel_l2_max': 0.095,
                             'zero_update_in_lr_max': 2.0}
+
+# Phase weights_h5: the flagship's box model, whose folder holds its
+# weights.h5 and its two YAML files and no checkpoint (the flagship's
+# model_opt.yaml names that file in pretrain_ctrl_net), and the flagship's
+# finetune ft2, whose model_opt.yaml names the flagship's exported
+# weights.h5 in pretrain_net.  The start and the finetune train at b32 on
+# synthetic 224x224 images, 3 and 2 steps.
+FLAGSHIP_BOX_DIR = os.path.join(REPO, 'results',
+                                'box_model_synth-20260816104712')
+FT2_DIR = os.path.join(REPO, 'results', 'full_model_synth_ft2-r4')
+PRETRAIN_FIELDS = ('pretrain_ctrl_net', 'pretrain_attn_net', 'pretrain_net')
+WEIGHTS_H5_BATCH = 32
+WEIGHTS_H5_START_STEPS, WEIGHTS_H5_FT_STEPS = 3, 2
+# Its step gate, kernel against plain (b32) at step 0 from the committed
+# start: the controller from the box's weights.h5, the attention nets and
+# the score MLP at their seed-0 values, whose BatchNorm leaves' gradients
+# are float32 noise of nearly constant activations.  `step_noise.py
+# --pretrained` over five b32 batches (one H100 80GB HBM3 at 700 W): the
+# floor (reordered plain against plain) reached 0.0104 in the worst leaf's
+# gradient, 0.118 in the worst leaf's update and 1.71 lr in the
+# zero-gradient biases' update, above half of STEP_LIMITS; 0 in the loss
+# and 5.9e-6 in the zero-gradient share, below.  So the first two limits
+# are twice the floor; the loss and the zero-gradient share keep
+# STEP_LIMITS'; the biases' update keeps 2 lr, the most that Adam's first
+# step can move two sides apart (twice the floor would pass any step).
+# Kernel against plain reached 5.6e-6, 3.4e-4 and 0.84 lr; the control
+# (dropped filter gradients) 1.02 and more in the worst leaf's gradient
+# and 1.52 and more in its update.
+PRETRAINED_STEP_LIMITS = {'loss_rel_diff': 1e-4, 'grad_rel_l2_max': 0.021,
+                          'zero_grad_share_max': 1e-4,
+                          'update_rel_l2_max': 0.24,
+                          'zero_update_in_lr_max': 2.0}
 
 # The flagship trained in bfloat16 (RESULTS.md:156-166): the synth1024 run
 # with ``dtype: bfloat16`` in its model_opt.yaml, and its headline
@@ -2121,9 +2179,9 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   control must fail, else it is a failure too."""
   import numpy as np
 
-  from rec_attend_tpu_torch import convert
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.cli import read_weights
   from rec_attend_tpu_torch.config import BoxModelConfig
   from rec_attend_tpu_torch.config import DataConfig
   from rec_attend_tpu_torch.config import FullModelConfig
@@ -2224,7 +2282,6 @@ def pipeline_phase(torch, gk, dev, scale='paper',
         v.numel() * v.element_size() for v in box.device_train_data.values())
     finish(box, out['box'])
     ckpt_gates(box, box_cfg, out['box'])
-    _, box_ckpt = box.saver.get_latest_ckpt()
     bs = train_cfg.batch_size
     n_train = box.train_ds.get_dataset_size()
     idx = np.random.RandomState(0).permutation(n_train)[:bs]
@@ -2233,21 +2290,21 @@ def pipeline_phase(torch, gk, dev, scale='paper',
         split_gather_diff(torch, ts, box, idx, idx),
         split_gather_diff(torch, ts, box, idx, (idx + 1) % n_train))
 
-    # ---- full: from the box's last checkpoint, host-fed -----------------
-    full_cfg = full_base.replace(pretrain_ctrl_net=box_ckpt)
+    # ---- full: from the box's weights.h5, host-fed ----------------------
+    # The handoff of run_pipeline.run_synth: the box's last checkpoint
+    # exported by read_weights, the file named in pretrain_ctrl_net.
+    box_weights = read_weights.box_main(
+        ['--model_id', box.model_id, '--results', results], device=dev)
+    full_cfg = full_base.replace(pretrain_ctrl_net=box_weights)
     full_train_cfg = train_cfg.replace(model_id='full_model_synth-chip',
                                        device_data=False)
     full, out['full'] = stage('full', full_cfg, full_train_cfg)
-    box_state = convert.params_from_checkpoint(box_ckpt, box_cfg)
-
-    def ctrl_diff(model):
-      state = model.state_dict()
-      return [k for k, v in box_state.items() if k.split('.')[0] in CTRL_NETS
-              and not torch.equal(state[k].cpu(), v)]
+    ctrl = h5_state(box_weights, CTRL_NETS)
     out['full']['pretrained_gate'] = gate(
-        'full step 0 controller against the box checkpoint',
-        ctrl_diff(full.trainer.model),
-        ctrl_diff(FullModel(full_base, device=dev)))
+        'full step 0 controller against the box weights.h5',
+        state_diff(torch, full.trainer.model.state_dict(), ctrl),
+        state_diff(torch, FullModel(full_base, device=dev).state_dict(),
+                   ctrl))
     finish(full, out['full'])
     ckpt_gates(full, full_cfg, out['full'])
 
@@ -2637,10 +2694,12 @@ def synth3_child(spec_path):
   'device', its scale cut (``chain_cut`` of 'examples'), inside
   ``recorded_runs``.  Writes to the spec's 'out' the stages' ids, each
   run's record and the launches of the stages after the runs (eval), and
-  to its 'split' the box stage's d_in and y_in as they lie on the device."""
+  to its 'split' the box stage's d_in and y_in as they lie on the device
+  and the full model's controller as its run starts ('full_ctrl/...')."""
   import numpy as np
   import torch
 
+  from rec_attend_tpu_torch.models.full_model import CTRL_NETS
   from rec_attend_tpu_torch.ops.cuda import glimpse as gk
   from rec_attend_tpu_torch.pipelines import run_pipeline
   with open(spec_path) as f:
@@ -2657,6 +2716,12 @@ def synth3_child(spec_path):
     if exp.spec.name == 'box':
       split.update({k: exp.device_train_data[k].cpu().numpy()
                     for k in ('d_in', 'y_in')})
+    if exp.spec.name == 'full':
+      # The full model's controller as its run starts (a copy: on the CPU
+      # the array would share the parameter's memory).
+      split.update({f'full_ctrl/{k}': v.cpu().numpy().copy()
+                    for k, v in exp.trainer.model.state_dict().items()
+                    if k.split('.')[0] in CTRL_NETS})
   gk.reset_launch_counts()
   t0 = time.time()
   with recorded_runs(torch, gk, dev, keep_split) as runs, chain_patched(
@@ -2687,15 +2752,18 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
   too."""
   import numpy as np
 
+  from rec_attend_tpu_torch import convert
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.cli import eval as eval_cli
   from rec_attend_tpu_torch.cli.pack import quantise
+  from rec_attend_tpu_torch.config import BoxModelConfig
   from rec_attend_tpu_torch.config import DataConfig
   from rec_attend_tpu_torch.config import FullModelConfig
   from rec_attend_tpu_torch.data import provider
   from rec_attend_tpu_torch.data.provider import PackedDataset
   from rec_attend_tpu_torch.engine.experiment import EvalExperiment
   from rec_attend_tpu_torch.engine.saver import list_checkpoints
+  from rec_attend_tpu_torch.models.full_model import CTRL_NETS
   from rec_attend_tpu_torch.ops import matching
   from rec_attend_tpu_torch.pipelines import eval_fg_metrics
   from rec_attend_tpu_torch.pipelines import run_pipeline
@@ -2824,6 +2892,23 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
       packed = {'d_in': f['d_out'], 'y_in': f['y_out']}
     with np.load(spec['split']) as f:
       resident = {k: f[k] for k in f.files}
+
+    # ---- full: its controller as it started, against the box's file -----
+    # The child's run_pipeline handed the box over as weights.h5.
+    full_ctrl = {k[len('full_ctrl/'):]: torch.from_numpy(v)
+                 for k, v in resident.items() if k.startswith('full_ctrl/')}
+    box_folder = os.path.join(results, ids['box'])
+    box_cfg = BoxModelConfig.from_yaml(os.path.join(box_folder,
+                                                    'model_opt.yaml'))
+    first = convert.params_from_checkpoint(
+        os.path.join(box_folder, f'ckpt-{ckpts[0]}.npz'), box_cfg)
+    ctrl = h5_state(os.path.join(box_folder, 'weights.h5'), CTRL_NETS)
+    out['full']['pretrained_gate'] = gate(
+        'full step 0 controller against the box\'s weights.h5',
+        state_diff(torch, full_ctrl, ctrl) or (
+            [] if sorted(full_ctrl) == sorted(ctrl) else ['leaves differ']),
+        state_diff(torch, full_ctrl, {k: v for k, v in first.items()
+                                      if k in full_ctrl}))
 
     def pack_diff(want):
       return [k for k in packed if not (
@@ -3222,16 +3307,16 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
         out['fg_gates'] = gates
         failures.extend(f'fg {x}' for x in f)
       elif name == 'full':
-        box_ckpts = list_checkpoints(os.path.join(results, ids['box']))
+        box_folder = os.path.join(results, ids['box'])
+        box_ckpts = list_checkpoints(box_folder)
         state = trainer.model.state_dict()
-
-        def ctrl_diff(path):
-          want = convert.params_from_checkpoint(path, box_cfg)
-          return [k for k, v in want.items() if k.split('.')[0] in CTRL_NETS
-                  and not torch.equal(state[k].cpu(), v)]
+        first = convert.params_from_checkpoint(box_ckpts[0][1], box_cfg)
         out['full_controller_gate'] = gate(
-            'full step 0 controller against the box\'s last checkpoint',
-            ctrl_diff(box_ckpts[-1][1]), ctrl_diff(box_ckpts[0][1]))
+            'full step 0 controller against the box\'s weights.h5',
+            state_diff(torch, state, h5_state(os.path.join(
+                box_folder, 'weights.h5'), CTRL_NETS)),
+            state_diff(torch, state, {k: v for k, v in first.items()
+                                      if k.split('.')[0] in CTRL_NETS}))
         gates, f = step_gates(
             torch, ts, matching, gk, trainer.model, trainer.opt_state,
             first_batch(exp, batch['full']),
@@ -3489,6 +3574,297 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
                                     'pixel_eval.json')['meanIoU']
     out['folders'] = ids
   out['seconds'] = time.time() - start
+  return out, failures
+
+
+# ---------------------------------------------------------------------------
+# weights_h5: the weights.h5 files on the card
+# ---------------------------------------------------------------------------
+
+def sha256_of(a):
+  """SHA-256 of an array's dtype, shape and bytes (FLAGSHIP_BOX_SHA256)."""
+  return hashlib.sha256(f'{a.dtype.str}{a.shape}'.encode()
+                        + a.tobytes()).hexdigest()
+
+
+def committed_config(folder):
+  """The ``FullModelConfig`` of a committed ``model_opt.yaml``, its
+  ``pretrain_*`` paths resolved against the checkout's root, where the JAX
+  runs started."""
+  from rec_attend_tpu_torch.config import FullModelConfig
+  cfg = FullModelConfig.from_yaml(os.path.join(folder, 'model_opt.yaml'))
+  return cfg.replace(**{k: os.path.join(REPO, getattr(cfg, k))
+                        for k in PRETRAIN_FIELDS if getattr(cfg, k)
+                        and not os.path.isabs(getattr(cfg, k))})
+
+
+def checkpoint_h5_arrays(path, cfg, nets):
+  """{weights.h5 key: array} of the nets of a checkpoint, as
+  ``read_weights`` exports them."""
+  from rec_attend_tpu_torch import convert
+  from rec_attend_tpu_torch.nn import params as P
+  state = convert.params_from_checkpoint(path, cfg)
+  out = {}
+  for net in nets:
+    value = P.net_from_state(state, net)
+    if value is not None:
+      out.update(P.h5_arrays(net, value))
+  return out
+
+
+def h5_state(path, nets):
+  """{state-dict name: array} of the nets of a weights.h5 as the port
+  reads them (``params.load_net_h5``)."""
+  from rec_attend_tpu_torch.nn import params as P
+  out = {}
+  for net in nets:
+    value = P.load_net_h5(path, net)
+    if value is not None:
+      out.update(P.net_to_state(net, value))
+  return out
+
+
+def arrays_diff(got, want):
+  """The keys of two {key: array} whose arrays differ in dtype, shape or
+  bits, or that one of them lacks."""
+  return [k for k in sorted(set(got) | set(want))
+          if k not in got or k not in want or got[k].dtype != want[k].dtype
+          or got[k].shape != want[k].shape
+          or got[k].tobytes() != want[k].tobytes()]
+
+
+def state_diff(torch, state, want):
+  """The names whose tensor in ``state`` differs from ``want``'s array or
+  tensor, bit for bit."""
+  return [k for k, v in want.items()
+          if not torch.equal(state[k].cpu(), torch.as_tensor(v).cpu())]
+
+
+def committed_weights_gates(failures, root):
+  """Phase weights_h5 (a): the committed box weights.h5 files the copy
+  holds, read by the port's codec: the flagship box's against
+  FLAGSHIP_BOX_SHA256 (h5py's reading; control: a copy with one float's
+  bytes flipped), synth3's and synthcs's against their ckpt-12000's nets
+  bit for bit (control: against the other box's checkpoint)."""
+  from rec_attend_tpu_torch.cli.read_weights import BOX_NETS
+  from rec_attend_tpu_torch.config import BoxModelConfig
+  from rec_attend_tpu_torch.engine import saver
+  from rec_attend_tpu_torch.utils import h5
+  table = dict(line.split() for line in FLAGSHIP_BOX_SHA256.split('\n')
+               if line)
+
+  def sha_diff(path):
+    got = {k: sha256_of(v) for k, v in h5.read(path).items()}
+    return sorted(k for k in set(got) | set(table)
+                  if got.get(k) != table.get(k))
+  path = os.path.join(FLAGSHIP_BOX_DIR, 'weights.h5')
+  flipped = os.path.join(root, 'flipped.h5')
+  with open(path, 'rb') as f:
+    raw = bytearray(f.read())
+  at = raw.find(h5.read(path)['ctrl_cnn_w_0'].tobytes()) + 1
+  raw[at] ^= 1      # a mantissa bit of the first float of ctrl_cnn_w_0
+  with open(flipped, 'wb') as f:
+    f.write(raw)
+  out = {'flagship_box_keys': len(table), 'flagship_box': gate_with_control(
+      failures, 'flagship box weights.h5 against its SHA-256 table',
+      sha_diff(path), sha_diff(flipped))}
+  ckpt_arrays = {}
+  for name, folder in (('synth3_box', CHAIN_BOX_DIR),
+                       ('synthcs_box', SYNTHCS_BOX_DIR)):
+    cfg = BoxModelConfig.from_yaml(os.path.join(folder, 'model_opt.yaml'))
+    ckpt_arrays[name] = checkpoint_h5_arrays(saver.latest_checkpoint(folder),
+                                             cfg, BOX_NETS)
+  for name, other, folder in (
+      ('synth3_box', 'synthcs_box', CHAIN_BOX_DIR),
+      ('synthcs_box', 'synth3_box', SYNTHCS_BOX_DIR)):
+    got = h5.read(os.path.join(folder, 'weights.h5'))
+    out[name] = gate_with_control(
+        failures, f'{name} weights.h5 against its ckpt-12000',
+        arrays_diff(got, ckpt_arrays[name]),
+        arrays_diff(got, ckpt_arrays[other]))
+    out[name]['keys'] = len(got)
+  return out
+
+
+def weights_h5_phase(torch, gk, dev, batch=WEIGHTS_H5_BATCH):
+  """The weights.h5 files on the card: (a) ``committed_weights_gates``;
+  (b) the flagship's committed start, its model_opt.yaml as committed (its
+  controller from the box's weights.h5, every other net at its seed-0
+  value) in a ``TrainingExperiment`` on synthetic data, its first step
+  gated kernel against plain (PRETRAINED_STEP_LIMITS), then
+  WEIGHTS_H5_START_STEPS steps; (c) ``read_weights`` of the flagship's
+  ckpt-30000 and of the synth3 box, and the ft2 finetune's
+  ``TrainingExperiment`` from the exported file (``pretrain_net``): its
+  state and eval forward against ckpt-30000's bit for bit (control: the
+  file without score_mlp), then WEIGHTS_H5_FT_STEPS steps.  Results and
+  logs go to a temporary folder in the checkout, removed after.  Returns
+  (results, the gates' failures)."""
+  from rec_attend_tpu_torch import convert
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import read_weights
+  from rec_attend_tpu_torch.config import DataConfig
+  from rec_attend_tpu_torch.config import TrainConfig
+  from rec_attend_tpu_torch.data.synthetic import synthetic_images
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine import saver
+  from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
+  from rec_attend_tpu_torch.models.full_model import CTRL_NETS
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import full_model_forward
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.models.full_model import load_pretrained
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.utils import h5
+
+  out, failures = {}, []
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  cfg = committed_config(CHECKPOINT_DIR)
+  T, H, W = cfg.timespan, cfg.inp_height, cfg.inp_width
+  # A step's launches: on the CPU the kernels' plain versions run, none.
+  n = T if dev.type == 'cuda' else 0
+  want_step = {'launches': {'glimpse_extract': 4 * n, 'glimpse_paste': 4 * n},
+               'backward_launches': {'glimpse_extract': 2 * n,
+                                     'glimpse_paste': 0}}
+
+  def run(exp, label):
+    """exp.run() recorded: step ms, peak memory, launches per step."""
+    with recorded_runs(torch, gk, dev) as runs:
+      exp.run()
+    exp.close()
+    rec = runs[0]
+    steps = rec['step_launches']
+    for i, got in enumerate(steps):
+      got = {k: got[k] for k in want_step}
+      if got != want_step:
+        failures.append(f'{label} step {i}: launches {got}, want '
+                        f'{want_step}')
+    losses = log_rows(exp.logs_folder, 'loss')
+    if len(steps) != exp.train_cfg.num_steps or not all(
+        math.isfinite(v) for v in losses.values()):
+      failures.append(f'{label}: {len(steps)} steps, losses {losses}')
+    return {**step_ms_summary(rec), 'losses': losses,
+            'launches_per_step': steps[0] if steps else None,
+            'run_launches': rec['run_launches'],
+            'max_memory_allocated_bytes': rec['max_memory_allocated_bytes'],
+            'run_seconds': rec['run_seconds']}
+
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_weights_h5-',
+                                   dir=REPO) as root:
+    # ---- (a) the committed files ----------------------------------------
+    t0 = time.time()
+    out['committed'] = committed_weights_gates(failures, root)
+    out['committed']['seconds'] = time.time() - t0
+
+    # ---- (b) the flagship's committed start -----------------------------
+    data_cfg = DataConfig(dataset='synth', folder=os.path.join(root, 'data'),
+                          height=H, width=W, timespan=T, num_examples=batch,
+                          max_objects=9)
+    train_cfg = TrainConfig(
+        model_id='full_model_synth-start', num_steps=WEIGHTS_H5_START_STEPS,
+        batch_size=batch, results=os.path.join(root, 'results'),
+        logs=os.path.join(root, 'logs'), steps_per_valid=0,
+        steps_per_trainval=0, steps_per_plot=0, steps_per_log=1,
+        has_valid=False, save_ckpt=False)
+    t0 = time.time()
+    exp = TrainingExperiment('full', cfg, train_cfg, data_cfg, device=dev)
+    start = {'pretrain_ctrl_net': os.path.relpath(cfg.pretrain_ctrl_net,
+                                                  REPO),
+             'setup_seconds': time.time() - t0}
+    state = exp.trainer.model.state_dict()
+    seed0 = FullModel(cfg, seed=0, device='cpu').state_dict()
+    ctrl = h5_state(cfg.pretrain_ctrl_net, CTRL_NETS)
+    others = {k: v for k, v in seed0.items()
+              if k.split('.')[0] not in CTRL_NETS}
+    start['loaded_leaves'] = len(ctrl)
+    start['loaded_gate'] = gate(
+        'committed start: controller = the box weights.h5, the rest seed 0',
+        state_diff(torch, state, {**ctrl, **others}),
+        state_diff(torch, state, seed0))
+    gate_batch = {k: v.to(dev) for k, v in synthetic_instances(
+        batch, H, W, T, seed=1000).items()}
+    draws = draw_train_randoms(cfg, batch,
+                               torch.Generator(dev).manual_seed(1))
+    t0 = time.time()
+    gates, f = step_gates(torch, ts, matching, gk, exp.trainer.model,
+                          exp.trainer.opt_state, gate_batch, draws, 0,
+                          learn_rate(cfg, 0), PRETRAINED_STEP_LIMITS)
+    start['step_gates'] = gates
+    start['step_gate_seconds'] = time.time() - t0
+    failures.extend(f'committed start step 0: {x}' for x in f)
+    start['run'] = run(exp, 'committed start')
+    out['start'] = start
+
+    # ---- (c) export and finetune ----------------------------------------
+    t0 = time.time()
+    full_h5 = read_weights.full_main(
+        ['--model_id', os.path.basename(CHECKPOINT_DIR), '--results',
+         os.path.dirname(CHECKPOINT_DIR), '--output',
+         os.path.join(root, 'full_weights.h5')], device=dev)
+    ckpt = saver.latest_checkpoint(CHECKPOINT_DIR)
+    exported = h5.read(full_h5)
+    box_committed = h5.read(os.path.join(CHAIN_BOX_DIR, 'weights.h5'))
+    export = {'seconds': time.time() - t0, 'full_keys': len(exported)}
+    export['full_gate'] = gate(
+        'read_weights full of ckpt-30000 against its nets',
+        arrays_diff(exported, checkpoint_h5_arrays(
+            ckpt, cfg, read_weights.FULL_NETS)),
+        arrays_diff(exported, h5.read(cfg.pretrain_ctrl_net)))
+    box_h5 = read_weights.box_main(
+        ['--model_id', os.path.basename(CHAIN_BOX_DIR), '--results',
+         os.path.dirname(CHAIN_BOX_DIR), '--output',
+         os.path.join(root, 'synth3_box.h5')], device=dev)
+    export['synth3_box_gate'] = gate(
+        'read_weights box of the synth3 box against its committed file',
+        arrays_diff(h5.read(box_h5), box_committed),
+        arrays_diff(h5.read(box_h5), h5.read(os.path.join(
+            SYNTHCS_BOX_DIR, 'weights.h5'))))
+    out['export'] = export
+
+    ft_cfg = committed_config(FT2_DIR).replace(pretrain_net=full_h5)
+    t0 = time.time()
+    ft = TrainingExperiment('full', ft_cfg, train_cfg.replace(
+        model_id='full_model_synth_ft2-chip',
+        num_steps=WEIGHTS_H5_FT_STEPS), data_cfg, device=dev)
+    finetune = {'finetune': ft_cfg.finetune,
+                'setup_seconds': time.time() - t0}
+    restored = FullModel(cfg, device=dev)
+    restored.load_state_dict(convert.params_from_checkpoint(ckpt, cfg))
+    no_score = os.path.join(root, 'no_score_mlp.h5')
+    h5.write(no_score, {k: v for k, v in exported.items()
+                        if not k.startswith('score_mlp')})
+    control = FullModel(ft_cfg, device=dev)
+    load_pretrained(control, ft_cfg.replace(pretrain_net=no_score))
+    x = synthetic_images(batch, H, W, seed=7).to(dev)
+
+    def forward(model):
+      with deterministic_cudnn(torch), torch.inference_mode():
+        return full_model_forward(model, x, glimpse='kernel')
+    want = forward(restored)
+
+    def forward_diff_bits(model):
+      got = forward(model)
+      return state_diff(torch, model.state_dict(), restored.state_dict()) + [
+          k for k, v in want.items() if not torch.equal(got[k], v)]
+    finetune['forward_gate'] = gate(
+        'ft2 start: state and b32 eval forward against ckpt-30000, bit for '
+        'bit', forward_diff_bits(ft.trainer.model),
+        forward_diff_bits(control))
+    del restored, control
+    finetune['run'] = run(ft, 'ft2 finetune')
+    out['finetune'] = finetune
+
+  launches = {}
+  for kind in ('launches', 'backward_launches'):
+    launches[kind] = {
+        k: sum(r['run']['run_launches'][kind][k]
+               for r in (out['start'], out['finetune']))
+        for k in ('glimpse_extract', 'glimpse_paste')}
+  out['launches'] = launches
+  out['limits'] = PRETRAINED_STEP_LIMITS
   return out, failures
 
 
@@ -4394,6 +4770,19 @@ def main():
   if failures:
     raise AssertionError(f'synthcs_pipeline gates: {failures}')
 
+  # The weights.h5 files: the committed ones read, the flagship's committed
+  # start and its ft2 finetune; after the other phases, which run as they
+  # did without it.
+  t0 = time.time()
+  weights, failures = weights_h5_phase(torch, gk, dev)
+  emit('weights_h5', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **weights)
+  if failures:
+    raise AssertionError(f'weights_h5 gates: {failures}')
+  weights_forward = {k: weights['launches']['launches'][k]
+                     - weights['launches']['backward_launches'][k]
+                     for k in checks}
+
   def row(name, c, use, by_path):
     return {'name': name, 'route': 'cuda', 'source': SOURCE,
             'replaces': REPLACES[name], 'use': use,
@@ -4415,7 +4804,8 @@ def main():
             'serve': launches[name], 'train': train['forward_launches'][name],
             'eval': evals['launches'][name],
             'bf16_eval': bf16_launches['eval'][name],
-            'bf16_train': bf16_launches['train_forward'][name]}),
+            'bf16_train': bf16_launches['train_forward'][name],
+            'weights_h5': weights_forward[name]}),
         **{f'b{b}': {k: c[f'b{b}'][k] for k in (
             'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
             'bound_share', 'route', 'max_abs_err') if k in c[f'b{b}']}
@@ -4558,7 +4948,9 @@ def main():
     name = use['kernel']
     by_path = {k: v for k, v in (
         ('train', train['backward_launches'][name]),
-        ('bf16_train', bf16_launches['train_backward'][name])) if v}
+        ('bf16_train', bf16_launches['train_backward'][name]),
+        ('weights_h5', weights['launches']['backward_launches'][name]))
+               if v}
     if not by_path:
       continue
     table.append({
@@ -4577,6 +4969,724 @@ def main():
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': kind, 'count': torch.cuda.device_count()}}),
         flush=True)
+
+
+# SHA-256 (``sha256_of``: dtype, shape and bytes) of every dataset of
+# results/box_model_synth-20260816104712/weights.h5 as h5py reads it, for
+# phase weights_h5 on a machine without h5py.  Made with
+#   with h5py.File(path) as f:
+#     print('\n'.join(f'{k} {sha256_of(np.asarray(f[k][()]))}'
+#                      for k in sorted(f)))
+FLAGSHIP_BOX_SHA256 = """
+ctrl_cnn_0_0_beta c4a1232f3d213c9b68a3b76cf19e473fa91de2171d40bf4bee876a133532d581
+ctrl_cnn_0_0_ema_mean 4cc6575f30bdacb7d3330a2b0766bd8f5f810ae8654098ee0f64087451a681fb
+ctrl_cnn_0_0_ema_var 96edb092bb00da1af425a20da8ec001925e6dd37210552522ede6ff24c8d97e5
+ctrl_cnn_0_0_gamma 78c84795efeba439a0f37bf0aee5c8f3379e9c869cbc44cdf6a4cf760d36f714
+ctrl_cnn_0_10_beta 487f0c8f82e30618c170bc8ee7311d022a4049e9d0cf98a647f873b8d25584ca
+ctrl_cnn_0_10_ema_mean f7aad7f948fe2bc629d59cd89c2e6905425778dc62fda91bc5b02cb37ca5962d
+ctrl_cnn_0_10_ema_var 9bc953bd504d8b194a5bd764e5acb51ad5fe00b3691e6ddef71219431e11aeec
+ctrl_cnn_0_10_gamma 1aa4d73709653eb0e99755bdff8cba2650e19b0bdcccf11ad6d7f7e64524c7b7
+ctrl_cnn_0_11_beta 6a9c21e0694a853be4190b57144b37e8648bdc20b1ababdb09f81947d119c7f4
+ctrl_cnn_0_11_ema_mean 83b091b230b2276c1ac944f7bdf36c7efa403c5e1a03b0b7519c0b4a88438bb0
+ctrl_cnn_0_11_ema_var d5ed16d39b7fcba967e05b689ab15c7c13a4b87703c6446a043342fc54c0112e
+ctrl_cnn_0_11_gamma f8b5350af10f65ec4d547a3e171e26690007f677efd8df493d2f446718485b26
+ctrl_cnn_0_12_beta 1d7673bd379198995989e248572c0a7751519c57c7d09498b9d9379bb9cfb6ed
+ctrl_cnn_0_12_ema_mean f63c1b128495d370a66b8d884dd6eaf5c8cbc6a17b39fdb5a359aa68556d40d3
+ctrl_cnn_0_12_ema_var 6804c4c8f3d06dc3cf3d5e527d92e7644577d16ea46226556166cda1b6f49a3d
+ctrl_cnn_0_12_gamma 333022fb11424347bf8ee2c4d8de461aad0c7626eb0b635bfd3c4d7a62c9e70c
+ctrl_cnn_0_13_beta 6c38351232dd02e020c2468d8095273772ab62cfb6afe653865c57fc6d1d4a9f
+ctrl_cnn_0_13_ema_mean ffc7d0b237eab6bcedae93220eff86b32944d5c05b9aad17a625014f58394e06
+ctrl_cnn_0_13_ema_var 0923ae3fbe622f93c8a14ed972918abc738f7cb1aef9e4ef8ee7c26a16ea6aee
+ctrl_cnn_0_13_gamma 3bca93925c5e617100750de16241b46a3f3ab12499f5999d94a0d41877b93db7
+ctrl_cnn_0_14_beta 8647ee34a50c68aa992ce33401a81fb91820d4f45df6b3a9bdcb7a71436077e3
+ctrl_cnn_0_14_ema_mean 99d63827bc5559b6aff05038b6e4aa25457932c21d6f5efb06959fd99eb59b11
+ctrl_cnn_0_14_ema_var 655d4c766e82c33885ee15521521790824b099437f63b03a1f702c9a652eb181
+ctrl_cnn_0_14_gamma 209fb6a0887b6c50d46a0256d742a2d497d6688e11aeed6f5af3097d22b34897
+ctrl_cnn_0_15_beta 8bc5c1d16946fa282f0a9179bb0defc258c93cdc61eec3baca536cb16506819e
+ctrl_cnn_0_15_ema_mean 89a825741140b1345397477fc72692218e942506965caf4a456b9df0a34d7b6b
+ctrl_cnn_0_15_ema_var 980ed3ce83dafabdde4930ee81705fbce3477a1f406646b00eda1b9ebb7a5114
+ctrl_cnn_0_15_gamma a70e3c5bb8ef82c11621b349292e82e8326e911cad4f78651cab48b6922122ac
+ctrl_cnn_0_16_beta ff21f161772ca4aa7c85dec23598d5365f5664ebad448c1edbe1717547c8a0fa
+ctrl_cnn_0_16_ema_mean 31afa904fda7769c8c0e0e2f304f30fb42943acb24a8868b7e83b90cd76663d6
+ctrl_cnn_0_16_ema_var 42a4a453bf7588536f74213b99369033fee3391b1d74cfda864336a633cca92f
+ctrl_cnn_0_16_gamma 1bb9ddbe284bf032921a4f827a31fc719b7bdd5fc9c355cdd24bedbf84234883
+ctrl_cnn_0_17_beta 66f24a3653d2a95fc0df33fa234e3acf7f8c5d0e9a81fb6e7c9e5e7c7dbcb771
+ctrl_cnn_0_17_ema_mean f22090ad839a3cc79f69ffd0b65b3d6bfa8e0784605e63a7502d119269e68bad
+ctrl_cnn_0_17_ema_var 5aa78f2b96ad9e364da88885538d03ef12309cdd1897dbd3cace2f3c5c1176bd
+ctrl_cnn_0_17_gamma b5f268f7f07f35c66fcd0df3534a0a92ba336af363617f7ba64b993d1c3a58e3
+ctrl_cnn_0_18_beta f3dee44940debfb781b5f5c4e260a531515f747a5ca7892593a8c603d3fb7700
+ctrl_cnn_0_18_ema_mean d286c89a1779caf11a419f43f97b98e35e6e3af190051ec085f7d8f08ee3b062
+ctrl_cnn_0_18_ema_var d3c3f9ddfcfe52fceb56dd053b14e17d701e673ee172dabbeaafd6a9929bc562
+ctrl_cnn_0_18_gamma 92466eb73baa4deb28107bec985a22c12f9a46ae04e3a46eaf5a6610b5e52157
+ctrl_cnn_0_19_beta 986a1bef61e40bcd1e8b7b103c4300b3189493ffdf7ad9e7ef88f2d90e1e53ce
+ctrl_cnn_0_19_ema_mean 697dc536e0a795320cbb9c005b4a90167f2c14bca97b83fa152cd9c5601e85ad
+ctrl_cnn_0_19_ema_var ddf05d74730791d718764367bfe44c38dffaf5b0941d82cdf76c706587091979
+ctrl_cnn_0_19_gamma 67d8d7d5bbde4a74789e5a70ec161ff9d8e228e508150e5dac1f7a842cd6e3c3
+ctrl_cnn_0_1_beta ef4b44e5b2006300743d68a7e123eb6201264ef75294c8431082792cfea570dc
+ctrl_cnn_0_1_ema_mean 80b6a1b4a4e40db47c2fc44cc9ab93e3e89c9f85cd574ab398f607bf3eb33329
+ctrl_cnn_0_1_ema_var db7250b09b81bb8ae48a9ee98619c35e1f634ea7917f5d5e0f06b51d4bf757f4
+ctrl_cnn_0_1_gamma ed3d0d4bb5fcb3e2f0fbce79a6ba6be4f9b352a7e79a02faeaf6564ea08209e6
+ctrl_cnn_0_20_beta bca3c91d11da0451be0eac6fcf4f85d4c4795f051d69f435022b9ed7c4c89c48
+ctrl_cnn_0_20_ema_mean 15105e66c5c510e4a4f059d1970e8897193488f519c478e1682bb7f74958d110
+ctrl_cnn_0_20_ema_var 1fcc4d6415e2ae868c3589bb9d78c3cdaf7510f5a34e4ac3834ed04c5a1a97c9
+ctrl_cnn_0_20_gamma a7a5f3635538801a2b818cdf6fe961af77619674dd4de4a13f794c067b219697
+ctrl_cnn_0_2_beta 3123b5aa11cd4fa269ecf1d8df15f67018f52e34047b10d69fef44768fc06ef0
+ctrl_cnn_0_2_ema_mean a8e531906d18b5b327c743ab1a5a2387b8654146433b49987612e3469a324eb8
+ctrl_cnn_0_2_ema_var a37200139395ae06626325faf7b4ea6786698ed32850733165c7b5acd6670f59
+ctrl_cnn_0_2_gamma 414fbbc20732cc3ccadcc0804ea1d5d7ca8d62695eb8c3b918ec0ba4ed37d554
+ctrl_cnn_0_3_beta 0a8965c60e4c723f6fa1147ed2fb12519b259fe10f2f5ec6d131bed9d3844448
+ctrl_cnn_0_3_ema_mean e60fc9587e2d3b335b457c2d1c4691fcccc6ef3244b853bc0e9f771003149515
+ctrl_cnn_0_3_ema_var 456a275d6a80d5688f906f098836fe0fcccee624cc6a863dfc565929aa2947f6
+ctrl_cnn_0_3_gamma 8d26e2382128d4c1af411f357bc7e98ee0d812d4c8c87664c2aa1736fec54a90
+ctrl_cnn_0_4_beta 1c135315badd831578dacfaa7953c89d90022263126e6f5b2d0d6c12da98f286
+ctrl_cnn_0_4_ema_mean d2372df59adbb33f1dcd9e3db7b085b2a24751b514bbda9a083e18a4afba698a
+ctrl_cnn_0_4_ema_var 5930b9c56a654d0a099f8ff822c858f84c29a0773c3cf808a2763cee5111d7b8
+ctrl_cnn_0_4_gamma 8166b26552e5c4d8203878ab78bbdbeb5c4542f780f135d3ddf9b6e3033467f0
+ctrl_cnn_0_5_beta 053b6a068b24b940e731277500855c1facd6b87591c9d08bb8796cf13eee640b
+ctrl_cnn_0_5_ema_mean 4f3f163dd9bf0f9e45fdfc79bbbd6a6ff1e1acd6c0ab91c154fa5db5bbe76b24
+ctrl_cnn_0_5_ema_var 9a3c12bc9cd0bde8a89958771307a631a059ac4296acb3733e19477e4bf5d799
+ctrl_cnn_0_5_gamma 448d0ffe1e08b3a39fa238880713969644c9c67981f834f2dcd7354d6cd5b270
+ctrl_cnn_0_6_beta c5b42365a9e405d018559bb6e1af67f16d01c26530e82aba1a29240775f2af00
+ctrl_cnn_0_6_ema_mean 69b38528d1d3bee5d8b9f5d25d8f3e97fa502bfc03ac5c4b21b0e42185fe6cc7
+ctrl_cnn_0_6_ema_var 823d1f357afd8ac9b1c07c71f6e5b5185f4e68f492b64dd6b57e0da86201f034
+ctrl_cnn_0_6_gamma efc13fda05a8650f627b8be5191340a29cdde146b53d9a5b6b3fd211b822eb23
+ctrl_cnn_0_7_beta 4a5258b6cfc5bc03b06b122c521830d27c7665180e774190d0e458ae0546b38e
+ctrl_cnn_0_7_ema_mean b9044b0ac99df932316e8fa69171b02aed46ac427a1d30e5de1e1917b168ddc5
+ctrl_cnn_0_7_ema_var 30be43905e120cccfb27a0da207b0290606e8e105c457861ad069f587934ae85
+ctrl_cnn_0_7_gamma 48d6dd34f854a211f34c3792fd80ff28e9b26349bdd0e64cc7ec68021d638f4e
+ctrl_cnn_0_8_beta fb21a02bf1d55d42a9c7c66f385533500f0044584110ac844da008f2ecf088a4
+ctrl_cnn_0_8_ema_mean 9855e9727c8e37f35158736650d8cd4cffccaee01c324fe2de630a4aa670ef8c
+ctrl_cnn_0_8_ema_var 08540d1744bbdc2910e5bb82182dc481af79f643dc945b76a48edaefee792de3
+ctrl_cnn_0_8_gamma c0c00d463f2c48e2180ddf3f857e795d427899da26b6b992cd8a214ec98a8e34
+ctrl_cnn_0_9_beta d0d63dd34dff03a22e5e6cea9101cc83142686e328a2869cc400a3db0dabb71c
+ctrl_cnn_0_9_ema_mean 35f584b9e69760c2f1a86005712f94136e488230b896a7ce554b324f31daadef
+ctrl_cnn_0_9_ema_var 7486d46ad0ca77cd0209d2280ff4258c02560942568d1dc523d066ae745f471e
+ctrl_cnn_0_9_gamma e68394ce5c66f255e4591f6f27fd1a5654d16bec1b2ee3f77891a53da281b3f6
+ctrl_cnn_1_0_beta 01557757c85a86fd0955f945d6781a5063750844175d2566d8254b717da5ecf2
+ctrl_cnn_1_0_ema_mean 5e63a0363d9dfbb9fe78fc3195db143194208d49a8570682b2994848269a67e3
+ctrl_cnn_1_0_ema_var 45f3cfb807459af3706b9fe921c98b6f5d882f890f8ecc2ffaa60cde991d1b9a
+ctrl_cnn_1_0_gamma 1234e49f3e721a5e983c4694d9bfc295774350110b17d7e85885eb643315157b
+ctrl_cnn_1_10_beta e5a8c6d1c4d810288fe6ed836913ec3b20810c8ce657ea08e868b04a0bfa7e97
+ctrl_cnn_1_10_ema_mean 903cbcc2ffda8718370f29893e8f5c1dc2f82d1db5103d32cd8db153bba4249c
+ctrl_cnn_1_10_ema_var 69b99fa4deac1bf258475e8fb3cdad220b7d416d78253427923f18f620af919e
+ctrl_cnn_1_10_gamma 014adaf8e836a6b043c239ef146fc56552141a13c1bd2046033520907a7c5613
+ctrl_cnn_1_11_beta 90ebb1f192cbb33d834cba178c1e73186a7236d611143f050d885d7d048ea0d8
+ctrl_cnn_1_11_ema_mean 4c90434d9e6c720891a514cc25d4cbede31cec34aa6d23fb782dcd5e05ec9223
+ctrl_cnn_1_11_ema_var b0ccd23ee337f305d61bfcad13c4302a3d98b3dcd6b604fa0806a88d6fbddb47
+ctrl_cnn_1_11_gamma 12a410fa9b5fc2db88cc7af04be1c87ff97e86289064bec2dc42a0008722638d
+ctrl_cnn_1_12_beta 57e01b84d359c37c9b7f7331f934a15d47b2ae5b7dc1cb748d0d4789c63e054b
+ctrl_cnn_1_12_ema_mean 74b946ec2ebc6144d4b13b117dd436f8cb79a8b2a1b7de9a5066c6a7c792a033
+ctrl_cnn_1_12_ema_var 1462a2a2723481944b5cf5c0b30cd45995b5a1d6bb078110d2fb46d2fa78bc7e
+ctrl_cnn_1_12_gamma 692d6e51db6b33273213776b8924f8dba2f077287d13ad3a87a639a5426743cf
+ctrl_cnn_1_13_beta bad529b4b8f9584c9de8b5941da2cf0122d29747fbed907ce296729745e74eca
+ctrl_cnn_1_13_ema_mean 3cd5cd7f9c43ec1c550ca33730ea72699306f0c433ef61d83bf38ebd45250346
+ctrl_cnn_1_13_ema_var d62b01f01bda394863e312ebd613c0e8a43ac081ffaca6627c68a6e97c372230
+ctrl_cnn_1_13_gamma 44cf0a6e616d3a4c21a43b3503ed419f5d64be3d8f274d86a32ff2cc244216f1
+ctrl_cnn_1_14_beta e5752e07033ae97bf8bfde0df59bde8f9c07c2db45b0a5557731ce7901d5dd10
+ctrl_cnn_1_14_ema_mean b0121d4b86f67a57dcb5d77cb29092d962e151e0d0e23d351f7b48999eab569a
+ctrl_cnn_1_14_ema_var 31ed31a6135704c6c3dbc58c4864d5f491a0e9aa20eed00227e63d50f07af199
+ctrl_cnn_1_14_gamma 6176ba5822c6f7acf1db3ac57494fe2134464a25c4c9c8249db4de305f3846d9
+ctrl_cnn_1_15_beta e21c080e02e7760e51f443074e1ed600b2ca6e597c84d8b2bb660aee2f060872
+ctrl_cnn_1_15_ema_mean 01a11ffbe16f593ab356f7ce500000721cbd24d35753761b7ad4566dd3b78257
+ctrl_cnn_1_15_ema_var 2ff175803a37d245973ed15f5ed47294ead86e2c954c73ff10cb60dc62d0798d
+ctrl_cnn_1_15_gamma 1c46997bb4e39d3d0906b7ee1883761cd63026ca8dc539ff709b19cb7c55f35d
+ctrl_cnn_1_16_beta bddc85c90bbdb821cbd88bb15ab0fdc6da189b9797cc6869488aedbbcfe370ae
+ctrl_cnn_1_16_ema_mean 47be0db8741f59cf589ce9e1cf015a08efa6ec9b22e9667da011f4042ad7e8bb
+ctrl_cnn_1_16_ema_var e4d6d150072ce4de3876e0fb250815bc449f4cd2ddb00b037ef525a4596487e5
+ctrl_cnn_1_16_gamma e9576527f163070f696975d14cf3634d5dbc80bd4ab53fb50c84750ca7f327c0
+ctrl_cnn_1_17_beta 6e4e6a19b55887ae94400d60e36682362f8d21080b13bb8b6a5164405cc1679d
+ctrl_cnn_1_17_ema_mean 67b26d98921b55b110974f740f4bb90a71bc993eab65ca05d9397d20f77d89ea
+ctrl_cnn_1_17_ema_var 943b1cb4216a2162e5da535ea307ff1d87dd995f8e2b58c36865f149c858bd38
+ctrl_cnn_1_17_gamma 86f422c070b615396dc1bf3897c509b8738f26fb5e05ef8a6ed2f96e9f66ae88
+ctrl_cnn_1_18_beta 58b222293758bc8c60ac3dd8e4d80844da8c2b5d004700f058e67c4e5937576a
+ctrl_cnn_1_18_ema_mean e7e1464d7219b0d741f699591338cbc4e2d760a15ef651b2d69561551a5d187e
+ctrl_cnn_1_18_ema_var 7ce1321b99557feed3834139c5679d95e7b48a09aeaee7acfef6c60112d2b14e
+ctrl_cnn_1_18_gamma 91135819baf4a4d3e4ba324a40b7ac02032a5cb440a0a29e1c832f972207db79
+ctrl_cnn_1_19_beta 0a50b5946b96e9107e3a4543da41372a1edd41a9b1a07de2cef51d4c6a2d00a6
+ctrl_cnn_1_19_ema_mean e4190d31f86157cde3d45c3d0c5ff6939aa71e78f3d64e177fc8b5d59431a01c
+ctrl_cnn_1_19_ema_var a5b665552b3736fc37b79efcba19e6cda150558f461ffcdc80f4aa33f83c6c64
+ctrl_cnn_1_19_gamma bffd09045613a5ef7249685d0a58019db1fbe650135ff2c391c0b13868ae646f
+ctrl_cnn_1_1_beta 98f553422dac04841d4ddc306618fd04324e182e571248c89da41d99e927b739
+ctrl_cnn_1_1_ema_mean 163c10df94cf74e7eacbedab5d9e66914237141897eeab2cbb7728959628c80a
+ctrl_cnn_1_1_ema_var 1bec30240636e5628a5e5c0bb6970e3b717857b409d527adcbb480c5539137bb
+ctrl_cnn_1_1_gamma ce9ffecf9c93f87693f4d0dca6a2661b645b01bdbd5b1b298090ade3f2d66de3
+ctrl_cnn_1_20_beta f9dd8969daf340743e2d06edb88411b4e70629865a1d133fea28bc8b41dd6e32
+ctrl_cnn_1_20_ema_mean 618a3889425b23c4dd322bfddcdd2c21c9df8dad94bc5181d637ff71cfb16d47
+ctrl_cnn_1_20_ema_var 1db71dacc0451196d0ae64faff533134a45bed6526969ff849da67ce904258e3
+ctrl_cnn_1_20_gamma ab51c58bb4c16a73cfe90182bc24d6215bce3cb9723614023e2f9c4f2c21bf70
+ctrl_cnn_1_2_beta b8464014847f92caeb83004e0e35b72c997dc78b1a678bd19f56b357937b32b1
+ctrl_cnn_1_2_ema_mean 6a0e512bb5106687713978886cb8e3a875759957ed4ca1c805fabc7517099422
+ctrl_cnn_1_2_ema_var 30e0baf30b1ff9b5dfaee1e7a87f3fc8e7325fe15127a4631e8c6abb93a6fbcf
+ctrl_cnn_1_2_gamma 76955e74641d259635125eef998257f84803f9d2f381898af3b9a2e81e38e9b1
+ctrl_cnn_1_3_beta 535dc2ade25eee5c55800cdeb1d1007b272ff11297583143db43f22d975fa257
+ctrl_cnn_1_3_ema_mean 3155c4212c1358d8f1c688c9e5f88c6b81af40ef44696932f392f53a0a78ec7a
+ctrl_cnn_1_3_ema_var 18f4bf85acf261022d3fcf6fa8218a8bc67f831f708a40322c7b85c36a86bbcc
+ctrl_cnn_1_3_gamma b57e568851a4cbc57aed3b86a1ff3cfc66d3c28e1af674dc80e845bd536704aa
+ctrl_cnn_1_4_beta 026750b045085d2205f600d226e05239fc2f98590d08530ab67f9c464834cdf0
+ctrl_cnn_1_4_ema_mean 8f8b6c92455f3d794f263cdb6870c68eba478b8322bf19adfe6dc1deb7d86a0d
+ctrl_cnn_1_4_ema_var 8adb7da230db9cfcce14eb307e0da478efc86d16018eba95c295566ed99e3e72
+ctrl_cnn_1_4_gamma a4adef10e12dbaf0d96b7b4a00640feaa0efcef523acee74717d87c41dcaedc1
+ctrl_cnn_1_5_beta 005b77a5876230ac787168578c25fbafa8e3a69e3e1183ae8d4642d22f85d0d9
+ctrl_cnn_1_5_ema_mean e46a95c7d0b7f8c17bd0863a08daa0d92fb5e52a2df288d077aaf113764d7823
+ctrl_cnn_1_5_ema_var ddc264d829df2976e6bfeac5ab95c30bf23a3b246143795b81f1e81dba41bbb9
+ctrl_cnn_1_5_gamma a5e71b6df92adb5fe75998e5a17b71c46c71dfe880b3f2b0ad7d5ec0d42c440e
+ctrl_cnn_1_6_beta 41b71907776ccb4e39d6d272916ba90236883c8a09a1ad8040611ca9225ef768
+ctrl_cnn_1_6_ema_mean 740df2c07fcc4db033932e37e5a4a96fe36a477d693e80de5467aa0f975a8282
+ctrl_cnn_1_6_ema_var dbbe6472c44fe5bc4f17727929fa8fb3f6cc56e357caa07996a1570cc0ddfdb4
+ctrl_cnn_1_6_gamma a50c9b2ddfe9e45f030fa4ff8ddf41e403efb2dd7c372ea8141a63291af60fe9
+ctrl_cnn_1_7_beta 18cd6ccc3feb1d42f0cc3805178ca5a0c841422d83297f1a6a09815c606fe439
+ctrl_cnn_1_7_ema_mean 8e9ae3aa4f05625f3bacae33c2687810996c0192c3984ec21c914ed3b3dc1e41
+ctrl_cnn_1_7_ema_var cb34227d14457c35a7eaa9b7d162a0435addf2802d2078828190b68fa09a0f07
+ctrl_cnn_1_7_gamma cf5c7d2d8bb663e38da037120015fc019c4a28e5af427463680d251b493c4f8f
+ctrl_cnn_1_8_beta 6070901b468432e48127d2a647b2bc65fa80c118bd28e600ea512f8f806a53dc
+ctrl_cnn_1_8_ema_mean 98129450cdd7f21b77cfde06d843b7c0eb2daabcec6f2245ef89ea1aecd01372
+ctrl_cnn_1_8_ema_var 39a1aa481d9f70348a26d756e9f1a35933adf3552cc1e9377ac8ceacdae68a0d
+ctrl_cnn_1_8_gamma 7f5820db89a006dc45f5b7813094c08f69ca7512d09d7bef0e1c19ec769dad82
+ctrl_cnn_1_9_beta 629f36c0cc8f4cec4a461b771cf16c3e7b595fc1f2cac8345feb7afe3756cebf
+ctrl_cnn_1_9_ema_mean ae21dc655c8e0af428a5b7bfe0278455f6ec49258018b36cc8b3be903a3b43b5
+ctrl_cnn_1_9_ema_var 8f6b98130b9adbfe70f14fcffe3ca4e01115fc70ad51abfc9e3d03123c5cfda6
+ctrl_cnn_1_9_gamma 9a33f6a958b5d59b06198dba82cb9b4e93e7874cb3a48669649b72b7e6a19796
+ctrl_cnn_2_0_beta 46f9ff589dc4fcef30e768c76e8551db6432471eacaf7f6a6411a37a86768a25
+ctrl_cnn_2_0_ema_mean a74f2ac292749a65f8af33237068c946d71c93ad416dc893a639566cd86f9824
+ctrl_cnn_2_0_ema_var 26f1336f74438bd45aca6fdaa4c222d0f2d363e81de320d7b3659e1eac3eed27
+ctrl_cnn_2_0_gamma 297487efab46950aa436e959ee5eeffb4823f9e4e3d727cf521b40a1e02a0002
+ctrl_cnn_2_10_beta ff78b1b50fe38368c8e2832358227ccb515881035fc11e49f0ba5e57d0b2c89e
+ctrl_cnn_2_10_ema_mean 46b9fa05a4327b3e657fcd8067d57b0db1df52c9ba7b3e044032b1fba6720117
+ctrl_cnn_2_10_ema_var 3a2ae5f6f8032703194cf919b32fc5cb91bd6b2699dc470e9a6e08d5973a797e
+ctrl_cnn_2_10_gamma 42441256057b4a065307681b223be173abec459c4f7194599610438899d63ecc
+ctrl_cnn_2_11_beta 9b4867eff45833df5fe223c927b31ce9cdd900e444ec7ed105bef04a4c06240f
+ctrl_cnn_2_11_ema_mean e9e800cabcdda59cd17c4b6ad4041a87ee651481aca6a964ff12c589b97adf5a
+ctrl_cnn_2_11_ema_var 5c7f0cc07f3842cd5f95333cc871c16e1db2cb17a691145b668d4db039d1c85b
+ctrl_cnn_2_11_gamma f76f3218ac5e6390d2bf9b358a2f4682bd3a4ae2b9ca8da4cbd504385f1e4b83
+ctrl_cnn_2_12_beta 6f892e99f7cb1cccfd900053ff3d901e3f73872716cff9fbf6cde86a28f17f09
+ctrl_cnn_2_12_ema_mean 874360b428b0990baf67142fec64f29e7bf2a32560fa59b5d8b217ddf5a337d9
+ctrl_cnn_2_12_ema_var 6119fbc9be511b011c63d289a2b75f48332a6a7304004ee91a39c7b35ac2b7cb
+ctrl_cnn_2_12_gamma 0f4d436dd8384b707377218940f0b5e6db90e6345f954cddf4412bdb1f8a9374
+ctrl_cnn_2_13_beta 761326c3324fca0dd90899781297827bfe612ca83590cc64ade4da100d1019c1
+ctrl_cnn_2_13_ema_mean 98a27c06ae5e07c06eb8c5612817a8061feb04a06b5171ae11ca79fd3137ca58
+ctrl_cnn_2_13_ema_var dea4c441dd7f7d462c82d7cab0362448fa0299a3aad354ccb883718b70366c63
+ctrl_cnn_2_13_gamma 3e631abf3b62af6b94fd5425879156530b841154b7fad96e83e32a4470fefc15
+ctrl_cnn_2_14_beta ef377af6729bdba6204c8d7a4b38c63301f979fbf33f1d15e9e108f2a248e2de
+ctrl_cnn_2_14_ema_mean c1ffbf9bee0c191c961abaa471fe71c44873c2449764e893a4381b6b523b09b4
+ctrl_cnn_2_14_ema_var bb65f1cf8e967aeccd4f95504c02a8e113d14abfe3e6f2e1a86ab9473ca92ecb
+ctrl_cnn_2_14_gamma 97764c22d86dd79a6c9920667ad8afe431aa1f7d8a494da632ef0007b84ebb8a
+ctrl_cnn_2_15_beta 2f37de9f44ea8247b6a18e318b07e0529b3d468c759153f0e00d59e6b19378d6
+ctrl_cnn_2_15_ema_mean 889bfd511b0afdc3fe0b1ce1356d44128fdeacd5e6031294a91b8296210b2a7d
+ctrl_cnn_2_15_ema_var 73dedbdfb7138286211af269ddad6826871a286ced23c2da8f33214385d157a7
+ctrl_cnn_2_15_gamma 995164ef62ed0dc8e88dba71e4a7776a813870e65a158d36af88599a9e3c8766
+ctrl_cnn_2_16_beta e67412b60573813976952735f1e43b6e612e5e9218950d319af5152c52f6c726
+ctrl_cnn_2_16_ema_mean a87050667241853d9d87cd56dd58c7a4fe432c949a449b7025395ef897b6eb50
+ctrl_cnn_2_16_ema_var 55cba1da26990b3b123cfea80b18d34c49f8f496fc8364f8d83442eacbc9a826
+ctrl_cnn_2_16_gamma 11299b6c29b171f0738da17ab77610e043e8f0f3a8feecc32d7f57e735efd737
+ctrl_cnn_2_17_beta 308e4f4af5242d6572e8f51b4702963bd095dfc874989c551dd29a9e4affc41a
+ctrl_cnn_2_17_ema_mean f5f701c778ab05460a776b2806140addd39f0530a7208fa325044300af6a37aa
+ctrl_cnn_2_17_ema_var 224e0263ae9f270a76e54690ccee50310d390e2d39bd0d58883b841da2a9a63b
+ctrl_cnn_2_17_gamma edc30e7e8479b547326d940402e1bc501b370e823917c7d70cdfb32288c96787
+ctrl_cnn_2_18_beta 4045fa51ded43eb170736c6063bfb01c16f1b1f3a01a05be78a5d6021959fc9c
+ctrl_cnn_2_18_ema_mean 54841cf32029a1e191c831c8dd0ab7ebf1e594ba0137c67a7b5a4600d257d636
+ctrl_cnn_2_18_ema_var e617f5608adc65b6ad8bcace0dda8f506840cc9f8b22e7ac522598b49013513b
+ctrl_cnn_2_18_gamma 10023eaa83cc7d3aaf853ac2541d0fe1e7f0d7d9688ff385659f39893696e90d
+ctrl_cnn_2_19_beta 0926df8cf15505f24aeb7c765bdb6def0f766f7e2609418f2a6e9b3adac7396b
+ctrl_cnn_2_19_ema_mean 17307c64b43327759151e788aae1a5c2993429bf37492ab485cc156e675bca61
+ctrl_cnn_2_19_ema_var 34a997cbb29f53e71b849ddc25df5bf8aecbdb84973ec99fd08fbec605df4a22
+ctrl_cnn_2_19_gamma b7e5a7c1c9d1facbdb92eace6946ac565d034153971278ca95ce7c76f7c80995
+ctrl_cnn_2_1_beta e5a0f65d1dda85605c22bc90946bd1a387ffecee2f06c6914143065cfb3ba955
+ctrl_cnn_2_1_ema_mean 4a56eeb16e334c691a6746038cc0355fe1834d1aa1b5550507a77dc86ffd547a
+ctrl_cnn_2_1_ema_var 75f13b4cdb5b63c0bcaa460fd9a32bc6a309f0bae2873be4711f9fdf3003bb1a
+ctrl_cnn_2_1_gamma 89f04e743e9581494137e7caff7e996d492c7b7d67221761dcbd5460e5f1d836
+ctrl_cnn_2_20_beta 672511d32027388b8564b116062704eda287a3bf151ebf75dbb9e0298be36af2
+ctrl_cnn_2_20_ema_mean db27c5a8c2bab1257d010139cad6ba3359660d06cf9516edea8cc9af31c51d37
+ctrl_cnn_2_20_ema_var 548165a33ef474c618e19e1782f6e4b30d4e906a07444beafdf2ced438e719ba
+ctrl_cnn_2_20_gamma 11c4852193f45ae26f6c987105a9729552ba94f30d2a87252cf8eda3af7c5a08
+ctrl_cnn_2_2_beta a7ba7979f3429f1b9d01408737b6b7a95ba715c620488e544cc8b8182b911fc4
+ctrl_cnn_2_2_ema_mean a2db480bfc7ed0b111f354b5f4d34209c3d6a613a02093d92e584bc7730b2a81
+ctrl_cnn_2_2_ema_var e4aec6550df2ea806c4dbb4ac4889bd96df69bddb11c26c700515645c93156c8
+ctrl_cnn_2_2_gamma 0259f350cfcb5b517d6f08b3cdc2517e0219d3ff4618ac0fa93b5da3f4b0f740
+ctrl_cnn_2_3_beta 91abe5065851e9e0d68b8e677a3b11f8da019b4eb3b2ef575a5eeaf6c3219689
+ctrl_cnn_2_3_ema_mean 9ee5c541ed3819d8ab123744dc477e4f9070edd96b2e3792ef94ba3219c726b3
+ctrl_cnn_2_3_ema_var fcb057100893580044d0062789879de477c647a7268e22c63ff834be8297105c
+ctrl_cnn_2_3_gamma 37ed01fcb103586566698110d5997cdcda4c55ed5fc76d5e0c51a9c75e5b9717
+ctrl_cnn_2_4_beta b67975ee65c8f4e9f50b720d124aac1ac88c7af725ea059b7531c6402e5d4977
+ctrl_cnn_2_4_ema_mean 2566a64c455f47e38c09abf9c5739a9375c9cc24492eecf9e0a8f57b4549321b
+ctrl_cnn_2_4_ema_var cf17acafd8bb1ee8f18d05d184c9da1d00bb6d0afb3d47a27e367b039d96a5a4
+ctrl_cnn_2_4_gamma c99197a0776666fd10883b53016eed0983634fe2063bd0b8ffb6d37f04528fcb
+ctrl_cnn_2_5_beta 7a12b7914998f353cbdc45db73776831f684226bddc197b2381c61a3f7ae805e
+ctrl_cnn_2_5_ema_mean 3c1b59f516164caebc3a412ba26c98043bbe186db5be6b3d054a099a8ef2ec6f
+ctrl_cnn_2_5_ema_var 864669308a34b6bb90619dc51bcaf3343204f18e3ebef8d3da02d6e5894cf7bc
+ctrl_cnn_2_5_gamma 39c52cd6fd71d4153ba2802b67abf340e250b142352e2472d70a9894f52b63fb
+ctrl_cnn_2_6_beta 3874be57edeeba9371434ee116c024d8bb3243cd0fc99eb2d2d360f352af6654
+ctrl_cnn_2_6_ema_mean 0a1a18bd29094b9a2bca6272c6c1a492b1ab6b8df6a46e76913667467c7adc5f
+ctrl_cnn_2_6_ema_var 43740bdbc993314af1750c2c5444dc8c7107844e155c4a1f87a96afb74738f25
+ctrl_cnn_2_6_gamma fee0f805d98ca69e7813b461e291e0b171db35bc7fc31a2a902bb1d6a90a748b
+ctrl_cnn_2_7_beta a130e85bcb3669866ca4e5eceff4bc66a7c02f75f0d94057a3547a97b2814a5d
+ctrl_cnn_2_7_ema_mean 21287a677c6430bdeb74a550acedcd7d608447dc5ccd1f485fece270e103ea68
+ctrl_cnn_2_7_ema_var e0fecb70737e9d3a05c0c3112a97e012679a165fac601a51001e766792cb896a
+ctrl_cnn_2_7_gamma e0e72e308931bf79e6216b26b091b6a268ade4cd31c2130e77d758ec6f3ff54f
+ctrl_cnn_2_8_beta 66816f0f99389e2f9ff99c304a2b20667eb1b0f0a0dd8c222ee0efe37e8ac894
+ctrl_cnn_2_8_ema_mean 1372a69339857ce10c49bba890fcee81fcf567571c4af4093028dadcebe4a41d
+ctrl_cnn_2_8_ema_var cfbac98c7fe155edff8a59528a4fe68d8eb7d58746aeedc867924e522fe0da00
+ctrl_cnn_2_8_gamma ec87a019a7dd580734fedd1fc2f370885c6addeb6700297f2dc55839225193ee
+ctrl_cnn_2_9_beta 07e9eea341f9f7cabd11014c5971df761866ea5240f3e62136b75682fa3d464e
+ctrl_cnn_2_9_ema_mean 1b958d8c73cb9d21916f65cce952138aff9b6950b467dcaed572c1ae68685a82
+ctrl_cnn_2_9_ema_var e6c0ef91e9c99369ad89c27f9d2951cd3733b4b38e98938031e22c8daa65ba3c
+ctrl_cnn_2_9_gamma 6ff4049d2247b832f7a10f8733788084ea8d9ca70836d6e8e4045795939f8579
+ctrl_cnn_3_0_beta 86a7b39264ef3432b6d43b5ed0de59874fd4b251e2b66e42be872f6d3acfb894
+ctrl_cnn_3_0_ema_mean 3cabc84c62880f33ec209d7af6deaee0bea30eee23cf6606c5a001eef064cacc
+ctrl_cnn_3_0_ema_var d3eef1ff2d2ab5bdecfcee948278f57083d2ec717be26f112b1d092f2717815e
+ctrl_cnn_3_0_gamma 49aecc27479fbfc382e21d3495d3eb9a64968cac227749e9cae63b771cc92770
+ctrl_cnn_3_10_beta def2a5d57dd8b9ad65b640ec4cbfe1ba5bdef85cdcfdadd3655f99184cb2f31e
+ctrl_cnn_3_10_ema_mean 3e873852d786b0069e4c5f8ecd9d3308f06ecd9c8371e1af28c116ce8bc5ca1b
+ctrl_cnn_3_10_ema_var 68fb608f3f09e519d3254ceaed2bfb8c1fdc179fabd6198c068d86189dcfc85c
+ctrl_cnn_3_10_gamma 684fdf1ce5d4535623bc1df68edeb57615a17615359c921eaa95273055592701
+ctrl_cnn_3_11_beta 92295bd2555bd3042b473219490adca3ee84751489acacffed82e766470e55d5
+ctrl_cnn_3_11_ema_mean f09bfa0b9a90a6b049530d89cabd65f7f95237cf29cb5259bea3c671a2161037
+ctrl_cnn_3_11_ema_var 81ba9184d98c21858ecd3417f4d9b48499b150abe3a117d7b38bd4bb46aa0e13
+ctrl_cnn_3_11_gamma 82544702e0ee1c91f212a4f96197ba5b3c34d10e948fcbae8ca9f7168f5048bd
+ctrl_cnn_3_12_beta 469c9c0c0d3e02df316d4a6346435797e36b5f7e39b1c1b9abb61320a3f2fa1d
+ctrl_cnn_3_12_ema_mean 8e625abb218143a521fcc8c42d3cdb2c3f87d042feb253b9069326afc45bb85e
+ctrl_cnn_3_12_ema_var 29492b6e578fb15b1e4eb4ecdbfc833ce4d30cd6457a1937ae8a356e933615c0
+ctrl_cnn_3_12_gamma 0ac392c4fdc7f91b547d62c169a3b38d42a9bf4dc3108cb28f4b57bb110356ef
+ctrl_cnn_3_13_beta 45f77bfdde3e5510e61db8c784dd779906189bf781b30532270af17b6dbdfc68
+ctrl_cnn_3_13_ema_mean d428ec1615c7ddcb4d43ff2a86a1ed07f0c9f0c95eb6dfefc3a12dcae1796d4a
+ctrl_cnn_3_13_ema_var 21d13457d7c3b81173cf522ff5086c9228b280257c74c8a890e23a1e51cfff40
+ctrl_cnn_3_13_gamma c65756393d548457aac87a67887edb0b3e0b3d4c211def694febb839c1dfd578
+ctrl_cnn_3_14_beta d61da4c3d5bdf64adb9048c139c4c7a3088bce664282eccf5235aef7517db6b9
+ctrl_cnn_3_14_ema_mean 8b3e6280d7e8bea8f4d9abbd6b80f3bb8e9a4e14dbff4050bdeb8a73853af112
+ctrl_cnn_3_14_ema_var 89a0ba2edaf7f73fc95c6aef70c7fc0d0bf271f36df232d7b1b22abef0868fc5
+ctrl_cnn_3_14_gamma 1058499d79530014d49b9584e1e53664f0a5907f899d58c0a330ef67021c8e89
+ctrl_cnn_3_15_beta 52bb5fb46f75fe09a2e8d1d77243d5f9895d8a5d51db82769378c52b6e51d166
+ctrl_cnn_3_15_ema_mean 793b4b16b0559435709d9b9477d3318b56cbf56c7c1917b3ab95c1942afd8f11
+ctrl_cnn_3_15_ema_var 09d19718259275518b985819f954f8b19c7441f795944e35cd7d7899a329fb45
+ctrl_cnn_3_15_gamma 63d3cc97fb16abb849c81cee747f7264fc2f47a738025639518399b41b8c46dc
+ctrl_cnn_3_16_beta e0e9a76e85b0ff80703c48372cc022ee2d6f188254995fc21f5ad6c586d31241
+ctrl_cnn_3_16_ema_mean 62a6610ca798abbe831897bc8e7bd984f37f24b84a042a565df0fde34a79cc26
+ctrl_cnn_3_16_ema_var 75d414ae213df0c2981de8462327ffcc8944a780b37824f2502c7e3848eda397
+ctrl_cnn_3_16_gamma a3d49d6c79843f8e6cca6e22243d95414ff141f901f6654c8c63df465c899147
+ctrl_cnn_3_17_beta 93c99da2c61a2804f8a95994b3101461b815b07eccfb7fb5b3fb859d490351af
+ctrl_cnn_3_17_ema_mean ba36de84165ef641d36a1d2115655288aac2bc7304f0587cf01eb6e124f8a62c
+ctrl_cnn_3_17_ema_var 5ef121816d89fb002d6ff041857b080c3e3286b06cc894dbe663f2de14480c5f
+ctrl_cnn_3_17_gamma 47beeceb121a95d94a36d684faaa24409655bcfc5d6e5db836e3417a08de9c3e
+ctrl_cnn_3_18_beta badef4cdc0c0721ba1c41552c91c4d8a6aa4640eefcbf632a2353813008946a2
+ctrl_cnn_3_18_ema_mean 95b9afe8fdc133240b88bc43e1c38d5dabe26625bf9e666e4d47a8d5874e8545
+ctrl_cnn_3_18_ema_var 6bd83bb4a7fcd1a35d9a0b27714e6c622ec0268058689bfefaeadaf4a04b3f9b
+ctrl_cnn_3_18_gamma 663560f12c9a4008be4918448b58bc548ebfd6f16a7a0482c12aec0cad16e23e
+ctrl_cnn_3_19_beta 0e0aca3b0165d6db1887edb7b388cd500979d777c5d139f6c736762f12d74ba7
+ctrl_cnn_3_19_ema_mean a81387c52f43965b3fd1325132023cdec4487e1636a41308091855dfdc73b531
+ctrl_cnn_3_19_ema_var 79d6187ce8936384fb79667a3c2c05a9ed832736da739f501b6ce27d3c47ef76
+ctrl_cnn_3_19_gamma decc5f9e9489a0d7e920d8a91a0898977c63cfee6dc3cf0dbf658b73c80d9e9d
+ctrl_cnn_3_1_beta 54e8292890aa002346d242510bdd3f96e96260ebf8a01ca63bc06ce058dc06c2
+ctrl_cnn_3_1_ema_mean 21344c346166afd1e5bf0b7e50fabc765bd5fd2723e656d5b65bed3070229fe7
+ctrl_cnn_3_1_ema_var db79f26dce87bfe311f27be07abb93554ccbd90cf640db911bee21a94eb3e81b
+ctrl_cnn_3_1_gamma a193b63afbcc752d6c33afe901cd746de944e21879d143c373851ae52679d70a
+ctrl_cnn_3_20_beta 3a5b21998221e4176c4551300238c33c4f40f8f6e06390572c39b4215cca6bdb
+ctrl_cnn_3_20_ema_mean 665d3bfb78903127c6379b4599b6c986951fefa0663f1e5e8e8dce8ba89b67ab
+ctrl_cnn_3_20_ema_var 56495f0e3de5046d3f09455bcd0f018a8c2c41c39b08fa8dbd6c3e30c52be042
+ctrl_cnn_3_20_gamma 6b6d7c62fd7f9f82a1a65f2b2c197155ed5073eb21bf279f67f55c4c00046a8e
+ctrl_cnn_3_2_beta 33560c97c45f783fef302cc576f05339d2fc38b9d82106be7c3f37c9e5922d4e
+ctrl_cnn_3_2_ema_mean f6e8c688c2097f83b51f4f865ac5265d9221768e0e0dbd611f4b827a8bfd623d
+ctrl_cnn_3_2_ema_var 6de1f35e0a765dfa4930c3a343a986bd6e00032ade276e8183bc8fd43b6a9397
+ctrl_cnn_3_2_gamma 647f31419c98dd2cc9f8db8c0c9d638d517fe3efddba6967468d12fa3ba389a6
+ctrl_cnn_3_3_beta a6bdbca4394893eae98e99e94771924fde1cf50faa470e24afd642f0ff07c0fb
+ctrl_cnn_3_3_ema_mean d7088a89eb4a6822331d312b8311854b5818474b964bf93deaf7a843408cb290
+ctrl_cnn_3_3_ema_var 4ace52596443ee8483e22636fe426731e2edb5162d736fa1c1d3e5ee7804eedb
+ctrl_cnn_3_3_gamma 75f8f876162ae1f8deef43ecb5a7626e5741b95a6de5b83359fa916cf3ff9b90
+ctrl_cnn_3_4_beta 30fcd565d7d9dac6b82acaa45b872133b11ac250fe83895cda7678b9ea5f752e
+ctrl_cnn_3_4_ema_mean 2385eef855a73c5edf5193a603f6a8da9162501620a6c422f2ee8e8a266d6d78
+ctrl_cnn_3_4_ema_var 5ef310601d9878dd20f3d8b66140513f3f3ab19e01334b708b985a9c6c0d1119
+ctrl_cnn_3_4_gamma 87c6016ed175f1067915dda7793258a7c305a18eb35eec0b982281ed1d7e6421
+ctrl_cnn_3_5_beta 179b81303e82e05ddbfd965589b7c6ec2204c2149e8aa98d05fa1c4f3af8373a
+ctrl_cnn_3_5_ema_mean 7df72a162bf6bd5fda49972f678b3af3b033c06485918e8e89001c68fcf713e5
+ctrl_cnn_3_5_ema_var 211c52a1ae18a029c53fc96d711da02acc139f2ead2eabe38717d95b91b569da
+ctrl_cnn_3_5_gamma 17acd6fd17390967dd820f7ea4b80a04a2c3f9c50a78e3ea79347d3365d7751a
+ctrl_cnn_3_6_beta 9e3e00d354271bde62db45489a7aff8830f0d343733def9f377f30d441bddcca
+ctrl_cnn_3_6_ema_mean 9566a9f868942cc6b236e0239f0d7944a70a39b6fc9142fa079c07b2f0b18809
+ctrl_cnn_3_6_ema_var 2cac2c7271e0bbfba52516baae1ee794defbdaefd8ba5b01bfdf67b96d1bc80a
+ctrl_cnn_3_6_gamma db39bf41c3dd9938f6fe30a033190fd431fcc1a0ca4faf4dea23eb1787b16cd1
+ctrl_cnn_3_7_beta 86978e53ddaed0cad66300d2c3f70294a191a397e7193e2c86a24f117f1b6ee9
+ctrl_cnn_3_7_ema_mean f5c613dc2ba00480508cc76c83e2e9bf014ba7dc3e355d7ae36d40dd713e2a12
+ctrl_cnn_3_7_ema_var 22cb99f70fd5a3e3d77544d9b85ed5c3adc9e25afa684b189be700e973ddc0e9
+ctrl_cnn_3_7_gamma cbe282d8ce8e1f8da41e9571972613b9c676b252e7b189fd4a45398d1a44cf9a
+ctrl_cnn_3_8_beta 419569312d262aeae3a17f6016c798cf5aeae463855adcee1c23bb460a1fc503
+ctrl_cnn_3_8_ema_mean 260bb5bcac1848d5d771f6c35466c2958e11f2e1fbe14f0e928485a0a20c783e
+ctrl_cnn_3_8_ema_var 6bb2a220191c8955545ce04ca894d425fed00bdb5cc8ba077fd6eedc45bd3d93
+ctrl_cnn_3_8_gamma 1abe24ed5660021ecb3237c11276ef3e20eaf78c5c38d96465d1d41386d86f37
+ctrl_cnn_3_9_beta cc50fe7696a94bbc1a79f216b305aa26e070a6b62cb8bad8f5563978aef84a8d
+ctrl_cnn_3_9_ema_mean 99920b0036a54f72e3ba65df581274e00a762724918583826478e744c4c9b2a1
+ctrl_cnn_3_9_ema_var ab8d481783affbee898a9b946a3b653984d8bb40fea0aec40e1e01e79344b74c
+ctrl_cnn_3_9_gamma 048f2264f1854619bbd26f8c7ae85b62a39891bac7815d76b1cd5e67ae9f2064
+ctrl_cnn_4_0_beta 44bf98ea1abba302101efdbf8d00bfa9553be5d65830914d38f8c19b7607a02d
+ctrl_cnn_4_0_ema_mean 239e7a266263aeda12a711aef8cac8f60c7c1ea1be424c63680a0cff29d0d3d0
+ctrl_cnn_4_0_ema_var 083065c035bc07fd0452772b0cc6393d98f91179fa294743e22f8c0aa95a7f39
+ctrl_cnn_4_0_gamma ead60c95981036c4b9e8137db3bf25af97cdfe69227e37c4539b03e0d599bbf3
+ctrl_cnn_4_10_beta fea596f7445ebf045ef2232512d0f25e25df475fd9a581a2463e20eb716f0f48
+ctrl_cnn_4_10_ema_mean 9eb2b0ea0c0a01b83437ce126350d9eda772f3f121608d2fcdbd5f8fc3af3264
+ctrl_cnn_4_10_ema_var 5128f6e28c611e222398cff9f0ac915fd57066c008af58b032b4e6184a5a1843
+ctrl_cnn_4_10_gamma fce3840c58538a5a937b84f6f6a3f79b00a41d3600c25fecf6faca1dc4283a72
+ctrl_cnn_4_11_beta ece57464666a8bc7ce593418eacb6c5e9c7e536cfcccbbd351cb9ac2bab48780
+ctrl_cnn_4_11_ema_mean 18951887d12e737fe7fb483c5b2de59bb0360c62fc10ba35bbfa2c00bb91f9e0
+ctrl_cnn_4_11_ema_var 533c042157526e5aac2dfc2db3be710464fdb31781e856e9dbfd19577a1a2867
+ctrl_cnn_4_11_gamma 34d63d3ca6373035f81b82a1c5d84c618c6315ec069e7d8bb238267a607689e6
+ctrl_cnn_4_12_beta 70ca1a0ec9201184bdde81bf20859b6da3f2b22dac0ba0c64f65b4ded8a36903
+ctrl_cnn_4_12_ema_mean a57cbe0b2198216122c85129cbd6c6ff1b0ba66bd9aafcdb2ee2b816d952fa7e
+ctrl_cnn_4_12_ema_var 04c150baadd2019f2ca8ea2e258aaf42a32cd11896d16bf6eee6ebcdb0f3db30
+ctrl_cnn_4_12_gamma 006666e6b4b7a44364279ba5ee8139d5ee7a478c10496bcf0c15dd12f5adb9fe
+ctrl_cnn_4_13_beta da8f1126ab76d711494ab10ecd64157c9bb0460efbbbd82c2f89d099218bad20
+ctrl_cnn_4_13_ema_mean cc2e232adef698d55bf73154730a4bdfc67f6efeb83e409e013113f09baeaf54
+ctrl_cnn_4_13_ema_var 8f0b784b77303963a5c634daf07d5f0a22f3e57bb108141ea04e2ddebc7480f2
+ctrl_cnn_4_13_gamma f05eb4e6f037f6bdcdd9dca1e7725167efed422ffb98f463d6576d185c1be8c6
+ctrl_cnn_4_14_beta 27f2bf29d896617bb6cab7c4cf8c5eb84dbe98622415714823cb94f03414392b
+ctrl_cnn_4_14_ema_mean 8089f0e6243b52ed7fa29f5ad9a34e8f3a1415100d26f79dd2d4e9f6eee14dbe
+ctrl_cnn_4_14_ema_var 251590be5b569bbe96dd05f748367a8bcb97c4e7f27d88c85e4370b4434402b0
+ctrl_cnn_4_14_gamma 30ae3989f655023ece285719955741607e6582fe6290cc95f4b1edf3ddb69cf8
+ctrl_cnn_4_15_beta 6273473d67db24ef05ab1acfcbb13c6791c001c49b599ef37a81f4014031e2ef
+ctrl_cnn_4_15_ema_mean f49d78a93c4de3d63c52c16a14c4545b4bbb2305a8f8dc1db6d636a5584852e6
+ctrl_cnn_4_15_ema_var 6aaaf3435406aa8178da808b10ba88b0f15c8a613e5fbe72f75a08170faf4afd
+ctrl_cnn_4_15_gamma ee8bb8b8dc07150ec221f98e2ac1ed9ba39e80cd60cbfc4e98b91a89f48555ba
+ctrl_cnn_4_16_beta a12760f18f26826ad2ded43a49527d763b955c61ea1c41701c01e9816a665a60
+ctrl_cnn_4_16_ema_mean 26bf77265f80b9c2346b7543a666ff76e2ded6742310d1794285b9fd973850ce
+ctrl_cnn_4_16_ema_var 7b87f6469a698cc7330643dbe187f6ea950c8e872d6a7295d1130a27ed2774bf
+ctrl_cnn_4_16_gamma ff967d91b03b478dd050e28ff690acb39d96673e5dceb9cd9ff12fee19347062
+ctrl_cnn_4_17_beta 4ea14692f45406be08417b8a41378c41089da39d019040765b9c13186ac4690c
+ctrl_cnn_4_17_ema_mean ff13d757ea58a423034cc8cc4e3a532781d56cdd89c553d6347d22fdef98e153
+ctrl_cnn_4_17_ema_var 09c1116df9d57ce8243d584dc6c51cf590985ad3cec3273463b0ee4e540c3c3d
+ctrl_cnn_4_17_gamma c615353ad9102c521ff157205e53916a3558739e4f8baf8974fa5e5c8edc6a44
+ctrl_cnn_4_18_beta d4db403b13843cc85767377ecbbb51e330cd8956c31993bf64617f2e1cbdd14d
+ctrl_cnn_4_18_ema_mean d99db205ce66b81c7d70b7a732552870d86c116a30f22a85540f68221ad089a9
+ctrl_cnn_4_18_ema_var 79f210cb4d8e9d85adc0c4c2d52fdc413a722b53c21baf1b8bed3f851d778b8e
+ctrl_cnn_4_18_gamma 910f0f089509ac89447aed190151ea1dfcd93b3ba14dd1062438273ad7c8a397
+ctrl_cnn_4_19_beta ad4826863c5d7db86fef79e84441a170cf1b81d2c81365ed1d0193316be6442e
+ctrl_cnn_4_19_ema_mean bcefa14b9a7c9a38d2a20db6a5e552fc7f9fc0b9b84deba40339f4a9de8d100a
+ctrl_cnn_4_19_ema_var 5c8b7585bc76248fadff2215ec8b555cbdef9ae8fee8d57bdaf88e82a8332302
+ctrl_cnn_4_19_gamma f495f2dc95be7acb9c82c995c24343fc78b07314279b90b0aa3ab07229460279
+ctrl_cnn_4_1_beta f92c6e6f17902d4cb616065a224e6e148e733eab5663d6c41efffbcfe74f6cf5
+ctrl_cnn_4_1_ema_mean 1164634d6ab3db130e14bfc24bcb9ec3e0501688cefb3412ca037f3552e57186
+ctrl_cnn_4_1_ema_var 8b69520b26085582b0d2c53f25ccc08c371f274d9a8395accaa96dd15f27c466
+ctrl_cnn_4_1_gamma 0690bb526432597b964f5cb53370ecb444f97fc619a67ee51d2cd77ee2915b03
+ctrl_cnn_4_20_beta cb1ffeac304367e20d01928c931baf11febdb3e6dfb34122680f572995220cfe
+ctrl_cnn_4_20_ema_mean 01cf32c603ef5c7a51c8fab4410e95e320119e6ac64d09ef10f5ee7817ab96e9
+ctrl_cnn_4_20_ema_var e8ec29573dc8e5c79df18d461cd8309d54336bf9be30e5416f73fac02847b3fe
+ctrl_cnn_4_20_gamma 9fe9b4150fa58d3469fe1c113164eab05dd45acca3d2ad3b726eb2ca274170de
+ctrl_cnn_4_2_beta 97ea0e26e1f0ce68c90360e43ddbcb5798a9a08d5af32a65f6a26b2c931a5b9e
+ctrl_cnn_4_2_ema_mean 2826886fc186c14d9435afdf88ef1deb564256962640307e93dd6cb77de7bfd1
+ctrl_cnn_4_2_ema_var ffea74986e37718655b9e76547a9f1d799cd4f55dd167eebc2a71ffa915d8895
+ctrl_cnn_4_2_gamma 7aafc207abf7cb82761298695a0db9eb4f6fb08a571b83d61f96fce35eb36c1f
+ctrl_cnn_4_3_beta 1a0e195bf7096de57919ff9983e07b851e715b1516797508936af3b225d3851c
+ctrl_cnn_4_3_ema_mean 6123515eef6dcc7e59cef624300827792a76195b325abeeb2f11c72c09c95417
+ctrl_cnn_4_3_ema_var d3f42bb319695b7a60c7235664e27b9bf9b05147e3fe201f29c02dbd47dfcb03
+ctrl_cnn_4_3_gamma 1023842a6eb0888accfd929c3b36012673756062c380ccc39e7fcf7358461ff6
+ctrl_cnn_4_4_beta 2f67c92498de22457aca95ac03f0b2f6f387fb49f67a08e38416a2729b682df4
+ctrl_cnn_4_4_ema_mean d78e837476827c4fc22682cc245f9a1e4198c8cb5c86bd36c5ae7ec903b24aa3
+ctrl_cnn_4_4_ema_var 2ec88e46e87551590451ddcf8db391577adefc01e4a168e692d71acf0ffa6753
+ctrl_cnn_4_4_gamma 5ebc951ddc3ae38f2c8b7b0527bacb8c918d1d38940be7a8e2c637f5ed34b427
+ctrl_cnn_4_5_beta 53bb5b046702b8777ce8b9d089e83eec8ab64901505c515994d5e6014eb32581
+ctrl_cnn_4_5_ema_mean a4c0cb1fe2c1255b146a4c31bf7d55509b37696d5f7ac673a82b72c9492ab04a
+ctrl_cnn_4_5_ema_var d996f62ed0ad8159469c2c666bf7e723dbcf38fb4f5a64bf4f1e0b8915f5020a
+ctrl_cnn_4_5_gamma 8b01535c45f87b24b8838ff450e6b6fabd827b0cfe959e9aa0b20c838803fb4a
+ctrl_cnn_4_6_beta 103e0920d970ab3bf2a8e4acf67962ea28f0a0b1affe8404120d23d31ee28bb5
+ctrl_cnn_4_6_ema_mean b7ed69b879b9a042fcbda7d7f71d57351c0a713729f91cc804df6e59fb02bde5
+ctrl_cnn_4_6_ema_var 627fcc96c5e7a44e726a4e7ae3a593c8127f97116ffea49c982afd6b0ad818a0
+ctrl_cnn_4_6_gamma d2a23037d4445425fa214e0c208eafaefee730d461a2d9bbff8861c225b3738f
+ctrl_cnn_4_7_beta 34697b53dfa91a2d822937f67aec5e16cae1128c9b38c70a43634d9078b78261
+ctrl_cnn_4_7_ema_mean 3e7584ffedb010eac2d8ec418b71affa89546380f53532d8b573a5fcd59f92fd
+ctrl_cnn_4_7_ema_var a8cb564dd2849d5ae359b3ef6a2850f359ab844319ca9e2c79e94cd85853472a
+ctrl_cnn_4_7_gamma 451fb0b12627c1b2ab0ef2f7688526b3db3311d80f5fbe4d5e77a697004fb8d6
+ctrl_cnn_4_8_beta 60d31c326b24a96ad91fb3448bce243cacb1f9f2c042003474a13840fb110ca2
+ctrl_cnn_4_8_ema_mean 29e09a40a654e958021212b996047eb26719e153c34b5a667457a00c006aa49e
+ctrl_cnn_4_8_ema_var ec8e3f620431e892eda49e28236107d791f45dde22d96d1191b318eab120c908
+ctrl_cnn_4_8_gamma f11bd6a1d7e437b8af3001870599060c0013be84aa042d99dbfd15a4948ef448
+ctrl_cnn_4_9_beta 599474c21f5a8e77d64d8df1c56470bf5dbfc8e806c3bf683da0365002740e67
+ctrl_cnn_4_9_ema_mean b48dcf6d175669db9cc6c6c742c4bb05c22a7b8f92091373d0c447405492afea
+ctrl_cnn_4_9_ema_var 3c9086e2b1e24beac6aee6d5cfdbb27cb5151db614bf81b74a76261566afac28
+ctrl_cnn_4_9_gamma 93fbf9fb3291c3be2e3948e28c1880f11c52f61fa98702b5b72c8261448a5160
+ctrl_cnn_5_0_beta 4a5fb02f3e24a7bfea893caa7ccb3b463b6f3e8a7d48bf5a8ea3cfa38c68fbd0
+ctrl_cnn_5_0_ema_mean adfb27037a592beb7411e8c7e42770667af6710ce690171f6b4bb03dddc20064
+ctrl_cnn_5_0_ema_var 083d305435baf440f41eff01119ab3f4bbb4792fa5d17706a955f7498b9d0850
+ctrl_cnn_5_0_gamma 2da83df0c181c3fb6a869203c73d634bc68b4cfbd57103adbe201bc4ce59ca3e
+ctrl_cnn_5_10_beta 30f058c8979441880283b48aff6c309273d549ccf0f04e0c3f523de316ac11a3
+ctrl_cnn_5_10_ema_mean cf0ce16b615cdb85a6b92e36dcbc26b7d75f26ad981e7372f426a95fe1b637a1
+ctrl_cnn_5_10_ema_var 8ed0c7b5648d74dd63eb5df9e4c63a4d01f2ef8a50f1f118a6bb20422bf67401
+ctrl_cnn_5_10_gamma 83229178f7a291cb2953812b6cdb7bba1ba2b4aa009b25129ca500a4ec713cc3
+ctrl_cnn_5_11_beta 786e9f515de1215bc5a811f4ec5601df5985040cd9e716d457b51e55dcd798ae
+ctrl_cnn_5_11_ema_mean 84850be04f878b6416690cde9a68cc1c39dedec5c9e8063d95d986177e3e6f84
+ctrl_cnn_5_11_ema_var 729916a57bb508409c95ddc17cdf528182079c0f934af23003a95a8922c7fd16
+ctrl_cnn_5_11_gamma 01f35b6ba04b3578711a490e0c9e52c0e6f31f59b7fc50a868190392e53b9e00
+ctrl_cnn_5_12_beta df6b125ee11e5d1b5a40f34fe1497f99d82e1bce00e6ef53da76fefc3daadcbe
+ctrl_cnn_5_12_ema_mean c4022070f7f1a92054f1dfbbff046251da2d971717621c8eaf99a4cc3944511c
+ctrl_cnn_5_12_ema_var 11c4f6e5bc6c5c4e1851904c61acee141a3752bb6ceb7cfab168223663eb1b26
+ctrl_cnn_5_12_gamma 6c11dc0bacc9dc59b2559e2a4d4000c8e22d65f7d3409894975a8352b03d3852
+ctrl_cnn_5_13_beta 84e9e4d6a5712bbd454f27e8161cde22109af2867763d116ad8f5a72d7aabb07
+ctrl_cnn_5_13_ema_mean 16d77bd2ce2af83d8a74b18501724603e5f863e5a34ae06092c6eb8ef2185b02
+ctrl_cnn_5_13_ema_var 64e7be03692a3d846653d9cc94bbaa5263f299b51c6a2126a0ab9dcc3ff619fc
+ctrl_cnn_5_13_gamma cfd25fdc0659c573e109b03e0ee501d62ec39ff2740a9b73f56df164ba784867
+ctrl_cnn_5_14_beta ab18370a60c9d4d1336f08f9aa938540e7cb2ed6d56641484a265bb413bfdc25
+ctrl_cnn_5_14_ema_mean 395237d77cfcbbc950bc7232609c8c82d4d1794f79e9db2bf690d74e8dfc41a6
+ctrl_cnn_5_14_ema_var 988602b4d54abe7d330f2ebdbdefc2cb8389e0a20bb40f87c91eee973097df8e
+ctrl_cnn_5_14_gamma 57c67d3c222e87a9bac36b1fd6041037e79a501587493628745f89d604f32eed
+ctrl_cnn_5_15_beta 25127c939fba5a024bb15dda1a4ad876cec35bdaf55fe9d32856377a84bc5702
+ctrl_cnn_5_15_ema_mean 589e1051443e1afc57f671239e60772412dcc6257837e338e872f11c9bbc78f1
+ctrl_cnn_5_15_ema_var 21380247f952f5051414f2084b97c44f2bd4b4529fd833b4a0f2907cdbb20e48
+ctrl_cnn_5_15_gamma 6134fc7b4d7f72b319235942bfcf6ce1a9fff27800597c47773043f47bc62627
+ctrl_cnn_5_16_beta 90b29353be2f3df282a6ee4407160f00f60b490858e17646a9b1b78f3e4b1647
+ctrl_cnn_5_16_ema_mean aac0184b6edc9fdc4e625bb7bc3c9b3b036d6697a0ca02ad09802e3623f355da
+ctrl_cnn_5_16_ema_var 179e2efdf5c3f8fb23d04f0719356b47cbc192990dcb6ddf002118512645fe27
+ctrl_cnn_5_16_gamma 3814b663b7ab45395b8dbce18eb932b1664efb0e2b28d664cac332cdb0570674
+ctrl_cnn_5_17_beta 3ab0172a732730712cf04155095595a4f8a69268a05280143853b15e2d386ffa
+ctrl_cnn_5_17_ema_mean 3126b3960dfd78d712c47cc3e836dfcd25726685f8c16b6a3aff6f0094b762b4
+ctrl_cnn_5_17_ema_var 3088e95d61fa04065bc8a8abb1070fa6c507f35c8600e24c4347ba9b2230b820
+ctrl_cnn_5_17_gamma 4ea15bbbbfa1b90c24b28bab9bec318e1e2ad4429a37b4faefeb127ea2d9c049
+ctrl_cnn_5_18_beta c9e09f461ed757648579b087057f1675768590dcbffa4b0d1ca2206bf6fa58c8
+ctrl_cnn_5_18_ema_mean d0151d12e94f580666fce618ad63d5d935cfcb184b01992a6ac5bc5bb8113465
+ctrl_cnn_5_18_ema_var 2ca13b188ed07f28b85ed6edc4b698c7883eb354a6e5a7f3ab2bd1f13a0b4660
+ctrl_cnn_5_18_gamma 174100af9364cc70b8b5dee06553371a78dac60a9b3eb4533e986b29d8055844
+ctrl_cnn_5_19_beta a692c482938299a3c8143ad6f87b9ffa3d8e81df4afcee129d64c0aa5f7ef0c0
+ctrl_cnn_5_19_ema_mean 94ac46cff96dbc4a8e6f0f101b028f1e63d4ef2d0b848ec08c26651bbbb514c3
+ctrl_cnn_5_19_ema_var 8ac03f9f7d1e18e4e9b938d1df1d17a45fcd55c2895c2b4a4429652ad6fdf7d4
+ctrl_cnn_5_19_gamma 052ad610e12539bb2f4db0c5b5284065e7486501e3c0d077f3272f7eecfff248
+ctrl_cnn_5_1_beta 4b05078b7113c0d2a2fd33fc3195e531869ad979825d0cb282842f61fb15998b
+ctrl_cnn_5_1_ema_mean d4f325864fdfc142d08a4379ba44e2af0535dc8d435d7a3350294c9630ae80fc
+ctrl_cnn_5_1_ema_var d6a4972390657b3f14866a638715145664de9920898a7460b9dace8daaa9d9f4
+ctrl_cnn_5_1_gamma e15a1e2479ef8cc0357410c4a0ad26373defda96a96bfa99bf5e42288f9ab394
+ctrl_cnn_5_20_beta a06814b37c3cf0c157af8503a39b4197cd53744f344d41a703b168eafa5411ab
+ctrl_cnn_5_20_ema_mean 9146f087519343f46a145e55864114c965629e592e3d7b2ef587ab45fcd60563
+ctrl_cnn_5_20_ema_var b515c8767bda93f4c4f2e6cb83ea7f8c71c43b69180a3453259d7ed2ab1fb6e9
+ctrl_cnn_5_20_gamma f50ebf38c7e0249db3cd20dd5c8a14fae0254df1a1269a2adab09e7a8dd6e9a0
+ctrl_cnn_5_2_beta 7810eee1a399544376a027e9edc292ece5b21d163907e0f086359e5383033c09
+ctrl_cnn_5_2_ema_mean 37cc9257431db209021cdb79282322568137d949e2b67f1b7199270e84562a20
+ctrl_cnn_5_2_ema_var 5fedf612afc06fc1aa8a351b4d593ef6223109c4357112c51ae3645fee74f6ef
+ctrl_cnn_5_2_gamma b8bc1cada2d2283cc7af2cf52cdeb240ba88c8234cc3534e875b92c8e30e2d2d
+ctrl_cnn_5_3_beta 779501cd554db2da5b48355512aeac2a136994aea20a4ef1f4d745e10114e5c6
+ctrl_cnn_5_3_ema_mean 0feeb8028cb5c34380ae990f974b478c8173f0a672f853726ad7020cc3b77a23
+ctrl_cnn_5_3_ema_var acc84437b65ce218d20103e60ed827aac942e8b6191ce8d8dd96b6b2c58c4f1f
+ctrl_cnn_5_3_gamma 10bd5c4c192fa612e6ba96c4bda08619ff9f7c43dd483e38b456ee7eb0e06ee7
+ctrl_cnn_5_4_beta 75775fa745bfd557a9e28a2e4deeb7f79a9d644bbcfee45799a1d6d651fe3322
+ctrl_cnn_5_4_ema_mean 7766362fe2911189b2c9c5bac2a69292eeb5b6332d6fb24e24f5cc07a157fc96
+ctrl_cnn_5_4_ema_var 97804884520226fea2d206ed69a0f95f7bf48d4860075e713400b386ba121262
+ctrl_cnn_5_4_gamma f0b08ea4df687f6ffefb93063a1f71c153029b8f041d7779a2f9defd95cfa266
+ctrl_cnn_5_5_beta 9a83a1e472e5490aecee2164992da1d5a46345a643d5894d954409771f2b1be0
+ctrl_cnn_5_5_ema_mean 2b264b9c0a8d1f6a43c0a658f317ba175d59ef81e236d077a7b96c37dfa7b4db
+ctrl_cnn_5_5_ema_var 40d62f14783876cee50aeb3b3dd841e0e0ce83ffab5142a5cfed9bba3d691e3f
+ctrl_cnn_5_5_gamma 2ead2650decc8cd8961b51d2d2abbea915326648ffa5d73693885805d4c6382f
+ctrl_cnn_5_6_beta 7b120c17d587e9cbb72be2e46eb3c6921522bec384fff33b00ed4664a1e045f4
+ctrl_cnn_5_6_ema_mean 6d75af1a7fe1cd6a01690609153a415b129e6cc6b0c6acf9456d83bfc2fe3fda
+ctrl_cnn_5_6_ema_var 133eb5dcf407f38fb0b3e5351cc36f929fe362252b4cc88de43aafb6984a4554
+ctrl_cnn_5_6_gamma 52fb6f7b510d2e052f9660eb46ae16dc4a0988b6e51624ee78617901f4e55bb6
+ctrl_cnn_5_7_beta 69d40134e7d5ea20ee8f8df03a341762ad5655f1ae32975238b71f428bae3897
+ctrl_cnn_5_7_ema_mean bf51bd9d4f428b60031d222651c080f8f4f3f310d6b619659ab4a1f21a52d609
+ctrl_cnn_5_7_ema_var 0968b95828851957afc9622a8df48ba420a6fd704092d486aab39991f4c76006
+ctrl_cnn_5_7_gamma f850804c121a7c5e7a121967b5d74d8e10914b05659b23969630893fb3668abe
+ctrl_cnn_5_8_beta 6e1f5cf9bd8457e3e809b358bf0d45c70304bf95c09eeb7284493bcd71ddc5a3
+ctrl_cnn_5_8_ema_mean 7bac63e86ddb4b8c6b492c64a5611e647d4316f84edb3fcd60b1937d0041fb76
+ctrl_cnn_5_8_ema_var bf504ef0a6b71fe9fd0330f53d70f0737ff5811cf55db910b2120213e5c2fe37
+ctrl_cnn_5_8_gamma 5dd84a9774ee68166768fe8ed92b7ab28ea80537ab18cfa61f0b74471edaa615
+ctrl_cnn_5_9_beta 4c9300405f6b354569182acd8758e6888a8a3d4b9a36bbad8ba98b49fa3b7ea8
+ctrl_cnn_5_9_ema_mean e27dfc47388ffa0f91bd0f1ae18584295d59a2c2b68cc3ee19c04747ba589530
+ctrl_cnn_5_9_ema_var 4111a3bde2e0eb0c4f9507ca22629ff00d6305a6d67b4e0f146eb4e97b42713b
+ctrl_cnn_5_9_gamma 1319675e42480a9224399d874e1bfbb47b65324c988123f8ea0e0788fec41944
+ctrl_cnn_6_0_beta b0ea20cd2f95d38cc49a5d67872fdc9b80190d3a1eaee8c7b6b22e04ecdd996d
+ctrl_cnn_6_0_ema_mean 4b58db1691e59a55fee7c1e61ce2f464ed1a4290bcd883bd9c9b2fe4955f672f
+ctrl_cnn_6_0_ema_var 569f27ecc63cbae57693e8bf1f2c7c9262db211fc3d084617cf0bfcaf370f846
+ctrl_cnn_6_0_gamma c2d205ea742206eab9ea306fb194d502de73f6a8785c79ac98972201c0e9a5e0
+ctrl_cnn_6_10_beta 0f8d6172f41ab6cc2e548e471debfccc95a5ee03ef4a684eb4b85e5c4ef3ffa6
+ctrl_cnn_6_10_ema_mean 2bfb7fd98f3c4317e2d13ba20208416a3f8be0ea730b402a0614ed67f3a74794
+ctrl_cnn_6_10_ema_var c8ed7a11fa6cadfbded71a6bfde0906976796cf5fce09282d4152d604f288a60
+ctrl_cnn_6_10_gamma 8b7028726e17c465d5475da5e7cb3b7bca9790db915877b71572d3c74e5caadf
+ctrl_cnn_6_11_beta d093300b25053d8d5f61dce89ce1afa2484f607db2e36fc33763438f5dd9f2ae
+ctrl_cnn_6_11_ema_mean 3fb30d0cc33842675ae8569af8a8223537b4e10d31a5769ccb976af13257079f
+ctrl_cnn_6_11_ema_var b39b976c1cb1f3b239e681f211075cba36bdca04d17b87867813f14e1c13f018
+ctrl_cnn_6_11_gamma b7be636bef0083b033fac3beff6a1253613c451dbd561d436b698b126cdb5a4e
+ctrl_cnn_6_12_beta e64ef43a0a346a4f708197df12d18b134743db8419b9047b699aae4146e2f329
+ctrl_cnn_6_12_ema_mean 1a4f4b3fa5d65b811ff31478bf580fd708d60c853e13bc49ce2367c162a6ae23
+ctrl_cnn_6_12_ema_var 630b836fe1f4ca4b3e3844a4a28a0cfb12871548fdfc0473f4ee1f4cb51f08ee
+ctrl_cnn_6_12_gamma 1d77585a64a7498078d626dd794434b1338553cb2edc151a5c7a9d77da6c28d2
+ctrl_cnn_6_13_beta cda9f4d986170efbc6c61bc602f0e96faae47a71440e0b05f59fb483aef7e46a
+ctrl_cnn_6_13_ema_mean fa2ba9390c0ee0c1929d02d343ffaf5189730142a8b1fbb65eacbd95a5f1dc03
+ctrl_cnn_6_13_ema_var 1d65a7053b996c17cf1d66bbf27399d0052f66e934b30a37d745324fcb6d2276
+ctrl_cnn_6_13_gamma f3f3b89c7a3de443a3f9a12468858addced00f2deccedf00182d07f7af2db3e2
+ctrl_cnn_6_14_beta b76a0127d16ef1f7941272f48fdc4fbc04024883c161a42298e6afee512ec427
+ctrl_cnn_6_14_ema_mean 8c333988ee9aacc6699fb2cffdf2c49a38f985f160d60e1c49291c8828bd7b9a
+ctrl_cnn_6_14_ema_var a4b2767b31013bc8bf7c323e78c1b962f88950539fd7a012d6f83bcf1d14f1da
+ctrl_cnn_6_14_gamma 407a95ec1b7d437d8f28b4b5734c46dc0b202a31028d87d296e1bdce28ae3471
+ctrl_cnn_6_15_beta 28e141c6adef10a0fb5d0e367c1e89ee409e8e739ce2d47ba0b140909b94b420
+ctrl_cnn_6_15_ema_mean 7611e9ed55775fa37b4f7604c6685cba4dede895776d155d3a3759fce68b4621
+ctrl_cnn_6_15_ema_var 1bfc8cd49140e68d5b1f02069249ad3677da08abde71d42af32f9c003432624f
+ctrl_cnn_6_15_gamma 3d4717389e7bd0e458060144577e4bc0ff93d83e815b916c3cafc5a8ffa9ab0c
+ctrl_cnn_6_16_beta c5219708cfc7b77f712aabbc78075ae2f64319fda275e58cbd7618538ef5b8a9
+ctrl_cnn_6_16_ema_mean d36ee7870692e5453d753d6a9f6c3b9fd2bccbf1073df02cd3de93018b5939a8
+ctrl_cnn_6_16_ema_var 72b874226ee30e09840ca04e4731c921a31a001703edfc48fc1de6ac34f32d9b
+ctrl_cnn_6_16_gamma 6f02b6e11db8781f202ed4c7429c8c9318e83cec3e04ff33659410cdd06ec439
+ctrl_cnn_6_17_beta 53483be1b9b220ef2f533aa3de9dbf87c66b9c2e74ba4f4d18ee87a42c3e62c0
+ctrl_cnn_6_17_ema_mean d60f120c2e1b0332c69a1a477984842e52b648f8e95706d7cdc8751d4f49a00f
+ctrl_cnn_6_17_ema_var 8387d3a8f051840105d4f75f7d12711b902c5435897813fd42b6a52aac4d021f
+ctrl_cnn_6_17_gamma 167e3bd60b0f4ba8a7578ba107a0b8d76823a2e13bc53efc4a68335de6c3fa94
+ctrl_cnn_6_18_beta a6aeeb83bfb7e27fe8208eef9ea97d1921e7a3f27a40bef526d683e254187d4b
+ctrl_cnn_6_18_ema_mean 9cb6a16c2af24ba51fe344291a81def999db958f9ddf67f29f7a0bb250398d98
+ctrl_cnn_6_18_ema_var 6bc4daf63825089b0bc38383e86edd4c71027ae7c924129149bee7faa101fdae
+ctrl_cnn_6_18_gamma c7db336038040a3a0d617b1e58d4b0fcd11054146b6419a7e9dc9787b4ef6584
+ctrl_cnn_6_19_beta 8789b688aba4de32762fc80ab7bd0b68eabca147dc7c5a6dfd345b68fc42801f
+ctrl_cnn_6_19_ema_mean f0d9b9331c7bb2405032271bfc1a356e3c4dbaef5b3ff83cc7541de74c6d0ec5
+ctrl_cnn_6_19_ema_var d6b160ed432ea80bdc83db3a71e777a890eab3f34e94813b3652a51580210c50
+ctrl_cnn_6_19_gamma 8cc2e596aaa0d3d3e4b20ee75004e6a56d65fc82780ae9c5316d09d9533580f3
+ctrl_cnn_6_1_beta 40cb410c9dd83c05a45926e5ef9f81ad9361c073b5ad4454c736b79b8c7500c9
+ctrl_cnn_6_1_ema_mean 21a14428b878a913a26ab0357a871543acbdd0a2ac7d334769b852ed8e777d32
+ctrl_cnn_6_1_ema_var 065d89cd265c79433022159ca70cc6fa88d20002deb1911dfb337a519847294c
+ctrl_cnn_6_1_gamma 940d50cc07bd44ee979102241af30312dad20120d3cc001c3e136f8c4c733569
+ctrl_cnn_6_20_beta 17cc930d338f5e6fb1ac817eb9292ef781f2ff6b5188996c23dcb738e4a757e5
+ctrl_cnn_6_20_ema_mean a369aff16dee64832e4e337c2c333d5f512641c3213e9c58ab6e51c7c07d0e49
+ctrl_cnn_6_20_ema_var 5c3a8e32604800f1d309bcd14de934dd6899539672153bb47b19d03f5de9500b
+ctrl_cnn_6_20_gamma eba91adf3eb221fff0155bdf301f8a8236f1b948239fc94fbd6677b1b2cb0b73
+ctrl_cnn_6_2_beta d24f7b0d71ace965ce135d169eb848cc5253893b430be32905ae8f113c5f6aa8
+ctrl_cnn_6_2_ema_mean 01b13c8fdfb60c1b8ebf1bbc3d4f48f91002c2bbaa48d910209e46c757ff1b30
+ctrl_cnn_6_2_ema_var 417895cffcbd77fa498a4249413cfd8a03609f1072c788daf2c70eef92f2b499
+ctrl_cnn_6_2_gamma c5ac4f960d3d2465e0a5f941c9954641d154783d0356489649b9515c8b89162d
+ctrl_cnn_6_3_beta 52241d7ea667ba116eae1603a0b1e3df5433bf23d3046cc5cdc5f4e4f3d54533
+ctrl_cnn_6_3_ema_mean a17ceb00f0fad78d3d7ed9c4063cd8ad9812b26ee80df99d76873365d9f0d379
+ctrl_cnn_6_3_ema_var 04c647ff81d481f552ec051848273eccc73e7df1809fb530b307165f5ae5a9a0
+ctrl_cnn_6_3_gamma 69c2a45701f7c2e36ee206ff61d1bbc81f16d3a952229eb532d25d9742d97873
+ctrl_cnn_6_4_beta f24a3203d45e740ab567f563abd414363f975ddc33a01c8c9c69ad12d8eeed6e
+ctrl_cnn_6_4_ema_mean 8cf97850994907f000861177e57fbe28aeeca6535dfc1729feaee996e0f739df
+ctrl_cnn_6_4_ema_var f6b5e423aa552aed429292d243311bb03866b71c964af24e43d8346e16c2904a
+ctrl_cnn_6_4_gamma d269bffeca31d86de33ddb7e01f22f83f60331d39610004b61babf2767f2721b
+ctrl_cnn_6_5_beta c1dd7c215dd93e59e00bd1a66121f2f2f53f06e431f872e68659235861bd8f01
+ctrl_cnn_6_5_ema_mean e500bd9a67a9872997580e3311e3a81bcf928c3a9af2b7d714deaae1d64bee77
+ctrl_cnn_6_5_ema_var 26caa60b6514f1a2b938f75b8640559f0258a2c316d2bb2483d20326c0c15a56
+ctrl_cnn_6_5_gamma f807742583c8bf6b098fe83f95e9b3a3e9a0f61081c2eaff0a7e602053f7cad0
+ctrl_cnn_6_6_beta 042ad74ed08babd641c6193f670d0cf07b5f48b5ccc85dce85a7f663825c3998
+ctrl_cnn_6_6_ema_mean 6e1aaba02aac7d0514a56bae4c31c9afe6c7f16e882a337cbe9b827db021c445
+ctrl_cnn_6_6_ema_var 5196269c91efd082fa42f9a9dcd970f8ef94112741739a107131203198decf18
+ctrl_cnn_6_6_gamma 4c588c66ea8fcf23be31961b0a69839f8d936624702c111addda065462092404
+ctrl_cnn_6_7_beta f5b4984b8814fed8ce4318fd6d8390c1880750fdf292689355281be0f47936b8
+ctrl_cnn_6_7_ema_mean de9bc1ac4e00e34a9689c267c6b0b05fc437c644bca0fb2482cf004ab1a0cc3a
+ctrl_cnn_6_7_ema_var 46ba7f7285482b67f8364cea94a764c07fd1cd2896279c8f61c0cbed92195210
+ctrl_cnn_6_7_gamma c0930e2016cd321b2bc9f8d613a12f153bbcbafa76ade272c7fe3a2349da9194
+ctrl_cnn_6_8_beta aa5a5bbfe7d4637ac350c393eb821b841c97069dbf000e5490608b059d6a8070
+ctrl_cnn_6_8_ema_mean 1debaa5efd9f82257c6494c6fd74dfc2f16653da7c926b059d63a8120d8f0621
+ctrl_cnn_6_8_ema_var ea0a6bb34453dd9a92415e2f6c341e78a980b4e0c44d0813249da228ff8f1802
+ctrl_cnn_6_8_gamma 53f3de5441fb7d5048dacec31d41af87a8d6f503780714531573ecbf6bb0bc99
+ctrl_cnn_6_9_beta e2a9c1263b105421bbe026470f235e26e0e1a8c48bf93e7298e5d753714024b1
+ctrl_cnn_6_9_ema_mean bd6cf70335219f555419399604c8a9a299495baadfdc91e4b87e7d528b7f6550
+ctrl_cnn_6_9_ema_var 4336f4ae45a478bb7b4439920f810f38a50c34a8f80abc64960cb3e8021b20fa
+ctrl_cnn_6_9_gamma b0eb9f6783d05a7cce0e68fe88846af1b4185e966815565df4910661a8f9a688
+ctrl_cnn_7_0_beta a43f76e060c0f378dbaf453e1f978b013a7d24424e9d9d03e4e633a43bd1fc43
+ctrl_cnn_7_0_ema_mean 02a4650b0e56fd4ece0fa29bde7f0b0511e4e2e986dcf9a2ffc180890a816c0c
+ctrl_cnn_7_0_ema_var 1cab2b91dc0c66ce302d7132cb887b7e4dd54d292ca4ff7b6eaf1ecb021ae625
+ctrl_cnn_7_0_gamma 28876a89c07e7e4f7332736439a8a5b7c3f5bd7cd241180507bcca055594c647
+ctrl_cnn_7_10_beta 1cbba5cd40d0700cdc55cafc779ea21b168f69a1cba6f58bd65a79a67c975157
+ctrl_cnn_7_10_ema_mean a6f1a7292fcf3708c920da0de543febf1712422531ccd23c335a814c383316d4
+ctrl_cnn_7_10_ema_var 105b102f373903c3d3a2645a7e81270e3051f1b69e307c190b227916c6649398
+ctrl_cnn_7_10_gamma d1fe575221e858337141a5bd34b1c607c733344775b9ed283ee90c6d3da77287
+ctrl_cnn_7_11_beta 1371b0aaed58dfd50d62056c268648778958d511eaaf644f35e22966111c0f3c
+ctrl_cnn_7_11_ema_mean 4b3020659367eb8e32ba35b9f8030b7c027438c9a02f22ae003e29628f829467
+ctrl_cnn_7_11_ema_var 2f05ba2feea4c55e6f232da464921e6c3b6e19b3a108aadddfba3dccf8581364
+ctrl_cnn_7_11_gamma 50398f5d7f89d44c3915bf2832e197e5ae0326f6ef77b7ac4115a4fe0276176e
+ctrl_cnn_7_12_beta 621ec15ce286af5eb3ae3cafb33e08cbd551ea2521ab01d7fb04139572e54f58
+ctrl_cnn_7_12_ema_mean f42cdfb8dd51c0a01bb51f613323763af02c3591d1b3b0a367f958031273bc3b
+ctrl_cnn_7_12_ema_var c7e1d2c0573250187ea052888b6e22fa45d97561422c233825030ae71d00fa57
+ctrl_cnn_7_12_gamma 77f7b281d8faee4125d35dda4c0f756ba62060ecd2d40a6962f35fe7341a3465
+ctrl_cnn_7_13_beta b2412fb854ee24f1ae53d91f5c22d8fb51a4f80256dc6f993109b492600fa396
+ctrl_cnn_7_13_ema_mean a0e15c2be4b92955433f6cc8791613b458a4c108f5a2c1ae8b1dccb641863c1a
+ctrl_cnn_7_13_ema_var 8a3b6d8b7cdbcf225455a60b2141f1f8c49fe9083edf98a6a4845810d18d1972
+ctrl_cnn_7_13_gamma 38e64de928f229028026967629a5bfd1ed1c32dc87bf8397c8d4286ed46191ef
+ctrl_cnn_7_14_beta 1157bb4f6df3d6ce2223f7d38a5cb77de7f5ba9cc97ac85db71992f87fb1989b
+ctrl_cnn_7_14_ema_mean 9670592991172d9fa6c09b1d7a44e7e079c265405971ef92c7631a972bbbe988
+ctrl_cnn_7_14_ema_var 9a41020bedbaabdf77856d3b6ff04a1a7ebee85ca587bc36716d88d4a9e10bf5
+ctrl_cnn_7_14_gamma 85c076a3211a81e7b3dd4a223b8920cb20b85094341a456ec4b7e5fca72c73e9
+ctrl_cnn_7_15_beta a23aae5677b18f81d8da269f28effa6d161b958c789bbed3e0e3008d14585d56
+ctrl_cnn_7_15_ema_mean eee7cd725f856260695349c28f94bf962da3009afa7e57012170308f4d278321
+ctrl_cnn_7_15_ema_var ecaecd2e94b24179f93bf0d3632a8c0f23b9df8837b2942600be59384ae94b5f
+ctrl_cnn_7_15_gamma 21bd8e284b7808616afd37dee86af7fbf0dc2e4ae97bd9951fc4088a294c3c16
+ctrl_cnn_7_16_beta f71d09978281ec7baab1c2152ad2d960ad01e6dc7758493e74b01591e26bb13e
+ctrl_cnn_7_16_ema_mean 72b6e500a62bf2c6512cb67dfa288afc4317d024e9342c4de98d050d4c3500e0
+ctrl_cnn_7_16_ema_var 99859b155c01739134d0c654bc36b3c8ae2576a2113dc80ac0ef146d54494dde
+ctrl_cnn_7_16_gamma f9b56cdee85d96f9d337ec1bce02e705b18e2810f8011d4cf7722a6e1cc4f500
+ctrl_cnn_7_17_beta 156b2539bfaf58b905ddbc932cef0028f14c8daa1677a41d61bf8e6350ceec87
+ctrl_cnn_7_17_ema_mean 1936bde5ce805f42cfd754842ed3cd26aba9cc1d70d97226b75491e2048cf59d
+ctrl_cnn_7_17_ema_var 1fb3be610cdcdbe5ce9b338167651c5dda1792b4fa63f581b54e8fb0e3ddb504
+ctrl_cnn_7_17_gamma b34678fdf46ee7c650a98226e434d38aec049cc7b8fa0f0d697ac8458c6c92af
+ctrl_cnn_7_18_beta 605d02ea97f704cdcf490e794464bf93679bf7ac4b90cd29be76af5c6c2304ac
+ctrl_cnn_7_18_ema_mean 5a493ed9207238640af70d43e1d18d965e14fa881322530aad42e166ff861af9
+ctrl_cnn_7_18_ema_var f22141a330faf86b5d01075704f198d09e1facb35defcaee37ca59d36e0526fc
+ctrl_cnn_7_18_gamma 07576c12aeb1822288769d8714c07b68489e84d2adbff3e05d7cec26216ee7be
+ctrl_cnn_7_19_beta be1c31f74f42281734d21df95df440f4d227f62787a3b7747b4bf01e212b63ca
+ctrl_cnn_7_19_ema_mean 0b21af6fb08c8bdaf3edcf4a51fd90efb7f5c56135c0401708f3dd3de6b5c3ee
+ctrl_cnn_7_19_ema_var 2c267b10179373864335494607bfeb2f9dc592825a461ac101203f3b49c8b937
+ctrl_cnn_7_19_gamma 7a2367ad8636c617738e6a2adb859b1f3295e63d18aa7317b065748f1d1acfe0
+ctrl_cnn_7_1_beta d159bdc424c15651cf105664c88ea8b24cc999d79ee87300b9abdb742e56ff32
+ctrl_cnn_7_1_ema_mean 27c715a42c8d7603e1a8c1e5892ba2a944588a79f66b03176daa4a880f1a71eb
+ctrl_cnn_7_1_ema_var 0811a03d01477523a391b24489d6f4d6e359d3d2ef02be2c77736521fe9153f4
+ctrl_cnn_7_1_gamma b8434ecf0286ca4c11914d1a7eed7162eac2fed2c12c8053e84a245cb3dd5942
+ctrl_cnn_7_20_beta b576699c2287e49b852b7a65f93c37ab8e80e4e03388ef15a083b2628edc0ab2
+ctrl_cnn_7_20_ema_mean c96bab2b8206faa6d00d7ef1f781151886d1b9492dce62119d0570648665edc8
+ctrl_cnn_7_20_ema_var 6b9421c150608df83e802ba038e280a9b16aa6f1c8229316b9211b411a72f69a
+ctrl_cnn_7_20_gamma aa280df6d8f79af087b9bdd87158275cb20da5b089d58d79867d531a83bdb2a0
+ctrl_cnn_7_2_beta a70b720988e3184b5346ad985d9db9368fce0148cb7ae48174a1bf6987403976
+ctrl_cnn_7_2_ema_mean 87f786868ce33ec0dc42853916e6c34bd2a887bd800b4b821d80b189cc62ef80
+ctrl_cnn_7_2_ema_var 2dc93701e1f08a90b3b9e25b7f8a7154fd8c6cb30dd40a7965d79973fb6ba33a
+ctrl_cnn_7_2_gamma 275dcb1a43ccf2efeb20877fa076ffa004f93d1745516657998165582ceece62
+ctrl_cnn_7_3_beta 4ce7c2b3812d94c1581388ca6aaf511e14da1cc8cdc075dc64f9d081475b3db8
+ctrl_cnn_7_3_ema_mean 0750372a1a565b30bdd1978e50217fcfb898be643cc091d26bff65c8b1bf918b
+ctrl_cnn_7_3_ema_var a105209d8f1d806a4b3085c3be382e88ed57fa775c0dfcdb4d0048afc6f008b5
+ctrl_cnn_7_3_gamma 58c447968c956b795df69edcc166aa4a0b3732dfa129430c2ca568838053ab24
+ctrl_cnn_7_4_beta 91b7d38b003935cff0fd88e82a02d13d8810b834b3a33958e4fd20f561ef736b
+ctrl_cnn_7_4_ema_mean cc12a74d4ff918f5aa83b14d5c5c836b6e96a988fa9cbf34e3d2e5f8c5dd7c69
+ctrl_cnn_7_4_ema_var e131bda24606dcf6cfd67ec2a65d6da173e8fb440fbfc826ef00221e505e6430
+ctrl_cnn_7_4_gamma 8a39a37c3fdc3520991b2fd25d0986eb05e36719e210a0813863be187ff41ab4
+ctrl_cnn_7_5_beta e3690dde412f7996f8a8105ef0d077129d794d4be0220986f5c4f48ed062852d
+ctrl_cnn_7_5_ema_mean 8dc0746e5e74108055704f700c2779750ecd631ef0db51e7b4760b0d71f37d48
+ctrl_cnn_7_5_ema_var 82ef490717e510f4464605459c1d8ae1979690cba07c9c27c533f9b6b3b6ca99
+ctrl_cnn_7_5_gamma f60db84083eff5b3f1f4a4df1e9bf419622e5606cadeb20c2d08db4a0ad8c9db
+ctrl_cnn_7_6_beta 6da7112965d82726b7c450df690a643fd82e2c0476bdbfcdd44a91d35c98c61d
+ctrl_cnn_7_6_ema_mean b51a84618791ef48e983b5c89c978fb9fe898dcd7b11d6e8de9416940d12da35
+ctrl_cnn_7_6_ema_var 26cce47ab1dac846ef04e4756936fda83a561173f318f539e3d1390f37405126
+ctrl_cnn_7_6_gamma 0cbeafb5ea82578de2c41cc04135c26cd11ca03fd73dfa8011ac9a10de28e0ac
+ctrl_cnn_7_7_beta 0550ff3fa079243d8e5035bd92de0e2a0f4fb158ad0d34a7b1df481698bcfbe0
+ctrl_cnn_7_7_ema_mean 304cdfa4685b37c3f0ea842b38781dcbc52d3909250b11c94e86dff537595f6d
+ctrl_cnn_7_7_ema_var 074807aec9144b6f00b276a6ee5eeae799c67b95b2f1ec87b89517eebd436238
+ctrl_cnn_7_7_gamma 17d7a24c68f2a443e38ee8a5d517e1d1d15eeb2878925872670f143a74401fa5
+ctrl_cnn_7_8_beta 4110cd5e179fd18f6cbd76d968dab055ed5ad5d9d52d52aec4b9857b2f5a94ad
+ctrl_cnn_7_8_ema_mean a6e3265c906267814d7e598d87ff442d8d829d38202de983a304507f0044a597
+ctrl_cnn_7_8_ema_var 1e6a038ac8f8abd2f43b292bfd726fb3b02d593f6b8965f7f09120949b282c59
+ctrl_cnn_7_8_gamma cca01babe381c809057224f2b1b24ae1d09e6fbebff710841841413bb6d58109
+ctrl_cnn_7_9_beta 5d0351317ba4c5566579d8eb4541e118a687c3dd2b91abf5c92f6e6c7d12d143
+ctrl_cnn_7_9_ema_mean 879acc2cb702f854080b3d9e1f064e76db8efda4a81c8bfc1d348003d950ab85
+ctrl_cnn_7_9_ema_var 8031b6123006e82145da4854b57acc577074e98244cd9ff33ca362a66a777a2b
+ctrl_cnn_7_9_gamma 981f81e83295e321322a6c2f1bddd0e2ee960132cf37b7831764d054ea886f22
+ctrl_cnn_b_0 02fc5c36d54f1147b605e34dd3428fde21db0113cba9a87bd662c94737f972ef
+ctrl_cnn_b_1 025ceb47239c08adf312d06179365240a765bdf58a8d8482b611b8d0a02b441b
+ctrl_cnn_b_2 02ebd565efb8200df55aad0e856f165c4fad22fb93faffd5e6840bbca01ad58f
+ctrl_cnn_b_3 1ab1fdf71b4118871242db765abb28be10de6ea3474e589325742953d2752779
+ctrl_cnn_b_4 a2fc474a68cf00adb8e57ca41b1bdacba943473b5c44ef6ea9841484eb7759aa
+ctrl_cnn_b_5 fdcb0adbd9c3e482a2f32862ab5c468db329bb80849182afc727d64e941c19a8
+ctrl_cnn_b_6 43e21f795356407b25467e54fa1068aedf48496554c69884f4da08954136dd82
+ctrl_cnn_b_7 2cc892049fe5c2c033225ac423b4b65c6c8c3286d533fbb902718ca4c468cab9
+ctrl_cnn_w_0 8aefaecac3797496e06f73e4b77bb3cd4ac5ca1e38b7f2b9afe3ac768678e1bb
+ctrl_cnn_w_1 d5a12a2b9c59dec4aa1613078be231fbeee5f029fd5951cccc3aa2394bd9600c
+ctrl_cnn_w_2 5ece3ad1c1dc5a74f1363db7ee798db9060369cab1700658ef46b8a8aceb3db8
+ctrl_cnn_w_3 8626fe150cda30a910da8aa31381e16661a4dace379c7e7049d7478650d034dd
+ctrl_cnn_w_4 be3ce21446efce4b627d9efff05fcd5b27267819f0616346400e1fa0e5be923e
+ctrl_cnn_w_5 3b49f20692b20f45583335dd9b878d19a9061aebe2ddc9fe256af406896fb743
+ctrl_cnn_w_6 dee7ea10af9b4a5bdbca35d79e0ce00246f25bfb7488f9fb6485c041455571d6
+ctrl_cnn_w_7 ecbf891caffb39b761fdf66b99e157bec05cfd9f1411fd0b548ca89f9f271b07
+ctrl_lstm_b_f bb71a56b34bc86d69d66e8ccf5c64847c6c8b615323793bbd8df594a6bf9e28a
+ctrl_lstm_b_i 9d52e87d7d613cde66a795186f154526ca760b53c47f06d985af0b07325d9e3f
+ctrl_lstm_b_o b76c9758f39f26db2510dc8ab94ee06413395c2e32821ba132c81f69be3ca194
+ctrl_lstm_b_u 4f5c4e95ce5615bd7343a9242e30e3940d61dcc2d375f2614f1c2de3bbe872eb
+ctrl_lstm_w_hf 41d5df20e54af8726c6a9b8f195924e827681e9ee244c754dc8b8647765b46aa
+ctrl_lstm_w_hi 5d2e19ecdcf7096a8963c5301767f897b050980616a43cf73af459a90ff5532b
+ctrl_lstm_w_ho c106145508725b4650c463f0c26aad947ee5cb62c079f3460f629bf522fa9119
+ctrl_lstm_w_hu ce437aba395ec25687ce584c5a2ebf5f0f466124491ba74365b6165a123daef6
+ctrl_lstm_w_xf 77bc0bcc6fdb3cd6e6fc96e25a5990111b56c4dac38dfb849c86e9e840eaa9bd
+ctrl_lstm_w_xi e9b49fc9c509bdc2dc466c5cdae36f0bff091ae7f052f498deddaf6291635027
+ctrl_lstm_w_xo 56f934c0a28d17c478b8a04c8120df146016b73d871d513629c1e99f4540f199
+ctrl_lstm_w_xu 9734c4863bec0748cf787667f61ca8de1c707c6cfde858848798370734354789
+ctrl_mlp_b_0 4bfb47392f4367c07fdae4fd3d08ffb32484c9f6b733669c46cfc51e3d33c8f3
+ctrl_mlp_w_0 f1612616c888736625f78112f4f003d6474dd9fa4587fbe506a72185dcfe6b50
+glimpse_mlp_b_0 b5b9d488030390bf6d5416edcee538130552723d9553180ed38c58a128967ee4
+glimpse_mlp_b_1 3d2427fbe6d2107731397b06440dd7167c68d381782d603caf829e7b9c26961d
+glimpse_mlp_w_0 e4004818a7cc44f344316a6a12e3c77a036a6ded71f6eddbd478584e1d7ea196
+glimpse_mlp_w_1 ff7afce25d5256783286c022f7320abc8f18f80e54e56ed99996003a353a065c
+score_mlp_b_0 810a79d6a8030fe6ad6c4b733b8b8cf4db0a371c4f5e713ed9d74032822e4b47
+score_mlp_w_0 6e664619d0ff88d816c608af93077ee53a8c8cb2c02a1db01f250bbe13ea7b05
+"""
 
 
 if __name__ == '__main__':

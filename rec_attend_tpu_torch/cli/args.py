@@ -6,7 +6,7 @@ switches), the dataset's size and augmentation from the dataset's name,
 and the train, eval and data groups; ``make_*_config`` give the port's
 configs, equal field for field to the JAX package's from the same argv.
 The flags that set only an option the port does not read (``--use_pallas``,
-``--mlp_dropout``, ``--freeze_pretrain_cnn``) are not taken.  A flag whose
+``--mlp_dropout``) are not taken.  A flag whose
 option the port does not run yet (``--fixed_order`` in training,
 ``rnd_colour``) parses, and the model refuses the config.
 """
@@ -276,6 +276,7 @@ def add_box_model_args(parser):
   parser.add_argument('--num_glimpse_mlp_layers', default=2, type=int)
   parser.add_argument('--pretrain_cnn', default=None)
   parser.add_argument('--pretrain_net', default=None)
+  parser.add_argument('--freeze_pretrain_cnn', action='store_true')
   parser.add_argument('--add_d_out', action='store_true')
   parser.add_argument('--add_y_out', action='store_true')
   parser.add_argument('--num_semantic_classes', default=1, type=int)
@@ -309,6 +310,7 @@ def make_box_model_config(args) -> C.BoxModelConfig:
       add_d_out=args.add_d_out, add_y_out=args.add_y_out,
       num_semantic_classes=args.num_semantic_classes,
       pretrain_cnn=args.pretrain_cnn, pretrain_net=args.pretrain_net,
+      freeze_pretrain_cnn=args.freeze_pretrain_cnn,
       rnd_hflip=trans['rnd_hflip'], rnd_vflip=trans['rnd_vflip'],
       rnd_transpose=trans['rnd_transpose'], rnd_colour=trans['rnd_colour'],
       finetune=args.finetune)

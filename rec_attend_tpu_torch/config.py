@@ -171,9 +171,10 @@ class FullModelConfig(_ConfigBase):
   attn_add_d_out: Optional[bool] = None
   attn_add_y_out: Optional[bool] = None
 
-  # Pretrained nets: ``pretrain_ctrl_net`` names the box model whose
-  # controller starts this one's (a results folder or one of its
-  # ``ckpt-*.npz``; see ``TrainingExperiment.load_pretrained``).
+  # Pretrained nets, each a ``weights.h5`` (``cli/read_weights.py`` writes
+  # them): ``pretrain_ctrl_net`` starts the controller (a box model's),
+  # ``pretrain_attn_net`` the attention nets, ``pretrain_net`` all of them
+  # and the score MLP (``full_model.load_pretrained``).
   pretrain_ctrl_net: Optional[str] = None
   pretrain_attn_net: Optional[str] = None
   pretrain_net: Optional[str] = None
@@ -294,8 +295,8 @@ FORWARD_FIELDS = tuple(
 class BoxModelConfig(_ConfigBase):
   """Options of the box model, the controller pathway trained alone
   (JAX config.py:313-398).  ``pretrain_cnn`` and ``pretrain_net`` name
-  ``weights.h5`` files, which the port does not read: ``BoxModel`` refuses
-  a config that sets them."""
+  ``weights.h5`` files (``box_model.load_pretrained``);
+  ``freeze_pretrain_cnn`` keeps a pretrained controller CNN as loaded."""
   timespan: int = 21
   inp_height: int = 224
   inp_width: int = 224
@@ -335,6 +336,7 @@ class BoxModelConfig(_ConfigBase):
 
   pretrain_cnn: Optional[str] = None
   pretrain_net: Optional[str] = None
+  freeze_pretrain_cnn: bool = True
 
   rnd_hflip: bool = False
   rnd_vflip: bool = False

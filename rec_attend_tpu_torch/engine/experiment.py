@@ -46,7 +46,6 @@ import torch
 
 from rec_attend_tpu_torch import convert
 from rec_attend_tpu_torch import train_step as ts
-from rec_attend_tpu_torch.config import BoxModelConfig
 from rec_attend_tpu_torch.config import FGModelConfig
 from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.data import provider
@@ -320,32 +319,12 @@ class TrainingExperiment:
     return self.trainer.restore(self.folder)
 
   def load_pretrained(self):
-    """Start the nets that the config names a pretrained source for (JAX
-    ``load_pretrained``, ``models/full_model.py:100-121``): the full
-    model's ``pretrain_ctrl_net`` names a box model's results folder (its
-    latest checkpoint) or one of its ``ckpt-*.npz``, read with the box
-    config of the folder's ``model_opt.yaml``.  The JAX package reads
-    ``weights.h5`` files, which need h5py (``nn/params.py``, ROADMAP A.4):
-    such a path raises, and so do ``pretrain_attn_net`` and the full
-    model's ``pretrain_net``, which no preset sets.  (The box model refuses
-    its own ``pretrain_*``.)"""
-    if self.spec.name != 'full':
-      return
-    cfg = self.model_cfg
-    if cfg.pretrain_net or cfg.pretrain_attn_net:
-      raise NotImplementedError('pretrain_net and pretrain_attn_net are not '
-                                'ported yet (ROADMAP A.4, nn/params.py)')
-    src = cfg.pretrain_ctrl_net
-    if not src:
-      return
-    if src.endswith('.h5'):
-      raise NotImplementedError(
-          f'{src}: weights.h5 files are read by nn/params.py, which is not '
-          'ported yet (ROADMAP A.4); name the box model\'s results folder or '
-          'one of its ckpt-*.npz')
-    folder = os.path.dirname(src) if saver.CKPT_RE.search(src) else src
-    box_cfg = BoxModelConfig.from_yaml(os.path.join(folder, 'model_opt.yaml'))
-    self.trainer.load_pretrained(src, cfg=box_cfg)
+    """Start the nets that the config names pretrained ``weights.h5``
+    files for (the model family's ``load_pretrained``: JAX
+    ``load_pretrained``, ``models/full_model.py:100-121`` and
+    ``models/box_model.py:46-62``), before any restore, as JAX does
+    (``experiment.py:139-140``)."""
+    self.trainer.load_pretrained()
 
   def close(self):
     """Stop the prefetching threads and write the buffered log rows."""

@@ -5,9 +5,9 @@ Counterpart of the step loop of ``TrainingExperiment.run``
 train step per batch and the step's metrics.  ``restore`` continues a JAX
 trainer's run from its latest checkpoint, parameters, optimizer state
 (Adam's, or the fg model's momentum trace) and step
-(``experiment.py:445-449``); ``load_pretrained`` starts a full model's
-controller from a box model, as the JAX chain's full stage does
-(``pipelines/run_pipeline.py:283-375``, ``pretrain_ctrl_net``).  The
+(``experiment.py:445-449``); ``load_pretrained`` starts nets from the
+config's ``weights.h5`` files (``pretrain_*``), or a full model's
+controller from a box model in memory.  The
 cadenced training run (validation, logs, checkpoints) that the command
 line drives is ``engine.experiment.TrainingExperiment``, built on this.
 
@@ -60,19 +60,18 @@ class Trainer:
     self.step = saver.checkpoint_step(path)
     return path
 
-  def load_pretrained(self, source, cfg=None):
-    """Start the full model's controller from a box model
-    (``full_model.load_pretrained``): ``source`` is a ``BoxModel``, its
-    state dict, or a box ``ckpt-*.npz`` (or a results folder, its latest
-    checkpoint) read with the box config ``cfg``."""
+  def load_pretrained(self, source=None):
+    """Start nets of the model from pretrained ones: with no ``source``,
+    from the ``weights.h5`` files that the config names (the family's
+    ``load_pretrained``; the fg model reads none); a full model's
+    controller from a module (a ``BoxModel``) or its state dict
+    (``full_model.load_pretrained``)."""
+    if source is None:
+      if self.family.load_pretrained is not None:
+        self.family.load_pretrained(self.model, self.cfg)
+      return
     if not isinstance(self.model, full_model.FullModel):
-      raise TypeError('load_pretrained starts a full model')
-    if isinstance(source, str):
-      if cfg is None:
-        raise ValueError('reading a checkpoint needs its BoxModelConfig')
-      path = (source if saver.CKPT_RE.search(source)
-              else saver.latest_checkpoint(source))
-      source = convert.params_from_checkpoint(path, cfg)
+      raise TypeError('a pretrained module starts a full model')
     full_model.load_pretrained(self.model, source)
 
   def draws(self, batch_size):

@@ -29,6 +29,7 @@ from torch import nn
 from rec_attend_tpu_torch.config import BoxModelConfig
 from rec_attend_tpu_torch.device import resolve_device
 from rec_attend_tpu_torch.nn import layers as L
+from rec_attend_tpu_torch.nn import params as P
 from rec_attend_tpu_torch.ops import attention, boxes, image_ops, losses
 from rec_attend_tpu_torch.ops import matching
 from rec_attend_tpu_torch.models.family import Family
@@ -52,18 +53,12 @@ class BoxModel(nn.Module):
   (``ctrl_cnn.0.w``, ``ctrl_cnn.0.bn.ema_mean`` [T,C], ``ctrl_lstm.w_xi``,
   ``glimpse_mlp.0.w``, ``ctrl_mlp.0.w``, ``score_mlp.0.w``), initialised
   from ``seed`` (truncated normal, stddev 0.01) and placed on ``device``
-  (default ``cuda``).  Loading a pretrained CNN from ``weights.h5``
-  (``pretrain_cnn``, ``pretrain_net``) is not ported, and a config that
-  asks for it is refused; so JAX's freeze rule, which freezes the
-  controller CNN only where such a CNN was loaded (``:65-77``), freezes
-  nothing here."""
+  (default ``cuda``).  ``load_pretrained`` starts nets from the config's
+  ``weights.h5`` files."""
 
   def __init__(self, cfg: BoxModelConfig, seed=0, device=None):
     super().__init__()
     device = resolve_device(device)
-    if cfg.pretrain_cnn or cfg.pretrain_net:
-      raise NotImplementedError('the box model\'s pretrained weights.h5 '
-                                'is not read by the port')
     g = torch.Generator().manual_seed(seed)
     gmlp_dims = ([cfg.ctrl_rnn_hid_dim] * cfg.num_glimpse_mlp_layers
                  + [cfg.glimpse_map_dim])
@@ -342,12 +337,39 @@ def box_model_loss(model: BoxModel, batch, draws, step, glimpse='kernel',
   return total, aux
 
 
-# The box model reads the full model's batch keys; nothing is frozen (see
-# ``BoxModel``).
+def load_pretrained(model: BoxModel, cfg: BoxModelConfig):
+  """Start nets of ``model`` from the config's ``weights.h5`` files, in
+  place (JAX ``load_pretrained``, ``:46-62``): ``pretrain_net`` or else
+  ``pretrain_cnn`` gives the controller CNN (its keys looked for under
+  ``attn_cnn``, ``cnn`` and ``ctrl_cnn``), and ``pretrain_net`` also the
+  controller and glimpse MLPs, the score MLP and the LSTM (whole)."""
+  src = cfg.pretrain_net or cfg.pretrain_cnn
+  nets = []
+  if src:
+    nets.append(('ctrl_cnn', P.load_net_h5(src, 'ctrl_cnn',
+                                           cnn_prefix_sniff=True),
+                 cfg.timespan))
+  if cfg.pretrain_net:
+    nets += [(net, P.load_net_h5(cfg.pretrain_net, net), None)
+             for net in ('ctrl_mlp', 'glimpse_mlp', 'score_mlp', 'ctrl_lstm')]
+  return P.load_nets(model, nets)
+
+
+def _frozen_nets(cfg: BoxModelConfig):
+  """With ``freeze_pretrain_cnn``, a pretrained controller CNN is frozen,
+  every layer of it (JAX ``freeze_mask``, ``:65-77``: its files hold the
+  whole CNN)."""
+  if (cfg.pretrain_net or cfg.pretrain_cnn) and cfg.freeze_pretrain_cnn:
+    return frozenset({'ctrl_cnn'})
+  return frozenset()
+
+
+# The box model reads the full model's batch keys.
 FAMILY = Family(
     name='box', model=BoxModel, loss=box_model_loss, draws=draw_box_randoms,
     batch_keys=BATCH_KEYS, metric_keys=lambda cfg: METRIC_KEYS,
-    frozen_nets=lambda cfg: frozenset(), optimizer=lambda cfg: 'adam',
+    frozen_nets=_frozen_nets, optimizer=lambda cfg: 'adam',
     batch_variables=BATCH_VARIABLES, batch_map=BATCH_MAP,
     eval_metrics=('loss', 'box_loss', 'conf_loss', 'iou_soft_box',
-                  'learn_rate'))
+                  'learn_rate'),
+    load_pretrained=load_pretrained)

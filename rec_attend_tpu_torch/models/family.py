@@ -11,7 +11,7 @@ experiment.py:58-100``) to it, so that ``train_step``, ``engine`` and
 from __future__ import annotations
 
 import importlib
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 from rec_attend_tpu_torch.config import BoxModelConfig
 from rec_attend_tpu_torch.config import FGModelConfig
@@ -31,6 +31,9 @@ class Family(NamedTuple):
   batch_variables: tuple  # the dataset variables a batch is made of
   batch_map: dict         # dataset variable -> batch key
   eval_metrics: tuple     # the metrics the eval passes log
+  # (model, cfg) -> None: starts the model's nets from the config's
+  # pretrained weights.h5 files, in place; None where the model reads none
+  load_pretrained: Optional[Callable] = None
 
 
 _MODULES = {FullModelConfig: 'full_model', BoxModelConfig: 'box_model',

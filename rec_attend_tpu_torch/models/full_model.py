@@ -46,6 +46,7 @@ from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.device import resolve_device
 from rec_attend_tpu_torch.models.family import Family
 from rec_attend_tpu_torch.nn import layers as L
+from rec_attend_tpu_torch.nn import params as P
 from rec_attend_tpu_torch.ops import attention, boxes, image_ops, losses
 from rec_attend_tpu_torch.ops import matching
 from rec_attend_tpu_torch.ops.cuda import glimpse as gk
@@ -784,75 +785,46 @@ FAMILY = Family(
     draws=draw_train_randoms, batch_keys=BATCH_KEYS,
     metric_keys=lambda cfg: METRIC_KEYS, frozen_nets=_frozen_nets,
     optimizer=lambda cfg: 'adam', batch_variables=BATCH_VARIABLES,
-    batch_map=BATCH_MAP, eval_metrics=EVAL_METRICS)
+    batch_map=BATCH_MAP, eval_metrics=EVAL_METRICS,
+    load_pretrained=lambda model, cfg: load_pretrained(model, cfg))
 
 
 # ---------------------------------------------------------------------------
-# Pretrained controller (JAX full_model.py:100-119, nn/params.py:131-153)
+# Pretrained nets (JAX full_model.py:100-121)
 # ---------------------------------------------------------------------------
 
 CTRL_NETS = ('ctrl_cnn', 'ctrl_mlp', 'glimpse_mlp', 'ctrl_lstm')
+ATTN_NETS = ('attn_cnn', 'attn_dcnn')
 
 
-def _net_layers(state, net):
-  """{layer index: {key under the layer: tensor}} of a layer-list net."""
-  layers = {}
-  for name, v in state.items():
-    head, _, rest = name.partition('.')
-    if head == net:
-      i, _, key = rest.partition('.')
-      layers.setdefault(int(i), {})[key] = v
-  return layers
-
-
-def merge_pretrained(state, loaded, net, timespan):
-  """``state`` (a full model's {name: tensor}) with the net ``net`` of
-  ``loaded`` (another model's, e.g. the box model's) laid over it, by JAX
-  ``merge_pretrained``'s rules: a net that ``loaded`` lacks leaves
-  ``state`` as it is; the LSTM is taken whole; of a layer list, the layers
-  that ``loaded`` has replace their counterparts, its missing tail layers
-  stay as they were; a layer's BatchNorm that ``loaded`` lacks stays, and
-  one that it holds with another number of timestep copies is its last copy
-  broadcast over the ``timespan`` copies.  Every shape must agree
-  otherwise."""
-  out = dict(state)
-  if net == 'ctrl_lstm':
-    keys = [k for k in state if k.startswith('ctrl_lstm.')]
-    if not any(k in loaded for k in keys):
-      return out
-    for k in keys:
-      out[k] = loaded[k]
-  else:
-    own, theirs = _net_layers(state, net), _net_layers(loaded, net)
-    for i, layer in theirs.items():
-      if i not in own:
-        continue
-      for key, v in layer.items():
-        if key not in own[i]:
-          raise ValueError(f'{net}.{i}.{key}: the model has no such '
-                           'parameter')
-        want = own[i][key].shape
-        if (key.startswith('bn.') and v.shape != want and len(want) == 2):
-          v = (v[-1] if v.dim() == 2 else v).expand(timespan, -1)
-        out[f'{net}.{i}.{key}'] = v
-  for k, v in out.items():
-    if tuple(v.shape) != tuple(state[k].shape):
-      raise ValueError(f'{k}: pretrained shape {tuple(v.shape)}, the '
-                       f'model takes {tuple(state[k].shape)}')
-  return out
+def pretrained_nets(cfg: FullModelConfig):
+  """The nets that the config's ``weights.h5`` files give, as
+  ``params.load_nets`` takes them, by JAX ``load_pretrained``'s rules:
+  ``pretrain_net`` or else ``pretrain_ctrl_net`` gives the controller's
+  nets (the LSTM whole), ``pretrain_net`` or else ``pretrain_attn_net``
+  the attention CNN and DCNN, and ``pretrain_net`` the score MLP."""
+  ctrl_src = cfg.pretrain_net or cfg.pretrain_ctrl_net
+  attn_src = cfg.pretrain_net or cfg.pretrain_attn_net
+  nets = []
+  for src, names in ((ctrl_src, CTRL_NETS), (attn_src, ATTN_NETS)):
+    if src:
+      nets += [(net, P.load_net_h5(src, net), cfg.timespan) for net in names]
+  if cfg.pretrain_net:
+    nets.append(('score_mlp', P.load_net_h5(cfg.pretrain_net, 'score_mlp'),
+                 None))
+  return nets
 
 
 def load_pretrained(model: FullModel, source):
-  """Start the controller of ``model`` from another model's (JAX
-  ``load_pretrained`` with ``pretrain_ctrl_net``): ``ctrl_cnn``,
-  ``ctrl_mlp``, ``glimpse_mlp`` and ``ctrl_lstm``, by the rules of
-  ``merge_pretrained``.  ``source``: a module (a ``BoxModel``, say) or its
-  {name: tensor} state dict, e.g. ``convert.params_from_checkpoint`` of a
-  box checkpoint.  Copies, in place, onto the model's device."""
-  loaded = source.state_dict() if isinstance(source, nn.Module) else source
-  loaded = {k: v.detach().to(model.device) for k, v in loaded.items()}
-  state = {k: v.detach() for k, v in model.state_dict().items()}
-  for net in CTRL_NETS:
-    state = merge_pretrained(state, loaded, net, model.cfg.timespan)
-  model.load_state_dict(state)
-  return model
+  """Start nets of ``model`` from pretrained ones, in place.  ``source``
+  is a ``FullModelConfig``, whose ``pretrain_*`` files give the nets of
+  ``pretrained_nets``, or a module (a ``BoxModel``, say) or its state
+  dict, whose controller (``CTRL_NETS``) starts this one's, by the rules
+  of ``params.merge_pretrained``."""
+  if isinstance(source, FullModelConfig):
+    nets = pretrained_nets(source)
+  else:
+    state = source.state_dict() if isinstance(source, nn.Module) else source
+    nets = [(net, P.net_from_state(state, net), model.cfg.timespan)
+            for net in CTRL_NETS]
+  return P.load_nets(model, nets)

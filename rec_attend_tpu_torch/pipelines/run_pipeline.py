@@ -47,10 +47,10 @@ stage; ``--resume`` restores each trained stage from its folder (its data
 snapshot must match), and skips fg, pack and box once a full checkpoint
 and both pack files exist.
 
-The full model starts from the box's last ``ckpt-*.npz``
-(``pretrain_ctrl_net``), where the JAX pipeline exports and reads
-``weights.h5``, which needs h5py (``cli/read_weights.py``, ROADMAP A.4).
-The pipelines of the real datasets (CVPPP, KITTI, Cityscapes) are not
+The full model starts from the box's controller as the JAX pipeline hands
+it over: ``cli.read_weights.box_main`` exports the box's last checkpoint
+to ``<results>/<box id>/weights.h5`` and the full model's
+``pretrain_ctrl_net`` names that file.  The pipelines of the real datasets (CVPPP, KITTI, Cityscapes) are not
 ported yet (ROADMAP A.5).  The command line runs on the card;
 ``main(argv, device='cpu')`` runs on the host.
 
@@ -77,6 +77,7 @@ from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.cli import eval as eval_cli
 from rec_attend_tpu_torch.cli import pack as pack_cli
+from rec_attend_tpu_torch.cli import read_weights
 from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
 from rec_attend_tpu_torch.data import provider
 from rec_attend_tpu_torch.data.provider import PackedDataset
@@ -307,10 +308,11 @@ def run_synth(args, device=None):
       args.num_steps)
 
   train_cfg = train_cfg.replace(model_id=box_id)
-  box = _train('box', box_cfg, train_cfg, data_cfg, device)
-  _, box_ckpt = box.saver.get_latest_ckpt()
+  _train('box', box_cfg, train_cfg, data_cfg, device)
+  weights = read_weights.box_main(
+      ['--model_id', box_id, '--results', args.results], device=device)
 
-  full_cfg = full_base.replace(pretrain_ctrl_net=box_ckpt)
+  full_cfg = full_base.replace(pretrain_ctrl_net=weights)
   train_cfg = train_cfg.replace(model_id=full_id, num_steps=full_steps)
   _train('full', full_cfg, train_cfg, data_cfg, device)
   eval_cli.full_main(['--model_id', full_id, '--results', args.results,
@@ -456,8 +458,9 @@ def run_chain(args, dataset, device=None):
   if 'box' in stages:
     _train('box', box_cfg, stage_cfg('box', box_id), data_cfg, device)
   if 'full' in stages:
-    box_ckpt = saver.latest_checkpoint(os.path.join(args.results, box_id))
-    _train('full', full_base.replace(pretrain_ctrl_net=box_ckpt),
+    weights = read_weights.box_main(
+        ['--model_id', box_id, '--results', args.results], device=device)
+    _train('full', full_base.replace(pretrain_ctrl_net=weights),
            stage_cfg('full', full_id), data_cfg, device)
   if 'eval' in stages:
     eval_fg_metrics.main(['--model_id', fg_id, '--results', args.results,

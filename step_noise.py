@@ -8,6 +8,7 @@ batches.
     python3 step_noise.py --box-repeats 8
     python3 step_noise.py --bf16 [--batches 5]
     python3 step_noise.py --bf16-exact [--batches 2]
+    python3 step_noise.py --pretrained [--batches 5]
 
 Restores the flagship CVPPP checkpoint with its Adam state on one CUDA card
 and, for each of several seeded synthetic batches and draws, runs
@@ -73,6 +74,14 @@ the CPU (the float32 model run in float64: the exact answer's stand-in)
 and to the bfloat16 CPU step, with each step's five largest gradient
 norms.
 
+With ``--pretrained``, the gate of chip_smoke.py's weights_h5 phase over
+several b32 batches: the flagship's committed start (its model_opt.yaml
+as committed: the controller from the box's weights.h5, every other net
+at its seed-0 value, ``chip_smoke.committed_config``), one step at step 0
+held kernel against plain beside the reordered-plain floor, with the
+dropped-filter-gradient control (``chip_smoke.step_gates`` at
+``STEP_LIMITS``).  Batch 0 is the one that chip_smoke.py gates.
+
 Needs a card; exits 1 without one.
 """
 
@@ -104,6 +113,9 @@ def main():
   ap.add_argument('--bf16', action='store_true',
                   help="the bf16 phase's train gates instead of the "
                        'flagship step')
+  ap.add_argument('--pretrained', action='store_true',
+                  help="the weights_h5 phase's committed-start gate "
+                       'instead of the flagship step')
   ap.add_argument('--bf16-exact', action='store_true',
                   help="the bf16 phase's card-against-CPU step against a "
                        'float64 step')
@@ -126,6 +138,9 @@ def main():
     return
   if args.bf16_exact:
     bf16_exact(torch, args.batches)
+    return
+  if args.pretrained:
+    pretrained_noise(torch, args.batches)
     return
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.config import cvppp_full_config
@@ -160,6 +175,40 @@ def main():
         'batch_seed': 1000 + i, 'draws_seed': 1 + i, 'step': args.step,
         'batch': args.batch, 'limits': limits, 'failures': failures,
         'gates': {name: {k: v[k] for k in keys}
+                  for name, v in gates.items()}}), flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+def pretrained_noise(torch, n):
+  """The weights_h5 phase's step gate over ``n`` b32 batches, from the
+  flagship's committed start."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.models.full_model import draw_train_randoms
+  from rec_attend_tpu_torch.models.full_model import learn_rate
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  cfg = chip_smoke.committed_config(chip_smoke.CHECKPOINT_DIR)
+  trainer = Trainer(cfg, device='cuda')
+  trainer.load_pretrained()
+  b = chip_smoke.WEIGHTS_H5_BATCH
+  for i in range(n):
+    data = synthetic_instances(b, cfg.inp_height, cfg.inp_width,
+                               cfg.timespan, seed=1000 + i)
+    batch = {k: v.to('cuda') for k, v in data.items()}
+    draws = draw_train_randoms(cfg, b,
+                               torch.Generator('cuda').manual_seed(1 + i))
+    gates, failures = chip_smoke.step_gates(
+        torch, ts, matching, gk, trainer.model, trainer.opt_state, batch,
+        draws, 0, learn_rate(cfg, 0), chip_smoke.STEP_LIMITS)
+    print(json.dumps({
+        'batch_seed': 1000 + i, 'draws_seed': 1 + i, 'step': 0, 'batch': b,
+        'limits': chip_smoke.STEP_LIMITS, 'failures': failures,
+        'gates': {name: {k: v[k] for k in KEYS}
                   for name, v in gates.items()}}), flush=True)
   print(chip_smoke.nvidia_smi_name_power(), flush=True)
 

@@ -24,10 +24,11 @@ Compared, with their tolerances (float32 on both sides, as in
   Adam mu, nu               rtol 1e-3, 2e-3, atol as for the gradients
   updated parameters        ``_assert_updates_agree``
 The Adam state read from the committed ``ckpt-12000.npz`` equals the JAX
-``Saver``'s restore, and the full model's controller loaded from that
-checkpoint equals JAX ``load_pretrained`` from the committed
-``weights.h5``: the synth3 box's, and the multiclass synthcs box's (its
-15-channel controller) into the synthcs full model.  The ``multiclass``
+``Saver``'s restore, and the full model's controller loaded from the
+box's committed ``weights.h5``, read by the port's codec, equals JAX ``load_pretrained``
+from the same file and the box's checkpoint: the synth3 box's, and the
+multiclass synthcs box's (its 15-channel controller) into the synthcs full
+model.  The ``multiclass``
 variant holds the softmax score head and its confidence loss.
 """
 
@@ -45,6 +46,7 @@ from rec_attend_tpu import config as JC
 from rec_attend_tpu.engine.saver import Saver
 from rec_attend_tpu.models import box_model as JB
 from rec_attend_tpu.models import full_model as JF
+from rec_attend_tpu.nn import params as JP
 from rec_attend_tpu.parallel import train_step as JT
 from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch import convert
@@ -53,6 +55,7 @@ from rec_attend_tpu_torch.engine import saver
 from rec_attend_tpu_torch.engine.trainer import Trainer
 from rec_attend_tpu_torch.models import box_model as TB
 from rec_attend_tpu_torch.models import full_model as TF
+from rec_attend_tpu_torch.nn import params as P
 from test_torch_train_step import _assert_updates_agree
 from test_torch_train_step import _close
 from test_torch_train_step import _flat
@@ -368,20 +371,22 @@ def test_adam_state_of_the_synthcs_checkpoint_matches_jax():
 
 
 def _assert_load_pretrained_matches_jax(box_folder, jcfg, cfg, box_cfg):
-  """The full model's controller from the box's ckpt-*.npz (the port: no
-  h5py on the card) equals JAX load_pretrained from the committed
-  weights.h5; the attention nets and the score MLP keep their initial
-  values."""
-  jcfg = jcfg.replace(pretrain_ctrl_net=os.path.join(box_folder,
-                                                     'weights.h5'))
+  """The full model's controller from the box's committed weights.h5, read
+  by the port's codec, equals JAX load_pretrained from the same file (read
+  by h5py), and the box checkpoint's controller; the attention nets and
+  the score MLP keep their initial values."""
+  weights = os.path.join(box_folder, 'weights.h5')
+  jcfg = jcfg.replace(pretrain_ctrl_net=weights)
   init = JF.init_full_model(jax.random.PRNGKey(0), jcfg)
   want = convert.flatten_tree(jax.tree_util.tree_map(
       np.asarray, JF.load_pretrained(dict(init), jcfg)))
   init = convert.flatten_tree(jax.tree_util.tree_map(np.asarray, init))
-  trainer = Trainer(cfg, device='cpu')
+  trainer = Trainer(cfg.replace(pretrain_ctrl_net=weights), device='cpu')
   trainer.model.load_state_dict(convert.params_from_jax(init))
-  trainer.load_pretrained(box_folder, cfg=box_cfg)
+  trainer.load_pretrained()
   got = trainer.model.state_dict()
+  ckpt = convert.params_from_checkpoint(saver.latest_checkpoint(box_folder),
+                                        box_cfg)
   assert sorted(got) == sorted(want)
   loaded = 0
   for k, v in want.items():
@@ -389,6 +394,7 @@ def _assert_load_pretrained_matches_jax(box_folder, jcfg, cfg, box_cfg):
     if k.split('.')[0] in TF.CTRL_NETS:
       loaded += 1
       assert not np.array_equal(v, init[k]) or k.endswith('ema_var'), k
+      np.testing.assert_array_equal(v, ckpt[k].numpy(), err_msg=k)
     else:
       np.testing.assert_array_equal(v, init[k], err_msg=k)
   # ctrl_cnn: 8 layers of w, b and 4 BatchNorm leaves; ctrl_mlp: 1 dense
@@ -415,21 +421,34 @@ def test_load_pretrained_from_the_synthcs_box_checkpoint_matches_jax():
 
 def test_merge_pretrained_rules():
   """A partial net leaves its tail layers as they were; a single BatchNorm
-  copy is broadcast over the timesteps; a shape that disagrees raises."""
+  copy is broadcast over the timesteps; a shape that disagrees raises;
+  each as JAX merge_pretrained does."""
   cfg = C.tiny_full_config()
   model = TF.FullModel(cfg, device='cpu', seed=0)
   state = {k: v.clone() for k, v in model.state_dict().items()}
-  loaded = {k: torch.full_like(v[0] if '.bn.' in k else v, 7.0)
-            for k, v in state.items() if k.startswith('ctrl_cnn.0.')}
-  got = TF.merge_pretrained(state, loaded, 'ctrl_cnn', cfg.timespan)
-  for k, v in got.items():
+  init = P.net_from_state(state, 'ctrl_cnn')
+  loaded = [{'w': np.full_like(init[0]['w'], 7.0),
+             'b': np.full_like(init[0]['b'], 7.0),
+             'bn': {k: np.full_like(v[0], 7.0)
+                    for k, v in init[0]['bn'].items()}}]
+  got = P.merge_pretrained(init, loaded, cfg.timespan)
+  want = JP.merge_pretrained(jax.tree_util.tree_map(jnp.asarray, init),
+                             jax.tree_util.tree_map(jnp.asarray, loaded),
+                             cfg.timespan)
+  got_state = P.net_to_state('ctrl_cnn', got)
+  want_state = convert.flatten_tree({'ctrl_cnn': want})
+  assert sorted(got_state) == sorted(want_state)
+  for k, v in got_state.items():
+    np.testing.assert_array_equal(v, np.asarray(want_state[k]), err_msg=k)
     if k.startswith('ctrl_cnn.0.'):
       assert (v == 7.0).all() and v.shape == state[k].shape, k
     else:
-      assert torch.equal(v, state[k]), k
-  bad = {'ctrl_mlp.0.w': torch.zeros(3, 3)}
+      np.testing.assert_array_equal(v, state[k].numpy(), err_msg=k)
+  bad = [{'w': np.zeros((3, 3), np.float32)}]
   with pytest.raises(ValueError, match='shape'):
-    TF.merge_pretrained(state, bad, 'ctrl_mlp', cfg.timespan)
+    P.merge_pretrained(P.net_from_state(state, 'ctrl_mlp'), bad)
+  with pytest.raises(ValueError, match='shape'):
+    P.load_nets(model, [('ctrl_mlp', bad, None)])
   # An in-memory box model's controller fits the full model's.
   box = TB.BoxModel(C.tiny_box_config(), device='cpu')
   TF.load_pretrained(model, box)

@@ -21,6 +21,8 @@ import math
 import os
 import shutil
 
+import jax
+import numpy as np
 import pytest
 import torch
 import yaml
@@ -28,8 +30,11 @@ import yaml
 from rec_attend_tpu import config as JC
 from rec_attend_tpu.cli import args as JA
 from rec_attend_tpu.engine import experiment as jexp_lib
+from rec_attend_tpu.models import full_model as JF
 from rec_attend_tpu_torch import config as C
+from rec_attend_tpu_torch import convert
 from rec_attend_tpu_torch.cli import args as A
+from rec_attend_tpu_torch.cli import read_weights
 from rec_attend_tpu_torch.cli import train as train_cli
 from rec_attend_tpu_torch.data import provider as port_provider
 from rec_attend_tpu_torch.engine import experiment as exp_lib
@@ -42,9 +47,9 @@ torch.set_num_threads(1)
 # that set only them.
 JAX_ONLY = {'full': {'mlp_dropout', 'parallel_decode', 'remat_policy',
                      'scan_unroll', 'use_pallas'},
-            'box': {'freeze_pretrain_cnn', 'use_pallas'}, 'fg': set()}
-JAX_ONLY_FLAGS = {'full': {'mlp_dropout', 'use_pallas'},
-                  'box': {'freeze_pretrain_cnn'}, 'fg': set()}
+            'box': {'use_pallas'}, 'fg': set()}
+JAX_ONLY_FLAGS = {'full': {'mlp_dropout', 'use_pallas'}, 'box': set(),
+                  'fg': set()}
 
 SIZE = 32
 GLIMPSE = dict(inp_height=SIZE, inp_width=SIZE, filter_height=8,
@@ -262,6 +267,10 @@ def test_a_non_finite_loss_stops_the_run(tmp_path, monkeypatch):
 
 
 def test_pretrained_controller_comes_from_the_box_checkpoint(tmp_path):
+  """The box run's checkpoint, exported to its weights.h5 by the port's
+  read_weights, starts the full run's controller as JAX load_pretrained
+  starts it from that file, leaf for leaf; a checkpoint or a results folder
+  in pretrain_ctrl_net is no weights.h5 and raises."""
   (box_cfg, train_cfg, data_cfg), _ = _cfgs(tmp_path, 'box',
                                             steps_per_valid=0,
                                             steps_per_trainval=0)
@@ -269,21 +278,33 @@ def test_pretrained_controller_comes_from_the_box_checkpoint(tmp_path):
                                    device='cpu')
   box.run()
   step, ckpt = box.saver.get_latest_ckpt()
-  full_cfg = SPECS['full'][0]
+  weights = read_weights.box_main(
+      ['--model_id', box.model_id, '--results', train_cfg.results],
+      device='cpu')
+  assert weights == os.path.join(box.folder, 'weights.h5')
+  full_cfg, jfull_cfg = SPECS['full']
+  full = exp_lib.TrainingExperiment(
+      'full', full_cfg.replace(pretrain_ctrl_net=weights),
+      train_cfg.replace(model_id='full_from_h5'), data_cfg, device='cpu')
+  state = full.trainer.model.state_dict()
+  jparams = JF.load_pretrained(
+      JF.init_full_model(jax.random.PRNGKey(0), jfull_cfg),
+      jfull_cfg.replace(pretrain_ctrl_net=weights))
+  want = convert.flatten_tree(jax.tree_util.tree_map(np.asarray, jparams))
+  loaded = 0
+  for k, v in box.trainer.model.state_dict().items():
+    if k.split('.')[0] in ('ctrl_cnn', 'ctrl_mlp', 'glimpse_mlp',
+                           'ctrl_lstm'):
+      assert torch.equal(state[k], v), k
+      np.testing.assert_array_equal(state[k].numpy(), want[k], err_msg=k)
+      loaded += 1
+  assert loaded == 3 * 6 + 2 * 2 + 12
   for src in (ckpt, box.folder):
-    full = exp_lib.TrainingExperiment(
-        'full', full_cfg.replace(pretrain_ctrl_net=src),
-        train_cfg.replace(model_id=f'full_{len(src)}'), data_cfg,
-        device='cpu')
-    state = full.trainer.model.state_dict()
-    for k, v in box.trainer.model.state_dict().items():
-      if k.split('.')[0] in ('ctrl_cnn', 'ctrl_mlp', 'glimpse_mlp',
-                             'ctrl_lstm'):
-        assert torch.equal(state[k], v), k
-  with pytest.raises(NotImplementedError, match='weights.h5'):
-    exp_lib.TrainingExperiment(
-        'full', full_cfg.replace(pretrain_ctrl_net='box/weights.h5'),
-        train_cfg, data_cfg, device='cpu')
+    with pytest.raises(Exception, match='HDF5|Is a directory'):
+      exp_lib.TrainingExperiment(
+          'full', full_cfg.replace(pretrain_ctrl_net=src),
+          train_cfg.replace(model_id=f'full_{len(src)}'), data_cfg,
+          device='cpu')
   with pytest.raises(TypeError):
     exp_lib.TrainingExperiment('full', box_cfg, train_cfg, data_cfg,
                                device='cpu')
@@ -297,7 +318,8 @@ ARGVS = {
                   '--remat', '--num_steps', '7', '--save_ckpt',
                   '--no_valid', '--prefetch']],
     'box': [[], ['--dataset', 'kitti', '--add_d_out', '--add_y_out',
-                 '--dynamic_var', '--batch_size', '8', '--restore', 'r/x']],
+                 '--dynamic_var', '--batch_size', '8', '--restore', 'r/x',
+                 '--pretrain_cnn', 'fg/weights.h5', '--freeze_pretrain_cnn']],
     'fg': [[], ['--dataset', 'cityscapes', '--add_orientation',
                 '--cnn_depth', '4,8', '--cnn_pool', '2,2', '--dcnn_depth',
                 '8,9', '--dcnn_pool', '2,2', '--optimizer', 'momentum',

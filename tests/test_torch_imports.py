@@ -7,7 +7,8 @@ model, the orientation maps) and the eval path's (postprocess, analyzers,
 eval experiment, eval_split) included, the Cityscapes eval's (the label
 table, the full pack, the model-free eval, the instance AP and the pixel
 eval) too, the training run's (the experiment, the checkpoint writer and
-its YAML, the batch iterators, the command lines, the pipeline), and a
+its YAML, the batch iterators, the command lines, the pipeline), the
+weights files' (the HDF5 codec, the named weights, read_weights), and a
 train step of each model (fg with momentum, box, full started from the
 box), an eval_split, the fg -> pack -> full chain, the Cityscapes-shaped
 chain to its AP and pixel eval, and the train command line, the synth
@@ -143,7 +144,9 @@ def test_training_run_with_those_modules_missing(tmp_path):
   """The training run as users launch it, with JAX, cv2, h5py, YAML and the
   rest blocked: the train command line writes its checkpoints and option
   snapshots and goes on from them, and the synth pipeline trains the box
-  model, the full model from the box's checkpoint, and evaluates it."""
+  model, the full model from the box's weights.h5 (the port's HDF5 codec
+  writes and reads it), and evaluates it; the committed flagship box's
+  weights.h5 reads."""
   script = textwrap.dedent(f"""
       import os, sys
       BLOCKED = {BLOCKED!r}
@@ -183,7 +186,14 @@ def test_training_run_with_those_modules_missing(tmp_path):
       from rec_attend_tpu_torch.engine.experiment import EvalExperiment
       from rec_attend_tpu_torch.serving import InstanceSegmenter
       folder = os.path.join(root, 'r', full_id)
-      assert EvalExperiment(folder, device='cpu').cfg.timespan == 6
+      exp = EvalExperiment(folder, device='cpu')
+      assert exp.cfg.timespan == 6
+      assert exp.cfg.pretrain_ctrl_net == os.path.join(
+          root, 'r', full_id.replace('full_model', 'box_model'), 'weights.h5')
+      from rec_attend_tpu_torch.utils import h5
+      assert len(h5.read(exp.cfg.pretrain_ctrl_net)) > 0
+      assert len(h5.read(os.path.join(
+          'results', 'box_model_synth-20260816104712', 'weights.h5'))) == 708
       seg = InstanceSegmenter.from_checkpoint(folder, device='cpu')
       assert seg.predict(torch.rand(1, 64, 64, 3).numpy())['masks'].shape == (
           1, 6, 64, 64)

@@ -4,20 +4,23 @@ its full model evaluated by the JAX package; and ``chip_smoke.py``'s
 controls fail).
 
 The port's ``run_pipeline`` trains the box model and the full model from
-the box's last checkpoint, 60 steps each (enough that the full model
+the box's ``weights.h5`` (its last checkpoint exported), 60 steps each (enough that the full model
 finds instances: some SBD above 0, some predicted count), on the CPU, and
 its eval command line writes the valid split's CSVs.  The JAX package's
 ``EvalExperiment`` then restores the port's full checkpoint and its
 ``eval_split`` runs over the same valid split (the port's in-memory
 split, which has the interface JAX's eval reads): per example the SBD is
 within 1e-3 of the port's CSV (the CSVs hold 4 decimals; the forwards
-agree to float32 rounding) and the count error (``dic``) is equal.
+agree to float32 rounding) and the count error (``dic``) is equal.  JAX's
+``TrainingExperiment`` restores the folder as the port wrote it and takes
+a step.
 """
 
 import csv
 import os
 import sys
 
+import jax
 import numpy as np
 import torch
 import yaml
@@ -25,6 +28,7 @@ import yaml
 from rec_attend_tpu import config as JC
 from rec_attend_tpu.cli import eval as jeval
 from rec_attend_tpu.engine.experiment import EvalExperiment as JEval
+from rec_attend_tpu.engine.experiment import TrainingExperiment as JTrain
 from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch.data import provider
 from rec_attend_tpu_torch.engine import saver
@@ -55,8 +59,11 @@ def test_tiny_pipeline_evaluates_as_jax(tmp_path):
   box_id = full_id.replace('full_model', 'box_model')
   box_ckpt = os.path.join(results, box_id, f'ckpt-{STEPS}.npz')
   assert saver.latest_checkpoint(os.path.join(results, box_id)) == box_ckpt
+  # The box is handed over as JAX hands it over: its last checkpoint
+  # exported to the box folder's weights.h5.
+  box_weights = os.path.join(results, box_id, 'weights.h5')
   cfg = C.FullModelConfig.from_yaml(os.path.join(folder, 'model_opt.yaml'))
-  assert cfg.pretrain_ctrl_net == box_ckpt and cfg.use_knob
+  assert cfg.pretrain_ctrl_net == box_weights and cfg.use_knob
   assert saver.latest_checkpoint(folder).endswith(f'ckpt-{STEPS}.npz')
   got_dir = os.path.join(folder, 'output_valid')
   got_sbd = _rows(os.path.join(got_dir, 'sbd.csv'))
@@ -67,9 +74,9 @@ def test_tiny_pipeline_evaluates_as_jax(tmp_path):
   with open(os.path.join(folder, 'model_opt.yaml')) as f:
     jcfg = JC.FullModelConfig.from_dict(yaml.safe_load(f))
   data_cfg = C.DataConfig.from_yaml(os.path.join(folder, 'data_opt.yaml'))
-  # The checkpoint sets every parameter: the box checkpoint is not read
-  # (JAX would read it as a weights.h5).
-  jexp = JEval('full', jcfg.replace(use_knob=False, pretrain_ctrl_net=None),
+  # The folder as the port wrote it: JAX reads its pretrain_ctrl_net, the
+  # box's weights.h5, before the checkpoint sets every parameter.
+  jexp = JEval('full', jcfg.replace(use_knob=False),
                JC.TrainConfig(restore=folder, batch_size=4, results=results),
                JC.DataConfig.from_dict(data_cfg.to_dict()),
                splits=['valid'])
@@ -91,6 +98,20 @@ def test_tiny_pipeline_evaluates_as_jax(tmp_path):
   assert max(got_sbd.values()) > 0
   true_count = valid.get_batch(np.arange(len(got_dic)))['s_gt'].sum()
   assert sum(got_dic.values()) + true_count > 0
+
+  # JAX's training run restores the port's folder, its options as written,
+  # and trains on.
+  jtrain = JC.TrainConfig(restore=folder, num_steps=STEPS + 1, batch_size=4,
+                          results=results, logs=str(tmp_path / 'jax_logs'),
+                          steps_per_valid=0, steps_per_trainval=0,
+                          steps_per_plot=0, save_ckpt=False)
+  jrun = JTrain('full', jcfg, jtrain,
+                JC.DataConfig.from_dict(data_cfg.to_dict()))
+  assert jrun.step == STEPS
+  jrun.run()
+  assert jrun.step == STEPS + 1
+  for leaf in jax.tree_util.tree_leaves(jrun.params):
+    assert np.isfinite(np.asarray(leaf)).all()
 
 
 def test_chip_smoke_pipeline_phase_on_cpu():

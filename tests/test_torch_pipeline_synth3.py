@@ -111,8 +111,11 @@ def test_chain_writes_what_users_read(chain):
         f'ckpt-{steps}.npz')
   full_cfg = C.FullModelConfig.from_yaml(os.path.join(_folder(chain, 'full'),
                                                       'model_opt.yaml'))
+  # The box's controller is handed over as JAX hands it over: its last
+  # checkpoint exported to the box folder's weights.h5.
   assert full_cfg.pretrain_ctrl_net == os.path.join(
-      _folder(chain, 'box'), f'ckpt-{STEPS}.npz')
+      _folder(chain, 'box'), 'weights.h5')
+  assert os.path.isfile(full_cfg.pretrain_ctrl_net)
   assert data_cfg.folder == os.path.join(chain['root'], 'data')
   for split in ('train', 'valid'):
     assert provider.has_pack(data_cfg, split)
@@ -168,8 +171,9 @@ def test_pack_files_hold_jax_bytes(chain):
 
 def test_full_model_evaluates_as_jax_on_the_packed_bytes(chain, tmp_path):
   folder = _folder(chain, 'full')
-  jexp = _jax_eval(chain, 'full', JC.FullModelConfig, use_knob=False,
-                   pretrain_ctrl_net=None)
+  # The folder as the port wrote it: JAX reads its pretrain_ctrl_net, the
+  # box's weights.h5, before the checkpoint sets every parameter.
+  jexp = _jax_eval(chain, 'full', JC.FullModelConfig, use_knob=False)
   assert jexp.step == FULL_STEPS
   valid = provider.get('synth', chain['data_cfg'], split='valid')
   assert isinstance(valid, provider.PackedDataset)
@@ -292,7 +296,8 @@ def test_reused_stages_are_not_trained(chain, tmp_path):
           for s in ('fg', 'box')} == before
   cfg = C.FullModelConfig.from_yaml(os.path.join(
       results, out['full'], 'model_opt.yaml'))
-  assert cfg.pretrain_ctrl_net == before['box'][-1][1]
+  assert cfg.pretrain_ctrl_net == os.path.join(results, ids['box'],
+                                               'weights.h5')
 
 
 def test_resume_with_other_data_raises(chain, tmp_path):
@@ -347,6 +352,7 @@ def test_chip_smoke_synth3_pipeline_phase_on_cpu():
       cli_examples=2)
   assert failures == []
   for gated in (out['fg']['split_gate'], out['box']['pack_gate'],
+                out['full']['pretrained_gate'],
                 out['fg_metrics']['gate'], out['resumed']['gate'],
                 out['eval']['command_line']['gate']):
     assert gated['failures'] == [] and gated['control_failures']

@@ -133,8 +133,11 @@ def test_chain_writes_what_users_read(chain):
         f'ckpt-{steps}.npz')
   full_cfg = C.FullModelConfig.from_yaml(os.path.join(_folder(chain, 'full'),
                                                       'model_opt.yaml'))
+  # The box's controller is handed over as JAX hands it over: its last
+  # checkpoint exported to the box folder's weights.h5.
   assert full_cfg.pretrain_ctrl_net == os.path.join(
-      _folder(chain, 'box'), f'ckpt-{STEPS}.npz')
+      _folder(chain, 'box'), 'weights.h5')
+  assert os.path.isfile(full_cfg.pretrain_ctrl_net)
   assert full_cfg.num_semantic_classes == 3
   assert data_cfg.num_semantic_classes == 2
   # The fg maps in both pack files, the full model's in the valid one.
@@ -229,8 +232,9 @@ def test_pack_files_hold_jax_bytes(chain):
 
 def test_full_model_evaluates_as_jax_on_the_packed_bytes(chain, tmp_path):
   folder = _folder(chain, 'full')
-  jexp = _jax_eval(chain, 'full', JC.FullModelConfig, use_knob=False,
-                   pretrain_ctrl_net=None)
+  # The folder as the port wrote it: JAX reads its pretrain_ctrl_net, the
+  # box's weights.h5, before the checkpoint sets every parameter.
+  jexp = _jax_eval(chain, 'full', JC.FullModelConfig, use_knob=False)
   assert jexp.step == FULL_STEPS
   valid = provider.get('synth', chain['data_cfg'], split='valid')
   jexp.get_dataset = lambda split: valid
@@ -440,7 +444,8 @@ def test_reused_stages_are_not_trained(chain, tmp_path):
           for s in ('fg', 'box')} == before
   cfg = C.FullModelConfig.from_yaml(os.path.join(
       results, out['full'], 'model_opt.yaml'))
-  assert cfg.pretrain_ctrl_net == before['box'][-1][1]
+  assert cfg.pretrain_ctrl_net == os.path.join(results, ids['box'],
+                                               'weights.h5')
 
 
 def test_paper_scale_is_the_jax_pipelines():

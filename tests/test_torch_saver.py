@@ -197,10 +197,13 @@ def test_a_loaded_config_carries_the_keys_it_lacks():
   """A JAX snapshot's options that the port's config lacks are not read
   and not compared, but ``replace`` keeps them and ``to_dict`` writes them
   back."""
-  opt = dict(C.tiny_box_config().to_dict(), use_pallas=True,
-             freeze_pretrain_cnn=False)
+  opt = dict(C.tiny_box_config().to_dict(), use_pallas=True)
   cfg = C.BoxModelConfig.from_dict(opt)
   assert cfg == C.tiny_box_config()
+  # freeze_pretrain_cnn is the port's own option now: read, not carried.
+  frozen = C.BoxModelConfig.from_dict(dict(opt, freeze_pretrain_cnn=False))
+  assert not frozen.freeze_pretrain_cnn and frozen._carried == {
+      'use_pallas': True}
   assert not hasattr(cfg, 'use_pallas')
   again = cfg.replace(timespan=3)
   assert again.to_dict() == dict(opt, timespan=3)
