@@ -19,7 +19,10 @@ script started ('script_seconds'):
                 extract D=15, paste D=1) and at the synthcs pipeline's
                 train shapes (256x512, b4, extract D=15 and D=1, paste D=1),
                 at Cityscapes' extract (256x512,
-                b32, D=21), at paste's d_p of the KITTI size (extract D=1) and
+                b32, D=21), at paste's d_p of the KITTI size (extract D=1),
+                at the H5 pipelines' (CVPPP box and full b5: extract D=4
+                and D=1 at 224x224, paste; KITTI box b5 paste, full b2
+                extract D=13 and D=1 and paste at 128x448) and
                 at a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
                 CUDA-event times; each extract names its route (the tiled
                 kernel, the strip kernel and their output rows a block, or
@@ -293,7 +296,33 @@ script started ('script_seconds'):
                 pretrain_net the exported file) in a TrainingExperiment:
                 its parameters and b32 eval forward equal to ckpt-30000's
                 bit for bit (cuDNN deterministic; control: the file
-                without score_mlp), then 2 steps.
+                without score_mlp), then 2 steps;
+  cvppp_pipeline, kitti_pipeline
+                the H5 datasets' pipelines as users launch them, without
+                cv2 or h5py: (a) a layout fixture built from a seed at the
+                dataset's raw size (CVPPP A1's 128 plants at 530x500 with
+                1-20 leaves each, the labels palette-indexed PNGs; KITTI
+                cut to 64 train, 16 valid and 16 test images at 375x1242
+                with 1-20 cars each); (b) assembled by cli.setup_dataset
+                (224x224 and 128x448); (c) run_pipeline --dataset cvppp
+                (box -> full -> eval, b5) or kitti (fg b8 -> pack into the
+                H5 -> box b5 -> full b2 -> eval) at the paper presets, 2
+                steps a stage; (d) gates, each with a control that must
+                fail: the PNG codec's round trips over every colour type,
+                bit depth and filter (control: Paeth rows read as Up), the
+                JAX-written synthetic H5 of tests/fixtures read to the
+                digest the CPU tests pin against JAX (control: the
+                channels reversed), KITTI's fg maps read back from the H5
+                equal to those packed, bit for bit (control: the maps
+                flipped before writing), the trained full model's eval
+                step kernel against plain (control: the window 8 pixels
+                off), the full model's model_opt.yaml naming the box's
+                weights.h5 and the eval CSVs (control: the box's folder),
+                launches per step (control: a plain step's).  Reported:
+                the fixture's and each split's assemble seconds and bytes,
+                decode ms per example, step ms per stage (CUDA events and
+                the log cadence), peak memory, the pack's seconds, eval
+                host seconds per batch, launches.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -2550,7 +2579,7 @@ def chain_patched(run_pipeline, dataset, wrap):
   by ``wrap(it)`` inside the block."""
   chains = run_pipeline.CHAINS
   saved = chains[dataset]
-  chains[dataset] = (saved[0], wrap(saved[1]))
+  chains[dataset] = (saved[0], wrap(saved[1])) + tuple(saved[2:])
   try:
     yield
   finally:
@@ -3578,6 +3607,592 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
 
 
 # ---------------------------------------------------------------------------
+# cvppp_pipeline, kitti_pipeline: the H5 datasets on the card
+# ---------------------------------------------------------------------------
+
+# The layout fixtures, built from a seed at the real raw sizes: CVPPP A1's
+# 128 plants at 530x500 (its 80/20 split: 103/25), KITTI cut to 64 train,
+# 16 valid and 16 test images (the real car set has thousands) at 375x1242;
+# 1-20 instances an image.
+CVPPP_FIXTURE = dict(count=128, height=530, width=500, seed=20)
+KITTI_FIXTURE = dict(counts={'train': 64, 'valid': 16, 'test': 16},
+                     height=375, width=1242, seed=21)
+H5_SPLITS = {'cvppp': ('train', 'valid'), 'kitti': ('train', 'valid', 'test')}
+H5_PIPELINE_STEPS = 2
+MAX_INSTANCES = 20
+# A synthetic split written by the JAX package (make_synthetic_h5: cv2's
+# PNGs, nested label_segmentation/NN groups, a |S9 index_map), and the
+# SHA-256 of what its get_batch and get_full_size_labels give over every
+# example (``jax_h5_digest``), pinned by tests/test_torch_datasets.py
+# against the JAX package's InsSegDataset on the CPU.
+JAX_SYNTH_H5 = os.path.join(REPO, 'tests', 'fixtures',
+                            'synth_valid_64x64.h5')
+JAX_SYNTH_VARIABLES = ('x', 'y_gt', 'c_gt', 'd_gt', 's_gt', 'orig_size',
+                       'idx_map')
+JAX_SYNTH_DIGEST = (
+    'f19e3bf59b015fbe62697689a6041c30eeede36cbd69607e8be8a67f5c7d1163')
+
+
+def ellipse(h, w, cy, cx, ry, rx, angle):
+  """[H, W] bool: the filled ellipse of centre (cy, cx), radii (ry, rx),
+  turned by ``angle`` radians (computed over its bounding box)."""
+  import numpy as np
+  r = int(np.ceil(max(ry, rx))) + 1
+  y0, y1 = max(int(cy) - r, 0), min(int(cy) + r + 1, h)
+  x0, x1 = max(int(cx) - r, 0), min(int(cx) + r + 1, w)
+  out = np.zeros((h, w), bool)
+  if y0 >= y1 or x0 >= x1:
+    return out
+  yy, xx = np.mgrid[y0:y1, x0:x1]
+  c, s = np.cos(angle), np.sin(angle)
+  u = (xx - cx) * c + (yy - cy) * s
+  v = -(xx - cx) * s + (yy - cy) * c
+  out[y0:y1, x0:x1] = (u / rx) ** 2 + (v / ry) ** 2 <= 1
+  return out
+
+
+def distinct_colours(rng, n):
+  """[n, 3] uint8 colours, none black and no two alike."""
+  import numpy as np
+  codes = []
+  while len(codes) < n:
+    code = int(rng.randint(1, 1 << 24))
+    if code not in codes:
+      codes.append(code)
+  codes = np.array(codes)
+  return np.stack([(codes >> s) & 255 for s in (16, 8, 0)], 1).astype(
+      np.uint8)
+
+
+def cvppp_fixture(folder, count, height, width, seed):
+  """CVPPP A1's layout: plantNNN_rgb.png (leaves on soil), plantNNN_label.png
+  (a palette-indexed PNG, index k the k-th leaf, so the palette path runs)
+  and plantNNN_fg.png (gray, 255 on the plant), plants 1..count, each with
+  1-20 leaves (ellipses about the plant's centre, later ones on top).
+  Returns the bytes written."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.utils import png
+  os.makedirs(folder, exist_ok=True)
+  rng = np.random.RandomState(seed)
+  nbytes = 0
+  for pid in range(1, count + 1):
+    leaves = rng.randint(1, MAX_INSTANCES + 1)
+    idx = np.zeros((height, width), np.uint8)
+    cy, cx = height / 2 + rng.randn() * height / 20, width / 2
+    scale = min(height, width)
+    for k in range(1, leaves + 1):
+      turn = rng.rand() * 2 * np.pi
+      dist = rng.rand() * scale * 0.3
+      idx[ellipse(height, width, cy + dist * np.sin(turn),
+                  cx + dist * np.cos(turn), scale * (0.03 + 0.04 * rng.rand()),
+                  scale * (0.07 + 0.08 * rng.rand()), turn)] = k
+    bgr = (rng.rand(height, width, 3) * 40 + [20, 50, 80]).astype(np.uint8)
+    greens = np.stack([rng.randint(0, 60, leaves + 1),
+                       rng.randint(90, 230, leaves + 1),
+                       rng.randint(0, 90, leaves + 1)], 1).astype(np.uint8)
+    leaf = idx > 0
+    bgr[leaf] = np.clip(greens[idx[leaf]].astype(int)
+                        + rng.randint(-12, 13, (leaf.sum(), 3)), 0, 255)
+    palette = np.concatenate([np.zeros((1, 3), np.uint8),
+                              distinct_colours(rng, leaves)])
+    files = {'rgb': png.encode(bgr),
+             'label': png.encode_samples(idx, 3, 8, palette=palette),
+             'fg': png.encode((leaf * 255).astype(np.uint8))}
+    for kind, blob in files.items():
+      with open(os.path.join(folder, f'plant{pid:03d}_{kind}.png'), 'wb') as f:
+        f.write(blob.tobytes())
+      nbytes += blob.size
+  return nbytes
+
+
+def kitti_fixture(folder, counts, height, width, seed):
+  """The KITTI car set's layout: images/NNNNNN.png, the colour-labelled
+  instances of gt/NNNNNN.png and gt_man/NNNNNN.png (one colour a car) and
+  {split}.txt with the ids, ``counts`` images a split, each with 1-20 cars
+  (ellipses in the road's half, nearer ones larger and on top).  Returns
+  the bytes written."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.utils import png
+  for sub in ('images', 'gt', 'gt_man'):
+    os.makedirs(os.path.join(folder, sub), exist_ok=True)
+  rng = np.random.RandomState(seed)
+  nbytes, next_id = 0, 0
+  for split, n in counts.items():
+    ids = list(range(next_id, next_id + n))
+    next_id += n
+    with open(os.path.join(folder, f'{split}.txt'), 'w') as f:
+      f.writelines(f'{i}\n' for i in ids)
+    for iid in ids:
+      cars = rng.randint(1, MAX_INSTANCES + 1)
+      sky = (rng.rand(height, width, 3) * 30 + [150, 120, 90])
+      bgr = sky.astype(np.uint8)
+      bgr[height // 2:] = (rng.rand(height - height // 2, width, 3) * 30
+                           + 60).astype(np.uint8)
+      label = np.zeros((height, width), np.int32)
+      ys = np.sort(rng.uniform(height * 0.5, height * 0.95, cars))
+      for k, y in enumerate(ys, 1):
+        near = (y - height * 0.45) / (height * 0.5)
+        label[ellipse(height, width, y, rng.uniform(0, width),
+                      height * 0.12 * near + 2, width * 0.06 * near + 3,
+                      0.0)] = k
+      colours = np.concatenate([np.zeros((1, 3), np.uint8),
+                                distinct_colours(rng, cars)])
+      car = label > 0
+      bgr[car] = (colours[label[car]] // 2 + 60).astype(np.uint8)
+      gt = colours[label]
+      files = {'images': png.encode(bgr), 'gt': png.encode(gt),
+               'gt_man': png.encode(gt)}
+      for sub, blob in files.items():
+        with open(os.path.join(folder, sub, f'{iid:06d}.png'), 'wb') as f:
+          f.write(blob.tobytes())
+        nbytes += blob.size
+  return nbytes
+
+
+def expected_samples(samples, colour_type, depth, palette, trns):
+  """What ``png.decode(.., IMREAD_UNCHANGED)`` must return for raw samples
+  in the file's order: BGR(A), gray samples of 1-4 bits scaled to 8."""
+  import numpy as np
+  s = samples
+  if colour_type == 0:
+    return s[..., 0] * np.uint8(255 // ((1 << depth) - 1)) if depth < 8 \
+        else s[..., 0]
+  if colour_type == 2:
+    return s[..., ::-1]
+  if colour_type == 3:
+    bgr = palette[s[..., 0]][..., ::-1]
+    if trns is None:
+      return bgr
+    alpha = np.full(len(palette), 255, np.uint8)
+    alpha[:len(trns)] = np.frombuffer(trns, np.uint8)
+    return np.concatenate([bgr, alpha[s[..., :1]]], axis=2)
+  if colour_type == 4:
+    return s[..., [0, 0, 0, 1]]
+  return s[..., [2, 1, 0, 3]]
+
+
+def paeth_as_up(blob):
+  """The PNG ``blob`` with every Paeth row marked Up: what a decoder that
+  took the one filter for the other would decode."""
+  import struct
+  import zlib
+
+  import numpy as np
+  data = bytes(blob)
+  w, h, depth, ctype = struct.unpack('>IIBB', data[16:26])
+  n = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ctype]
+  rowbytes = (w * n * depth + 7) // 8
+  start = data.index(b'IDAT') - 4
+  size = struct.unpack('>I', data[start:start + 4])[0]
+  stream = np.frombuffer(zlib.decompress(data[start + 8:start + 8 + size]),
+                         np.uint8).reshape(h, rowbytes + 1).copy()
+  stream[stream[:, 0] == 4, 0] = 2
+  body = zlib.compress(stream.tobytes())
+  chunk = (struct.pack('>I', len(body)) + b'IDAT' + body
+           + struct.pack('>I', zlib.crc32(b'IDAT' + body)))
+  return np.frombuffer(data[:start] + chunk + data[start + 12 + size:],
+                       np.uint8)
+
+
+def png_round_trips(h=19, w=37, seed=0):
+  """The codec gate: random samples of every colour type and bit depth
+  (palettes with and without tRNS), each encoded with each of the five
+  filters forced on every row and with the heuristic's choice, decoded
+  with IMREAD_UNCHANGED against ``expected_samples``, and the palette
+  image with IMREAD_COLOR as BGR.  Returns (the failures, the control's:
+  the Paeth streams decoded as Up, which must differ)."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.utils import png
+  rng = np.random.RandomState(seed)
+  failures, control = [], []
+  for ctype, depths in png.DEPTHS.items():
+    for depth in depths:
+      n = png.CHANNELS[ctype]
+      s = rng.randint(0, 1 << depth, (h, w, n)).astype(
+          np.uint16 if depth == 16 else np.uint8)
+      cases = [(None, None)]
+      if ctype == 3:
+        pal = rng.randint(0, 256, (1 << depth, 3)).astype(np.uint8)
+        cases = [(pal, None), (pal, bytes(rng.randint(
+            0, 256, max(1, len(pal) // 2)).astype(np.uint8)))]
+      for pal, trns in cases:
+        want = expected_samples(s, ctype, depth, pal, trns)
+        for filt in list(range(5)) + [None]:
+          blob = png.encode_samples(s, ctype, depth, palette=pal, trns=trns,
+                                    filter_type=filt)
+          name = f'type {ctype} depth {depth} filter {filt} tRNS {bool(trns)}'
+          got = png.decode(blob, png.IMREAD_UNCHANGED)
+          if got.dtype != want.dtype or not np.array_equal(got, want):
+            failures.append(name)
+          if ctype == 3 and not np.array_equal(
+              png.decode(blob, png.IMREAD_COLOR), want[..., :3]):
+            failures.append(f'{name} IMREAD_COLOR')
+          if filt == 4 and np.array_equal(
+              png.decode(paeth_as_up(blob), png.IMREAD_UNCHANGED), want):
+            control.append(name)
+  # The control must fail: Paeth rows read as Up decode to other samples.
+  n_paeth = sum(len(d) for d in png.DEPTHS.values()) + 1
+  return failures, ([] if len(control) == n_paeth
+                    else [f'{n_paeth - len(control)} Paeth streams differ '
+                          'read as Up'])
+
+
+def jax_h5_digest(ds, channels_reversed=False):
+  """SHA-256 of what ``ds`` (a dataset of JAX_SYNTH_H5) gives: its
+  get_batch of JAX_SYNTH_VARIABLES over every example and its full-size
+  labels, each array's dtype, shape and bytes in a fixed order.
+  ``channels_reversed``: the images' channels reversed first (RGB for
+  BGR), the gate's control."""
+  import numpy as np
+  n = ds.get_dataset_size()
+  batch = ds.get_batch(np.arange(n), timespan=6,
+                       variables=set(JAX_SYNTH_VARIABLES))
+  if channels_reversed:
+    batch['x'] = batch['x'][..., ::-1]
+  h = hashlib.sha256()
+  for k in JAX_SYNTH_VARIABLES:
+    h.update(f'{k} {sha256_of(np.ascontiguousarray(batch[k]))}'.encode())
+  for a in ds.get_full_size_labels(ds.img_ids, timespan=6):
+    h.update(sha256_of(np.ascontiguousarray(a)).encode())
+  return h.hexdigest()
+
+
+def decode_ms(ds, n):
+  """Host ms per example of the first ``n`` examples of ``ds`` (an
+  ``InsSegDataset``): each's input PNG decoded, its full-size input PNG
+  decoded, and its get_batch of the train variables with the decode cache
+  cleared."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.utils import h5
+  from rec_attend_tpu_torch.utils import png
+  out = {'input': [], 'input_full_size': [], 'get_batch': []}
+  with h5.File(ds.h5_fname) as f:
+    for i in range(n):
+      group = f[ds.get_str_id(ds.img_ids[i])]
+      for key in ('input', 'input_full_size'):
+        blob = group[key]
+        t0 = time.perf_counter()
+        png.decode(blob, png.IMREAD_UNCHANGED)
+        out[key].append((time.perf_counter() - t0) * 1e3)
+  for i in range(n):
+    ds.clear_cache()
+    t0 = time.perf_counter()
+    ds.get_batch(np.arange(i, i + 1), variables={'x', 'y_gt', 's_gt',
+                                                 'c_gt', 'd_gt'})
+    out['get_batch'].append((time.perf_counter() - t0) * 1e3)
+  return {k: {'median_ms': statistics.median(v), 'max_ms': max(v)}
+          for k, v in out.items()}
+
+
+def h5_kernel_dims(cvppp_cfg, kitti_cfg):
+  """{(kernel, key): dims} of the H5 pipelines' glimpses: CVPPP's box and
+  full model at b5, KITTI's box at b5 and full model at b2."""
+  out = {}
+  for dataset, cfg, full_b, box_b in (('cvppp', cvppp_cfg, 5, 5),
+                                      ('kitti', kitti_cfg, 2, 5)):
+    hw = (cfg.inp_height, cfg.inp_width)
+    f = (cfg.filter_height, cfg.filter_width)
+    out['glimpse_extract', f'{dataset}_b{full_b}'] = (
+        (full_b,) + hw + (cfg.acnn_inp_depth,) + f)
+    out['glimpse_extract', f'{dataset}_d1_b{full_b}'] = (full_b,) + hw + (
+        1,) + f
+    for b in sorted({full_b, box_b}):
+      out['glimpse_paste', f'{dataset}_b{b}'] = (b,) + hw + (1,) + f
+  return out
+
+
+def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
+                      steps=H5_PIPELINE_STEPS, size=None):
+  """The port's pipeline of an H5 dataset (``dataset`` 'cvppp' or 'kitti')
+  as users launch it, on ``dev``: (a) a layout fixture from a seed
+  (``fixture``: CVPPP_FIXTURE or KITTI_FIXTURE by default), (b) assembled
+  by ``cli.setup_dataset`` at the dataset's size (``size`` (h, w) where
+  given: the CPU tests' 64x64), (c) ``run_pipeline.main --dataset
+  <dataset> --num_steps <steps>``, the paper presets, or the models that
+  ``run_pipeline.CHAINS[dataset]`` gives at the call (cvppp: box -> full ->
+  eval; kitti: fg -> pack into the H5 -> box -> full -> eval), (d) the
+  gates, each with a control that must fail: the PNG codec's round trips
+  (control: Paeth read as Up), the JAX-written synthetic H5 read to the
+  digest pinned on the CPU (control: the channels reversed), KITTI's fg
+  pack read back from the H5 bit for bit (control: the maps flipped before
+  writing), the trained full model's eval step kernel against plain
+  (control: the window 8 pixels off), the files (the full model's
+  model_opt.yaml naming the box's weights.h5 and the eval CSVs; control:
+  the box's folder) and, on the card, the launches per step (control: a
+  plain step's).  All under a temporary folder in the checkout, removed
+  after.  Returns (results, failures)."""
+  import numpy as np
+
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.cli import pack as pack_cli
+  from rec_attend_tpu_torch.cli import setup_dataset
+  from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS
+  from rec_attend_tpu_torch.config import FullModelConfig
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.data.dataset import pack_predictions
+  from rec_attend_tpu_torch.data.provider import _DECODE
+  from rec_attend_tpu_torch.data.synthetic import SyntheticH5
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+
+  out, failures = {}, []
+  cuda = dev.type == 'cuda'
+  kitti = dataset == 'kitti'
+  fixture = fixture or (KITTI_FIXTURE if kitti else CVPPP_FIXTURE)
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  start = time.time()
+  # ---- the codecs, and the readers on JAX-written data ----------------
+  t0 = time.time()
+  out['codec_gate'] = gate('PNG round trips', *png_round_trips())
+  jax_ds = SyntheticH5(JAX_SYNTH_H5)
+  digest = jax_h5_digest(jax_ds)
+  out['jax_h5'] = {'digest': digest, 'gate': gate(
+      'the JAX-written synthetic H5 read',
+      [] if digest == JAX_SYNTH_DIGEST else [f'digest {digest}'],
+      [] if jax_h5_digest(jax_ds, True) == JAX_SYNTH_DIGEST
+      else ['channels reversed'])}
+  out['codec_seconds'] = time.time() - t0
+
+  with tempfile.TemporaryDirectory(prefix=f'.chip_smoke_{dataset}-',
+                                   dir=REPO) as root:
+    folder, results, logs = (os.path.join(root, d)
+                             for d in ('data', 'results', 'logs'))
+    # ---- (a) the fixture, (b) assembled ---------------------------------
+    t0 = time.time()
+    nbytes = (kitti_fixture if kitti else cvppp_fixture)(folder, **fixture)
+    out['fixture'] = dict(fixture, bytes=nbytes, seconds=time.time() - t0)
+    argv = ['--dataset', dataset, '--folder', folder, '--splits',
+            ','.join(H5_SPLITS[dataset])]
+    if size:
+      argv += ['--height', str(size[0]), '--width', str(size[1])]
+    out['assemble'] = setup_dataset.main(argv)
+    for stats in out['assemble'].values():
+      stats['path'] = os.path.relpath(stats['path'], root)
+
+    # ---- (c) the pipeline -----------------------------------------------
+    argv = ['--dataset', dataset, '--dataset_folder', folder, '--results',
+            results, '--logs', logs, '--model_id', 'chip', '--num_steps',
+            str(steps)]
+    data_cfg, _, box_cfg, full_base, _, _, batch = run_pipeline.CHAINS[
+        dataset][1]('paper', results, logs, folder, steps)
+    T = full_base.timespan
+    valid = provider.get(dataset, data_cfg, split='valid')
+    out['decode'] = decode_ms(valid, valid.get_dataset_size())
+    ids = {s: f'{s}_model_{dataset}-chip' for s in ('fg', 'box', 'full')}
+    seconds = {'pack': [], 'eval': []}
+    timings = {'pack': {}, 'eval': {}}
+    packed_maps = []
+
+    def with_timings(key):
+      def wrap(fn):
+        return lambda *a, **kw: fn(*a, timings=timings[key], **kw)
+      return wrap
+
+    def keep_maps(fn):
+      def call(**maps):
+        packed_maps.append({k: np.array(v) for k, v in maps.items()})
+        return fn(**maps)
+      return call
+    gk.reset_launch_counts()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+      runs = stack.enter_context(recorded_runs(torch, gk, dev))
+      for owner, name, wrap in (
+          (pack_cli, 'fg_main', lambda fn: timed_calls(
+              torch, dev, fn, seconds['pack'])),
+          (pack_cli, 'pack_h5', with_timings('pack')),
+          (pack_cli, 'packed_group', keep_maps),
+          (eval_cli, 'full_main', lambda fn: timed_calls(
+              torch, dev, fn, seconds['eval'])),
+          (eval_cli, 'eval_split', with_timings('eval'))):
+        stack.enter_context(patched(owner, name, wrap))
+      got = run_pipeline.main(argv, device=dev)
+    out['pipeline_seconds'] = time.time() - t0
+    want_stages = list(run_pipeline.CHAINS[dataset][0])
+    if got['stages'] != want_stages:
+      failures.append(f'the pipeline ran {got["stages"]}')
+    by_stage = {r['spec']: r for r in runs}
+    for stage in [s for s in ('fg', 'box', 'full') if s in by_stage]:
+      rec = by_stage[stage]
+      out[stage] = {
+          'batch': batch[stage], **step_ms_summary(rec),
+          'step_ms_at_log': log_rows(os.path.join(logs, ids[stage]),
+                                     'step_time'),
+          'train_loss_at_log': log_rows(os.path.join(logs, ids[stage]),
+                                        'loss'),
+          **{k: rec[k] for k in ('start_step', 'run_seconds',
+                                 'max_memory_allocated_bytes',
+                                 'run_launches')}}
+      losses = list(out[stage]['train_loss_at_log'].values())
+      if not losses or not all(math.isfinite(v) for v in losses):
+        failures.append(f'{stage}: loss {losses}')
+    out['stage_host_seconds'] = seconds
+    out['eval_host_seconds_per_batch'] = {
+        k: statistics.median(v) for k, v in timings['eval'].items() if v}
+    out['eval_batches'] = len(timings['eval'].get('forward', []))
+    out['eval_launches'] = counts_delta(runs[-1]['launches_at_end'],
+                                        launches_now(gk))
+
+    # ---- (d) the fg pack, read back from the H5 (KITTI) -----------------
+    if kitti:
+      out['pack'] = {
+          'seconds': seconds['pack'],
+          'write_seconds': timings['pack'].get('write'),
+          'host_seconds_per_batch': {
+              k: statistics.median(v) for k, v in timings['pack'].items()
+              if v and k != 'write'},
+          'bytes': {s: os.path.getsize(provider.h5_path(dataset, data_cfg, s))
+                    for s in ('train', 'valid')}}
+
+      def read_back(split, path=None):
+        ds = provider.get(dataset, data_cfg, split=split, h5_fname=path)
+        b = ds.get_batch(np.arange(ds.get_dataset_size()),
+                         variables={'y_out', 'd_out'})
+        return b['y_out'], b['d_out']
+      n = {s: provider.get(dataset, data_cfg, split=s).get_dataset_size()
+           for s in ('train', 'valid')}
+      maps = {'train': packed_maps[:n['train']],
+              'valid': packed_maps[n['train']:n['train'] + n['valid']]}
+
+      def pack_diff(split, got):
+        want_y = _DECODE[np.stack([m['foreground'] for m in maps[split]])]
+        want_d = _DECODE[np.stack([m['orientation'] for m in maps[split]])]
+        return [f'{split} {k}' for k, a, b in (('y_out', got[0], want_y),
+                                               ('d_out', got[1], want_d))
+                if not np.array_equal(a, b)]
+      problems = [f'{s}: not every example holds the maps'
+                  for s in ('train', 'valid')
+                  if not provider.has_pack(data_cfg, s)]
+      if len(packed_maps) != n['train'] + n['valid']:
+        problems.append(f'{len(packed_maps)} examples packed')
+      problems += [x for s in ('train', 'valid')
+                   for x in pack_diff(s, read_back(s))]
+      flipped = os.path.join(root, 'flipped.h5')
+      valid_path = provider.h5_path(dataset, data_cfg, 'valid')
+      with open(valid_path, 'rb') as src, open(flipped, 'wb') as dst:
+        dst.write(src.read())
+      ds = provider.get(dataset, data_cfg, split='valid')
+      pack_predictions(flipped, {
+          ds.get_str_id(i): {k: v[::-1] for k, v in m.items()}
+          for i, m in zip(ds.img_ids, maps['valid'])})
+      out['pack']['gate'] = gate(
+          'the fg pack read back from the H5', problems,
+          pack_diff('valid', read_back('valid', flipped)))
+
+    # ---- the trained full model's eval step, kernel against plain -------
+    full = by_stage['full']['exp']
+    model = full.trainer.model
+    bs = min(batch['full'], valid.get_dataset_size())
+    valid_batch = full._device_batch(full.make_batch_fn(valid, T)(
+        np.arange(bs)))
+    plain, plain_solved = eval_step_metrics(torch, ts, matching, model,
+                                            valid_batch, 'plain')
+    gk.reset_launch_counts()
+    kernel, kernel_solved = eval_step_metrics(torch, ts, matching, model,
+                                              valid_batch, 'kernel')
+    eval_step = {'kernel': kernel, 'plain': plain, **launches_now(gk),
+                 'solves_agree': len(kernel_solved) == len(plain_solved)
+                 and all(np.array_equal(u, v) for a, b in zip(
+                     kernel_solved, plain_solved) for u, v in zip(a, b))}
+    if not eval_step['solves_agree']:
+      kernel, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
+                                    'kernel', pinned=plain_solved)
+    control, _ = eval_step_metrics(
+        torch, ts, matching, model, valid_batch,
+        shifted_plain(torch, EVAL_STEP_CONTROL_SHIFT), pinned=plain_solved)
+    eval_step['kernel_rel_diff'] = metrics_rel_diff(kernel, plain)
+    eval_step['control_rel_diff'] = metrics_rel_diff(control, plain)
+
+    def over(diff):
+      return [f'{k} {v:.3g}' for k, v in diff.items()
+              if not v <= EVAL_STEP_REL_LIMIT]
+    eval_step['gate'] = gate('full eval step, kernel against plain',
+                             over(eval_step['kernel_rel_diff']),
+                             over(eval_step['control_rel_diff']))
+    out['eval_step'] = eval_step
+
+    # ---- the files ------------------------------------------------------
+    n_valid = valid.get_dataset_size()
+
+    def files_diff(model_id):
+      folder_ = os.path.join(results, model_id)
+      problems = []
+      want = os.path.join(results, ids['box'], 'weights.h5')
+      try:
+        named = FullModelConfig.from_yaml(os.path.join(
+            folder_, 'model_opt.yaml')).pretrain_ctrl_net
+      except (OSError, TypeError, ValueError) as e:
+        named = f'unreadable ({e})'
+      if named != want or not os.path.exists(want):
+        problems.append(f'pretrain_ctrl_net {named}')
+      for name in DEFAULT_ANALYZERS:
+        path = os.path.join(folder_, 'output_valid', f'{name}.csv')
+        if not os.path.exists(path):
+          problems.append(f'no {name}.csv')
+      return problems
+    out['files_gate'] = gate('the full model\'s files', files_diff(
+        ids['full']), files_diff(ids['box']))
+    sbd = os.path.join(results, ids['full'], 'output_valid', 'sbd.csv')
+    if os.path.exists(sbd):
+      with open(sbd) as f:
+        rows = f.read().splitlines()[1:]
+      out['eval_sbd_rows'] = len(rows)
+      if len([r for r in rows if r and not r.startswith(('mean', 'std'))]) \
+          < n_valid:
+        failures.append(f'sbd.csv: {len(rows)} rows for {n_valid} examples')
+
+    # ---- launches per step ----------------------------------------------
+    gk.reset_launch_counts()
+    draws = full.trainer.family.draws(
+        full.model_cfg, bs, torch.Generator(dev).manual_seed(1))
+    one_step(torch, ts, matching, model, full.trainer.opt_state,
+             valid_batch, draws, full.step, 'plain')
+    plain_step = launches_now(gk)
+    recorded = {s: by_stage[s]['step_launches'] for s in by_stage}
+    out['launches_per_step'] = {s: v[0] if v else None
+                                for s, v in recorded.items()}
+    if cuda:
+      h, w = data_cfg.height, data_cfg.width
+      fh, fw = full_base.filter_height, full_base.filter_width
+      routes = {}
+      for d, n in ((full_base.acnn_inp_depth, 2 * T), (1, 2 * T)):
+        r = gk.extract_route(batch['full'], h, w, d, fh, fw)['kernel']
+        routes[r] = routes.get(r, 0) + n
+      out['full_extract_routes'] = routes
+      none = {'glimpse_extract': 0, 'glimpse_paste': 0}
+      want = {
+          'fg': {'launches': none, 'backward_launches': none,
+                 'extract_route_launches': {}},
+          'box': {'launches': dict(none, glimpse_paste=2 * T),
+                  'backward_launches': none, 'extract_route_launches': {}},
+          'full': {'launches': {'glimpse_extract': 4 * T,
+                                'glimpse_paste': 4 * T},
+                   'backward_launches': dict(none, glimpse_extract=2 * T),
+                   'extract_route_launches': routes}}
+
+      def steps_diff(stage, per_step):
+        return [f'{stage} step {i}: {s}' for i, s in enumerate(per_step)
+                if s != want[stage]] or ([] if per_step else ['no step'])
+      out['launch_gate'] = {
+          stage: gate(f'{stage} launches per step',
+                      steps_diff(stage, per_step),
+                      steps_diff(stage, recorded['full'] if stage == 'fg'
+                                 else [plain_step]))
+          for stage, per_step in recorded.items()}
+    out['folders'] = ids
+  out['seconds'] = time.time() - start
+  return out, failures
+
+
+# ---------------------------------------------------------------------------
 # weights_h5: the weights.h5 files on the card
 # ---------------------------------------------------------------------------
 
@@ -4552,6 +5167,14 @@ def main():
     name = 'glimpse_extract' if key == 'synthcs_d1_b4' else key
     checks[name]['synthcs_b4' if key == name else key] = check_kernel(
         torch, gk, attention, name, *dims, gen, dev, timed=True)
+  # The H5 datasets' pipelines: CVPPP's box and full model at b5 (extract x
+  # [5,224,224,4], its pastes' d_p [5,224,224,1], paste [5,48,48,1] ->
+  # 224x224), KITTI's box at b5 (paste -> 128x448) and full model at b2
+  # (extract x [2,128,448,13], d_p [2,128,448,1], paste -> 128x448).
+  h5_dims = h5_kernel_dims(cfg, chain_cfg)
+  for (name, key), dims in h5_dims.items():
+    checks[name][key] = check_kernel(torch, gk, attention, name, *dims, gen,
+                                     dev, timed=True)
   # The small requests of the serving path: 8 images, and one.
   for name, dims in main_dims.items():
     for b in (8, 1):
@@ -4571,7 +5194,11 @@ def main():
                  'synth3_b8': 'extract_strip_kernel',
                  'synth3_d1_b8': 'extract_strip_kernel',
                  'synthcs_b4': 'extract_strip_kernel',
-                 'synthcs_d1_b4': 'extract_strip_kernel'}
+                 'synthcs_d1_b4': 'extract_strip_kernel',
+                 'cvppp_b5': 'extract_tiled_kernel',
+                 'cvppp_d1_b5': 'extract_tiled_kernel',
+                 'kitti_b2': 'extract_strip_kernel',
+                 'kitti_d1_b2': 'extract_strip_kernel'}
   routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
             for k in want_routes}
   if routes != want_routes:
@@ -4779,6 +5406,17 @@ def main():
        phase_seconds=time.time() - t0, **weights)
   if failures:
     raise AssertionError(f'weights_h5 gates: {failures}')
+
+  # The H5 datasets' pipelines as users launch them, on layout fixtures
+  # built here at the datasets' raw sizes: after the other phases, which
+  # run as they did without them.
+  h5_runs = {}
+  for dataset in ('cvppp', 'kitti'):
+    h5_runs[dataset], failures = h5_pipeline_phase(torch, gk, dev, dataset)
+    emit(f'{dataset}_pipeline', nvidia_smi=name_power, failures=failures,
+         **h5_runs[dataset])
+    if failures:
+      raise AssertionError(f'{dataset}_pipeline gates: {failures}')
   weights_forward = {k: weights['launches']['launches'][k]
                      - weights['launches']['backward_launches'][k]
                      for k in checks}
@@ -4930,6 +5568,29 @@ def main():
                    '(full), ' + shape('glimpse_extract',
                                       synthcs_train_dims['synthcs_d1_b4']),
                    synthcs_launches('glimpse_extract', True)))
+  # The H5 datasets' pipelines: each stage run's forward and backward
+  # launches and the eval stage's, at the shape of that stage's batch.
+  for (name, key), dims in h5_dims.items():
+    dataset, backward = key.split('_')[0], '_d1_' in key
+    res = h5_runs[dataset]
+    # KITTI's box pastes at b5, its full model at b2; CVPPP's both at b5.
+    stages = {'cvppp_b5': ['box', 'full'], 'kitti_b2': ['full'],
+              'kitti_b5': ['box']}[key] if name == 'glimpse_paste' else [
+                  'full']
+    by_path = {}
+    for label in stages:
+      counts = res[label]['run_launches']
+      n = counts['backward_launches'][name]
+      n = n if backward else counts['launches'][name] - n
+      if n:
+        by_path[f'{dataset}_pipeline_{label}'] = n
+    if not backward and key != 'kitti_b5':
+      n = res['eval_launches']['launches'][name]
+      if n:
+        by_path[f'{dataset}_pipeline_eval'] = n
+    use = (BACKWARD_USES[name] if backward else 'forward') + (
+        f', {dataset} pipeline, ' + shape(name, dims))
+    table.append(row(name, checks[name][key], use, by_path))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
   # size at b32, the general route at the 48x64 glimpse, paste at that

@@ -13,8 +13,14 @@ keys
 They read host arrays and do the JAX package's numpy arithmetic in the same
 dtypes, so their per-example values, and the ``%.4f`` CSVs that
 ``StatsAnalyzer`` and ``CountAnalyzer`` write, are the JAX package's on the
-same inputs.  The renderers (``analysis.py:413-546``) write PNGs with cv2
-and are not ported; of the Cityscapes submission writer
+same inputs.  The pairwise overlaps (the IoU matrix and the best Dice of
+SBD) are taken as one matrix product of the flattened masks instead of
+JAX's [T, T, H, W] broadcast, at a small part of the cost (PERF.md §5).
+The masks are the eval commands' thresholded ones, zeros and ones in a
+numeric dtype: the sums are integers, exact in any order, so the values
+are the same bits as JAX's.  The renderers
+(``analysis.py:413-546``) write PNGs with cv2 and are not ported; of the
+Cityscapes submission writer
 (``RenderCityScapesOutputAnalyzer``, ``:477-519``) the class decision is,
 as ``cityscapes_submission``, which returns its rows instead of writing
 them.
@@ -42,9 +48,25 @@ def f_iou(a, b):
   return inter / (union + np.equal(union, 0).astype('float32'))
 
 
+def _overlaps(a, b):
+  """[T, H, W] x [T', H, W] masks of zeros and ones -> the [T, T']
+  intersections and the [T] and [T'] areas, in the dtype that JAX's sums
+  of ``a * b`` take (float32 for float32 masks, uint64 for uint8 ones)."""
+  fa = a.reshape(a.shape[0], a.shape[1] * a.shape[2])
+  fb = b.reshape(b.shape[0], b.shape[1] * b.shape[2])
+  # float32 holds every integer up to 2^24: the largest sum is the area.
+  exact = np.float32 if fa.shape[1] < 1 << 24 else np.float64
+  fa, fb = fa.astype(exact, copy=False), fb.astype(exact, copy=False)
+  dtype = np.zeros(1, np.result_type(a, b)).sum().dtype
+  return ((fa @ fb.T).astype(dtype), fa.sum(axis=1).astype(dtype),
+          fb.sum(axis=1).astype(dtype))
+
+
 def f_iou_pairwise(a, b):
-  """[T, H, W] x [T', H, W] -> [T, T']."""
-  return f_iou(np.expand_dims(a, 1), np.expand_dims(b, 0))
+  """[T, H, W] x [T', H, W] masks of zeros and ones -> [T, T']."""
+  inter, area_a, area_b = _overlaps(a, b)
+  union = (area_a[:, None] + area_b[None, :]) - inter
+  return inter / (union + np.equal(union, 0).astype('float32'))
 
 
 def _f_pr(a, b):
@@ -62,10 +84,10 @@ def _f_dice(a, b):
 
 
 def _f_best_dice(a, b):
-  bd = np.zeros([a.shape[0]])
-  for ii in range(a.shape[0]):
-    bd[ii] = _f_dice(a[ii:ii + 1], b).max(axis=0)
-  return bd
+  card_ab, card_a, card_b = _overlaps(a, b)
+  card_sum = card_a[:, None] + card_b[None, :]
+  bd = 2 * card_ab / (card_sum + np.equal(card_sum, 0).astype('float32'))
+  return bd.max(axis=1).astype(np.float64)
 
 
 def f_count_out(y_out):

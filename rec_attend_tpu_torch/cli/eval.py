@@ -10,12 +10,16 @@ where the forward left them, on the card or the CPU; the analyzers read
 host arrays.  ``full_main`` is the command line of the full model's eval
 (``:145-255``): a trained results folder (``--results``/``--model_id``), its
 ``model_opt.yaml`` and ``data_opt.yaml``, the dataset's splits
-(``data.provider``) and the analyzers' CSVs in ``output_<split>`` there.
-The foreground PNG reader (``--foreground_folder``) and the render
-analyzers need cv2 and are not ported yet (ROADMAP A.4).
+(``data.provider``: synth, CVPPP and KITTI, whose full-size labels
+differ in size between images) and the analyzers' CSVs in
+``output_<split>`` there.  The foreground PNG reader
+(``--foreground_folder``) and the render analyzers are not ported yet
+(ROADMAP A.5, the render analyzers).
 
     python -m rec_attend_tpu_torch.cli.eval --model_id <id> \
         --dataset synth --split valid --batch_size 8
+    python -m rec_attend_tpu_torch.cli.eval --model_id <id> \
+        --dataset kitti --dataset_folder data/kitti --split valid
 """
 
 from __future__ import annotations
@@ -190,10 +194,11 @@ def full_main(argv=None, device=None):
   log.log_args()
   if args.foreground_folder is not None:
     raise NotImplementedError('--foreground_folder: the foreground PNG '
-                              'reader is not ported yet (ROADMAP A.4)')
+                              'reader is not ported yet (ROADMAP A.5, the '
+                              'render analyzers)')
   if not args.no_render:
-    log.info('The render analyzers are not ported yet (ROADMAP A.4): no '
-             'PNGs are written')
+    log.info('The render analyzers are not ported yet (ROADMAP A.5, the '
+             'render analyzers): no PNGs are written')
 
   if args.threshold_list is None:
     threshold_list = [0.3]

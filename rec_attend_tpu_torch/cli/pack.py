@@ -18,6 +18,14 @@ float32 (``data/dataset.py:264-298``): they come back as 'y_out_ins' and
 's_out'; ``full_main``, its command line, writes them into the split's
 pack file beside the fg model's maps.
 
+For the datasets of H5 files (CVPPP, KITTI) both command lines write the
+maps into the split's file as JAX does (``cli/pack.py:27-83``):
+``foreground_pred/CC``, ``orientation_pred/OO`` and ``instance_pred/TT``
+as uint8 PNGs quantised as above and ``score_pred`` as float32, the whole
+split in one rewrite of the file (``pack_h5``, ``data.dataset
+.write_packed``), and then clear the dataset's decode cache, so that
+re-reads see the new maps.
+
     python -m rec_attend_tpu_torch.cli.pack --model_id <fg model id> \\
         --dataset synth --split train,valid --batch_size 8
     python -m rec_attend_tpu_torch.cli.pack full --model_id <full model id> \\
@@ -44,6 +52,9 @@ from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.config import FGModelConfig
 from rec_attend_tpu_torch.config import FullModelConfig
 from rec_attend_tpu_torch.data import provider
+from rec_attend_tpu_torch.data.dataset import InsSegDataset
+from rec_attend_tpu_torch.data.dataset import packed_group
+from rec_attend_tpu_torch.data.dataset import write_packed
 from rec_attend_tpu_torch.data.provider import PackedDataset
 from rec_attend_tpu_torch.device import synchronize
 from rec_attend_tpu_torch.engine.experiment import EvalExperiment
@@ -120,6 +131,52 @@ def pack_full(full_experiment, dataset, batch_size, timings=None):
                        np.concatenate(y_out_ins), np.concatenate(s_out))
 
 
+def pack_h5(experiment, dataset, batch_size, timings=None):
+  """Run the model of ``experiment`` (spec 'fg' with the orientation head,
+  or 'full') over ``dataset``, an ``InsSegDataset``, in index order,
+  quantise its maps where it runs, encode them as PNGs on the host and
+  write them all into the dataset's H5 file in one rewrite; then clear the
+  dataset's decode cache.  Returns the file's bytes.
+
+  ``timings``: a dict that gains, per batch, the host seconds of the
+  forward ('forward') and of the quantisation, copy and encoding ('pack'),
+  and the seconds of the rewrite ('write', one entry)."""
+  fg = experiment.spec == 'fg'
+  if fg and not experiment.cfg.add_orientation:
+    raise ValueError('pack_h5 takes the fg model with its orientation head')
+  if timings is not None:
+    for key in ('forward', 'pack', 'write'):
+      timings.setdefault(key, [])
+  groups = {}
+  batches = experiment.iterate_split(dataset, batch_size)
+  while True:
+    t0 = time.perf_counter()
+    try:
+      _, raw, outputs = next(batches)
+    except StopIteration:
+      break
+    synchronize(experiment.device)
+    t1 = time.perf_counter()
+    if fg:
+      maps = {'foreground': quantise(outputs['y_out']).cpu().numpy(),
+              'orientation': quantise(outputs['d_out']).cpu().numpy()}
+    else:
+      maps = {'instance': quantise(outputs['y_out']).cpu().numpy(),
+              'score': outputs['s_out'].float().cpu().numpy()}
+    for i, idx in enumerate(raw['idx_map']):
+      groups[dataset.get_str_id(idx)] = packed_group(
+          **{k: v[i] for k, v in maps.items()})
+    if timings is not None:
+      timings['forward'].append(t1 - t0)
+      timings['pack'].append(time.perf_counter() - t1)
+  t0 = time.perf_counter()
+  nbytes = write_packed(dataset.h5_fname, groups)
+  dataset.clear_cache()   # re-reads must see the packed predictions
+  if timings is not None:
+    timings['write'].append(time.perf_counter() - t0)
+  return nbytes
+
+
 def _parse(description, argv):
   parser = argparse.ArgumentParser(description=description)
   A.add_eval_args(parser)
@@ -130,12 +187,15 @@ def _parse(description, argv):
 def fg_main(argv=None, device=None):
   """The pack command line (JAX ``cli/pack.py:26-55``): the fg model of
   ``--results``/``--model_id`` over each split of ``--split``, its maps
-  written into the split's pack file.  Returns {split: (path, bytes)}.
-  ``device`` as the port's other entry points take it.
+  written into the split's pack file (its H5 file for CVPPP and KITTI).
+  Returns {split: (path, bytes)}.  ``device`` as the port's other entry
+  points take it.
 
-  The file is written anew with the fg model's maps only: the full model's
-  maps that ``full_main`` packed beside them came from a model fed the old
-  maps, so a re-pack drops them (run ``full_main`` again)."""
+  A pack file is written anew with the fg model's maps only: the full
+  model's maps that ``full_main`` packed beside them came from a model fed
+  the old maps, so a re-pack drops them (run ``full_main`` again).  An H5
+  file keeps them, as JAX's pack does: only the maps of the fg model's
+  names are replaced."""
   args = _parse('Pack fg model output', argv)
   log = logger.get()
   restore = os.path.join(args.results, args.model_id)
@@ -146,6 +206,10 @@ def fg_main(argv=None, device=None):
   written = {}
   for split in args.split.split(','):
     ds = provider.get(data_cfg.dataset, data_cfg, split=split)
+    if isinstance(ds, InsSegDataset):
+      written[split] = (ds.h5_fname, pack_h5(exp, ds, args.batch_size))
+      log.info(f'Packed fg predictions into {ds.h5_fname} ({split})')
+      continue
     packed = pack_fg(exp, ds, args.batch_size)
     ids = getattr(ds, 'dataset', ds).img_ids
     path = provider.pack_path(data_cfg, split)
@@ -172,6 +236,10 @@ def full_main(argv=None, device=None):
   written = {}
   for split in args.split.split(','):
     ds = provider.get(data_cfg.dataset, data_cfg, split=split)
+    if isinstance(ds, InsSegDataset):
+      written[split] = (ds.h5_fname, pack_h5(exp, ds, args.batch_size))
+      log.info(f'Packed instance predictions into {ds.h5_fname} ({split})')
+      continue
     if not isinstance(ds, PackedDataset):
       raise FileNotFoundError(
           f'no pack file of the fg model for the {split!r} split at '

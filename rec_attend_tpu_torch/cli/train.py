@@ -3,7 +3,8 @@
 Counterpart of ``rec_attend_tpu/cli/train.py:17-55``: the train, data and
 model flags (``cli.args``), a ``TrainingExperiment`` and its run.  The
 JAX command line plots samples on the plot cadence with matplotlib; the
-port has no plotting yet (ROADMAP A.4) and says so once in its log.
+port has no plotting yet (ROADMAP A.5, dashboards) and says so once in its
+log.
 
     python -m rec_attend_tpu_torch.cli.train box --dataset synth \\
         --num_steps 100 --batch_size 4 --save_ckpt
@@ -36,7 +37,8 @@ def _run(spec, make_model_cfg, add_model_args, argv=None, device=None):
   train_cfg = A.make_train_config(args)
   data_cfg = A.make_data_config(args)
   if train_cfg.steps_per_plot > 0:
-    log.info('Plotting is not ported yet (ROADMAP A.4): no plots are made')
+    log.info('Plotting is not ported yet (ROADMAP A.5, dashboards): no '
+             'plots are made')
   exp = TrainingExperiment(spec, model_cfg, train_cfg, data_cfg,
                            device=device)
   exp.run()

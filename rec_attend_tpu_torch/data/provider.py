@@ -7,10 +7,17 @@ train, valid and test splits (6 for any other), ``num_examples`` images in
 the train split and a quarter of that, at least 8, in the others, the
 ``DataConfig``'s size, timespan, ``max_objects`` and
 ``num_semantic_classes``.  The images are the port's draws, not those of
-the JAX package's files (see ``data/synthetic.py``).  The datasets read
-from H5 files (CVPPP, KITTI, Cityscapes) need h5py and PNG decoding, which
-the card's machine lacks: they are ROADMAP A.4's data item, and asking for
-them raises.
+the JAX package's files (see ``data/synthetic.py``); a JAX synthetic H5
+file named by ``h5_fname`` is read as it is (``data.synthetic
+.SyntheticH5``).
+
+'cvppp' and 'kitti' read the assembled split ``{folder}/{split}_{H}x{W}
+.h5`` (or ``h5_fname``) of ``data/cvppp.py`` and ``data/kitti.py``, the
+folder by default ``DEFAULT_FOLDERS``' (the CVPPP test split's own), as
+the JAX provider does (``provider.py:17-30``, ``:72-77``); their fg
+model's maps are packed into that file (``data/dataset.py``'s
+``pack_predictions``), where the dataset reads them.  'cityscapes' is not
+ported yet (ROADMAP A.5, Cityscapes) and raises.
 
 The pack store.  The JAX package writes the fg model's foreground and
 orientation maps into the split's H5 file as uint8 PNGs,
@@ -49,11 +56,20 @@ import os
 
 import numpy as np
 
+from rec_attend_tpu_torch.data.dataset import PACKED
 from rec_attend_tpu_torch.data.synthetic import SyntheticDataset
+from rec_attend_tpu_torch.utils import h5
 from rec_attend_tpu_torch.utils import logger
 
 SPLIT_SEEDS = {'train': 3, 'valid': 4, 'test': 5}
-DEFAULT_FOLDERS = {'synth': 'data/synth'}
+H5_DATASETS = ('cvppp', 'kitti')
+DEFAULT_FOLDERS = {
+    'cvppp': 'data/cvppp/A1',
+    'cvppp_test': 'data/cvppp_test/A1',
+    'kitti': 'data/kitti',
+    'cityscapes': 'data/cityscapes',
+    'synth': 'data/synth',
+}
 
 # uint8 -> float32 as the JAX dataset reads a packed PNG (a float32 division
 # by 255), as a table: the same values on the card and on the host.
@@ -160,26 +176,74 @@ def read_settings(path):
 
 
 def has_pack(data_opt, split):
-  """Whether the split's pack file exists and was written for the
-  ``DataConfig``'s settings."""
-  path = pack_path(data_opt, split)
-  return os.path.exists(path) and read_settings(path) == settings(data_opt,
-                                                                   split)
+  """Whether the fg model's maps are packed for the split: for 'synth',
+  whether its pack file exists and was written for the ``DataConfig``'s
+  settings; for the H5 datasets, whether every example of its file holds
+  them."""
+  opt = _opt(data_opt)
+  path = pack_location(opt, split)
+  if opt.get('dataset') in H5_DATASETS:
+    if not os.path.exists(path):
+      return False
+    ds = get(opt['dataset'], opt, split=split)
+    with h5.File(path) as f:
+      return all(all(k in f[ds.get_str_id(i)] for _, k in PACKED)
+                 for i in ds.img_ids)
+  return os.path.exists(path) and read_settings(path) == settings(opt, split)
+
+
+def pack_location(data_opt, split):
+  """Where the fg model's maps of a split are packed: the split's H5 file
+  for the H5 datasets, its pack file for 'synth'."""
+  opt = _opt(data_opt)
+  if opt.get('dataset') in H5_DATASETS:
+    return h5_path(opt['dataset'], opt, split)
+  return pack_path(opt, split)
+
+
+def h5_path(dataset_name, data_opt, split):
+  """``{folder}/{split}_{H}x{W}.h5``, the assembled file of a split, the
+  folder by default the dataset's in ``DEFAULT_FOLDERS``."""
+  opt = _opt(data_opt)
+  folder = opt.get('folder')
+  if folder is None:
+    key = ('cvppp_test' if dataset_name == 'cvppp' and split == 'test'
+           else dataset_name)
+    folder = DEFAULT_FOLDERS[key]
+  return os.path.join(folder, '{}_{}x{}.h5'.format(
+      split, opt['height'], opt['width']))
 
 
 def get(dataset_name, data_opt, split='train', h5_fname=None):
   """The ``split`` of ``dataset_name``; ``data_opt`` is a ``DataConfig``
-  or its dict.  A ``PackedDataset`` where the split's pack file holds the
-  fg model's maps for these settings (and the full model's, where
-  packed).  ``h5_fname`` names a JAX H5 file, which is not read."""
+  or its dict.  'cvppp' and 'kitti': the dataset of the split's H5 file
+  (``h5_fname``, else ``h5_path``).  'synth': a ``PackedDataset`` where the
+  split's pack file holds the fg model's maps for these settings (and the
+  full model's, where packed), else the in-memory split; with
+  ``h5_fname``, that JAX synthetic H5 file."""
   opt = _opt(data_opt)
-  if dataset_name != 'synth':
+  if dataset_name in H5_DATASETS:
+    if dataset_name == 'cvppp':
+      from rec_attend_tpu_torch.data.cvppp import CVPPP as cls
+    else:
+      from rec_attend_tpu_torch.data.kitti import KITTI as cls
+    path = h5_fname or h5_path(dataset_name, opt, split)
+    if not os.path.exists(path):
+      raise FileNotFoundError(
+          f'{path}: no assembled {dataset_name} {split!r} split; run '
+          f'python -m rec_attend_tpu_torch.cli.setup_dataset --dataset '
+          f'{dataset_name} --folder <its folder> --splits {split}')
+    return cls(path)
+  if dataset_name == 'cityscapes':
     raise NotImplementedError(
-        f'dataset {dataset_name!r}: the H5 datasets and their assemblers '
-        'are not ported yet (ROADMAP A.4, data)')
+        'dataset \'cityscapes\': its assembler, its reader and its '
+        'pipeline are the next slice of the port (ROADMAP A.5, Cityscapes)')
+  if dataset_name != 'synth':
+    raise ValueError(f'Unknown dataset name: {dataset_name}')
   if h5_fname is not None:
-    raise NotImplementedError(f'{h5_fname}: H5 files are not read yet '
-                              '(ROADMAP A.4, data)')
+    from rec_attend_tpu_torch.data.synthetic import SyntheticH5
+    return SyntheticH5(h5_fname, num_semantic_classes=int(
+        opt.get('num_semantic_classes', 1) or 1))
   gen = settings(opt, split)
   ds = SyntheticDataset(
       gen['num_examples'], opt['height'], opt['width'], opt['timespan'],

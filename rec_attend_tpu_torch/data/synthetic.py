@@ -33,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rec_attend_tpu_torch.data.dataset import InsSegDataset
 from rec_attend_tpu_torch.data.orientation import get_orientation
 
 # Synthetic class c -> Cityscapes label id, as the submission writer maps
@@ -220,3 +221,27 @@ class SyntheticDataset:
     """A list of [H, W] uint16 instance-id images, one per id."""
     return [self.instance_ids[self._pos[i]] for i in ids]
 
+
+
+
+class SyntheticH5(InsSegDataset):
+  """A synthetic split as the JAX package writes it into an H5 file
+  (``rec_attend_tpu/data/synthetic.py:92-113``, ``Synthetic``), read
+  with ``data/dataset.py``: timespan 6 by default, the Cityscapes-style
+  file names.  Its images are JAX's draws."""
+
+  def __init__(self, h5_fname, num_semantic_classes=1, **kw):
+    super().__init__(h5_fname, **kw)
+    self._num_semantic_classes = num_semantic_classes
+
+  def get_name(self):
+    return 'synth'
+
+  def get_fname(self, idx):
+    return get_fname(idx)
+
+  def get_default_timespan(self):
+    return 6
+
+  def get_num_semantic_classes(self):
+    return self._num_semantic_classes

@@ -1,11 +1,12 @@
 """Build and load the port's native libraries from ``csrc/``.
 
-Two libraries, each with a plain C interface and loaded with ``ctypes``:
+Three libraries, each with a plain C interface and loaded with ``ctypes``:
 
-  glimpse    ``csrc/glimpse.cu``, the hand-written CUDA kernels, compiled by
-             ``nvcc`` for ``sm_90a``;
-  hungarian  ``csrc/hungarian.cc``, the host Hungarian solver, compiled by
-             the C++ compiler (``g++``, or ``$CXX``).
+  glimpse     ``csrc/glimpse.cu``, the hand-written CUDA kernels, compiled
+              by ``nvcc`` for ``sm_90a``;
+  hungarian   ``csrc/hungarian.cc``, the host Hungarian solver, and
+  png_filter  ``csrc/png_filter.cc``, the PNG decoder's row unfiltering,
+              both compiled by the C++ compiler (``g++``, or ``$CXX``).
 
 Each is built under ``rec_attend_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, and built again when its source changes (the
@@ -33,6 +34,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCES = {
     'glimpse': os.path.join(_PKG_DIR, 'csrc', 'glimpse.cu'),
     'hungarian': os.path.join(_PKG_DIR, 'csrc', 'hungarian.cc'),
+    'png_filter': os.path.join(_PKG_DIR, 'csrc', 'png_filter.cc'),
 }
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -198,6 +200,12 @@ def _bind_hungarian(lib):
   lib.hungarian_solve.restype = ctypes.c_int
 
 
+def _bind_png_filter(lib):
+  lib.png_unfilter.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                               + [ctypes.c_void_p])
+  lib.png_unfilter.restype = ctypes.c_int
+
+
 def load():
   """The loaded glimpse kernel library, built first if needed."""
   return _load('glimpse', _bind_glimpse)
@@ -206,3 +214,8 @@ def load():
 def load_hungarian():
   """The loaded host Hungarian library, built first if needed."""
   return _load('hungarian', _bind_hungarian)
+
+
+def load_png_filter():
+  """The loaded host PNG unfiltering library, built first if needed."""
+  return _load('png_filter', _bind_png_filter)

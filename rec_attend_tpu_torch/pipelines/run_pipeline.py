@@ -1,5 +1,6 @@
-"""The synthetic datasets' training pipelines: box -> full -> eval, and
-fg -> pack -> box -> full -> eval (-> ap -> pixel).
+"""The training pipelines: box -> full -> eval, and fg -> pack -> box ->
+full -> eval (-> ap -> pixel), on the synthetic datasets, CVPPP and
+KITTI.
 
 Counterpart of ``run_synth``, ``run_synth3`` and ``run_synth_cs`` (here
 both chains are ``run_chain``), ``run_pixel_stage`` and ``run_ap_stage``
@@ -47,12 +48,23 @@ stage; ``--resume`` restores each trained stage from its folder (its data
 snapshot must match), and skips fg, pack and box once a full checkpoint
 and both pack files exist.
 
+``--dataset cvppp`` and ``--dataset kitti`` are the twins of JAX's
+``run_cvppp`` and ``run_kitti`` (``run_pipeline.py:84-149``) in
+``run_chain``, on the splits ``cli.setup_dataset`` assembled into
+``--dataset_folder``: CVPPP box (b5) -> full (b5) -> eval on valid, KITTI
+fg (b8) -> pack into the split's H5 files -> box (b5) -> full (b2) ->
+eval on valid, the paper presets with 60,000 box and 30,000 full steps
+(CVPPP) and 40,000 fg, 60,000 box and 100,000 full (KITTI) unless
+``--num_steps`` or a stage's flag says otherwise (JAX's paper scale
+ignores ``--num_steps``); ``--scale tiny`` runs the same presets for
+``--num_steps`` or 100 steps a stage, as JAX's does.  Cityscapes' waits
+(ROADMAP A.5).
+
 The full model starts from the box's controller as the JAX pipeline hands
 it over: ``cli.read_weights.box_main`` exports the box's last checkpoint
 to ``<results>/<box id>/weights.h5`` and the full model's
-``pretrain_ctrl_net`` names that file.  The pipelines of the real datasets (CVPPP, KITTI, Cityscapes) are not
-ported yet (ROADMAP A.5).  The command line runs on the card;
-``main(argv, device='cpu')`` runs on the host.
+``pretrain_ctrl_net`` names that file.  The command line runs on the
+card; ``main(argv, device='cpu')`` runs on the host.
 
     python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset synth \\
         --scale tiny --num_steps 20
@@ -62,6 +74,8 @@ ported yet (ROADMAP A.5).  The command line runs on the card;
         --scale tiny --stages box,full,eval --model_id chain
     python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset synthcs \\
         --scale tiny --model_id cs
+    python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset kitti \\
+        --dataset_folder data/kitti --num_steps 2
 """
 
 from __future__ import annotations
@@ -222,10 +236,61 @@ def synthcs_stages(scale, results='results', logs='logs',
   return data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps, batch
 
 
+def _steps(scale, paper, num_steps, given):
+  """{stage: steps}: a stage's own flag, else --num_steps, else the paper
+  scale's count (``paper``) or 100 at the tiny scale."""
+  return {stage: given.get(stage) or num_steps
+          or (n if scale == 'paper' else 100)
+          for stage, n in paper.items()}
+
+
+def cvppp_stages(scale, results='results', logs='logs', dataset_folder=None,
+                 num_steps=None, data_examples=None, fg_steps=None,
+                 box_steps=None, full_steps=None):
+  """The configs of ``run_cvppp`` (JAX ``run_pipeline.py:84-112``, ref
+  run_cvppp.sh), as ``synth3_stages`` returns them (the fg config None):
+  the CVPPP presets at 224x224, T=21, box and full at b5, 60,000 box and
+  30,000 full steps at the paper scale and 100 at the tiny one."""
+  del data_examples, fg_steps    # the assembled splits; no fg stage
+  batch = {'box': 5, 'full': 5}
+  steps = _steps(scale, {'box': 60000, 'full': 30000}, num_steps,
+                 {'box': box_steps, 'full': full_steps})
+  train_cfg = C.TrainConfig(num_steps=steps['box'], batch_size=batch['box'],
+                            save_ckpt=True, results=results, logs=logs,
+                            **PAPER_CADENCE)
+  return (C.data_config_for('cvppp', dataset_folder), None,
+          C.cvppp_box_config(), C.cvppp_full_config(), train_cfg, steps,
+          batch)
+
+
+def kitti_stages(scale, results='results', logs='logs', dataset_folder=None,
+                 num_steps=None, data_examples=None, fg_steps=None,
+                 box_steps=None, full_steps=None):
+  """The configs of ``run_kitti`` (JAX ``run_pipeline.py:115-149``, ref
+  run_kitti.sh), as ``synth3_stages`` returns them: the KITTI presets at
+  128x448, T=20, fg at b8, box at b5 and full at b2, 40,000 fg, 60,000 box
+  and 100,000 full steps at the paper scale and 100 at the tiny one."""
+  del data_examples
+  batch = {'fg': 8, 'box': 5, 'full': 2}
+  steps = _steps(scale, {'fg': 40000, 'box': 60000, 'full': 100000},
+                 num_steps, {'fg': fg_steps, 'box': box_steps,
+                             'full': full_steps})
+  train_cfg = C.TrainConfig(num_steps=steps['fg'], batch_size=batch['fg'],
+                            save_ckpt=True, results=results, logs=logs,
+                            **PAPER_CADENCE)
+  return (C.data_config_for('kitti', dataset_folder), C.kitti_fg_config(),
+          C.kitti_box_config(), C.kitti_full_config(), train_cfg, steps,
+          batch)
+
+
 # The chains of run_chain: {dataset: (its stages, the function of its
-# stages' configs)}.
-CHAINS = {'synth3': (SYNTH3_STAGES, synth3_stages),
-          'synthcs': (SYNTHCS_STAGES, synthcs_stages)}
+# stages' configs, whether its eval stage scores the fg model too, the
+# full model's eval thresholds (None: the eval command line's own))}.
+CVPPP_STAGES = ('box', 'full', 'eval')
+CHAINS = {'synth3': (SYNTH3_STAGES, synth3_stages, True, EVAL_THRESHOLDS),
+          'synthcs': (SYNTHCS_STAGES, synthcs_stages, True, EVAL_THRESHOLDS),
+          'cvppp': (CVPPP_STAGES, cvppp_stages, False, None),
+          'kitti': (SYNTH3_STAGES, kitti_stages, False, None)}
 
 
 def _data_flags(args):
@@ -271,18 +336,19 @@ def _restore_folder(args, model_id, data_cfg=None):
   return folder
 
 
-def _skip_completed_prefix(args, stages, full_id, data_cfg, log):
+def _skip_completed_prefix(args, stages, full_id, data_cfg, log, packs=True):
   """On a --resume relaunch with a full-stage checkpoint, skip fg, pack and
-  box: the checkpoint exists only if they completed.  Only where both
-  splits' pack files hold the maps for these settings (a checkout may keep
-  the checkpoint and lose the ignored data folder: then the prefix runs
-  again)."""
+  box: the checkpoint exists only if they completed.  Where the chain
+  packs (``packs``), only where both splits hold the fg model's maps for
+  these settings (a checkout may keep the checkpoint and lose the ignored
+  data folder: then the prefix runs again)."""
   if not args.resume:
     return stages
   full_folder = os.path.join(args.results, full_id)
   if not (os.path.isdir(full_folder) and saver.list_checkpoints(full_folder)):
     return stages
-  if all(provider.has_pack(data_cfg, split) for split in ('train', 'valid')):
+  if not packs or all(provider.has_pack(data_cfg, split)
+                      for split in ('train', 'valid')):
     stages -= {'fg', 'pack', 'box'}
     log.info('--resume: full-stage ckpt + pack files present; skipping '
              'fg/pack/box')
@@ -408,12 +474,13 @@ def run_pixel_stage(args, full_id, data_cfg, split='valid', device=None):
 
 
 def run_chain(args, dataset, device=None):
-  """The stages of ``--stages`` of the synth3 or the synthcs chain
-  (``dataset``; JAX ``run_synth3``, ``run_synth_cs``); returns {'fg',
-  'box', 'full': the model ids, 'stages': the stages that ran, in order,
-  and 'ap', 'pixel': those stages' results where they ran}."""
+  """The stages of ``--stages`` of the chain of ``dataset`` (synth3,
+  synthcs, cvppp or kitti; JAX ``run_synth3``, ``run_synth_cs``,
+  ``run_cvppp``, ``run_kitti``); returns {'fg', 'box', 'full': the model
+  ids, 'stages': the stages that ran, in order, and 'ap', 'pixel': those
+  stages' results where they ran}."""
   log = logger.get()
-  all_stages, stages_fn = CHAINS[dataset]
+  all_stages, stages_fn, fg_metrics, thresholds = CHAINS[dataset]
   stages = set((args.stages or ','.join(all_stages)).split(','))
   unknown = stages - set(all_stages)
   if unknown:
@@ -428,6 +495,10 @@ def run_chain(args, dataset, device=None):
       args.num_steps, args.data_examples, args.fg_steps, args.box_steps,
       args.full_steps)
   bs = {k: str(v) for k, v in batch.items()}
+  # The provider's name of the chain's data: 'synth' for the synthetic
+  # chains.
+  data_flags = ['--dataset', data_cfg.dataset] + _data_flags(args)
+  packs = 'pack' in all_stages
 
   def stage_cfg(stage, model_id):
     # _restore_folder (and its data snapshot check) only for the stages
@@ -438,23 +509,23 @@ def run_chain(args, dataset, device=None):
                                                      data_cfg))
 
   stages = _reuse_stages(args, stages, log)
-  stages = _skip_completed_prefix(args, stages, full_id, data_cfg, log)
+  stages = _skip_completed_prefix(args, stages, full_id, data_cfg, log,
+                                  packs)
   out = {'fg': fg_id, 'box': box_id, 'full': full_id}
   if 'fg' in stages:
     _train('fg', fg_cfg, stage_cfg('fg', fg_id), data_cfg, device)
   if 'pack' in stages:
     pack_cli.fg_main(['--model_id', fg_id, '--results', args.results,
-                      '--dataset', 'synth', '--split', 'train,valid',
-                      '--batch_size', bs['fg']] + _data_flags(args),
-                     device=device)
-  if 'box' in stages or 'full' in stages:
+                      '--split', 'train,valid', '--batch_size', bs['fg']]
+                     + data_flags, device=device)
+  if packs and ('box' in stages or 'full' in stages):
     missing = [s for s in ('train', 'valid')
                if not provider.has_pack(data_cfg, s)]
     if missing:
       raise FileNotFoundError(
-          f'no pack file of the fg model for these settings of the '
-          f'{missing} split(s) at {provider.pack_path(data_cfg, missing[0])}'
-          ': run the pack stage first')
+          f'no pack of the fg model for these settings of the {missing} '
+          f'split(s) at {provider.pack_location(data_cfg, missing[0])}: run '
+          'the pack stage first')
   if 'box' in stages:
     _train('box', box_cfg, stage_cfg('box', box_id), data_cfg, device)
   if 'full' in stages:
@@ -463,20 +534,21 @@ def run_chain(args, dataset, device=None):
     _train('full', full_base.replace(pretrain_ctrl_net=weights),
            stage_cfg('full', full_id), data_cfg, device)
   if 'eval' in stages:
-    eval_fg_metrics.main(['--model_id', fg_id, '--results', args.results,
-                          '--batch_size', bs['fg']] + _data_flags(args),
-                         device=device)
+    if fg_metrics:
+      eval_fg_metrics.main(['--model_id', fg_id, '--results', args.results,
+                            '--batch_size', bs['fg']] + _data_flags(args),
+                           device=device)
     eval_cli.full_main(['--model_id', full_id, '--results', args.results,
-                        '--dataset', 'synth', '--split', 'valid',
-                        '--batch_size', bs['full'],
-                        '--threshold_list', EVAL_THRESHOLDS]
-                       + _data_flags(args), device=device)
+                        '--split', 'valid', '--batch_size', bs['full']]
+                       + (['--threshold_list', thresholds] if thresholds
+                          else []) + data_flags, device=device)
   if 'ap' in stages:
     out['ap'] = run_ap_stage(args, full_id, data_cfg, batch['full'],
                              device=device)
   if 'pixel' in stages:
     out['pixel'] = run_pixel_stage(args, full_id, data_cfg, device=device)
-  log.info(f'Pipeline done: {fg_id} -> {box_id} -> {full_id}')
+  log.info('Pipeline done: ' + ' -> '.join(
+      out[s] for s in ('fg', 'box', 'full') if s in all_stages))
   out['stages'] = [s for s in all_stages if s in stages]
   return out
 
@@ -485,28 +557,31 @@ def main(argv=None, device=None):
   """``device``: the card unless it names another."""
   parser = argparse.ArgumentParser()
   parser.add_argument('--dataset', default='synth',
-                      choices=['synth', 'synth3', 'synthcs'],
-                      help='the synthetic pipelines are ported (the real '
-                           'datasets\' wait: ROADMAP A.5)')
+                      choices=['synth', 'synth3', 'synthcs', 'cvppp',
+                               'kitti'],
+                      help='the synthetic pipelines and those of CVPPP and '
+                           'KITTI (assembled by cli.setup_dataset) are '
+                           'ported (Cityscapes\'s waits: ROADMAP A.5)')
   parser.add_argument('--dataset_folder', default=None)
   parser.add_argument('--results', default='results')
   parser.add_argument('--logs', default='logs')
   parser.add_argument('--scale', default='paper', choices=['paper', 'tiny'])
   parser.add_argument('--num_steps', default=None, type=int,
                       help='steps per stage (default: the scale\'s own)')
-  chain = parser.add_argument_group('synth3 and synthcs')
+  chain = parser.add_argument_group('synth3, synthcs, cvppp and kitti')
   chain.add_argument('--model_id', default=None,
                      help='reuse an id (go on with a chain)')
   chain.add_argument('--stages', default=None,
                      help='the stages to run (default: all of the '
                           'dataset\'s, ' + ', '.join(
                               f'{k}: {",".join(v)}'
-                              for k, (v, _) in CHAINS.items()) + ')')
+                              for k, (v, *_) in CHAINS.items()) + ')')
   chain.add_argument('--fg_steps', default=None, type=int)
   chain.add_argument('--box_steps', default=None, type=int)
   chain.add_argument('--full_steps', default=None, type=int)
   chain.add_argument('--data_examples', default=None, type=int,
-                     help='the train split\'s size (paper scale)')
+                     help='the train split\'s size (synth3 and synthcs '
+                          'at the paper scale)')
   chain.add_argument('--fg_from', default=None,
                      help='reuse this trained fg model id')
   chain.add_argument('--box_from', default=None,

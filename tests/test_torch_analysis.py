@@ -114,3 +114,21 @@ def test_stats_analyzer_logs_its_mean(caplog):
 def test_unknown_analyzer_raises():
   with pytest.raises(ValueError, match='not found'):
     analysis.create_analyzer('nope')
+
+
+@pytest.mark.parametrize('dtypes', [(np.uint8, np.uint8),
+                                    (np.float32, np.float32),
+                                    (np.float32, np.float64)])
+def test_overlaps_of_large_masks_match_jax_in_every_dtype(dtypes):
+  """Areas past 255 and past 2^16: the matrix product's sums take the
+  dtype of JAX's (uint64 for uint8 masks), so none wraps around."""
+  rng = np.random.RandomState(7)
+  a = (rng.rand(T, 300, 260) > 0.3).astype(dtypes[0])
+  b = (rng.rand(T - 2, 300, 260) > 0.6).astype(dtypes[1])
+  a[1] = 0
+  got, want = analysis.f_iou_pairwise(a, b), janalysis.f_iou_pairwise(a, b)
+  assert got.dtype == want.dtype
+  np.testing.assert_array_equal(got, want)
+  res = {'y_out': [a], 'y_gt': [b], 's_gt': np.ones((1, T - 2))}
+  np.testing.assert_array_equal(analysis.f_symmetric_best_dice(res),
+                                janalysis.f_symmetric_best_dice(res))

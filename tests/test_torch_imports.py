@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-h5py, cv2, optax or triton, which the machine with the card may lack), reads
+h5py, cv2, PIL, optax or triton, which the machine with the card may lack),
+reads
 YAML only inside its YAML reader, and never falls back to the CPU by
 itself.  Every module of the package is covered, the training path's
 (losses, matching, boxes, augmentation, train step, trainer, the box
@@ -36,8 +37,8 @@ torch.set_num_threads(1)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), '..'))
 PACKAGE = os.path.join(REPO, 'rec_attend_tpu_torch')
-BLOCKED = ('jax', 'jaxlib', 'rec_attend_tpu', 'yaml', 'h5py', 'cv2', 'optax',
-           'triton')
+BLOCKED = ('jax', 'jaxlib', 'rec_attend_tpu', 'yaml', 'h5py', 'cv2', 'PIL',
+           'optax', 'triton')
 
 
 def _port_sources():
@@ -297,6 +298,78 @@ def test_chain_runs_with_those_modules_missing(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+def test_h5_datasets_run_with_those_modules_missing(tmp_path):
+  """The layout fixtures of chip_smoke.py, cli.setup_dataset, the JAX-written
+  synthetic H5 read, and the KITTI pipeline (fg -> pack into the H5 -> box
+  -> full -> eval) with the tiny models, with JAX, cv2, h5py, PIL, YAML
+  and the rest blocked."""
+  script = textwrap.dedent(f"""
+      import os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      sys.path.insert(0, 'tests')
+      import chip_smoke as cs
+      from _small_h5_models import small_models
+      from rec_attend_tpu_torch.cli import setup_dataset
+      from rec_attend_tpu_torch.data import provider
+      from rec_attend_tpu_torch.data.synthetic import SyntheticH5
+      from rec_attend_tpu_torch.pipelines import run_pipeline
+
+      assert cs.jax_h5_digest(SyntheticH5(cs.JAX_SYNTH_H5)) == (
+          cs.JAX_SYNTH_DIGEST)
+      root = {str(tmp_path)!r}
+      data = os.path.join(root, 'data')
+      cs.kitti_fixture(data, {{'train': 4, 'valid': 2}}, 40, 124, 1)
+      setup_dataset.main(['--dataset', 'kitti', '--folder', data,
+                          '--height', '64', '--width', '64'])
+      with small_models('kitti'):
+        got = run_pipeline.main(
+            ['--dataset', 'kitti', '--scale', 'tiny', '--num_steps', '2',
+             '--dataset_folder', data, '--results',
+             os.path.join(root, 'results'), '--logs',
+             os.path.join(root, 'logs')], device='cpu')
+        cfg = run_pipeline.CHAINS['kitti'][1]('tiny', dataset_folder=data)[0]
+      assert got['stages'] == ['fg', 'pack', 'box', 'full', 'eval']
+      assert provider.has_pack(cfg, 'valid')
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_h5_pipeline_entry_points_default_to_cuda(monkeypatch, tmp_path):
+  """Without a card, the H5 datasets' pipeline raises unless asked for the
+  CPU, before it trains anything."""
+  from rec_attend_tpu_torch.cli import setup_dataset
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+  sys.path.insert(0, REPO)
+  import chip_smoke as cs
+  data = str(tmp_path / 'data')
+  cs.cvppp_fixture(data, 5, 40, 30, 1)
+  setup_dataset.main(['--dataset', 'cvppp', '--folder', data, '--height',
+                      '64', '--width', '64'])
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    run_pipeline.main(['--dataset', 'cvppp', '--scale', 'tiny',
+                       '--dataset_folder', data, '--results',
+                       str(tmp_path / 'results'), '--logs',
+                       str(tmp_path / 'logs')])
+  assert not os.path.exists(str(tmp_path / 'results'))
 
 
 def test_cityscapes_chain_runs_with_those_modules_missing(tmp_path):
