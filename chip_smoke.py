@@ -22,7 +22,9 @@ script started ('script_seconds'):
                 b32, D=21), at paste's d_p of the KITTI size (extract D=1),
                 at the H5 pipelines' (CVPPP box and full b5: extract D=4
                 and D=1 at 224x224, paste; KITTI box b5 paste, full b2
-                extract D=13 and D=1 and paste at 128x448) and
+                extract D=13 and D=1 and paste at 128x448; Cityscapes box
+                b4 paste, full b2 extract D=21 and D=1 and paste at
+                256x512) and
                 at a ragged shape (KITTI 128x448, D=13, 48x64 glimpse), with
                 CUDA-event times; each extract names its route (the tiled
                 kernel, the strip kernel and their output rows a block, or
@@ -322,7 +324,32 @@ script started ('script_seconds'):
                 the fixture's and each split's assemble seconds and bytes,
                 decode ms per example, step ms per stage (CUDA events and
                 the log cadence), peak memory, the pack's seconds, eval
-                host seconds per batch, launches.
+                host seconds per batch, launches;
+  cityscapes_pipeline
+                Cityscapes as users launch it, on the same path: (a)
+                Cityscapes' layout (leftImg8bit and gtFine polygon JSON)
+                drawn from a seed at 2048x1024, 8 train, 4 valid and 4 test
+                images, each with sky, building and road and, but in test,
+                1-20 concave or crossed instances of the 8 classes (some
+                off the image), a cargroup, a caravan and a deleted car;
+                data.cityscapes_prep.main writes the instanceIds and
+                labelIds PNGs; (b) cli.setup_dataset at 256x512; (c)
+                run_pipeline --dataset cityscapes (fg b8 -> pack into the
+                three H5 files -> box b4 -> full b2 -> full_pack of valid
+                and test -> cityscapes_eval of valid and test) at the paper
+                presets, 2 steps a stage; (d) the gates of the other H5
+                pipelines and three more, each with a control: the prep's
+                images to the digest the CPU tests pin with JAX's prep
+                (cv2; control: a polygon moved by a pixel), the assembled
+                files to the digest pinned with JAX's assembler (control:
+                the classes permuted), the AP of a pack of the valid
+                split's ground truth through cli.cityscapes_eval.main and
+                instance_eval.main to the AP the CPU tests pin (control:
+                the masks shifted 8 pixels); and the files: each valid and
+                test image's submission text file, its masks 0/255 at
+                1024x2048.  Reported also: the prep's seconds, the
+                cityscapes_eval host seconds per image (chain, analyzers,
+                renders, submission), the full pack's seconds.
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -3267,6 +3294,8 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
   from rec_attend_tpu_torch.engine.saver import checkpoint_step
   from rec_attend_tpu_torch.engine.saver import list_checkpoints
   from rec_attend_tpu_torch.engine.trainer import Trainer
+  from rec_attend_tpu_torch.data.synthetic import get_fname
+  from rec_attend_tpu_torch.eval_cityscapes import instance_eval
   from rec_attend_tpu_torch.eval_cityscapes import pixel_eval
   from rec_attend_tpu_torch.eval_cityscapes.instance_eval import (
       evaluate_instance_predictions)
@@ -3554,23 +3583,22 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
     if not bit_equal:
       forms['reordered_plain'] = reordered_plain(torch)
     ap2, rows2, seconds2 = {}, {}, {}
-    for name, glimpse in forms.items():
-      kept = []
 
-      def keep_rows(fn):
-        def call(*args, **kw):
-          summary, rows = fn(*args, **kw)
-          kept.append(rows[run_pipeline.AP_THRESHOLD])
-          return summary, rows
-        return call
+    def submitted():
+      # The rows of the submission's files that the AP stage read.
+      sub = os.path.join(folder2, 'cs_output_valid', 'cityscapes')
+      return [instance_eval.read_prediction_rows(
+          instance_eval.find_prediction_file(get_fname(i)[:-len('.png')],
+                                             sub))
+              for i in gt.img_ids]
+    for name, glimpse in forms.items():
 
       def with_glimpse(cls, glimpse=glimpse):
         return lambda *args, **kw: cls(*args, glimpse=glimpse, **kw)
       gk.reset_launch_counts()
       t0 = time.time()
-      with patched(run_pipeline, 'cityscapes_eval', keep_rows), patched(
-          pack_cli, 'EvalExperiment', with_glimpse), deterministic_cudnn(
-              torch):
+      with patched(pack_cli, 'EvalExperiment', with_glimpse), \
+          deterministic_cudnn(torch):
         run_pipeline.main(argv2 + ['--stages', 'ap,pixel'
                                    if name == 'kernel' else 'ap'],
                           device=dev)
@@ -3578,13 +3606,13 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
       if name == 'kernel':
         out['oracle_launches'] = launches_now(gk)
       ap2[name] = read_json(folder2, 'output_valid', 'ap.json')['averages']
-      rows2[name] = kept[0]
+      rows2[name] = submitted()
     limit = (0.0 if bit_equal else CS_AP_FLOOR_FACTOR * ap_difference(
         ap2['reordered_plain'], ap2['plain']) + CS_AP_SLACK)
     gt_ids = gt.get_instance_id_images(gt.img_ids)
     swap = {24: 25, 25: 24}
     swapped = evaluate_instance_predictions(
-        [[r._replace(label_id=swap.get(r.label_id, r.label_id)) for r in rows]
+        [[(m, swap.get(label, label), c) for m, label, c in rows]
          for rows in rows2['kernel']], gt_ids)
 
     def ap_diff(got_ap):
@@ -3617,7 +3645,29 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
 CVPPP_FIXTURE = dict(count=128, height=530, width=500, seed=20)
 KITTI_FIXTURE = dict(counts={'train': 64, 'valid': 16, 'test': 16},
                      height=375, width=1242, seed=21)
-H5_SPLITS = {'cvppp': ('train', 'valid'), 'kitti': ('train', 'valid', 'test')}
+# Cityscapes' layout fixture at its raw 2048x1024 (gtFine's polygons and
+# leftImg8bit), 8 train, 4 valid and 4 test images, two cities a split.
+CITYSCAPES_FIXTURE = dict(counts={'train': 8, 'valid': 4, 'test': 4},
+                          height=1024, width=2048, seed=22)
+# Pinned on the CPU: the digest of the instanceIds and labelIds images that
+# the JAX package's cityscapes_prep (cv2) writes from the fixture
+# (cityscapes_prep_digest; tests/test_torch_cityscapes_prep.py), the digest
+# of the files its CityscapesAssembler writes (cityscapes_h5_digest;
+# tests/test_torch_cityscapes_data.py), and the AP of the valid split's
+# ground-truth pack (cityscapes_gt_ap, the port on the CPU, held to JAX's
+# command lines at a small size by tests/test_torch_cityscapes_eval_cli.py;
+# pinned by tests/test_torch_cityscapes_data.py).  The card's AP may differ
+# where the upsampled maps cross the mask threshold in float32 noise:
+# CITYSCAPES_AP_ATOL; the control rolls the packed masks 8 pixels right.
+CITYSCAPES_PREP_DIGEST = (
+    '342b42865c31f6bd5760eaf0c3d34d19510b425355cc1a45eff01d69629462e2')
+CITYSCAPES_H5_DIGEST = (
+    '740118f2ba1721ca2ef596bec798f60f91c4c49618c2fc59c52f7c339a26b95b')
+CITYSCAPES_GT_AP = {'allAp': 0.7732610987103175, 'allAp50%': 0.959375}
+CITYSCAPES_AP_ATOL = 0.01
+CITYSCAPES_AP_CONTROL_SHIFT = 8
+H5_SPLITS = {'cvppp': ('train', 'valid'), 'kitti': ('train', 'valid', 'test'),
+             'cityscapes': ('train', 'valid', 'test')}
 H5_PIPELINE_STEPS = 2
 MAX_INSTANCES = 20
 # A synthetic split written by the JAX package (make_synthetic_h5: cv2's
@@ -3749,6 +3799,225 @@ def kitti_fixture(folder, counts, height, width, seed):
           f.write(blob.tobytes())
         nbytes += blob.size
   return nbytes
+
+
+CITYSCAPES_CITIES = {'train': ('aachen', 'bochum'),
+                     'valid': ('frankfurt', 'lindau'),
+                     'test': ('berlin', 'bielefeld')}
+CITYSCAPES_CLASSES = ('person', 'rider', 'car', 'truck', 'bus', 'train',
+                      'motorcycle', 'bicycle')
+
+
+def star_polygon(rng, cx, cy, r, n, crossed=False):
+  """[(x, y)] of a star-shaped polygon about (cx, cy): ``n`` vertices at
+  random radii in [0.35 r, r] (concave), a tenth of them at half pixels;
+  ``crossed``: two of them swapped, so that its edges cross."""
+  import numpy as np
+  ang = np.sort(rng.uniform(0, 2 * np.pi, n))
+  rad = r * rng.uniform(0.35, 1.0, n)
+  pts = [[float(cx + a * np.cos(t)), float(cy + 0.6 * a * np.sin(t))]
+         for a, t in zip(rad, ang)]
+  pts = [[round(x) + (0.5 if rng.rand() < 0.1 else 0.0), round(y)]
+         for x, y in pts]
+  if crossed and n >= 4:
+    i = rng.randint(0, n - 2)
+    pts[i], pts[i + 2] = pts[i + 2], pts[i]
+  return pts
+
+
+def cityscapes_fixture(folder, counts, height, width, seed):
+  """Cityscapes' layout: leftImg8bit/{train,val,test}/{city}/{city}_{seq:06d}
+  _{frame:06d}_leftImg8bit.png and gtFine/{split}/{city}/..._gtFine_polygons
+  .json, ``counts`` images a split (two cities each).  Each annotation has
+  sky, building and road polygons and, but in the test split (whose
+  ground truth holds no instance, as Cityscapes' does), 1-20 instances of
+  the 8 classes (star-shaped and concave, a quarter of them with crossed
+  edges, some off the image), a cargroup, a caravan (trainId 0: dropped)
+  and a deleted car.  (No license plate: the label table of both packages
+  has none, and both raise on it.)  The image is the
+  label colours (BGR) with noise.  Returns the bytes written a split."""
+  import json
+
+  import numpy as np
+
+  from rec_attend_tpu_torch.data import cityscapes_prep as prep
+  from rec_attend_tpu_torch.utils import png
+  rng = np.random.RandomState(seed)
+  h, w = height, width
+  nbytes = {}
+  for split, n in counts.items():
+    nbytes[split] = 0
+    sub = 'val' if split == 'valid' else split
+    for k in range(n):
+      city = CITYSCAPES_CITIES[split][k % 2]
+      name = f'{city}_{k // 2:06d}_{19 + k:06d}'
+      horizon = int(h * rng.uniform(0.3, 0.45))
+      objects = [
+          {'label': 'sky', 'polygon': [[-1, -1], [w, -1], [w, horizon],
+                                       [-1, horizon + 3]]},
+          {'label': 'building', 'polygon': [
+              [int(w * 0.05), horizon + 2], [int(w * 0.1), int(h * 0.1)],
+              [int(w * 0.3), int(h * 0.15)], [int(w * 0.35), horizon]]},
+          {'label': 'road', 'polygon': [[-1, h], [-1, horizon + 10],
+                                        [w, horizon + 5], [w, h]]}]
+      if split != 'test':
+        scale = min(h, w)
+        for j in range(rng.randint(1, MAX_INSTANCES + 1)):
+          cls = CITYSCAPES_CLASSES[rng.randint(0, 8)]
+          cx = rng.uniform(-0.05, 1.05) * w
+          cy = rng.uniform(0.45, 1.0) * h
+          objects.append({'label': cls, 'polygon': star_polygon(
+              rng, cx, cy, scale * rng.uniform(0.04, 0.2),
+              rng.randint(5, 25), crossed=j % 4 == 3)})
+        for label in ('cargroup', 'caravan'):
+          objects.append({'label': label, 'polygon': star_polygon(
+              rng, rng.uniform(0.1, 0.9) * w, rng.uniform(0.5, 0.9) * h,
+              scale * 0.08, 10)})
+        objects.append({'label': 'car', 'deleted': 1, 'polygon': star_polygon(
+            rng, w / 2, h * 0.7, scale * 0.1, 8)})
+      ann = {'imgHeight': h, 'imgWidth': w, 'objects': objects}
+      gt_dir = os.path.join(folder, 'gtFine', sub, city)
+      img_dir = os.path.join(folder, 'leftImg8bit', sub, city)
+      os.makedirs(gt_dir, exist_ok=True)
+      os.makedirs(img_dir, exist_ok=True)
+      path = os.path.join(gt_dir, f'{name}_gtFine_polygons.json')
+      with open(path, 'w') as f:
+        json.dump(ann, f)
+      bgr = prep.create_label_image(prep.Annotation.from_json_file(path),
+                                    'color')
+      bgr = np.clip(bgr.astype(np.int16) + rng.randint(-20, 21, bgr.shape),
+                    0, 255).astype(np.uint8)
+      blob = png.encode(bgr)
+      with open(os.path.join(img_dir, f'{name}_leftImg8bit.png'), 'wb') as f:
+        f.write(blob.tobytes())
+      nbytes[split] += blob.size + os.path.getsize(path)
+  return nbytes
+
+
+def cityscapes_prep_digest(root, moved=False):
+  """SHA-256 of every ``*_instanceIds.png`` and ``*_labelIds.png`` under
+  ``root``'s gtFine and gtCoarse, decoded (names and ``sha256_of``).
+  ``moved``: the first train image's last instance polygon that lies in
+  the image moved a pixel right (its instance ids drawn again), the
+  gate's control."""
+  import glob
+
+  from rec_attend_tpu_torch.data import cityscapes_prep as prep
+  from rec_attend_tpu_torch.utils import png
+  paths = sorted(glob.glob(os.path.join(root, 'gt*', '*', '*',
+                                        '*_gt*_*Ids.png')))
+  first = next(p for p in paths if p.endswith('_instanceIds.png')
+               and f'{os.sep}train{os.sep}' in p)
+  h = hashlib.sha256()
+  for path in paths:
+    a = png.imread(path, png.IMREAD_UNCHANGED)
+    if moved and path == first:
+      ann = prep.Annotation.from_json_file(
+          path.replace('_instanceIds.png', '_polygons.json'))
+      k = max(i for i, (label, poly) in enumerate(ann.objects)
+              if label in CITYSCAPES_CLASSES and all(
+                  0 <= x < ann.img_width - 1 and 0 <= y < ann.img_height
+                  for x, y in poly))
+      label, poly = ann.objects[k]
+      ann.objects[k] = (label, [(x + 1, y) for x, y in poly])
+      a = prep.create_instance_image(ann).astype(a.dtype)
+    h.update(f'{os.path.relpath(path, root)} {sha256_of(a)}'.encode())
+  return h.hexdigest()
+
+
+def cityscapes_h5_digest(paths, permuted=False):
+  """SHA-256 of what assembled H5 files hold, but the cubic 'input': each
+  dataset by its path in the file, PNGs decoded, the index map as text,
+  the classes as int64.  ``permuted``: class c read as (c + 1) % 8, the
+  gate's control."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.utils import h5
+  from rec_attend_tpu_torch.utils import png
+
+  def flat(tree, prefix=''):
+    for k in sorted(tree):
+      if isinstance(tree[k], dict):
+        yield from flat(tree[k], f'{prefix}{k}/')
+      else:
+        yield f'{prefix}{k}', tree[k]
+  h = hashlib.sha256()
+  for path in paths:
+    for name, value in flat(h5.read(path)):
+      parts = name.split('/')
+      if len(parts) == 2 and parts[1] == 'input':
+        continue
+      a = np.asarray(value)
+      if name == 'index_map':
+        a = np.frombuffer(','.join(
+            v.decode() if isinstance(v, bytes) else str(v)
+            for v in a).encode(), np.uint8)
+      elif parts[-1] == 'instance_semantic_classes':
+        a = a.astype(np.int64)
+        if permuted:
+          a = (a + 1) % 8
+      elif a.dtype == np.uint8 and a.ndim == 1 and \
+          a[:8].tobytes() == png.SIGNATURE:
+        a = png.decode(a, png.IMREAD_UNCHANGED)
+      h.update(f'{os.path.basename(path)}:{name} {sha256_of(a)}'.encode())
+  return h.hexdigest()
+
+
+def cityscapes_gt_ap(torch, dev, valid_h5, fixture_root, root, timespan,
+                     shift=0):
+  """The official AP of a pack of the valid split's ground truth: a copy
+  of the split's H5 with its labels packed as the full model's
+  predictions (semantic maps, orientation, the instance maps rolled
+  ``shift`` pixels right, scores 0.9 where an instance is),
+  ``cli.cityscapes_eval.main`` over it at the JAX command line's defaults
+  and ``eval_cityscapes.instance_eval.main`` on its submission against
+  ``fixture_root``'s gtFine.  Returns (the averages, the seconds of each
+  step, the host seconds of the eval per batch)."""
+  import shutil
+
+  import numpy as np
+
+  from rec_attend_tpu_torch import config as C
+  from rec_attend_tpu_torch.cli import cityscapes_eval as cs_eval_cli
+  from rec_attend_tpu_torch.data.cityscapes import Cityscapes
+  from rec_attend_tpu_torch.data.dataset import pack_predictions
+  from rec_attend_tpu_torch.eval_cityscapes import instance_eval
+  seconds = {}
+  t0 = time.time()
+  data = os.path.join(root, 'data')
+  os.makedirs(data, exist_ok=True)
+  copy = os.path.join(data, os.path.basename(valid_h5))
+  shutil.copyfile(valid_h5, copy)
+  ds = Cityscapes(copy)
+  n = ds.get_dataset_size()
+  b = ds.get_batch(np.arange(n), timespan=timespan,
+                   variables={'y_gt', 'c_gt', 'd_gt', 's_gt', 'idx_map'})
+  pack_predictions(copy, {
+      ds.get_str_id(i): {'foreground': b['c_gt'][k],
+                         'orientation': b['d_gt'][k],
+                         'instance': np.roll(b['y_gt'][k], shift, axis=-1),
+                         'score': b['s_gt'][k] * 0.9}
+      for k, i in enumerate(b['idx_map'])})
+  h, w = ds.get_batch([0], timespan=timespan, variables={'x'})['x'].shape[1:3]
+  results = os.path.join(root, 'results')
+  os.makedirs(os.path.join(results, 'gt_pack'))
+  C.DataConfig(dataset='cityscapes', folder=data, height=h, width=w,
+               timespan=timespan).save_yaml(
+                   os.path.join(results, 'gt_pack', 'data_opt.yaml'))
+  seconds['pack'] = time.time() - t0
+  t0 = time.time()
+  timings = {}
+  cs_eval_cli.main(['--model_id', 'gt_pack', '--results', results,
+                    '--split', 'valid', '--batch_size', '2'],
+                   device=dev, timings=timings)
+  seconds['cityscapes_eval'] = time.time() - t0
+  t0 = time.time()
+  avg = instance_eval.main([
+      '--predictions', os.path.join(results, 'gt_pack', 'output_valid',
+                                    'cityscapes'),
+      '--dataset', fixture_root, '--split', 'val'])
+  seconds['instance_eval'] = time.time() - t0
+  return avg, seconds, timings
 
 
 def expected_samples(samples, colour_type, depth, palette, trns):
@@ -3888,12 +4157,14 @@ def decode_ms(ds, n):
           for k, v in out.items()}
 
 
-def h5_kernel_dims(cvppp_cfg, kitti_cfg):
+def h5_kernel_dims(cvppp_cfg, kitti_cfg, cityscapes_cfg):
   """{(kernel, key): dims} of the H5 pipelines' glimpses: CVPPP's box and
-  full model at b5, KITTI's box at b5 and full model at b2."""
+  full model at b5, KITTI's box at b5 and full model at b2, Cityscapes'
+  box at b4 and full model at b2."""
   out = {}
   for dataset, cfg, full_b, box_b in (('cvppp', cvppp_cfg, 5, 5),
-                                      ('kitti', kitti_cfg, 2, 5)):
+                                      ('kitti', kitti_cfg, 2, 5),
+                                      ('cityscapes', cityscapes_cfg, 2, 4)):
     hw = (cfg.inp_height, cfg.inp_width)
     f = (cfg.filter_height, cfg.filter_width)
     out['glimpse_extract', f'{dataset}_b{full_b}'] = (
@@ -3906,44 +4177,67 @@ def h5_kernel_dims(cvppp_cfg, kitti_cfg):
 
 
 def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
-                      steps=H5_PIPELINE_STEPS, size=None):
-  """The port's pipeline of an H5 dataset (``dataset`` 'cvppp' or 'kitti')
-  as users launch it, on ``dev``: (a) a layout fixture from a seed
-  (``fixture``: CVPPP_FIXTURE or KITTI_FIXTURE by default), (b) assembled
-  by ``cli.setup_dataset`` at the dataset's size (``size`` (h, w) where
+                      steps=H5_PIPELINE_STEPS, size=None, pinned=None):
+  """The port's pipeline of an H5 dataset (``dataset`` 'cvppp', 'kitti' or
+  'cityscapes') as users launch it, on ``dev``: (a) a layout fixture from
+  a seed (``fixture``: CVPPP_FIXTURE, KITTI_FIXTURE or CITYSCAPES_FIXTURE
+  by default; Cityscapes' polygons then turned into its instanceIds and
+  labelIds images by ``data.cityscapes_prep.main``), (b) assembled by
+  ``cli.setup_dataset`` at the dataset's size (``size`` (h, w) where
   given: the CPU tests' 64x64), (c) ``run_pipeline.main --dataset
   <dataset> --num_steps <steps>``, the paper presets, or the models that
   ``run_pipeline.CHAINS[dataset]`` gives at the call (cvppp: box -> full ->
-  eval; kitti: fg -> pack into the H5 -> box -> full -> eval), (d) the
-  gates, each with a control that must fail: the PNG codec's round trips
-  (control: Paeth read as Up), the JAX-written synthetic H5 read to the
-  digest pinned on the CPU (control: the channels reversed), KITTI's fg
-  pack read back from the H5 bit for bit (control: the maps flipped before
-  writing), the trained full model's eval step kernel against plain
-  (control: the window 8 pixels off), the files (the full model's
-  model_opt.yaml naming the box's weights.h5 and the eval CSVs; control:
-  the box's folder) and, on the card, the launches per step (control: a
-  plain step's).  All under a temporary folder in the checkout, removed
-  after.  Returns (results, failures)."""
+  eval; kitti: fg -> pack into the H5 -> box -> full -> eval; cityscapes:
+  fg -> pack -> box -> full -> full_pack -> cityscapes_eval of valid and
+  test), (d) the gates, each with a control that must fail: the PNG
+  codec's round trips (control: Paeth read as Up), the JAX-written
+  synthetic H5 read to the digest pinned on the CPU (control: the channels
+  reversed), the fg pack read back from the H5 bit for bit (KITTI and
+  Cityscapes; control: the maps flipped before writing), the trained full
+  model's eval step kernel against plain (control: the window 8 pixels
+  off), the files (the full model's model_opt.yaml naming the box's
+  weights.h5 and the eval CSVs, for Cityscapes also each valid and test
+  image's submission text file and its masks, 0/255 at the full size;
+  control: the box's folder) and, on the card, the launches per step
+  (control: a plain step's).  Cityscapes adds three: the prep's images to
+  CITYSCAPES_PREP_DIGEST (control: a polygon moved by a pixel), the
+  assembled files to CITYSCAPES_H5_DIGEST (control: the classes
+  permuted), both pinned by the CPU tests with the JAX package's prep (cv2)
+  and assembler, and the AP of a pack of the valid split's ground truth
+  through ``cli.cityscapes_eval.main`` and ``instance_eval.main`` to
+  CITYSCAPES_GT_AP (control: the masks shifted).  ``pinned``: {'prep',
+  'h5', 'ap'} in place of those constants (the CPU tests' small
+  fixtures).  All under a temporary folder in the checkout, removed after.
+  Returns (results, failures)."""
   import numpy as np
 
   from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.cli import cityscapes_eval as cs_eval_cli
   from rec_attend_tpu_torch.cli import eval as eval_cli
   from rec_attend_tpu_torch.cli import pack as pack_cli
   from rec_attend_tpu_torch.cli import setup_dataset
   from rec_attend_tpu_torch.cli.eval import DEFAULT_ANALYZERS
   from rec_attend_tpu_torch.config import FullModelConfig
+  from rec_attend_tpu_torch.data import cityscapes_prep
   from rec_attend_tpu_torch.data import provider
   from rec_attend_tpu_torch.data.dataset import pack_predictions
   from rec_attend_tpu_torch.data.provider import _DECODE
   from rec_attend_tpu_torch.data.synthetic import SyntheticH5
   from rec_attend_tpu_torch.ops import matching
   from rec_attend_tpu_torch.pipelines import run_pipeline
+  from rec_attend_tpu_torch.utils import png
 
   out, failures = {}, []
   cuda = dev.type == 'cuda'
-  kitti = dataset == 'kitti'
-  fixture = fixture or (KITTI_FIXTURE if kitti else CVPPP_FIXTURE)
+  cityscapes = dataset == 'cityscapes'
+  packs = dataset != 'cvppp'
+  build_fixture, default = {
+      'cvppp': (cvppp_fixture, CVPPP_FIXTURE),
+      'kitti': (kitti_fixture, KITTI_FIXTURE),
+      'cityscapes': (cityscapes_fixture, CITYSCAPES_FIXTURE)}[dataset]
+  fixture = fixture or default
+  pinned = pinned or {'prep': CITYSCAPES_PREP_DIGEST,
+                      'h5': CITYSCAPES_H5_DIGEST, 'ap': CITYSCAPES_GT_AP}
 
   def gate(name, got, control):
     return gate_with_control(failures, name, got, control)
@@ -3967,15 +4261,37 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
                              for d in ('data', 'results', 'logs'))
     # ---- (a) the fixture, (b) assembled ---------------------------------
     t0 = time.time()
-    nbytes = (kitti_fixture if kitti else cvppp_fixture)(folder, **fixture)
+    nbytes = build_fixture(folder, **fixture)
     out['fixture'] = dict(fixture, bytes=nbytes, seconds=time.time() - t0)
+    if cityscapes:
+      t0 = time.time()
+      converted = cityscapes_prep.main(['--dataset', folder])
+      out['prep'] = {'annotations': converted,
+                     'seconds': time.time() - t0}
+      digest = cityscapes_prep_digest(folder)
+      out['prep']['digest'] = digest
+      out['prep']['gate'] = gate(
+          'the prep\'s images against the digest of JAX\'s (cv2)',
+          [] if digest == pinned['prep'] else [f'digest {digest}'],
+          [] if cityscapes_prep_digest(folder, moved=True) == pinned['prep']
+          else ['a polygon moved by a pixel'])
     argv = ['--dataset', dataset, '--folder', folder, '--splits',
             ','.join(H5_SPLITS[dataset])]
     if size:
       argv += ['--height', str(size[0]), '--width', str(size[1])]
+    t0 = time.time()
     out['assemble'] = setup_dataset.main(argv)
+    out['assemble_seconds'] = time.time() - t0
+    h5_paths = [out['assemble'][s]['path'] for s in H5_SPLITS[dataset]]
     for stats in out['assemble'].values():
       stats['path'] = os.path.relpath(stats['path'], root)
+    if cityscapes:
+      digest = cityscapes_h5_digest(h5_paths)
+      out['h5_digest'] = {'digest': digest, 'gate': gate(
+          'the assembled H5 files against the digest of JAX\'s',
+          [] if digest == pinned['h5'] else [f'digest {digest}'],
+          [] if cityscapes_h5_digest(h5_paths, permuted=True) == pinned['h5']
+          else ['the classes permuted'])}
 
     # ---- (c) the pipeline -----------------------------------------------
     argv = ['--dataset', dataset, '--dataset_folder', folder, '--results',
@@ -3987,8 +4303,9 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
     valid = provider.get(dataset, data_cfg, split='valid')
     out['decode'] = decode_ms(valid, valid.get_dataset_size())
     ids = {s: f'{s}_model_{dataset}-chip' for s in ('fg', 'box', 'full')}
-    seconds = {'pack': [], 'eval': []}
-    timings = {'pack': {}, 'eval': {}}
+    seconds = {'pack': [], 'full_pack': [], 'eval': [],
+               'cityscapes_eval': []}
+    timings = {'pack': {}, 'eval': {}, 'cityscapes_eval': {}}
     packed_maps = []
 
     def with_timings(key):
@@ -4010,9 +4327,14 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
               torch, dev, fn, seconds['pack'])),
           (pack_cli, 'pack_h5', with_timings('pack')),
           (pack_cli, 'packed_group', keep_maps),
+          (pack_cli, 'full_main', lambda fn: timed_calls(
+              torch, dev, fn, seconds['full_pack'])),
           (eval_cli, 'full_main', lambda fn: timed_calls(
               torch, dev, fn, seconds['eval'])),
-          (eval_cli, 'eval_split', with_timings('eval'))):
+          (eval_cli, 'eval_split', with_timings('eval')),
+          (cs_eval_cli, 'main', lambda fn: timed_calls(
+              torch, dev, with_timings('cityscapes_eval')(fn),
+              seconds['cityscapes_eval']))):
         stack.enter_context(patched(owner, name, wrap))
       got = run_pipeline.main(argv, device=dev)
     out['pipeline_seconds'] = time.time() - t0
@@ -4040,11 +4362,17 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
     out['eval_batches'] = len(timings['eval'].get('forward', []))
     out['eval_launches'] = counts_delta(runs[-1]['launches_at_end'],
                                         launches_now(gk))
+    if cityscapes:
+      # Per image: the chain runs batches of the full model's size.
+      per = {k: [t / batch['full'] for t in v]
+             for k, v in timings['cityscapes_eval'].items()}
+      out['cityscapes_eval_host_seconds_per_image'] = {
+          k: statistics.median(v) for k, v in per.items() if v}
 
-    # ---- (d) the fg pack, read back from the H5 (KITTI) -----------------
-    if kitti:
+    # ---- (d) the fg pack, read back from the H5 (KITTI, Cityscapes) -----
+    if packs:
       out['pack'] = {
-          'seconds': seconds['pack'],
+          'seconds': seconds['pack'], 'full_pack_seconds': seconds['full_pack'],
           'write_seconds': timings['pack'].get('write'),
           'host_seconds_per_batch': {
               k: statistics.median(v) for k, v in timings['pack'].items()
@@ -4059,8 +4387,9 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
         return b['y_out'], b['d_out']
       n = {s: provider.get(dataset, data_cfg, split=s).get_dataset_size()
            for s in ('train', 'valid')}
-      maps = {'train': packed_maps[:n['train']],
-              'valid': packed_maps[n['train']:n['train'] + n['valid']]}
+      fg_maps = [m for m in packed_maps if 'foreground' in m]
+      maps = {'train': fg_maps[:n['train']],
+              'valid': fg_maps[n['train']:n['train'] + n['valid']]}
 
       def pack_diff(split, got):
         want_y = _DECODE[np.stack([m['foreground'] for m in maps[split]])]
@@ -4071,8 +4400,11 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
       problems = [f'{s}: not every example holds the maps'
                   for s in ('train', 'valid')
                   if not provider.has_pack(data_cfg, s)]
-      if len(packed_maps) != n['train'] + n['valid']:
-        problems.append(f'{len(packed_maps)} examples packed')
+      n_fg = sum(n.values()) + (provider.get(
+          dataset, data_cfg, split='test').get_dataset_size()
+                                if cityscapes else 0)
+      if len(fg_maps) != n_fg:
+        problems.append(f'{len(fg_maps)} examples packed')
       problems += [x for s in ('train', 'valid')
                    for x in pack_diff(s, read_back(s))]
       flipped = os.path.join(root, 'flipped.h5')
@@ -4133,21 +4465,76 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
         named = f'unreadable ({e})'
       if named != want or not os.path.exists(want):
         problems.append(f'pretrain_ctrl_net {named}')
+      if cityscapes:
+        problems += submission_diff(folder_)
+        return problems
       for name in DEFAULT_ANALYZERS:
         path = os.path.join(folder_, 'output_valid', f'{name}.csv')
         if not os.path.exists(path):
           problems.append(f'no {name}.csv')
       return problems
+
+    def submission_diff(folder_):
+      # Each valid and test image: the CSVs, its submission text file, and
+      # its masks 0/255 at the full size.
+      problems, masks = [], 0
+      for split in run_pipeline.CITYSCAPES_EVAL_SPLITS:
+        sub = os.path.join(folder_, f'output_{split}')
+        for name in ('sbd', 'wt_cov', 'unwt_cov'):
+          if not os.path.exists(os.path.join(sub, f'{name}.csv')):
+            problems.append(f'{split}: no {name}.csv')
+        ds = provider.get(dataset, data_cfg, split=split)
+        full = ds.get_batch([0], variables={'orig_size'})['orig_size'][0]
+        for i in ds.img_ids:
+          fname = ds.get_fname(i)
+          txt = os.path.join(sub, 'cityscapes', fname.split('_')[0],
+                             fname[:-len('.png')] + '.txt')
+          if not os.path.exists(txt):
+            problems.append(f'{split}: no {os.path.basename(txt)}')
+            continue
+          with open(txt) as f:
+            for line in f:
+              m = png.imread(os.path.join(os.path.dirname(txt),
+                                          line.split()[0]),
+                             png.IMREAD_UNCHANGED)
+              masks += 1
+              if m.shape != tuple(full) or not set(np.unique(m)) <= {0, 255}:
+                problems.append(f'{line.split()[0]}: {m.shape}')
+      out.setdefault('submitted_masks', {})[os.path.basename(folder_)] = masks
+      return problems
     out['files_gate'] = gate('the full model\'s files', files_diff(
         ids['full']), files_diff(ids['box']))
     sbd = os.path.join(results, ids['full'], 'output_valid', 'sbd.csv')
-    if os.path.exists(sbd):
+    if os.path.exists(sbd) and not cityscapes:
       with open(sbd) as f:
         rows = f.read().splitlines()[1:]
       out['eval_sbd_rows'] = len(rows)
       if len([r for r in rows if r and not r.startswith(('mean', 'std'))]) \
           < n_valid:
         failures.append(f'sbd.csv: {len(rows)} rows for {n_valid} examples')
+
+    # ---- the AP of the ground truth's pack (Cityscapes) -----------------
+    if cityscapes:
+      valid_h5 = provider.h5_path(dataset, data_cfg, 'valid')
+      ap, ap_seconds, ap_timings = cityscapes_gt_ap(
+          torch, dev, valid_h5, folder, os.path.join(root, 'gt_ap'), T)
+      shifted, _, _ = cityscapes_gt_ap(
+          torch, dev, valid_h5, folder, os.path.join(root, 'gt_ap_shifted'),
+          T, shift=CITYSCAPES_AP_CONTROL_SHIFT)
+
+      def ap_diff(got):
+        diff = {k: abs(got[k] - v) for k, v in pinned['ap'].items()}
+        return [f'{k} {got[k]} against {pinned["ap"][k]}'
+                for k, d in diff.items() if not d <= CITYSCAPES_AP_ATOL]
+      out['gt_ap'] = {
+          'ap': {k: ap[k] for k in pinned['ap']},
+          'shifted': {k: shifted[k] for k in pinned['ap']},
+          'pinned': pinned['ap'], 'atol': CITYSCAPES_AP_ATOL,
+          'seconds': ap_seconds,
+          'eval_host_seconds_per_batch': {
+              k: statistics.median(v) for k, v in ap_timings.items() if v},
+          'gate': gate('the AP of the ground truth\'s pack against the CPU\'s',
+                       ap_diff(ap), ap_diff(shifted))}
 
     # ---- launches per step ----------------------------------------------
     gk.reset_launch_counts()
@@ -5041,6 +5428,7 @@ def main():
   if not torch.cuda.is_available():
     sys.exit('chip_smoke: CUDA is not available; this script runs on a card')
   import numpy as np
+  from rec_attend_tpu_torch.config import cityscapes_full_config
   from rec_attend_tpu_torch.config import cvppp_full_config
   from rec_attend_tpu_torch.config import kitti_full_config
   from rec_attend_tpu_torch.config import synthcs_full_config
@@ -5171,7 +5559,7 @@ def main():
   # [5,224,224,4], its pastes' d_p [5,224,224,1], paste [5,48,48,1] ->
   # 224x224), KITTI's box at b5 (paste -> 128x448) and full model at b2
   # (extract x [2,128,448,13], d_p [2,128,448,1], paste -> 128x448).
-  h5_dims = h5_kernel_dims(cfg, chain_cfg)
+  h5_dims = h5_kernel_dims(cfg, chain_cfg, cityscapes_full_config())
   for (name, key), dims in h5_dims.items():
     checks[name][key] = check_kernel(torch, gk, attention, name, *dims, gen,
                                      dev, timed=True)
@@ -5198,7 +5586,9 @@ def main():
                  'cvppp_b5': 'extract_tiled_kernel',
                  'cvppp_d1_b5': 'extract_tiled_kernel',
                  'kitti_b2': 'extract_strip_kernel',
-                 'kitti_d1_b2': 'extract_strip_kernel'}
+                 'kitti_d1_b2': 'extract_strip_kernel',
+                 'cityscapes_b2': 'extract_strip_kernel',
+                 'cityscapes_d1_b2': 'extract_strip_kernel'}
   routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
             for k in want_routes}
   if routes != want_routes:
@@ -5411,7 +5801,7 @@ def main():
   # built here at the datasets' raw sizes: after the other phases, which
   # run as they did without them.
   h5_runs = {}
-  for dataset in ('cvppp', 'kitti'):
+  for dataset in ('cvppp', 'kitti', 'cityscapes'):
     h5_runs[dataset], failures = h5_pipeline_phase(torch, gk, dev, dataset)
     emit(f'{dataset}_pipeline', nvidia_smi=name_power, failures=failures,
          **h5_runs[dataset])
@@ -5573,9 +5963,11 @@ def main():
   for (name, key), dims in h5_dims.items():
     dataset, backward = key.split('_')[0], '_d1_' in key
     res = h5_runs[dataset]
-    # KITTI's box pastes at b5, its full model at b2; CVPPP's both at b5.
+    # KITTI's box pastes at b5, its full model at b2; CVPPP's both at b5;
+    # Cityscapes' box at b4, its full model at b2.
     stages = {'cvppp_b5': ['box', 'full'], 'kitti_b2': ['full'],
-              'kitti_b5': ['box']}[key] if name == 'glimpse_paste' else [
+              'kitti_b5': ['box'], 'cityscapes_b2': ['full'],
+              'cityscapes_b4': ['box']}[key] if name == 'glimpse_paste' else [
                   'full']
     by_path = {}
     for label in stages:
@@ -5584,10 +5976,13 @@ def main():
       n = n if backward else counts['launches'][name] - n
       if n:
         by_path[f'{dataset}_pipeline_{label}'] = n
-    if not backward and key != 'kitti_b5':
+    # After the last training run: the eval stage's forwards, Cityscapes'
+    # full pack's.
+    if not backward and key not in ('kitti_b5', 'cityscapes_b4'):
       n = res['eval_launches']['launches'][name]
       if n:
-        by_path[f'{dataset}_pipeline_eval'] = n
+        label = 'full_pack' if dataset == 'cityscapes' else 'eval'
+        by_path[f'{dataset}_pipeline_{label}'] = n
     use = (BACKWARD_USES[name] if backward else 'forward') + (
         f', {dataset} pipeline, ' + shape(name, dims))
     table.append(row(name, checks[name][key], use, by_path))

@@ -18,12 +18,16 @@ SBD) are taken as one matrix product of the flattened masks instead of
 JAX's [T, T, H, W] broadcast, at a small part of the cost (PERF.md §5).
 The masks are the eval commands' thresholded ones, zeros and ones in a
 numeric dtype: the sums are integers, exact in any order, so the values
-are the same bits as JAX's.  The renderers
-(``analysis.py:413-546``) write PNGs with cv2 and are not ported; of the
-Cityscapes submission writer
-(``RenderCityScapesOutputAnalyzer``, ``:477-519``) the class decision is,
-as ``cityscapes_submission``, which returns its rows instead of writing
-them.
+are the same bits as JAX's.
+
+The renderers that the Cityscapes command line runs (``analysis.py:
+413-519``) write their PNGs through ``utils/png.py`` as cv2 writes them:
+``RenderInstanceAnalyzer`` the instances in the colours of ``_CMAP`` (an
+RGB table, written BGR), ``RenderGroundtruthInstanceAnalyzer`` the ground
+truth's instances, each in the colour of its best-matching prediction,
+and ``RenderCityScapesOutputAnalyzer`` the submission, ``{run}/{stem}.txt``
+with a line ``{png} {label id} {score}`` and a 0/255 mask PNG for each
+instance submitted, its rows those of ``cityscapes_submission``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import time
 import numpy as np
 
 from rec_attend_tpu_torch.ops.hungarian import hungarian
+from rec_attend_tpu_torch.utils import png
 
 
 # ---------------------------------------------------------------------------
@@ -473,3 +478,122 @@ def cityscapes_submission(y_out, fg, conf):
             float(f'{conf[ii, jj]:f}'), jj))
     rows.append(image_rows)
   return rows
+
+
+
+# ---------------------------------------------------------------------------
+# Renderers (ref analysis.py:413-519)
+# ---------------------------------------------------------------------------
+
+_CMAP = np.array(
+    [[192, 57, 43], [243, 156, 18], [26, 188, 156], [41, 128, 185],
+     [142, 68, 173], [44, 62, 80], [127, 140, 141], [17, 75, 95],
+     [2, 128, 144], [228, 253, 225], [69, 105, 144], [244, 91, 105],
+     [91, 192, 235], [253, 231, 76], [155, 197, 61], [229, 89, 52],
+     [250, 121, 33], [124, 82, 47], [86, 15, 94], [38, 63, 77], [1, 52, 55],
+     [63, 29, 82]], dtype='uint8')
+
+
+def _write_png(path, img):
+  with open(path, 'wb') as f:
+    f.write(png.encode(img).tobytes())
+
+
+class RenderInstanceAnalyzer(AnalyzerBase):
+  """An image's instances, slot jj in colour ``_CMAP[jj % 22]`` (summed
+  in uint8 where they overlap), one PNG an image named by the dataset's
+  ``get_fname``."""
+
+  def __init__(self, folder, dataset):
+    super().__init__('render_ins')
+    self.folder = folder
+    self.dataset = dataset
+    self.cmap = _CMAP
+    os.makedirs(folder, exist_ok=True)
+
+  def _fname(self, idx):
+    get_fname = getattr(self.dataset, 'get_fname', None)
+    if get_fname is not None:
+      try:
+        return get_fname(idx)
+      except Exception:
+        pass
+    return f'{idx}.png'
+
+  def _write(self, idx, rgb):
+    _write_png(os.path.join(self.folder, self._fname(idx)), rgb[:, :, ::-1])
+
+  def stage(self, results):
+    for ii in range(len(results['y_out'])):
+      y = results['y_out'][ii]
+      total = np.zeros([y.shape[1], y.shape[2], 3], dtype='uint8')
+      for jj in range(y.shape[0]):
+        y_jj = y[jj].astype('uint8')
+        if y_jj.sum() > 0:
+          total += np.expand_dims(y_jj, 2) * self.cmap[jj % len(self.cmap)]
+      self._write(results['indices'][ii], total)
+
+
+class RenderGroundtruthInstanceAnalyzer(RenderInstanceAnalyzer):
+  """The ground truth's instances, each in the colour of the prediction of
+  best IoU with it, or, where that colour is taken, in the last free one;
+  an earlier instance keeps its pixels."""
+
+  def stage(self, results):
+    num_color = len(self.cmap)
+    for ii in range(len(results['y_gt'])):
+      y_gt = results['y_gt'][ii]
+      iou_pw = results['iou_pairwise'][ii]
+      total = np.zeros([y_gt.shape[1], y_gt.shape[2], 3], dtype='uint8')
+      flag = np.zeros(num_color)
+      for jj in range(y_gt.shape[0]):
+        y_jj = y_gt[jj].astype('uint8')
+        max_idx = int(np.argmax(iou_pw[:, jj]))
+        if flag[max_idx] == 0:
+          color = self.cmap[max_idx]
+          flag[max_idx] = 1
+        else:
+          color = self.cmap[-1]
+          for kk in range(num_color):
+            idx = num_color - kk - 1
+            if flag[idx] == 0:
+              color = self.cmap[idx]
+              flag[idx] = 1
+              break
+        total += ((total == 0).astype('uint8') * np.expand_dims(y_jj, 2)
+                  * color)
+      self._write(results['indices'][ii], total)
+
+
+class RenderCityScapesOutputAnalyzer(AnalyzerBase):
+  """The Cityscapes submission: for each image ``{folder}/{run}/{stem}.txt``
+  (``stem`` the dataset's ``get_fname`` without '.png', ``run`` its part
+  before the first '_') with one line ``{stem}_{slot:03d}.png {label id}
+  {score:f}`` a row of ``cityscapes_submission``, and that mask PNG
+  beside it.  Reads 'y_out', 'y_in' (the [H, W, C] semantic maps) and
+  'conf' of the results."""
+
+  def __init__(self, folder, dataset):
+    super().__init__('render_cs')
+    self.folder = folder
+    self.dataset = dataset
+    os.makedirs(folder, exist_ok=True)
+
+  def stage(self, results):
+    decided = cityscapes_submission(results['y_out'], results['y_in'],
+                                    results['conf'])
+    for idx, image_rows in zip(results['indices'], decided):
+      self.write(self.dataset.get_fname(idx), image_rows)
+
+  def write(self, fname, image_rows):
+    """Write one image's rows; returns its text file."""
+    stem = fname[:-len('.png')]
+    runfolder = os.path.join(self.folder, fname.split('_')[0])
+    os.makedirs(runfolder, exist_ok=True)
+    text_fn = os.path.join(runfolder, stem + '.txt')
+    with open(text_fn, 'w') as text_file:
+      for row in image_rows:
+        img_file = f'{stem}_{row.slot:03d}.png'
+        _write_png(os.path.join(runfolder, img_file), row.mask)
+        text_file.write(f'{img_file} {row.label_id:d} {row.score:f}\n')
+    return text_fn

@@ -1,19 +1,24 @@
 """Dataset assembly: raw image folders -> the standard H5 files.
 
 Counterpart of the root ``setup_dataset.py`` (the reference's
-``setup_cvppp`` and ``setup_kitti``, minus the downloads: point --folder at
-a dataset root already on disk), with the same flags, on the port's codecs
-and without cv2 or h5py:
+``setup_cvppp``, ``setup_kitti`` and ``setup_cityscapes``, minus the
+downloads: point --folder at a dataset root already on disk), with the same
+flags, on the port's codecs and without cv2 or h5py:
 
   python -m rec_attend_tpu_torch.cli.setup_dataset --dataset cvppp \\
       --folder data/cvppp/A1 --splits train,valid
   python -m rec_attend_tpu_torch.cli.setup_dataset --dataset kitti \\
       --folder data/kitti --splits train,valid,test
+  python -m rec_attend_tpu_torch.data.cityscapes_prep --dataset data/cityscapes
+  python -m rec_attend_tpu_torch.cli.setup_dataset --dataset cityscapes \\
+      --folder data/cityscapes --splits train,valid,test
 
 Each split goes to ``{folder}/{split}_{H}x{W}.h5``, the size by default
-the dataset's (``config.DATASET_DIMS``).  Cityscapes is the next slice of
-the port (ROADMAP A.5); the synthetic dataset needs no file (the port
-draws it in memory, ``data/provider.py``): both raise.
+the dataset's (``config.DATASET_DIMS``).  Cityscapes reads the
+``*_instanceIds.png`` files that ``data.cityscapes_prep`` writes from the
+polygon annotations (``gtCoarse`` with ``--coarse_label``; its splits are
+train, valid, test and train_extra).  The synthetic dataset needs no file
+(the port draws it in memory, ``data/provider.py``): it raises.
 """
 
 from __future__ import annotations
@@ -41,10 +46,6 @@ def main(argv=None):
                       help='synth: examples per split')
   args = parser.parse_args(argv)
   log = logger.get()
-  if args.dataset == 'cityscapes':
-    raise NotImplementedError(
-        'setup_dataset --dataset cityscapes: the Cityscapes assembler is '
-        'the next slice of the port (ROADMAP A.5, Cityscapes)')
   if args.dataset == 'synth':
     raise ValueError(
         'setup_dataset --dataset synth: the port draws the synthetic '
@@ -55,14 +56,18 @@ def main(argv=None):
   dims = C.DATASET_DIMS[args.dataset]
   opt = {'height': args.height or dims['inp_height'],
          'width': args.width or dims['inp_width']}
+  kw = {}
   if args.dataset == 'cvppp':
     from rec_attend_tpu_torch.data.cvppp import CVPPPAssembler as cls
-  else:
+  elif args.dataset == 'kitti':
     from rec_attend_tpu_torch.data.kitti import KITTIAssembler as cls
+  else:
+    from rec_attend_tpu_torch.data.cityscapes import CityscapesAssembler as cls
+    kw['coarse_label'] = args.coarse_label
   out = {}
   for split in args.splits.split(','):
     log.info(f'Assembling {args.dataset} {split}...')
-    asm = cls(args.folder, opt, split=split)
+    asm = cls(args.folder, opt, split=split, **kw)
     path = asm.assemble()
     out[split] = dict(asm.stats, path=path)
   return out

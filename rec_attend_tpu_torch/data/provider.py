@@ -11,13 +11,13 @@ the JAX package's files (see ``data/synthetic.py``); a JAX synthetic H5
 file named by ``h5_fname`` is read as it is (``data.synthetic
 .SyntheticH5``).
 
-'cvppp' and 'kitti' read the assembled split ``{folder}/{split}_{H}x{W}
-.h5`` (or ``h5_fname``) of ``data/cvppp.py`` and ``data/kitti.py``, the
-folder by default ``DEFAULT_FOLDERS``' (the CVPPP test split's own), as
-the JAX provider does (``provider.py:17-30``, ``:72-77``); their fg
-model's maps are packed into that file (``data/dataset.py``'s
-``pack_predictions``), where the dataset reads them.  'cityscapes' is not
-ported yet (ROADMAP A.5, Cityscapes) and raises.
+'cvppp', 'kitti' and 'cityscapes' read the assembled split
+``{folder}/{split}_{H}x{W}.h5`` (or ``h5_fname``) of ``data/cvppp.py``,
+``data/kitti.py`` and ``data/cityscapes.py``, the folder by default
+``DEFAULT_FOLDERS``' (the CVPPP test split's own), as the JAX provider
+does (``provider.py:17-30``, ``:72-77``); the fg and the full model's maps
+are packed into that file (``data/dataset.py``'s ``pack_predictions``),
+where the dataset reads them.
 
 The pack store.  The JAX package writes the fg model's foreground and
 orientation maps into the split's H5 file as uint8 PNGs,
@@ -62,7 +62,7 @@ from rec_attend_tpu_torch.utils import h5
 from rec_attend_tpu_torch.utils import logger
 
 SPLIT_SEEDS = {'train': 3, 'valid': 4, 'test': 5}
-H5_DATASETS = ('cvppp', 'kitti')
+H5_DATASETS = ('cvppp', 'kitti', 'cityscapes')
 DEFAULT_FOLDERS = {
     'cvppp': 'data/cvppp/A1',
     'cvppp_test': 'data/cvppp_test/A1',
@@ -113,6 +113,9 @@ class PackedDataset:
 
   def get_full_size_labels(self, ids, timespan=None):
     return self.dataset.get_full_size_labels(ids, timespan=timespan)
+
+  def get_fname(self, idx):
+    return self.dataset.get_fname(idx)
 
 
 def _opt(data_opt):
@@ -216,7 +219,8 @@ def h5_path(dataset_name, data_opt, split):
 
 def get(dataset_name, data_opt, split='train', h5_fname=None):
   """The ``split`` of ``dataset_name``; ``data_opt`` is a ``DataConfig``
-  or its dict.  'cvppp' and 'kitti': the dataset of the split's H5 file
+  or its dict.  'cvppp', 'kitti' and 'cityscapes': the dataset of the
+  split's H5 file
   (``h5_fname``, else ``h5_path``).  'synth': a ``PackedDataset`` where the
   split's pack file holds the fg model's maps for these settings (and the
   full model's, where packed), else the in-memory split; with
@@ -225,8 +229,10 @@ def get(dataset_name, data_opt, split='train', h5_fname=None):
   if dataset_name in H5_DATASETS:
     if dataset_name == 'cvppp':
       from rec_attend_tpu_torch.data.cvppp import CVPPP as cls
-    else:
+    elif dataset_name == 'kitti':
       from rec_attend_tpu_torch.data.kitti import KITTI as cls
+    else:
+      from rec_attend_tpu_torch.data.cityscapes import Cityscapes as cls
     path = h5_fname or h5_path(dataset_name, opt, split)
     if not os.path.exists(path):
       raise FileNotFoundError(
@@ -234,10 +240,6 @@ def get(dataset_name, data_opt, split='train', h5_fname=None):
           f'python -m rec_attend_tpu_torch.cli.setup_dataset --dataset '
           f'{dataset_name} --folder <its folder> --splits {split}')
     return cls(path)
-  if dataset_name == 'cityscapes':
-    raise NotImplementedError(
-        'dataset \'cityscapes\': its assembler, its reader and its '
-        'pipeline are the next slice of the port (ROADMAP A.5, Cityscapes)')
   if dataset_name != 'synth':
     raise ValueError(f'Unknown dataset name: {dataset_name}')
   if h5_fname is not None:

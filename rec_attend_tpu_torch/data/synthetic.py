@@ -24,17 +24,20 @@ class count, and the foreground target becomes the semantic one: a channel
 a class, each the union of that class's instances, after a background
 channel of 1 minus their largest (``data/dataset.py:202-211``).  The
 Cityscapes evaluators read an instance-id image
-(``instance_id_image``), which the JAX package writes as
-``*_gtFine_instanceIds.png`` (``write_instance_id_gt``).
+(``instance_id_image``), written as ``*_gtFine_instanceIds.png`` by
+``write_instance_id_gt``.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
 
 from rec_attend_tpu_torch.data.dataset import InsSegDataset
 from rec_attend_tpu_torch.data.orientation import get_orientation
+from rec_attend_tpu_torch.utils import png
 
 # Synthetic class c -> Cityscapes label id, as the submission writer maps
 # its classes (``analysis.CITYSCAPES_LABELS``): class 0 is a person (24),
@@ -76,6 +79,23 @@ def instance_id_image(masks, classes):
   for k, (m, c) in enumerate(zip(masks, classes)):
     label = CS_INSTANCE_LABEL_IDS[int(c) % len(CS_INSTANCE_LABEL_IDS)]
     out[m > 0] = label * 1000 + k
+  return out
+
+
+def write_instance_id_gt(ds, out_folder):
+  """Write each image's instance-id image (``get_instance_id_images``) as
+  a 16-bit ``{out_folder}/{stem}_gtFine_instanceIds.png``, ``stem`` its
+  Cityscapes-style name (``get_fname``), as the JAX package's
+  ``write_instance_id_gt`` writes the ground truth of the official AP.
+  Returns the paths, in the order of ``ds.img_ids``."""
+  os.makedirs(out_folder, exist_ok=True)
+  out = []
+  for idx, ids in zip(ds.img_ids, ds.get_instance_id_images(ds.img_ids)):
+    stem = get_fname(idx)[:-len('.png')]
+    path = os.path.join(out_folder, f'{stem}_gtFine_instanceIds.png')
+    with open(path, 'wb') as f:
+      f.write(png.encode_samples(ids.astype(np.uint16), 0, 16).tobytes())
+    out.append(path)
   return out
 
 
@@ -195,6 +215,9 @@ class SyntheticDataset:
 
   def get_dataset_size(self):
     return len(self.img_ids)
+
+  def get_fname(self, idx):
+    return get_fname(idx)
 
   def _check_timespan(self, timespan):
     if timespan not in (None, self.timespan):

@@ -1,6 +1,6 @@
-"""The official Cityscapes instance-level AP, on arrays.
+"""The official Cityscapes instance-level AP, on arrays and on files.
 
-Counterpart of ``rec_attend_tpu/eval_cityscapes/instance_eval.py:42-370``,
+Counterpart of ``rec_attend_tpu/eval_cityscapes/instance_eval.py``,
 the algorithm of the official ``evalInstanceLevelSemanticLabeling.py``:
 
   - overlaps 0.5:0.05:0.95, least region size 100 pixels (the rows limited
@@ -14,16 +14,28 @@ the algorithm of the official ``evalInstanceLevelSemanticLabeling.py``:
     scores, averaged over the overlaps, then over the classes (NaN-mean
     over classes without ground truth or predictions).
 
-The JAX package reads a ground-truth instance-id PNG and a text file of
-(mask PNG, label id, confidence) rows an image; here the caller hands over
-the arrays: an instance-id image and rows of (mask, label id, confidence)
-an image, as ``analysis.cityscapes_submission`` returns them, and the
-result may be exported in the JAX package's JSON layout.  The file finders
-and the command line wait.
+The evaluation reads, per image, an instance-id image and rows of (mask,
+label id, confidence): in memory (``evaluate_instance_predictions``, the
+rows of ``analysis.cityscapes_submission``), or from the files of a
+submission, as the JAX package and the official script read them
+(``evaluate_prediction_files``): a ``*_gtFine_instanceIds.png`` and a text
+file of ``{mask png} {label id} {confidence}`` lines an image, the masks
+beside it.  ``main`` is the official script's command line: the ground
+truth of ``{dataset}/gtFine/{split}``, each image's text file found under
+``--predictions`` by its ``{city}_{seq}_{frame}`` stem, and with
+``--use_distance`` the ``disparity`` and ``camera`` files beside them for
+the rows limited to 100 m and 50 m.  The result may be exported in the
+JAX package's JSON layout.
+
+    python -m rec_attend_tpu_torch.eval_cityscapes.instance_eval \\
+        --predictions results/<id>/output_valid/cityscapes \\
+        --dataset data/cityscapes --split val --export ap.json
 """
 
 from __future__ import annotations
 
+import argparse
+import glob
 import json
 import os
 
@@ -31,6 +43,8 @@ import numpy as np
 
 from rec_attend_tpu_torch.data.cityscapes_labels import id2label
 from rec_attend_tpu_torch.data.cityscapes_labels import labels
+from rec_attend_tpu_torch.utils import logger
+from rec_attend_tpu_torch.utils import png
 
 OVERLAPS = np.arange(0.5, 1.0, 0.05)
 MIN_REGION_SIZES = [100, 1000, 1000]
@@ -277,6 +291,30 @@ def compute_averages(aps, inst_labels, distance_available=False):
   return avg
 
 
+def _match(rows, gt_img, distance_img, inst_labels):
+  gt_img = np.asarray(gt_img).astype(np.int64)
+  gts, preds = assign_gt_to_preds(
+      get_gt_instances(gt_img, distance_img=distance_img), gt_img, rows,
+      inst_labels)
+  return {'groundTruth': gts, 'prediction': preds}
+
+
+def _averages(matches, inst_labels, distance_available, export_file):
+  aps = evaluate_matches(matches, inst_labels,
+                         distance_available=distance_available)
+  avg = compute_averages(aps, inst_labels,
+                         distance_available=distance_available)
+  log = logger.get()
+  extra = (f"  AP_100m: {avg['allAp100m']:.3f}  AP_50m: {avg['allAp50m']:.3f}"
+           if 'allAp100m' in avg else '')
+  log.info(f"AP: {avg['allAp']:.3f}  AP_50%: {avg['allAp50%']:.3f}" + extra)
+  if export_file:
+    os.makedirs(os.path.dirname(export_file) or '.', exist_ok=True)
+    with open(export_file, 'w') as f:
+      json.dump({'averages': avg, 'aps': aps.tolist()}, f, indent=2)
+  return avg
+
+
 def evaluate_instance_predictions(predictions, gt_images,
                                   distance_images=None, export_file=None):
   """AP over images: ``predictions`` holds each image's rows (mask, label
@@ -291,20 +329,137 @@ def evaluate_instance_predictions(predictions, gt_images,
   inst_labels = instance_labels()
   distance_available = bool(distance_images) and any(
       d is not None for d in distance_images)
+  matches = [_match(rows, gt_img,
+                    distance_images[i] if distance_available else None,
+                    inst_labels)
+             for i, (rows, gt_img) in enumerate(zip(predictions, gt_images))]
+  return _averages(matches, inst_labels, distance_available, export_file)
+
+
+def load_camera(camera_json):
+  """(baseline, fx) of an official ``_camera.json``."""
+  with open(camera_json) as f:
+    cam = json.load(f)
+  return (float(cam['extrinsic']['baseline']),
+          float(cam['intrinsic']['fx']))
+
+
+def read_pred_info(pred_txt):
+  """The lines of a prediction text file, each ``{mask png} {label id}
+  {confidence}``: [{'maskFile' (beside the text file), 'labelID',
+  'conf'}]."""
+  preds = []
+  base = os.path.dirname(pred_txt)
+  with open(pred_txt) as f:
+    for line in f:
+      parts = line.split()
+      if len(parts) != 3:
+        raise ValueError(
+            f'Invalid prediction line in {pred_txt}: {line!r}')
+      preds.append({
+          'maskFile': os.path.join(base, parts[0]),
+          'labelID': int(float(parts[1])),
+          'conf': float(parts[2]),
+      })
+  return preds
+
+
+def read_prediction_rows(pred_txt):
+  """The rows (mask, label id, confidence) of a prediction text file, the
+  masks read from their PNGs, for the labels that the AP counts."""
+  inst_labels = set(instance_labels())
+  return [(png.imread(p['maskFile'], png.IMREAD_GRAYSCALE), p['labelID'],
+           p['conf'])
+          for p in read_pred_info(pred_txt)
+          if p['labelID'] in id2label
+          and id2label[p['labelID']].name in inst_labels]
+
+
+def evaluate_prediction_files(prediction_txts, gt_files, export_file=None,
+                              distance_files=None, camera_files=None):
+  """AP over the files of a submission: each image's prediction text file
+  and its 16-bit ``*_instanceIds.png``, one image in memory at a time.
+  ``distance_files``: optional aligned official ``_disparity.png`` paths
+  (entries may be None), which add the 100 m and 50 m rows, with
+  ``camera_files``' ``_camera.json`` rigs over the nominal one.  Returns
+  the averages of ``evaluate_instance_predictions``."""
+  inst_labels = instance_labels()
+  distance_available = bool(distance_files) and any(
+      d is not None for d in distance_files)
   matches = []
-  for i, (rows, gt_img) in enumerate(zip(predictions, gt_images)):
-    gt_img = np.asarray(gt_img).astype(np.int64)
-    distance_img = distance_images[i] if distance_available else None
-    gts, preds = assign_gt_to_preds(
-        get_gt_instances(gt_img, distance_img=distance_img), gt_img, rows,
-        inst_labels)
-    matches.append({'groundTruth': gts, 'prediction': preds})
-  aps = evaluate_matches(matches, inst_labels,
-                         distance_available=distance_available)
-  avg = compute_averages(aps, inst_labels,
-                         distance_available=distance_available)
-  if export_file:
-    os.makedirs(os.path.dirname(export_file) or '.', exist_ok=True)
-    with open(export_file, 'w') as f:
-      json.dump({'averages': avg, 'aps': aps.tolist()}, f, indent=2)
-  return avg
+  for i, (pred_txt, gt_file) in enumerate(zip(prediction_txts, gt_files)):
+    distance_img = None
+    if distance_available and distance_files[i] is not None:
+      baseline, fx = NOMINAL_BASELINE, NOMINAL_FX
+      if camera_files and camera_files[i] is not None:
+        baseline, fx = load_camera(camera_files[i])
+      distance_img = disparity_to_distance(
+          png.imread(distance_files[i], png.IMREAD_UNCHANGED), baseline, fx)
+    matches.append(_match(read_prediction_rows(pred_txt),
+                          png.imread(gt_file, png.IMREAD_UNCHANGED),
+                          distance_img, inst_labels))
+  return _averages(matches, inst_labels, distance_available, export_file)
+
+
+def find_gt_files(cityscapes_path, split='val'):
+  pattern = os.path.join(cityscapes_path, 'gtFine', split, '*',
+                         '*_gtFine_instanceIds.png')
+  return sorted(glob.glob(pattern))
+
+
+def find_side_file(gt_file, cityscapes_path, split, kind, ext):
+  """The ``disparity`` or ``camera`` file of a ground-truth file, by its
+  stem, or None: ``{root}/{kind}/{split}/{city}/{stem}_{kind}.{ext}``."""
+  base = os.path.basename(gt_file)
+  stem = '_'.join(base.split('_')[:3])
+  city = stem.split('_')[0]
+  path = os.path.join(cityscapes_path, kind, split, city,
+                      f'{stem}_{kind}.{ext}')
+  return path if os.path.exists(path) else None
+
+
+def find_prediction_file(gt_file, prediction_path):
+  """The text file under ``prediction_path`` of a ground-truth file, by
+  its ``{city}_{seq}_{frame}`` stem."""
+  base = os.path.basename(gt_file)
+  stem = '_'.join(base.split('_')[:3])
+  hits = glob.glob(os.path.join(prediction_path, '**', f'{stem}*.txt'),
+                   recursive=True)
+  if not hits:
+    raise FileNotFoundError(
+        f'Found no prediction for ground truth {gt_file}')
+  return hits[0]
+
+
+def main(argv=None):
+  """The official script's command line, its environment variables
+  (CITYSCAPES_RESULTS, CITYSCAPES_DATASET, CITYSCAPES_SPLIT) as defaults.
+  Returns the averages."""
+  parser = argparse.ArgumentParser()
+  parser.add_argument('--predictions',
+                      default=os.environ.get('CITYSCAPES_RESULTS'))
+  parser.add_argument('--dataset',
+                      default=os.environ.get('CITYSCAPES_DATASET'))
+  parser.add_argument('--split',
+                      default=os.environ.get('CITYSCAPES_SPLIT', 'val'))
+  parser.add_argument('--export', default=None)
+  parser.add_argument('--use_distance', action='store_true',
+                      help='distances of the instances from the official '
+                      'disparity images, for AP_100m and AP_50m')
+  args = parser.parse_args(argv)
+  gt_files = find_gt_files(args.dataset, args.split)
+  pred_txts = [find_prediction_file(g, args.predictions) for g in gt_files]
+  distance_files = camera_files = None
+  if args.use_distance:
+    distance_files = [find_side_file(g, args.dataset, args.split,
+                                     'disparity', 'png') for g in gt_files]
+    camera_files = [find_side_file(g, args.dataset, args.split,
+                                   'camera', 'json') for g in gt_files]
+  return evaluate_prediction_files(pred_txts, gt_files,
+                                   export_file=args.export,
+                                   distance_files=distance_files,
+                                   camera_files=camera_files)
+
+
+if __name__ == '__main__':
+  main()

@@ -1,12 +1,15 @@
 """Build and load the port's native libraries from ``csrc/``.
 
-Three libraries, each with a plain C interface and loaded with ``ctypes``:
+Four libraries, each with a plain C interface and loaded with ``ctypes``:
 
   glimpse     ``csrc/glimpse.cu``, the hand-written CUDA kernels, compiled
               by ``nvcc`` for ``sm_90a``;
-  hungarian   ``csrc/hungarian.cc``, the host Hungarian solver, and
+  hungarian   ``csrc/hungarian.cc``, the host Hungarian solver,
   png_filter  ``csrc/png_filter.cc``, the PNG decoder's row unfiltering,
-              both compiled by the C++ compiler (``g++``, or ``$CXX``).
+              and
+  poly_fill   ``csrc/poly_fill.cc``, the polygon fill of the Cityscapes
+              annotations, the three compiled by the C++ compiler (``g++``,
+              or ``$CXX``).
 
 Each is built under ``rec_attend_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, and built again when its source changes (the
@@ -35,6 +38,7 @@ SOURCES = {
     'glimpse': os.path.join(_PKG_DIR, 'csrc', 'glimpse.cu'),
     'hungarian': os.path.join(_PKG_DIR, 'csrc', 'hungarian.cc'),
     'png_filter': os.path.join(_PKG_DIR, 'csrc', 'png_filter.cc'),
+    'poly_fill': os.path.join(_PKG_DIR, 'csrc', 'poly_fill.cc'),
 }
 BUILD_DIR = os.path.join(_PKG_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -206,6 +210,12 @@ def _bind_png_filter(lib):
   lib.png_unfilter.restype = ctypes.c_int
 
 
+def _bind_poly_fill(lib):
+  lib.fill_poly.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                            + [ctypes.c_void_p] * 2 + [ctypes.c_int])
+  lib.fill_poly.restype = ctypes.c_int
+
+
 def load():
   """The loaded glimpse kernel library, built first if needed."""
   return _load('glimpse', _bind_glimpse)
@@ -219,3 +229,8 @@ def load_hungarian():
 def load_png_filter():
   """The loaded host PNG unfiltering library, built first if needed."""
   return _load('png_filter', _bind_png_filter)
+
+
+def load_poly_fill():
+  """The loaded host polygon fill library, built first if needed."""
+  return _load('poly_fill', _bind_poly_fill)

@@ -1,6 +1,7 @@
 """The training pipelines: box -> full -> eval, and fg -> pack -> box ->
 full -> eval (-> ap -> pixel), on the synthetic datasets, CVPPP and
-KITTI.
+KITTI, and fg -> pack -> box -> full -> full_pack -> cityscapes_eval on
+Cityscapes.
 
 Counterpart of ``run_synth``, ``run_synth3`` and ``run_synth_cs`` (here
 both chains are ``run_chain``), ``run_pixel_stage`` and ``run_ap_stage``
@@ -26,16 +27,17 @@ instance classes (3 config classes with the background): the same stages
 with the Cityscapes presets, the fg model's softmax over the classes and
 the box model's softmax score head, then two more.  ``ap``: the full
 model's pack (``cli.pack.full_main``) of the valid split into its pack
-file, the model-free Cityscapes eval of that file
-(``cli.cityscapes_eval``, mask threshold 0.6, regions of up to
-``--ap_remove_tiny`` pixels removed) and the official instance AP of its
-submission against the split's instance-id images, written to
-``results/<full id>/output_valid/ap.json`` in the JAX layout.  ``pixel``:
-the official pixel-level eval of the fg model's packed bytes against the
-same images, written to ``output_valid/pixel_eval.json``.  The JAX stage
-also writes the submission's ``.txt`` and PNG files and the gtFine PNGs
-through cv2; here the rows and images stay in memory (ROADMAP A.5, with
-the PNG codec).  ``--scale paper`` is 256x512, T=20, up to 10 instances,
+file, the model-free Cityscapes eval command line over that file
+(``cli.cityscapes_eval.main``, mask threshold 0.6, regions of up to
+``--ap_remove_tiny`` pixels removed) into ``cs_output_valid/``, its
+submission's text and PNG files under ``cs_output_valid/cityscapes/``, the
+split's ground truth as ``*_gtFine_instanceIds.png`` files under
+``ap_gt_valid/`` (``data.synthetic.write_instance_id_gt``), and the
+official instance AP of those files (``eval_cityscapes.instance_eval``),
+written to ``results/<full id>/output_valid/ap.json`` in the JAX layout.
+``pixel``: the official pixel-level eval of the fg model's packed bytes
+against the same images, written to ``output_valid/pixel_eval.json``.
+``--scale paper`` is 256x512, T=20, up to 10 instances,
 the synthcs presets (``config.synthcs_*_config``), fg at b8 and box and
 full at b4, 1,500 fg, 4,000 box and 6,000 full steps on 256 examples;
 ``--scale tiny`` a 64x64 smoke run on 32 examples.
@@ -48,17 +50,22 @@ stage; ``--resume`` restores each trained stage from its folder (its data
 snapshot must match), and skips fg, pack and box once a full checkpoint
 and both pack files exist.
 
-``--dataset cvppp`` and ``--dataset kitti`` are the twins of JAX's
-``run_cvppp`` and ``run_kitti`` (``run_pipeline.py:84-149``) in
-``run_chain``, on the splits ``cli.setup_dataset`` assembled into
-``--dataset_folder``: CVPPP box (b5) -> full (b5) -> eval on valid, KITTI
-fg (b8) -> pack into the split's H5 files -> box (b5) -> full (b2) ->
-eval on valid, the paper presets with 60,000 box and 30,000 full steps
-(CVPPP) and 40,000 fg, 60,000 box and 100,000 full (KITTI) unless
+``--dataset cvppp``, ``--dataset kitti`` and ``--dataset cityscapes`` are
+the twins of JAX's ``run_cvppp``, ``run_kitti`` and ``run_cityscapes``
+(``run_pipeline.py:84-196``) in ``run_chain``, on the splits
+``cli.setup_dataset`` assembled into ``--dataset_folder``: CVPPP box (b5)
+-> full (b5) -> eval on valid; KITTI fg (b8) -> pack into the split's H5
+files -> box (b5) -> full (b2) -> eval on valid; Cityscapes fg (b8,
+prefetched) -> pack into the train, valid and test H5 files -> box (b4)
+-> full (b2) -> full_pack (its instance maps and scores into the valid
+and test files) -> cityscapes_eval (``cli.cityscapes_eval.main`` on valid,
+then test: the CSVs, renders and submission files under
+``results/<full id>/output_{split}``).  The paper presets run 60,000 box
+and 30,000 full steps (CVPPP), 40,000 fg, 60,000 box and 100,000 full
+(KITTI) and 40,000 fg, 60,000 box and 70,000 full (Cityscapes) unless
 ``--num_steps`` or a stage's flag says otherwise (JAX's paper scale
 ignores ``--num_steps``); ``--scale tiny`` runs the same presets for
-``--num_steps`` or 100 steps a stage, as JAX's does.  Cityscapes' waits
-(ROADMAP A.5).
+``--num_steps`` or 100 steps a stage, as JAX's does.
 
 The full model starts from the box's controller as the JAX pipeline hands
 it over: ``cli.read_weights.box_main`` exports the box's last checkpoint
@@ -76,6 +83,8 @@ card; ``main(argv, device='cpu')`` runs on the host.
         --scale tiny --model_id cs
     python -m rec_attend_tpu_torch.pipelines.run_pipeline --dataset kitti \\
         --dataset_folder data/kitti --num_steps 2
+    python -m rec_attend_tpu_torch.pipelines.run_pipeline \\
+        --dataset cityscapes --dataset_folder data/cityscapes
 """
 
 from __future__ import annotations
@@ -91,9 +100,10 @@ from rec_attend_tpu_torch import config as C
 from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.cli import eval as eval_cli
 from rec_attend_tpu_torch.cli import pack as pack_cli
+from rec_attend_tpu_torch.cli import cityscapes_eval as cs_eval_cli
 from rec_attend_tpu_torch.cli import read_weights
-from rec_attend_tpu_torch.cli.cityscapes_eval import cityscapes_eval
 from rec_attend_tpu_torch.data import provider
+from rec_attend_tpu_torch.data import synthetic
 from rec_attend_tpu_torch.data.provider import PackedDataset
 from rec_attend_tpu_torch.device import resolve_device
 from rec_attend_tpu_torch.engine import saver
@@ -106,6 +116,8 @@ from rec_attend_tpu_torch.utils import logger
 
 SYNTH3_STAGES = ('fg', 'pack', 'box', 'full', 'eval')
 SYNTHCS_STAGES = SYNTH3_STAGES + ('ap', 'pixel')
+CITYSCAPES_STAGES = ('fg', 'pack', 'box', 'full', 'full_pack',
+                     'cityscapes_eval')
 # The eval stage's thresholds (JAX run_pipeline.py:366-371, :463-468); the
 # AP stage's mask threshold, the Cityscapes command line's default
 # (cli/cityscapes_eval.py:111).
@@ -283,14 +295,44 @@ def kitti_stages(scale, results='results', logs='logs', dataset_folder=None,
           batch)
 
 
+def cityscapes_stages(scale, results='results', logs='logs',
+                      dataset_folder=None, num_steps=None, data_examples=None,
+                      fg_steps=None, box_steps=None, full_steps=None):
+  """The configs of ``run_cityscapes`` (JAX ``run_pipeline.py:152-196``,
+  ref run_cityscapes.sh), as ``synth3_stages`` returns them: the
+  Cityscapes presets at 256x512, T=20, 9 semantic classes, fg at b8 (fed
+  by the prefetching host workers), box at b4 and full at b2, 40,000 fg,
+  60,000 box and 70,000 full steps at the paper scale and 100 at the tiny
+  one."""
+  del data_examples
+  batch = {'fg': 8, 'box': 4, 'full': 2}
+  steps = _steps(scale, {'fg': 40000, 'box': 60000, 'full': 70000},
+                 num_steps, {'fg': fg_steps, 'box': box_steps,
+                             'full': full_steps})
+  train_cfg = C.TrainConfig(num_steps=steps['fg'], batch_size=batch['fg'],
+                            save_ckpt=True, results=results, logs=logs,
+                            **dict(PAPER_CADENCE, device_data=False))
+  return (C.data_config_for('cityscapes', dataset_folder),
+          C.cityscapes_fg_config(), C.cityscapes_box_config(),
+          C.cityscapes_full_config(), train_cfg, steps, batch)
+
+
 # The chains of run_chain: {dataset: (its stages, the function of its
 # stages' configs, whether its eval stage scores the fg model too, the
-# full model's eval thresholds (None: the eval command line's own))}.
+# full model's eval thresholds (None: the eval command line's own), the
+# splits its pack stage packs)}.
 CVPPP_STAGES = ('box', 'full', 'eval')
-CHAINS = {'synth3': (SYNTH3_STAGES, synth3_stages, True, EVAL_THRESHOLDS),
-          'synthcs': (SYNTHCS_STAGES, synthcs_stages, True, EVAL_THRESHOLDS),
-          'cvppp': (CVPPP_STAGES, cvppp_stages, False, None),
-          'kitti': (SYNTH3_STAGES, kitti_stages, False, None)}
+CHAINS = {'synth3': (SYNTH3_STAGES, synth3_stages, True, EVAL_THRESHOLDS,
+                     'train,valid'),
+          'synthcs': (SYNTHCS_STAGES, synthcs_stages, True, EVAL_THRESHOLDS,
+                      'train,valid'),
+          'cvppp': (CVPPP_STAGES, cvppp_stages, False, None, None),
+          'kitti': (SYNTH3_STAGES, kitti_stages, False, None, 'train,valid'),
+          'cityscapes': (CITYSCAPES_STAGES, cityscapes_stages, False, None,
+                         'train,valid,test')}
+# The splits that the Cityscapes chain's full_pack and cityscapes_eval
+# stages run on.
+CITYSCAPES_EVAL_SPLITS = ('valid', 'test')
 
 
 def _data_flags(args):
@@ -418,28 +460,34 @@ def run_ap_stage(args, full_id, data_cfg, batch_size, split='valid',
   """The official Cityscapes instance-level AP of a trained full model
   (JAX ``run_ap_stage``, ``run_pipeline.py:560-610``): its instance maps
   and scores packed into the split's pack file (``cli.pack.full_main``),
-  the split read back, the model-free Cityscapes eval of the pack
-  (``cs_output_<split>/sbd.csv``), and the AP of its submission against
-  the split's instance-id images, written to
-  ``results/<full_id>/output_<split>/ap.json``.  The submission's text and
-  PNG files and the gtFine PNGs that the JAX stage writes through cv2 are
-  not written (ROADMAP A.5).  Returns the averages."""
+  the model-free Cityscapes eval command line over them into
+  ``results/<full_id>/cs_output_<split>/`` (``sbd.csv`` and the
+  submission's files under ``cityscapes/``), the split's ground truth
+  written as ``ap_gt_<split>/*_gtFine_instanceIds.png``, and the AP of
+  the submission's files against them, written to
+  ``results/<full_id>/output_<split>/ap.json``.  Returns the averages."""
   pack_cli.full_main(['--model_id', full_id, '--results', args.results,
                       '--dataset', 'synth', '--split', split,
                       '--batch_size', str(batch_size)] + _data_flags(args),
                      device=device)
+  folder = os.path.join(args.results, full_id)
+  out_folder = os.path.join(folder, f'cs_output_{split}')
+  cs_eval_cli.main(['--model_id', full_id, '--results', args.results,
+                    '--dataset', 'synth', '--split', split,
+                    '--output', out_folder,
+                    '--remove_tiny', str(args.ap_remove_tiny),
+                    '--analyzers', 'sbd', '--batch_size', str(batch_size)]
+                   + _data_flags(args), device=device)
+  # The ground truth of the split the predictions were packed for.
   packed = _packed_split(_snapshot_data_config(args, full_id, data_cfg),
                          split, full_maps=True)
-  folder = os.path.join(args.results, full_id)
-  _, rows = cityscapes_eval(
-      packed, os.path.join(folder, f'cs_output_{split}'), [AP_THRESHOLD],
-      ['sbd'], remove_tiny=args.ap_remove_tiny, batch_size=batch_size,
-      device=device)
-  ds = packed.dataset
+  gt_files = synthetic.write_instance_id_gt(
+      packed.dataset, os.path.join(folder, f'ap_gt_{split}'))
+  submission = os.path.join(out_folder, 'cityscapes')
   export = os.path.join(folder, f'output_{split}', 'ap.json')
-  avg = instance_eval.evaluate_instance_predictions(
-      rows[AP_THRESHOLD], ds.get_instance_id_images(ds.img_ids),
-      export_file=export)
+  avg = instance_eval.evaluate_prediction_files(
+      [instance_eval.find_prediction_file(g, submission) for g in gt_files],
+      gt_files, export_file=export)
   logger.get().info(f"AP {avg['allAp']:.4f} AP_50% {avg['allAp50%']:.4f} "
                     f'-> {export}')
   return avg
@@ -475,12 +523,14 @@ def run_pixel_stage(args, full_id, data_cfg, split='valid', device=None):
 
 def run_chain(args, dataset, device=None):
   """The stages of ``--stages`` of the chain of ``dataset`` (synth3,
-  synthcs, cvppp or kitti; JAX ``run_synth3``, ``run_synth_cs``,
-  ``run_cvppp``, ``run_kitti``); returns {'fg', 'box', 'full': the model
-  ids, 'stages': the stages that ran, in order, and 'ap', 'pixel': those
-  stages' results where they ran}."""
+  synthcs, cvppp, kitti or cityscapes; JAX ``run_synth3``,
+  ``run_synth_cs``, ``run_cvppp``, ``run_kitti``, ``run_cityscapes``);
+  returns {'fg', 'box', 'full': the model ids, 'stages': the stages that
+  ran, in order, and 'ap', 'pixel', 'cityscapes_eval': those stages'
+  results where they ran}."""
   log = logger.get()
-  all_stages, stages_fn, fg_metrics, thresholds = CHAINS[dataset]
+  (all_stages, stages_fn, fg_metrics, thresholds,
+   pack_splits) = CHAINS[dataset]
   stages = set((args.stages or ','.join(all_stages)).split(','))
   unknown = stages - set(all_stages)
   if unknown:
@@ -516,7 +566,7 @@ def run_chain(args, dataset, device=None):
     _train('fg', fg_cfg, stage_cfg('fg', fg_id), data_cfg, device)
   if 'pack' in stages:
     pack_cli.fg_main(['--model_id', fg_id, '--results', args.results,
-                      '--split', 'train,valid', '--batch_size', bs['fg']]
+                      '--split', pack_splits, '--batch_size', bs['fg']]
                      + data_flags, device=device)
   if packs and ('box' in stages or 'full' in stages):
     missing = [s for s in ('train', 'valid')
@@ -547,6 +597,16 @@ def run_chain(args, dataset, device=None):
                              device=device)
   if 'pixel' in stages:
     out['pixel'] = run_pixel_stage(args, full_id, data_cfg, device=device)
+  full_flags = ['--model_id', full_id, '--results', args.results,
+                '--batch_size', bs['full']] + data_flags
+  if 'full_pack' in stages:
+    pack_cli.full_main(['--split', ','.join(CITYSCAPES_EVAL_SPLITS)]
+                       + full_flags, device=device)
+  if 'cityscapes_eval' in stages:
+    out['cityscapes_eval'] = {}
+    for split in CITYSCAPES_EVAL_SPLITS:
+      out['cityscapes_eval'].update(cs_eval_cli.main(
+          ['--split', split] + full_flags, device=device))
   log.info('Pipeline done: ' + ' -> '.join(
       out[s] for s in ('fg', 'box', 'full') if s in all_stages))
   out['stages'] = [s for s in all_stages if s in stages]
@@ -558,17 +618,18 @@ def main(argv=None, device=None):
   parser = argparse.ArgumentParser()
   parser.add_argument('--dataset', default='synth',
                       choices=['synth', 'synth3', 'synthcs', 'cvppp',
-                               'kitti'],
-                      help='the synthetic pipelines and those of CVPPP and '
-                           'KITTI (assembled by cli.setup_dataset) are '
-                           'ported (Cityscapes\'s waits: ROADMAP A.5)')
+                               'kitti', 'cityscapes'],
+                      help='the synthetic pipelines, and those of CVPPP, '
+                           'KITTI and Cityscapes on the splits that '
+                           'cli.setup_dataset assembled')
   parser.add_argument('--dataset_folder', default=None)
   parser.add_argument('--results', default='results')
   parser.add_argument('--logs', default='logs')
   parser.add_argument('--scale', default='paper', choices=['paper', 'tiny'])
   parser.add_argument('--num_steps', default=None, type=int,
                       help='steps per stage (default: the scale\'s own)')
-  chain = parser.add_argument_group('synth3, synthcs, cvppp and kitti')
+  chain = parser.add_argument_group('synth3, synthcs, cvppp, kitti and '
+                                    'cityscapes')
   chain.add_argument('--model_id', default=None,
                      help='reuse an id (go on with a chain)')
   chain.add_argument('--stages', default=None,

@@ -1,7 +1,8 @@
-"""Small models for the CVPPP and KITTI pipelines on the CPU.
+"""Small models for the CVPPP, KITTI and Cityscapes pipelines on the CPU.
 
-``run_pipeline --dataset cvppp|kitti`` trains the paper presets at both
-scales (224x224 and 128x448, T=21 and 20), too large for the CPU tests.
+``run_pipeline --dataset cvppp|kitti|cityscapes`` trains the paper presets
+at both scales (224x224, 128x448 and 256x512, T=21 and 20), too large for
+the CPU tests.
 Inside ``small_models(...)`` the configs functions of those chains in
 ``run_pipeline.CHAINS`` give the synth pipelines' tiny models instead, on
 splits assembled at 64x64 (``cli.setup_dataset --height 64 --width 64``)
@@ -32,6 +33,9 @@ def small(configs):
       box_cfg = C.tiny_box_config(timespan=TIMESPAN)
       full_base = C.tiny_full_config(timespan=TIMESPAN, use_knob=True)
       batch = {'box': 4, 'full': 4}
+    elif data_cfg.dataset == 'cityscapes':
+      fg_cfg, box_cfg, full_base = cityscapes_models()
+      batch = {'fg': 4, 'box': 4, 'full': 2}
     else:
       _, fg_cfg, box_cfg, full_base, _, _, batch = (
           run_pipeline.synth3_stages('tiny'))
@@ -42,6 +46,20 @@ def small(configs):
         **run_pipeline._tiny_cadence(steps[first]))
     return data_cfg, fg_cfg, box_cfg, full_base, train_cfg, steps, batch
   return small_configs
+
+
+def cityscapes_models(classes=9):
+  """The tiny fg, box and full configs of the synthcs chain with
+  Cityscapes' 9 semantic channels (8 classes and the background)."""
+  fg = C.tiny_fg_config(add_orientation=True, num_semantic_classes=classes,
+                        dcnn_depth=(8, 4, classes + 8))
+  box = C.tiny_box_config(timespan=TIMESPAN, add_d_out=True, add_y_out=True,
+                          num_semantic_classes=classes)
+  full = C.tiny_full_config(
+      timespan=TIMESPAN, use_knob=True, add_d_out=True, add_y_out=True,
+      num_semantic_classes=classes, ctrl_add_inp=True, ctrl_add_canvas=True,
+      attn_add_inp=True, attn_add_canvas=True)
+  return fg, box, full
 
 
 @contextlib.contextmanager

@@ -146,7 +146,7 @@ def test_synthetic_splits_have_the_jax_sizes_and_seeds():
   np.testing.assert_array_equal(got.x, want.x)
   batch = got.get_batch([1, 3], timespan=4, variables={'x', 's_gt'})
   assert sorted(batch) == ['s_gt', 'x']
-  with pytest.raises(NotImplementedError, match='ROADMAP A.5, Cityscapes'):
+  with pytest.raises(FileNotFoundError, match='cityscapes'):
     provider.get('cityscapes', data)
   with pytest.raises(FileNotFoundError, match='setup_dataset'):
     provider.get('cvppp', data.replace(folder='no/such/folder'))

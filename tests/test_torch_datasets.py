@@ -319,11 +319,11 @@ def test_the_provider_names_files_and_folders_as_jax():
       'data/kitti', 'valid_128x448.h5')
   assert provider.h5_path('cvppp', C.data_config_for('cvppp'), 'test') == (
       os.path.join('data/cvppp_test/A1', 'test_224x224.h5'))
-  with pytest.raises(NotImplementedError, match='Cityscapes'):
+  with pytest.raises(FileNotFoundError, match='setup_dataset'):
     provider.get('cityscapes', C.data_config_for('cityscapes'))
   with pytest.raises(ValueError, match='Unknown'):
     provider.get('coco', cfg)
-  for dataset, err in (('cityscapes', NotImplementedError),
+  for dataset, err in (('cityscapes', FileNotFoundError),
                        ('synth', ValueError)):
     with pytest.raises(err, match=dataset):
       setup_dataset.main(['--dataset', dataset, '--folder', 'x'])

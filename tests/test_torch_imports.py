@@ -13,7 +13,8 @@ weights files' (the HDF5 codec, the named weights, read_weights), and a
 train step of each model (fg with momentum, box, full started from the
 box), an eval_split, the fg -> pack -> full chain, the Cityscapes-shaped
 chain to its AP and pixel eval, and the train command line, the synth
-pipeline and the synthcs pipeline (to its ap.json and pixel_eval.json) run
+pipeline and the synthcs pipeline (to its ap.json and pixel_eval.json),
+and Cityscapes from its polygons to the AP of its submission's files, run
 with those modules blocked."""
 
 import ast
@@ -340,6 +341,63 @@ def test_h5_datasets_run_with_those_modules_missing(tmp_path):
         cfg = run_pipeline.CHAINS['kitti'][1]('tiny', dataset_folder=data)[0]
       assert got['stages'] == ['fg', 'pack', 'box', 'full', 'eval']
       assert provider.has_pack(cfg, 'valid')
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_cityscapes_pipeline_runs_with_those_modules_missing(tmp_path):
+  """Cityscapes as users launch it: chip_smoke.py's layout fixture,
+  data.cityscapes_prep, cli.setup_dataset and the pipeline (fg -> pack ->
+  box -> full -> full_pack -> cityscapes_eval of valid and test) with the
+  tiny models, then the official AP on the valid submission's files, with
+  JAX, cv2, h5py, PIL, YAML and the rest blocked."""
+  script = textwrap.dedent(f"""
+      import os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      sys.path.insert(0, 'tests')
+      import chip_smoke as cs
+      from _small_h5_models import small_models
+      from rec_attend_tpu_torch.cli import setup_dataset
+      from rec_attend_tpu_torch.data import cityscapes_prep
+      from rec_attend_tpu_torch.eval_cityscapes import instance_eval
+      from rec_attend_tpu_torch.pipelines import run_pipeline
+
+      root = {str(tmp_path)!r}
+      data = os.path.join(root, 'data')
+      cs.cityscapes_fixture(data, {{'train': 4, 'valid': 2, 'test': 2}},
+                            128, 256, 3)
+      assert cityscapes_prep.main(['--dataset', data]) == 8
+      setup_dataset.main(['--dataset', 'cityscapes', '--folder', data,
+                          '--splits', 'train,valid,test', '--height', '64',
+                          '--width', '64'])
+      results = os.path.join(root, 'results')
+      with small_models('cityscapes'):
+        got = run_pipeline.main(
+            ['--dataset', 'cityscapes', '--scale', 'tiny', '--num_steps',
+             '2', '--dataset_folder', data, '--results', results, '--logs',
+             os.path.join(root, 'logs')], device='cpu')
+      assert got['stages'] == list(run_pipeline.CITYSCAPES_STAGES)
+      ap = instance_eval.main([
+          '--predictions', os.path.join(results, got['full'],
+                                        'output_valid', 'cityscapes'),
+          '--dataset', data, '--split', 'val'])
+      assert 'allAp' in ap
       leaked = [m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
       assert not leaked, leaked

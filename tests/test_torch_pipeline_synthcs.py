@@ -380,13 +380,13 @@ def test_ap_stage_alone_repacks_with_its_remove_tiny(chain, tmp_path):
   seen = []
 
   def spy(fn):
-    def call(*args, **kw):
-      seen.append(kw['remove_tiny'])
-      return fn(*args, **kw)
+    def call(argv, **kw):
+      seen.append(int(argv[argv.index('--remove_tiny') + 1]))
+      return fn(argv, **kw)
     return call
   with pytest.MonkeyPatch.context() as mp:
-    mp.setattr(run_pipeline, 'cityscapes_eval',
-               spy(run_pipeline.cityscapes_eval))
+    mp.setattr(run_pipeline.cs_eval_cli, 'main',
+               spy(run_pipeline.cs_eval_cli.main))
     out = run_pipeline.main(_argv(root, '--stages', 'ap', '--ap_remove_tiny',
                                   '37'), device='cpu')
   assert out['stages'] == ['ap'] and seen == [37]
