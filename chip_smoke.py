@@ -304,7 +304,7 @@ script started ('script_seconds'):
                 cv2 or h5py: (a) a layout fixture built from a seed at the
                 dataset's raw size (CVPPP A1's 128 plants at 530x500 with
                 1-20 leaves each, the labels palette-indexed PNGs; KITTI
-                cut to 64 train, 16 valid and 16 test images at 375x1242
+                cut to 32 train, 16 valid and 8 test images at 375x1242
                 with 1-20 cars each); (b) assembled by cli.setup_dataset
                 (224x224 and 128x448); (c) run_pipeline --dataset cvppp
                 (box -> full -> eval, b5) or kitti (fg b8 -> pack into the
@@ -349,7 +349,55 @@ script started ('script_seconds'):
                 test image's submission text file, its masks 0/255 at
                 1024x2048.  Reported also: the prep's seconds, the
                 cityscapes_eval host seconds per image (chain, analyzers,
-                renders, submission), the full pack's seconds.
+                renders, submission), the full pack's seconds.  KITTI's
+                phase ends with the fg eval command line (cli.eval fg) of
+                its trained fg model over the valid split: the foreground
+                at each image's size (375x1242), the orientation and the
+                target at the model's (control: all at the model's), and
+                the same command on the CPU, whose renders the card's
+                match within KITTI_FG_PIXELS_DIFFER pixels a file
+                (control: the CPU's foreground at 0.55);
+  calibrate     the flagship's count calibration as users run it
+                (pipelines.calibrate_count.main at b32: count_diag of the
+                train split, the eval command line on the valid split at
+                the calibrated stop score over six mask thresholds, the
+                capped train sweep, count_calibration.json) over a
+                temporary copy of its folder (checkpoint, both YAML files,
+                output_valid/), the synth224 splits (256 train, 64 valid)
+                drawn anew from its data_opt.yaml, cuDNN deterministic.
+                Gates, each with a control that must fail: count_diag's
+                scores with the plain glimpses within 1e-4 of the kernel
+                run's per example and its pick the same (control: the true
+                counts one slot off); the valid split at the calibrated
+                thresholds with the plain glimpses, per-example SBD within
+                the eval phase's limit and counts equal (control: the mask
+                threshold 0.2 higher); the files written (control: the
+                train sweep with renders); launches (18 forwards at b32).
+                The picks and the headline are printed beside the
+                committed count_calibration.json's, which JAX drew on its
+                own images; host seconds of each step;
+  fg_eval       the fg eval and the foreground eval as users run them on
+                the committed synth3 fg and full checkpoints, 8 synthetic
+                128x448 valid images: cli.eval fg on the card and on the
+                CPU, the fg pack, cli.eval of the full model with
+                --foreground_folder (the card's renders at 0.5),
+                --remove_tiny 100 and its renders.  Gates, each with a
+                control: the fg renders card against CPU pixel for pixel
+                within FG_EVAL_PIXELS_DIFFER a file (control: the CPU's at
+                0.55), the foreground eval's per-example SBD and counts
+                kernel against plain (control: the fg target's renders as
+                the foreground), the renders' names and counts (control:
+                the train split's).
+The `pipeline` phase's full stage also runs the train command line's plot
+hook once (at step 0, num_samples_plot 5); it reports whether matplotlib
+imports on the machine and gates its PNGs and catalog lines, or, without
+it, the warning and the steps all taken (control: the box's plot list, or
+the warnings without that one); dashboard.generate of that logs folder
+against the same call in a process without the card, byte for byte
+(control: a loss value changed); and profiling.trace around one train
+step, whose Chrome trace must name paste_kernel and extract_tiled_kernel
+(control: the same check of that trace for extract_strip_kernel, which the
+step does not launch).
 Then the kernel table (each row with bound_share = bound_ms / ms), the
 card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
@@ -500,6 +548,31 @@ CS_AP_THRESHOLD, CS_AP_REMOVE_TINY = 0.6, 100
 # The AP gate where the kernels' patches are not the plain version's bits:
 # kernel against plain within twice the reordered-plain floor plus this.
 CS_AP_FLOOR_FACTOR, CS_AP_SLACK = 2.0, 1e-4
+# The count calibration: calibrate_count at the batch of the eval phase;
+# count_diag's scores kernel against plain per example within this (the
+# serving gate's s_out limit); the valid eval's control at a mask threshold
+# this much higher.
+CALIBRATE_BATCH = 32
+CALIBRATE_S_OUT_ATOL = 1e-4
+CALIBRATE_CONTROL_SHIFT = 0.2
+# The fg eval on the synth3 checkpoints: the split's settings with 32 train
+# examples (8 valid), the pipeline's batch; the foreground eval removes
+# regions of at most JAX's ap_remove_tiny default.  The fg renders card
+# against CPU may differ in at most this many pixels a file, by folder:
+# twice what TF32 convolutions moved on one H100 80GB HBM3 at 700 W (2 of
+# the foreground at 0.5, 12 of the orientation, whose argmax flips at near
+# ties; `python3 step_noise.py --fg-eval`), a larger perturbation than
+# this script's float32 path, which moved none; the target is the
+# dataset's.
+FG_EVAL_EXAMPLES, FG_EVAL_BATCH, FG_EVAL_REMOVE_TINY = 32, 8, 100
+FG_EVAL_PIXELS_DIFFER = {'50': 4, 'orientation': 24, 'gt': 0}
+# KITTI's fg eval at the images' size (kitti_pipeline's fg model over its
+# 16 valid images, resized to 375x1242 before the threshold), card against
+# CPU: at most this many pixels differing a file, by folder, by the same
+# rule: twice what TF32 moved on one H100 80GB HBM3 at 700 W (6 of the
+# foreground, 4 of the orientation; `python3 step_noise.py --fg-eval`),
+# where float32 moved none and the 0.55 control 9,402.
+KITTI_FG_PIXELS_DIFFER = {'50': 12, 'orientation': 8, 'gt': 0}
 # The chain's training: b8, the batch of the JAX pipeline's synth3 run
 # (pipelines/run_pipeline.py:283-375), over 16 synthetic 128x448 images (two
 # batches, cycled); fg, box, full from the box and full from its checkpoint
@@ -2238,6 +2311,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.cli import eval as eval_cli
   from rec_attend_tpu_torch.cli import read_weights
+  from rec_attend_tpu_torch.cli import train as train_cli
   from rec_attend_tpu_torch.config import BoxModelConfig
   from rec_attend_tpu_torch.config import DataConfig
   from rec_attend_tpu_torch.config import FullModelConfig
@@ -2249,6 +2323,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   from rec_attend_tpu_torch.models.full_model import learn_rate
   from rec_attend_tpu_torch.ops import matching
   from rec_attend_tpu_torch.pipelines import run_pipeline
+  from rec_attend_tpu_torch.utils import logger
 
   out, failures = {}, []
   cuda = dev.type == 'cuda'
@@ -2270,11 +2345,12 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     ckpts = [s for s in range(PIPELINE_CKPT_STEPS, steps + 1,
                               PIPELINE_CKPT_STEPS)][-2:]
 
-    def stage(spec, cfg, tcfg):
+    def stage(spec, cfg, tcfg, plot_fn=None):
       reset_peak(torch, dev)
       gk.reset_launch_counts()
       t0 = time.time()
-      exp = TrainingExperiment(spec, cfg, tcfg, data_cfg, device=dev)
+      exp = TrainingExperiment(spec, cfg, tcfg, data_cfg, plot_fn=plot_fn,
+                               device=dev)
       setup = time.time() - t0
       valid_s, ckpt_s = [], []
       exp._eval_pass = timed_calls(torch, dev, exp._eval_pass, valid_s)
@@ -2354,15 +2430,30 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     full_cfg = full_base.replace(pretrain_ctrl_net=box_weights)
     full_train_cfg = train_cfg.replace(model_id='full_model_synth-chip',
                                        device_data=False)
-    full, out['full'] = stage('full', full_cfg, full_train_cfg)
+    # The train command line's plot hook, on a cadence that plots once (at
+    # step 0); its warnings kept, to see a failed plot.
+    warnings = []
+    log = logger.get()
+
+    def keep_warning(warning):
+      def wrapped(msg, *a, **kw):
+        warnings.append(str(msg))
+        return warning(msg, *a, **kw)
+      return wrapped
+    full, out['full'] = stage(
+        'full', full_cfg, full_train_cfg.replace(steps_per_plot=steps),
+        plot_fn=train_cli._default_plot_fn('full'))
     ctrl = h5_state(box_weights, CTRL_NETS)
     out['full']['pretrained_gate'] = gate(
         'full step 0 controller against the box weights.h5',
         state_diff(torch, full.trainer.model.state_dict(), ctrl),
         state_diff(torch, FullModel(full_base, device=dev).state_dict(),
                    ctrl))
-    finish(full, out['full'])
+    with patched(log, 'warning', keep_warning):
+      finish(full, out['full'])
     ckpt_gates(full, full_cfg, out['full'])
+    out['plots'] = plots_gates(full, warnings, gate, steps)
+    out['dashboard'] = dashboard_gate(full.logs_folder, root, gate)
 
     # ---- the trained full model's eval step, kernel against plain -------
     n_valid = full.valid_ds.get_dataset_size()
@@ -2409,6 +2500,8 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     eval_step_metrics(torch, ts, matching, model, valid_batch, 'plain')
     plain_counts = launches_now(gk)
     out['plain_launches'] = plain_counts
+    out['profiler'] = trace_gate(torch, ts, matching, full, valid_batch,
+                                 draws, root, gate) if cuda else None
     if cuda:
       want = [('launches', 'glimpse_paste')]
       out['box']['launch_gate'] = gate(
@@ -2565,6 +2658,142 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     out['restored'] = restored
     out['folders'] = {'box': box.model_id, 'full': full.model_id}
   return out, failures
+
+
+# The plot hook's images of the full model, in the order JAX registers
+# them (rec_attend_tpu/utils/plot_utils.py:179-190), and the box model's.
+FULL_PLOTS = ('input', 'output', 'total_instances', 'patch', 'glimpse')
+BOX_PLOTS = ('input', 'output', 'glimpse')
+# The glimpse kernels as a trace names them (the flagship's shapes take
+# the tiled extract).
+TRACE_KERNELS = ('paste_kernel', 'extract_tiled_kernel')
+TRACE_ABSENT = 'extract_strip_kernel'
+
+
+def matplotlib_imports():
+  """Whether matplotlib (and the PIL it needs) imports here, as the plots
+  import it."""
+  from rec_attend_tpu_torch.utils import plot_utils
+  try:
+    plot_utils._pyplot()
+    return True
+  except ImportError:
+    return False
+
+
+def plots_gates(exp, warnings, gate, steps):
+  """The plot hook of a full model's run: with matplotlib, the PNGs and
+  the catalog's image lines of FULL_PLOTS (control: BOX_PLOTS'); without,
+  the failed plot's warning and the run's steps all taken (control: the
+  warnings with that one left out)."""
+  catalog_path = os.path.join(exp.logs_folder, 'catalog')
+  with open(catalog_path) as f:
+    images = [line.strip() for line in f if ',image,' in line]
+  out = {'matplotlib_imports': matplotlib_imports(), 'catalog_images': images,
+         'warnings': warnings[:3], 'step': exp.step}
+
+  def image_failures(names):
+    want = [f'{n}.png,image,{n}' for n in names]
+    failures = [] if images == want else [f'catalog {images}, want {want}']
+    for n in names:
+      path = os.path.join(exp.logs_folder, f'{n}.png')
+      if not os.path.exists(path):
+        failures.append(f'no {n}.png')
+        continue
+      with open(path, 'rb') as f:
+        if f.read(8) != b'\x89PNG\r\n\x1a\n':
+          failures.append(f'{n}.png is not a PNG')
+    return failures
+
+  def warned_failures(kept):
+    failed = [w for w in kept if w.startswith('plotting failed')]
+    return ([] if len(failed) == 1 else [f'warnings {kept[:3]}']) + (
+        [] if exp.step == steps else [f'step {exp.step}'])
+  if out['matplotlib_imports']:
+    out['gate'] = gate('plots', image_failures(FULL_PLOTS),
+                       image_failures(BOX_PLOTS))
+  else:
+    out['gate'] = gate('a failed plot warns and training goes on',
+                       warned_failures(warnings),
+                       warned_failures([w for w in warnings if not
+                                        w.startswith('plotting failed')]))
+  return out
+
+
+def dashboard_gate(logs_folder, root, gate):
+  """dashboard.generate of a run's logs folder here against the same call
+  in a process that sees no card, byte for byte (control: the call on a
+  copy of the folder with one loss value changed)."""
+  import shutil
+
+  from rec_attend_tpu_torch.utils import dashboard
+  outputs = {k: os.path.join(root, f'index_{k}.html')
+             for k in ('card', 'cpu', 'control')}
+  t0 = time.time()
+  dashboard.generate(logs_folder, outputs['card'])
+  seconds = time.time() - t0
+  subprocess.run(
+      [sys.executable, '-c', 'import sys\nfrom rec_attend_tpu_torch.utils '
+       'import dashboard\ndashboard.generate(sys.argv[1], sys.argv[2])',
+       logs_folder, outputs['cpu']], check=True, cwd=REPO, timeout=300,
+      env=dict(os.environ, CUDA_VISIBLE_DEVICES='', PYTHONPATH=REPO))
+  changed = os.path.join(root, 'logs_changed')
+  shutil.copytree(logs_folder, changed)
+  path = os.path.join(changed, 'loss.csv')
+  with open(path) as f:
+    lines = f.read().splitlines()
+  last = max(i for i, line in enumerate(lines)
+             if i and line.split(',')[2:3] not in ([], ['']))
+  parts = lines[last].split(',')
+  parts[2] = repr(float(parts[2]) + 1.0)
+  lines[last] = ','.join(parts)
+  with open(path, 'w') as f:
+    f.write('\n'.join(lines) + '\n')
+  dashboard.generate(changed, outputs['control'])
+  pages = {}
+  for k, path in outputs.items():
+    with open(path, 'rb') as f:
+      pages[k] = f.read()
+
+  def differs(other):
+    return [] if pages['card'] == pages[other] else [
+        f'{len(pages["card"])} bytes against {len(pages[other])}, first '
+        'differing at ' + str(next(i for i, (a, b) in enumerate(
+            zip(pages['card'], pages[other] + b'\0' * len(pages['card'])))
+                                   if a != b))]
+  return {'bytes': len(pages['card']), 'seconds': seconds,
+          'images': pages['card'].count(b'data:image/png'),
+          'charts': pages['card'].count(b'<svg'),
+          'gate': gate('dashboard card process against a CPU process',
+                       differs('cpu'), differs('control'))}
+
+
+def trace_gate(torch, ts, matching, exp, batch, draws, root, gate):
+  """profiling.trace around one train step of ``exp``'s model: its Chrome
+  trace names both glimpse kernels (control: the same check of the same
+  trace for TRACE_ABSENT, a kernel that this step does not launch)."""
+  from rec_attend_tpu_torch.utils import profiling
+  folder = os.path.join(root, 'trace')
+  t0 = time.time()
+  with profiling.trace(folder):
+    one_step(torch, ts, matching, exp.trainer.model, exp.trainer.opt_state,
+             batch, draws, exp.step, 'kernel')
+  out = {'seconds': time.time() - t0}
+  path = os.path.join(folder, profiling.TRACE_NAME)
+  out['trace_bytes'] = os.path.getsize(path)
+  with open(path) as f:
+    events = json.load(f)['traceEvents']
+  kernels = {e['name'] for e in events if e.get('cat') == 'kernel'}
+  out['device_events'] = sum(e.get('cat') == 'kernel' for e in events)
+  out['glimpse_kernels'] = sorted(k for k in kernels if any(
+      name in k for name in TRACE_KERNELS + (TRACE_ABSENT,)))
+
+  def missing(names):
+    return [f'no {n} in the trace' for n in names
+            if not any(n in k for k in kernels)]
+  out['gate'] = gate('the profiler trace names both glimpse kernels',
+                     missing(TRACE_KERNELS), missing((TRACE_ABSENT,)))
+  return out
 
 
 def split_gather_diff(torch, ts, exp, idx, host_idx):
@@ -3639,11 +3868,11 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
 # ---------------------------------------------------------------------------
 
 # The layout fixtures, built from a seed at the real raw sizes: CVPPP A1's
-# 128 plants at 530x500 (its 80/20 split: 103/25), KITTI cut to 64 train,
-# 16 valid and 16 test images (the real car set has thousands) at 375x1242;
-# 1-20 instances an image.
+# 128 plants at 530x500 (its 80/20 split: 103/25), KITTI cut to 32 train,
+# 16 valid and 8 test images (the real car set has thousands; the cut
+# keeps the whole script near 900 s) at 375x1242; 1-20 instances an image.
 CVPPP_FIXTURE = dict(count=128, height=530, width=500, seed=20)
-KITTI_FIXTURE = dict(counts={'train': 64, 'valid': 16, 'test': 16},
+KITTI_FIXTURE = dict(counts={'train': 32, 'valid': 16, 'test': 8},
                      height=375, width=1242, seed=21)
 # Cityscapes' layout fixture at its raw 2048x1024 (gtFine's polygons and
 # leftImg8bit), 8 train, 4 valid and 4 test images, two cities a split.
@@ -4574,9 +4803,82 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
                       steps_diff(stage, recorded['full'] if stage == 'fg'
                                  else [plain_step]))
           for stage, per_step in recorded.items()}
+
+    # ---- the fg eval at the images' size (KITTI) ------------------------
+    if dataset == 'kitti':
+      out['fg_eval'] = fg_eval_at_orig_size(
+          torch, provider.get(dataset, data_cfg, split='valid'), data_cfg,
+          ['--model_id', ids['fg'], '--results', results, '--dataset',
+           dataset, '--dataset_folder', folder, '--split', 'valid',
+           '--batch_size', str(batch['fg'])], os.path.join(root, 'fg_eval'),
+          gate, dev)
     out['folders'] = ids
   out['seconds'] = time.time() - start
   return out, failures
+
+
+def fg_eval_at_orig_size(torch, ds, data_cfg, argv, out_dir, gate, dev):
+  """``cli.eval fg`` of an H5 split (``argv``) into ``out_dir``, on
+  ``dev`` and on the CPU: the foreground at each image's size in the
+  dataset, the orientation and the target at the model's.  Gates: the
+  renders' names and sizes (control: the foreground expected at the
+  model's size); the renders card against CPU, at most
+  KITTI_FG_PIXELS_DIFFER pixels differing a file by folder (control: the
+  CPU's foreground at 0.55)."""
+  import numpy as np
+
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  t0 = time.time()
+  with deterministic_cudnn(torch):
+    eval_cli.fg_main(argv + ['--output', out_dir], device=dev)
+  seconds = time.time() - t0
+  cpu_dir = out_dir + '_cpu'
+  t0 = time.time()
+  eval_cli.fg_main(argv + ['--output', cpu_dir, '--threshold_list',
+                           '0.5,0.55'], device='cpu')
+  cpu_seconds = time.time() - t0
+  raw = ds.get_batch(np.arange(ds.get_dataset_size()),
+                     variables={'idx_map', 'orig_size'})
+  model_size = (data_cfg.height, data_cfg.width)
+  card = decoded_pngs(out_dir)
+  got = {name: img.shape[:2] for name, img in card.items()}
+
+  def sizes_failures(fg_size):
+    want = {}
+    for idx, size in zip(raw['idx_map'], raw['orig_size']):
+      name = ds.get_fname(idx)
+      want[f'50/{name}'] = fg_size(tuple(int(v) for v in size))
+      want[f'gt/{name}'] = want[f'orientation/{name}'] = model_size
+    if sorted(got) != sorted(want):
+      return [f'files {sorted(got)[:2]}... ({len(got)}), want '
+              f'{sorted(want)[:2]}... ({len(want)})']
+    return [f'{k}: {got[k]}, want {v}' for k, v in want.items()
+            if got[k] != v]
+  cpu = decoded_pngs(cpu_dir)
+  differ = pixels_differ(card, {k: v for k, v in cpu.items()
+                                if not k.startswith('55/')})
+  control = pixels_differ(card, {k.replace('55/', '50/'): v
+                                 for k, v in cpu.items()
+                                 if k.startswith('55/')})
+
+  def most(counts):
+    by_folder = {}
+    for k, v in counts.items():
+      folder = k.split('/')[0]
+      by_folder[folder] = max(by_folder.get(folder, v), v)
+    return by_folder
+  return {'seconds': seconds, 'cpu_seconds': cpu_seconds,
+          'renders': len(got),
+          'sizes': sorted({str(v) for v in got.values()}),
+          'gate': gate('fg eval renders at the images\' size',
+                       sizes_failures(lambda size: size),
+                       sizes_failures(lambda size: model_size)),
+          'pixels_differ_most': most(differ),
+          'control_pixels_differ_most': most(control),
+          'pixels_gate': gate('fg eval at the images\' size, card against '
+                              'CPU', pixels_over(differ,
+                                                 KITTI_FG_PIXELS_DIFFER),
+                              pixels_over(control, KITTI_FG_PIXELS_DIFFER))}
 
 
 # ---------------------------------------------------------------------------
@@ -5423,6 +5725,382 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
       'adam_count': trainer.opt_state['count'], 'nvidia_smi': name_power}
 
 
+def linked_model_folder(src, dst, data_cfg=None):
+  """A results folder ``dst`` for the model of ``src``: its checkpoints
+  linked and its model_opt.yaml copied (the commands write beside them, so
+  a committed folder is never theirs), and ``data_cfg``'s data_opt.yaml
+  where given."""
+  import glob
+  import shutil
+  os.makedirs(dst)
+  for path in glob.glob(os.path.join(src, 'ckpt-*.npz')):
+    os.symlink(path, os.path.join(dst, os.path.basename(path)))
+  shutil.copy(os.path.join(src, 'model_opt.yaml'), dst)
+  if data_cfg is not None:
+    data_cfg.save_yaml(os.path.join(dst, 'data_opt.yaml'))
+  return dst
+
+
+def png_files(folder):
+  """The PNG files under ``folder``, relative to it, in order."""
+  return sorted(os.path.relpath(os.path.join(root, f), folder)
+                for root, _, files in os.walk(folder) for f in files
+                if f.endswith('.png'))
+
+
+def decoded_pngs(folder):
+  from rec_attend_tpu_torch.utils import png
+  return {name: png.imread(os.path.join(folder, name), png.IMREAD_UNCHANGED)
+          for name in png_files(folder)}
+
+
+def pixels_differ(got, want):
+  """{file of ``want``: the pixels in which the decoded PNG ``got[file]``
+  differs from it, or -1 where it is missing or of another shape}."""
+  counts = {}
+  for name, other in want.items():
+    img = got.get(name)
+    if img is None or other.shape != img.shape:
+      counts[name] = -1
+      continue
+    differ = img != other
+    counts[name] = int((differ.any(axis=-1) if differ.ndim == 3
+                        else differ).sum())
+  return counts
+
+
+def pixels_over(counts, limits):
+  """Failures of pixel counts against ``limits``, by the file's folder."""
+  return [f'{k}: {v} pixels' for k, v in counts.items()
+          if not 0 <= v <= limits[k.split('/')[0]]]
+
+
+def per_example_diff(got, want, sbd_limit):
+  """Failures of per-example SBD (within ``sbd_limit``) and counts (equal)
+  of two {'sbd', 'dic'} score tables."""
+  if sorted(got['sbd']) != sorted(want['sbd']) or not want['sbd']:
+    return [f'ids {sorted(got["sbd"])[:3]} against {sorted(want["sbd"])[:3]}']
+  return ([f'{k} sbd {got["sbd"][k]} against {want["sbd"][k]}'
+           for k in want['sbd']
+           if not abs(got['sbd'][k] - want['sbd'][k]) <= sbd_limit]
+          + [f'{k} dic {got["dic"][k]} against {want["dic"][k]}'
+             for k in want['dic'] if got['dic'][k] != want['dic'][k]])
+
+
+def calibrate_phase(torch, gk, dev, sbd_limit):
+  """The count calibration of the flagship as users run it:
+  pipelines.calibrate_count.main on the card, at b32, over a temporary
+  copy of the flagship's folder (its checkpoint, its two YAML files and
+  its output_valid/) inside the checkout, removed after; the synth224
+  train (256) and valid (64) splits drawn anew from its data_opt.yaml.
+  cuDNN deterministic, as every compared forward.  Gates, each with a
+  control that must fail: count_diag's scores of the train split with
+  the plain glimpses within CALIBRATE_S_OUT_ATOL of the kernel run's per
+  example, with its best score-only row and so the same stop score
+  (control: the true counts one slot off); the valid split at the
+  calibrated thresholds with the plain glimpses, per-example SBD within
+  ``sbd_limit`` (the eval phase's) and counts equal to the kernel run's
+  CSVs (control: the mask threshold CALIBRATE_CONTROL_SHIFT higher); the
+  files the command writes (control: the train sweep's renders).  The
+  thresholds and the headline are printed beside the committed
+  count_calibration.json's, which JAX drew on its own images (ROADMAP
+  C.17).  Returns (results, failures)."""
+  import shutil
+
+  import numpy as np
+
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.config import DataConfig
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.pipelines import calibrate_count
+  from rec_attend_tpu_torch.pipelines import count_diag
+
+  out, failures = {}, []
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  model_id = os.path.basename(CHECKPOINT_DIR)
+  with open(os.path.join(CHECKPOINT_DIR, 'count_calibration.json')) as f:
+    committed = json.load(f)
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_calibrate-',
+                                   dir=REPO) as root:
+    results = os.path.join(root, 'results')
+    folder = linked_model_folder(CHECKPOINT_DIR,
+                                 os.path.join(results, model_id))
+    shutil.copy(os.path.join(CHECKPOINT_DIR, 'data_opt.yaml'), folder)
+    shutil.copytree(os.path.join(CHECKPOINT_DIR, 'output_valid'),
+                    os.path.join(folder, 'output_valid'))
+    data = os.path.join(root, 'data')
+    data_cfg = DataConfig.from_yaml(os.path.join(folder, 'data_opt.yaml'))
+    data_cfg = data_cfg.replace(folder=data)
+
+    # ---- the command; its count_diag scores and its splits kept ---------
+    kept, splits = [], {}
+
+    def keep(scores):
+      def wrapped(exp, dataset, *a, **kw):
+        kept.append(scores(exp, dataset, *a, **kw))
+        splits['train'] = dataset
+        return kept[-1]
+      return wrapped
+
+    def keep_valid(eval_split):
+      def wrapped(exp, dataset, output_folder, *a, **kw):
+        if output_folder.endswith('output_valid_calibrated'):
+          splits['valid'] = dataset
+        return eval_split(exp, dataset, output_folder, *a, **kw)
+      return wrapped
+    timings = {}
+    gk.reset_launch_counts()
+    t0 = time.time()
+    with deterministic_cudnn(torch), patched(count_diag, 'scores', keep), \
+        patched(eval_cli, 'eval_split', keep_valid):
+      summary = calibrate_count.main(
+          ['--model_id', model_id, '--results', results, '--batch_size',
+           str(CALIBRATE_BATCH), '--dataset_folder', data], device=dev,
+          timings=timings)
+    out['seconds'] = time.time() - t0
+    out['host_seconds'] = timings
+    out.update(launches_now(gk))
+    thr = summary['calibrated_threshold']
+    head = summary['headline']
+    out['calibrated_threshold'] = thr
+    out['mask_threshold'] = head['mask_threshold']
+    out['train_score_only'] = summary['train_score_only']
+    out['headline'] = {k: v[0] for k, v in head['metrics'].items()}
+    out['valid_rows'] = summary['valid']
+    out['committed'] = {
+        'calibrated_threshold': committed['calibrated_threshold'],
+        'mask_threshold': committed['headline']['mask_threshold'],
+        'train_score_only': committed['train_score_only'],
+        'headline': {k: v[0]
+                     for k, v in committed['headline']['metrics'].items()}}
+    n_train, n_valid = (provider.settings(data_cfg, split)['num_examples']
+                        for split in ('train', 'valid'))
+    batches = (-(-n_train // CALIBRATE_BATCH)
+               + -(-n_valid // CALIBRATE_BATCH)
+               + min(calibrate_count.TRAIN_MAX_BATCHES,
+                     -(-n_train // CALIBRATE_BATCH)))
+    plain = EvalExperiment(folder, device=dev, glimpse='plain')
+    T = plain.cfg.timespan
+    want = {'glimpse_extract': T * batches, 'glimpse_paste': 2 * T * batches}
+    if out['launches'] != want or out['extract_route_launches'] != {
+        'extract_tiled_kernel': T * batches}:
+      failures.append(f'launches {out["launches"]} '
+                      f'{out["extract_route_launches"]}, want {want}')
+
+    # ---- count_diag with the plain glimpses -----------------------------
+    s_kernel, _ = kept[0]
+    with deterministic_cudnn(torch):
+      s_plain, k_plain = count_diag.scores(plain, splits['train'],
+                                           CALIBRATE_BATCH)
+    s_diff = float(np.abs(s_plain - s_kernel).max())
+    best = count_diag.diagnose(s_plain, k_plain, model_id, 'train')[
+        'score_only_best']
+    off = count_diag.diagnose(s_plain, np.minimum(k_plain + 1, T), model_id,
+                              'train')['score_only_best']
+
+    def diag_failures(pick, s_max_abs):
+      return ([f's_out differs by {s_max_abs}'] if not s_max_abs <=
+              CALIBRATE_S_OUT_ATOL else []) + (
+                  [f'best {pick}, kernel {summary["train_score_only"]}']
+                  if pick != summary['train_score_only'] else [])
+    out['count_diag'] = {
+        's_out_max_abs_kernel_vs_plain': s_diff,
+        'examples': len(s_plain), 'plain_best': best,
+        'control_best': off,
+        'gate': gate('count_diag plain against kernel',
+                     diag_failures(best, s_diff), diag_failures(off, s_diff))}
+
+    # ---- the valid split at the calibrated thresholds, plain ------------
+    nn = f'{int(head["mask_threshold"] * 100):02d}'
+    got = {n: read_scores(os.path.join(folder, 'output_valid_calibrated'),
+                          f'{n}_{nn}') for n in ('sbd', 'dic')}
+    # The plain glimpses' eval at the calibrated thresholds and, for the
+    # control, at a mask threshold CALIBRATE_CONTROL_SHIFT higher: one
+    # forward pass, two thresholds.
+    masks = [head['mask_threshold'],
+             head['mask_threshold'] + CALIBRATE_CONTROL_SHIFT]
+    path = os.path.join(root, 'plain')
+    with deterministic_cudnn(torch):
+      eval_cli.eval_split(plain, splits['valid'], path, masks,
+                          ['sbd', 'dic'], batch_size=CALIBRATE_BATCH,
+                          score_threshold=thr)
+    plain_at = [{n: read_scores(path, f'{n}_{int(m * 100):02d}')
+                 for n in ('sbd', 'dic')} for m in masks]
+    out['valid_eval_gate'] = gate(
+        'valid split at the calibrated thresholds, kernel against plain',
+        per_example_diff(got, plain_at[0], sbd_limit),
+        per_example_diff(got, plain_at[1], sbd_limit))
+    out['sbd_limit'] = sbd_limit
+
+    # ---- the files -------------------------------------------------------
+    thresholds = 6
+    listing = {
+        'count_diag_train': sorted(f for f in os.listdir(folder)
+                                   if f.startswith('count_diag_train')),
+        'calibration': os.path.exists(os.path.join(
+            folder, 'count_calibration.json')),
+        **{sub: (len([f for f in os.listdir(os.path.join(folder, sub))
+                      if f.endswith('.csv')]),
+                 len(png_files(os.path.join(folder, sub))))
+           for sub in ('output_valid_calibrated', 'output_train_calibrated')}}
+    out['files'] = listing
+    csvs = len(eval_cli.DEFAULT_ANALYZERS) * thresholds
+
+    def files_failures(valid_renders, train_renders):
+      want = {'count_diag_train': ['count_diag_train.csv',
+                                   'count_diag_train.json'],
+              'calibration': True,
+              'output_valid_calibrated': (csvs, valid_renders),
+              'output_train_calibrated': (csvs, train_renders)}
+      return [f'{k}: {listing[k]}, want {v}' for k, v in want.items()
+              if listing[k] != v]
+    out['files_gate'] = gate(
+        'the files written', files_failures(thresholds * n_valid, 0),
+        files_failures(thresholds * n_valid, thresholds * n_train))
+  return out, failures
+
+
+def fg_eval_phase(torch, gk, dev):
+  """The fg eval and the foreground eval as users run them, on the
+  committed synth3 chain's fg and full checkpoints (a checkout without
+  them fails) over 8 synthetic 128x448 valid images (the synth3 split's
+  settings, 32 train examples), in temporary results folders inside the
+  checkout, removed after: ``cli.eval fg`` (foreground at 0.5, its
+  orientation colour wheel, its target) on the card and on the CPU, the
+  fg pack, and ``cli.eval`` of the full model with
+  ``--foreground_folder`` (those renders at 0.5), ``--remove_tiny``
+  FG_EVAL_REMOVE_TINY and its instance renders.  Gates, each with a
+  control that must fail: the fg PNGs card against CPU, at most
+  FG_EVAL_PIXELS_DIFFER pixels differing a file (control: the CPU's
+  foreground at threshold 0.55); the foreground eval's per-example SBD
+  and counts kernel against plain (eval_split with the plain glimpses on
+  the same files; control: the foreground target's renders as the
+  foreground); the renders' names and counts (control: those of the
+  train split).  Returns (results, failures)."""
+  import functools
+
+  import numpy as np
+
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.cli import pack as pack_cli
+  from rec_attend_tpu_torch.data import provider
+  from rec_attend_tpu_torch.engine.experiment import EvalExperiment
+  from rec_attend_tpu_torch.pipelines import run_pipeline
+
+  out, failures = {}, []
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  with tempfile.TemporaryDirectory(prefix='.chip_smoke_fg_eval-',
+                                   dir=REPO) as root:
+    results = os.path.join(root, 'results')
+    data_cfg = run_pipeline.synth3_stages('paper')[0].replace(
+        folder=os.path.join(root, 'data'), num_examples=FG_EVAL_EXAMPLES)
+    fg_id, full_id = (os.path.basename(d) for d in (CHAIN_FG_DIR,
+                                                    CHAIN_FULL_DIR))
+    for src, name in ((CHAIN_FG_DIR, fg_id), (CHAIN_FULL_DIR, full_id)):
+      linked_model_folder(src, os.path.join(results, name), data_cfg)
+    common = ['--results', results, '--dataset', 'synth', '--split',
+              'valid', '--batch_size', str(FG_EVAL_BATCH)]
+    fg_out = {d: os.path.join(root, f'fg_{d}') for d in ('card', 'cpu')}
+    seconds = {}
+    for where, device in (('card', dev), ('cpu', 'cpu')):
+      t0 = time.time()
+      with deterministic_cudnn(torch):
+        eval_cli.fg_main(common + ['--model_id', fg_id, '--output',
+                                   fg_out[where]], device=device)
+      seconds[f'fg_eval_{where}'] = time.time() - t0
+    eval_cli.fg_main(common + ['--model_id', fg_id, '--output',
+                               os.path.join(root, 'fg_cpu_55'),
+                               '--threshold_list', '0.55'], device='cpu')
+    card = decoded_pngs(fg_out['card'])
+    cpu = decoded_pngs(fg_out['cpu'])
+    control = {k.replace('55/', '50/'): v for k, v in decoded_pngs(
+        os.path.join(root, 'fg_cpu_55')).items() if k.startswith('55/')}
+
+    differ = pixels_differ(card, cpu)
+    control_differ = pixels_differ(card, control)
+    if sorted(differ) != sorted(card):
+      failures.append(f'fg renders: card {sorted(card)[:3]}, CPU '
+                      f'{sorted(cpu)[:3]}')
+    out['fg'] = {'pixels_differ_card_vs_cpu': differ,
+                 'control_pixels_differ': control_differ,
+                 'gate': gate('fg renders card against CPU',
+                              pixels_over(differ, FG_EVAL_PIXELS_DIFFER),
+                              pixels_over(control_differ,
+                                          FG_EVAL_PIXELS_DIFFER))}
+
+    # ---- the fg pack, then the full eval on those foreground maps -------
+    t0 = time.time()
+    with deterministic_cudnn(torch):
+      pack_cli.fg_main(common[:-2] + ['--model_id', fg_id, '--batch_size',
+                                      str(FG_EVAL_BATCH)], device=dev)
+    seconds['fg_pack'] = time.time() - t0
+    fg_folder = os.path.join(fg_out['card'], '50')
+    full_out = os.path.join(root, 'full_card')
+    gk.reset_launch_counts()
+    t0 = time.time()
+    with deterministic_cudnn(torch):
+      eval_cli.full_main(common + [
+          '--model_id', full_id, '--output', full_out, '--threshold_list',
+          str(CHAIN_MASK_THRESHOLD), '--score_threshold',
+          str(CHAIN_SCORE_THRESHOLD), '--foreground_folder', fg_folder,
+          '--remove_tiny', str(FG_EVAL_REMOVE_TINY)], device=dev)
+    seconds['foreground_eval'] = time.time() - t0
+    out['foreground_eval_launches'] = launches_now(gk)
+    got = {n: read_scores(full_out, n) for n in ('sbd', 'dic')}
+    packed = provider.get('synth', data_cfg, split='valid')
+    plain = EvalExperiment(os.path.join(results, full_id), device=dev,
+                           glimpse='plain')
+
+    def plain_scores(foreground_folder, name):
+      path = os.path.join(root, name)
+      with deterministic_cudnn(torch):
+        eval_cli.eval_split(
+            plain, packed, path, [CHAIN_MASK_THRESHOLD], ['sbd', 'dic'],
+            foreground=functools.partial(eval_cli._read_foreground,
+                                         foreground_folder),
+            remove_tiny=FG_EVAL_REMOVE_TINY, batch_size=FG_EVAL_BATCH,
+            score_threshold=CHAIN_SCORE_THRESHOLD)
+      return {n: read_scores(path, n) for n in ('sbd', 'dic')}
+    out['foreground_eval'] = {
+        'sbd': got['sbd'], 'dic': got['dic'],
+        'sbd_mean': statistics.mean(got['sbd'].values()),
+        'gate': gate('foreground eval, kernel against plain',
+                     per_example_diff(got, plain_scores(fg_folder, 'plain'),
+                                      PIPELINE_CLI_SBD_LIMIT),
+                     per_example_diff(got, plain_scores(
+                         os.path.join(fg_out['card'], 'gt'), 'control'),
+                                      PIPELINE_CLI_SBD_LIMIT))}
+
+    # ---- the renders' names and counts ----------------------------------
+    def names(split):
+      ds = provider.get('synth', data_cfg, split=split)
+      files = [ds.get_fname(i) for i in ds.get_batch(
+          np.arange(ds.get_dataset_size()), timespan=data_cfg.timespan,
+          variables={'idx_map'})['idx_map']]
+      return ([f'{sub}/{f}' for sub in ('50', 'gt', 'orientation')
+               for f in files],
+              [f'{int(CHAIN_MASK_THRESHOLD * 100):02d}/{f}' for f in files])
+    listing = (png_files(fg_out['card']), png_files(full_out))
+
+    def listing_failures(want):
+      return [f'{got[:2]}... ({len(got)}) against {w[:2]}... ({len(w)})'
+              for got, w in zip(listing, want) if got != w]
+    out['renders'] = {'fg': len(listing[0]), 'full': len(listing[1]),
+                      'gate': gate('render files', listing_failures(
+                          [sorted(v) for v in names('valid')]),
+                                   listing_failures([sorted(v) for v in
+                                                     names('train')]))}
+    out['seconds'] = seconds
+  return out, failures
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -5807,6 +6485,22 @@ def main():
          **h5_runs[dataset])
     if failures:
       raise AssertionError(f'{dataset}_pipeline gates: {failures}')
+  # The count calibration of the flagship, then the fg eval and the
+  # foreground eval of the synth3 checkpoints, as users run them: after
+  # the other phases, which run as they did without them.
+  t0 = time.time()
+  calibrate, failures = calibrate_phase(torch, gk, dev,
+                                        evals['limits']['sbd_max_abs_diff'])
+  emit('calibrate', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **calibrate)
+  if failures:
+    raise AssertionError(f'calibrate gates: {failures}')
+  t0 = time.time()
+  fg_eval, failures = fg_eval_phase(torch, gk, dev)
+  emit('fg_eval', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **fg_eval)
+  if failures:
+    raise AssertionError(f'fg_eval gates: {failures}')
   weights_forward = {k: weights['launches']['launches'][k]
                      - weights['launches']['backward_launches'][k]
                      for k in checks}
@@ -5833,7 +6527,8 @@ def main():
             'eval': evals['launches'][name],
             'bf16_eval': bf16_launches['eval'][name],
             'bf16_train': bf16_launches['train_forward'][name],
-            'weights_h5': weights_forward[name]}),
+            'weights_h5': weights_forward[name],
+            'calibrate': calibrate['launches'][name]}),
         **{f'b{b}': {k: c[f'b{b}'][k] for k in (
             'kernel_ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
             'bound_share', 'route', 'max_abs_err') if k in c[f'b{b}']}
@@ -5922,6 +6617,9 @@ def main():
         n = counts['launches'][name] - n
       if n:
         by_path[f'synth3_pipeline_{label}'] = n
+    n = fg_eval['foreground_eval_launches']['launches'][name]
+    if n and not backward:
+      by_path['fg_eval_foreground_eval'] = n
     return by_path
   for name in checks:
     table.append(row(name, checks[name]['synth3_b8'], 'forward, synth3 '

@@ -27,7 +27,11 @@ RGB table, written BGR), ``RenderGroundtruthInstanceAnalyzer`` the ground
 truth's instances, each in the colour of its best-matching prediction,
 and ``RenderCityScapesOutputAnalyzer`` the submission, ``{run}/{stem}.txt``
 with a line ``{png} {label id} {score}`` and a 0/255 mask PNG for each
-instance submitted, its rows those of ``cityscapes_submission``.
+instance submitted, its rows those of ``cityscapes_submission``.  The fg
+eval's (``:522-546``) write through the same path:
+``RenderOrientationAnalyzer`` the colour wheel of the orientation maps
+under the foreground mask, ``RenderForegroundAnalyzer`` a map in [0, 1]
+as a grey PNG.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import time
 
 import numpy as np
 
+from rec_attend_tpu_torch.data import orientation
 from rec_attend_tpu_torch.ops.hungarian import hungarian
 from rec_attend_tpu_torch.utils import png
 
@@ -597,3 +602,31 @@ class RenderCityScapesOutputAnalyzer(AnalyzerBase):
         _write_png(os.path.join(runfolder, img_file), row.mask)
         text_file.write(f'{img_file} {row.label_id:d} {row.score:f}\n')
     return text_fn
+
+
+class RenderOrientationAnalyzer(RenderInstanceAnalyzer):
+  """Each image's orientation colour wheel (``orientation.
+  build_orientation_img`` of 'd_out' [H, W, 8] under 'mask' [H, W]),
+  written as cv2.imwrite writes the array."""
+
+  def stage(self, results):
+    for ii in range(len(results['mask'])):
+      img = orientation.build_orientation_img(results['d_out'][ii],
+                                              results['mask'][ii])
+      _write_png(os.path.join(self.folder,
+                              self._fname(results['indices'][ii])), img)
+
+
+class RenderForegroundAnalyzer(RenderInstanceAnalyzer):
+  """Each image's map 'y_out' [H, W] in [0, 1], times 255 truncated to
+  uint8, as a grey PNG."""
+
+  def __init__(self, folder, dataset):
+    super().__init__(folder, dataset)
+    self.name = 'render_fg'
+
+  def stage(self, results):
+    for ii in range(len(results['y_out'])):
+      y = (results['y_out'][ii] * 255).astype('uint8')
+      _write_png(os.path.join(self.folder,
+                              self._fname(results['indices'][ii])), y)

@@ -1,10 +1,12 @@
 """The train command lines of the full, box and fg models.
 
 Counterpart of ``rec_attend_tpu/cli/train.py:17-55``: the train, data and
-model flags (``cli.args``), a ``TrainingExperiment`` and its run.  The
-JAX command line plots samples on the plot cadence with matplotlib; the
-port has no plotting yet (ROADMAP A.5, dashboards) and says so once in its
-log.
+model flags (``cli.args``), a ``TrainingExperiment`` and its run, which on
+the plot cadence (``--steps_per_plot``, 0 for none) renders samples into
+the logs folder with ``utils/plot_utils.py`` (matplotlib); a failed plot
+logs a warning and the run goes on, as in JAX.  ``python -m
+rec_attend_tpu_torch.utils.dashboard logs/<model id>`` then writes the
+run's ``index.html``.
 
     python -m rec_attend_tpu_torch.cli.train box --dataset synth \\
         --num_steps 100 --batch_size 4 --save_ckpt
@@ -23,6 +25,7 @@ import sys
 from rec_attend_tpu_torch.cli import args as A
 from rec_attend_tpu_torch.engine.experiment import TrainingExperiment
 from rec_attend_tpu_torch.utils import logger
+from rec_attend_tpu_torch.utils import plot_utils
 
 
 def _run(spec, make_model_cfg, add_model_args, argv=None, device=None):
@@ -36,14 +39,20 @@ def _run(spec, make_model_cfg, add_model_args, argv=None, device=None):
   model_cfg = make_model_cfg(args)
   train_cfg = A.make_train_config(args)
   data_cfg = A.make_data_config(args)
-  if train_cfg.steps_per_plot > 0:
-    log.info('Plotting is not ported yet (ROADMAP A.5, dashboards): no '
-             'plots are made')
   exp = TrainingExperiment(spec, model_cfg, train_cfg, data_cfg,
-                           device=device)
+                           plot_fn=_default_plot_fn(spec), device=device)
   exp.run()
   exp.close()
   return exp
+
+
+def _default_plot_fn(spec):
+  def plot(exp):
+    try:
+      plot_utils.plot_experiment_samples(exp, spec)
+    except Exception as e:   # a plot never stops training, as in JAX
+      exp.log.warning(f'plotting failed: {e}')
+  return plot
 
 
 def full_main(argv=None, device=None):

@@ -4,12 +4,35 @@ A copy of ``rec_attend_tpu/data/orientation.py:37-71`` (``get_orientation``)
 in its 'class' encoding, numpy only: each pixel of an instance takes the bin of the direction from
 the instance's centroid to the pixel, 8 angular bins with edges offset by
 pi/8; pixels outside every instance take bin 0.  The fg model learns these
-bins as its orientation head's target ('d_gt').
+bins as its orientation head's target ('d_gt').  ``build_orientation_img``
+is ``:17-30``, the colour wheel that the fg eval renders the predicted
+bins with.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# One colour per bin, in the order JAX lists them; the renders write them
+# as cv2.imwrite does, the array's channels taken as B, G, R.
+color_wheel = np.array(
+    [[255, 17, 0], [255, 137, 0], [230, 255, 0], [34, 255, 0],
+     [0, 255, 213], [0, 154, 255], [9, 0, 255], [255, 0, 255]], dtype='uint8')
+
+
+def build_orientation_img(d, mask):
+  """The colour of each pixel's most likely bin, zero off the mask.
+
+  Args:
+    d: [..., H, W, 8] orientation scores.
+    mask: [..., H, W] in {0, 1}.
+  Returns:
+    [..., H, W, 3] uint8.
+  """
+  y = np.expand_dims(mask, -1)
+  did = np.argmax(d, -1)
+  c2 = color_wheel[did.reshape([-1])].reshape(list(y.shape[:-1]) + [3])
+  return (c2 * y).astype('uint8')
 
 
 def get_orientation(y, num_classes=8):

@@ -397,16 +397,23 @@ class EvalExperiment:
             np.asarray(raw[src], np.float32)).to(self.device)
     return full_model_forward(self.model, x, glimpse=self.glimpse, **packed)
 
-  def iterate_split(self, dataset, batch_size):
+  def iterate_split(self, dataset, batch_size, variables=None,
+                    output_keys=None):
     """Yields (dataset, raw batch, outputs) over the whole dataset in index
     order; outputs holds the spec's outputs ('y_out' and 's_out' of the
-    full model, 'y_out' and 'd_out' of the fg model) where the forward left
-    them."""
+    full model, 'y_out' and 'd_out' of the fg model), or those of them
+    named in ``output_keys``, where the forward left them.  ``variables``,
+    where given, names the dataset variables of the raw batch (the fg eval
+    adds 'orig_size', each image's size in the dataset, as JAX's
+    ``EvalExperiment.iterate_split`` does)."""
     n = dataset.get_dataset_size()
     timespan = getattr(self.cfg, 'timespan', None)
+    keys = [k for k in self.output_keys
+            if output_keys is None or k in output_keys]
+    kw = {} if variables is None else {'variables': variables}
     for lo in range(0, n, batch_size):
       raw = dataset.get_batch(np.arange(lo, min(lo + batch_size, n)),
-                              timespan=timespan)
+                              timespan=timespan, **kw)
       with torch.inference_mode():
         out = self._forward(raw)
-      yield dataset, raw, {k: out[k] for k in self.output_keys if k in out}
+      yield dataset, raw, {k: out[k] for k in keys if k in out}

@@ -322,7 +322,8 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
     train: None for the serving forward; with the ground truth a dict of
       this step's inputs: 'train' (True: BatchNorm on the batch and the
       knob's mixes; False: the eval forward of the loss in eval mode),
-      ground truth ('y_gt' [B,T,H,W], 'attn_box_gt' [B,T,H,W],
+      'plot' (True: also the outputs that the plots read), ground truth
+      ('y_gt' [B,T,H,W], 'attn_box_gt' [B,T,H,W],
       'attn_top_left_gt'/'attn_bot_right_gt' [B,T,2]), the greedy-match
       mask 'grd_cum' [B,T] and, in training, 'attn_ctr_gtn'/'attn_size_gtn'
       [B,T,2], the knob draws 'knob_box'/'knob_segm' [B,1] and
@@ -353,8 +354,8 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   def net_stats(net):
     return None if stats is None else stats[net]
 
-  h_crnn, ctrl_out, _ = controller(model, inputs('ctrl'), t,
-                                   net_stats('ctrl_cnn'), cdt)
+  h_crnn, ctrl_out, glimpse_maps = controller(model, inputs('ctrl'), t,
+                                              net_stats('ctrl_cnn'), cdt)
   (attn_ctr_norm, attn_lg_size, attn_ctr, attn_size,
    attn_lg_var) = attention_params(cfg, ctrl_out)
   if cfg.fixed_gamma:
@@ -467,6 +468,17 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
       attn_ctr_norm=attn_ctr_norm, attn_lg_size=attn_lg_size,
       attn_lg_gamma=attn_lg_gamma, attn_box_lg_gamma=attn_box_lg_gamma,
       y_out_lg_gamma=y_out_lg_gamma)
+  if train is not None and train['plot']:
+    # What the plots read (JAX :488-501), asked for by the plot hook's eval
+    # forward only: in training they would be kept across the remat
+    # segments.
+    attn_top_left, attn_bot_right = attention.get_box_coord(attn_ctr,
+                                                            attn_size)
+    step_out.update(
+        x_patch=x_patch.float(), attn_top_left=attn_top_left,
+        attn_bot_right=attn_bot_right,
+        glimpse_map=torch.stack(glimpse_maps, dim=1)[..., 0].reshape(
+            B, cfg.num_ctrl_rnn_iter, cfg.crnn_h, cfg.crnn_w))
   return canvas, grd_cum, step_out, stats
 
 
@@ -515,7 +527,7 @@ def full_model_forward(model: FullModel, x, d_in=None, y_in=None,
 
 def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
                              glimpse='kernel', d_in=None, y_in=None,
-                             train=True):
+                             train=True, plot=False):
   """Run the T-step forward with the ground truth (JAX
   full_model_forward(train=True), or with ``train=False`` its eval branch:
   no crop, BatchNorm on its EMA statistics, no knob and no draws, which
@@ -530,15 +542,18 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
       elsewhere), on the model's device.
     step: global step, for the knob schedule.
     glimpse: as in ``full_model_forward``.
+    plot: in eval, also return what the plots read.
   Returns:
     (outputs, new_bn): outputs holds the stacked per-step outputs of
     ``full_model_forward`` plus 'iou_soft_box_t' [B,T,T], in training
     with the knob (without ``fixed_order``) the greedy matches
     'grd_match' [B,T,T], the transformed
     'x_trans'/'y_gt_trans', 's_gt', and the ground truth 'attn_box_gt',
-    'attn_ctr_norm_gt', 'attn_lg_size_gt' and friends; new_bn maps each
-    EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new [T,C] value
-    (empty in eval).
+    'attn_ctr_norm_gt', 'attn_lg_size_gt' and friends, and with ``plot``
+    what the plots read, 'x_patch' [B,T,FH,FW,D], 'attn_top_left' and
+    'attn_bot_right' [B,T,2] and 'glimpse_map' [B,T,iters,h,w]; new_bn
+    maps each EMA buffer name ('ctrl_cnn.0.bn.ema_mean', ...) to its new
+    [T,C] value (empty in eval).
   """
   extract_fn, paste_fn = _glimpse_fns(glimpse)
   _check_input(model, x, d_in, y_in)
@@ -567,7 +582,8 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
    attn_bot_right_gt) = boxes.get_gt_attn(
        y_gt, FH, FW, padding_ratio=cfg.attn_box_padding_ratio,
        center_shift_ratio=0.0, min_padding=min_pad)
-  gt = {'train': train, 'y_gt': y_gt, 'attn_box_gt': attn_box_gt,
+  gt = {'train': train, 'plot': plot and not train, 'y_gt': y_gt,
+        'attn_box_gt': attn_box_gt,
         'attn_top_left_gt': attn_top_left_gt,
         'attn_bot_right_gt': attn_bot_right_gt}
   knob = {}

@@ -9,6 +9,7 @@ batches.
     python3 step_noise.py --bf16 [--batches 5]
     python3 step_noise.py --bf16-exact [--batches 2]
     python3 step_noise.py --pretrained [--batches 5]
+    python3 step_noise.py --fg-eval
 
 Restores the flagship CVPPP checkpoint with its Adam state on one CUDA card
 and, for each of several seeded synthetic batches and draws, runs
@@ -82,6 +83,13 @@ held kernel against plain beside the reordered-plain floor, with the
 dropped-filter-gradient control (``chip_smoke.step_gates`` at
 ``STEP_LIMITS``).  Batch 0 is the one that chip_smoke.py gates.
 
+With ``--fg-eval``, chip_smoke.py's fg_eval phase and its kitti_pipeline
+phase, each twice, with cuDNN's and cuBLAS's TF32 off (as chip_smoke.py
+runs them) and on (PyTorch's default for cuDNN): for each, the most pixels
+a render of each folder differs card against CPU (of kitti_pipeline, its
+fg eval at the images' size) and the phase's failures;
+FG_EVAL_PIXELS_DIFFER and KITTI_FG_PIXELS_DIFFER rest on the TF32 runs.
+
 Needs a card; exits 1 without one.
 """
 
@@ -119,6 +127,9 @@ def main():
   ap.add_argument('--bf16-exact', action='store_true',
                   help="the bf16 phase's card-against-CPU step against a "
                        'float64 step')
+  ap.add_argument('--fg-eval', action='store_true',
+                  help="the fg_eval phase's and KITTI's fg renders card "
+                       'against CPU, with TF32 off and on')
   args = ap.parse_args()
 
   import torch
@@ -141,6 +152,9 @@ def main():
     return
   if args.pretrained:
     pretrained_noise(torch, args.batches)
+    return
+  if args.fg_eval:
+    fg_eval_noise(torch)
     return
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.config import cvppp_full_config
@@ -210,6 +224,40 @@ def pretrained_noise(torch, n):
         'limits': chip_smoke.STEP_LIMITS, 'failures': failures,
         'gates': {name: {k: v[k] for k in KEYS}
                   for name, v in gates.items()}}), flush=True)
+  print(chip_smoke.nvidia_smi_name_power(), flush=True)
+
+
+def fg_eval_noise(torch):
+  """The fg_eval phase's and KITTI's fg renders card against CPU, TF32
+  off and on."""
+  from rec_attend_tpu_torch.ops.cuda import build
+  from rec_attend_tpu_torch.ops.cuda import glimpse as gk
+
+  build.build()
+  build.load()
+  build.load_hungarian()
+  for tf32 in (False, True):
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    out, failures = chip_smoke.fg_eval_phase(torch, gk, torch.device('cuda'))
+    most = {}
+    for name, n in out['fg']['pixels_differ_card_vs_cpu'].items():
+      folder = name.split('/')[0]
+      most[folder] = max(most.get(folder, 0), n)
+    print(json.dumps({'tf32': tf32, 'pixels_differ_most': most,
+                      'limits': chip_smoke.FG_EVAL_PIXELS_DIFFER,
+                      'failures': failures}), flush=True)
+    out, failures = chip_smoke.h5_pipeline_phase(
+        torch, gk, torch.device('cuda'), 'kitti')
+    fg = out['fg_eval']
+    print(json.dumps({'tf32': tf32, 'kitti': True,
+                      'pixels_differ_most': fg['pixels_differ_most'],
+                      'control_pixels_differ_most':
+                          fg['control_pixels_differ_most'],
+                      'limits': chip_smoke.KITTI_FG_PIXELS_DIFFER,
+                      'seconds': fg['seconds'],
+                      'cpu_seconds': fg['cpu_seconds'],
+                      'failures': failures}), flush=True)
   print(chip_smoke.nvidia_smi_name_power(), flush=True)
 
 

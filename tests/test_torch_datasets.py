@@ -348,7 +348,8 @@ def test_chip_smoke_h5_pipeline_phase_on_cpu(dataset):
   gated = [out['codec_gate'], out['jax_h5']['gate'], out['files_gate'],
            out['eval_step']['gate']]
   if dataset == 'kitti':
-    gated.append(out['pack']['gate'])
+    gated += [out['pack']['gate'], out['fg_eval']['gate'],
+              out['fg_eval']['pixels_gate']]
   for g in gated:
     assert g['failures'] == [] and g['control_failures']
   stages = ('fg', 'box', 'full') if dataset == 'kitti' else ('box', 'full')

@@ -728,3 +728,48 @@ def test_synthcs_pipeline_with_those_modules_missing(tmp_path):
                         env=dict(os.environ, PYTHONPATH=REPO))
   assert proc.returncode == 0, proc.stderr
   assert proc.stdout.strip().endswith('ok')
+
+
+def test_only_the_plots_import_matplotlib():
+  """matplotlib, which the machine with the card may lack, is imported by
+  utils/plot_utils.py alone, which the train command line imports only to
+  plot."""
+  importers = []
+  for path in _port_sources():
+    with open(path) as f:
+      tree = ast.parse(f.read())
+    for node in ast.walk(tree):
+      names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+               else [node.module or ''] if isinstance(node, ast.ImportFrom)
+               else [])
+      if any(n.split('.')[0] == 'matplotlib' for n in names):
+        importers.append(os.path.relpath(path, REPO))
+  assert sorted(set(importers)) == [
+      os.path.join('rec_attend_tpu_torch', 'utils', 'plot_utils.py')]
+
+
+def test_calibration_and_fg_eval_default_to_cuda(monkeypatch, tmp_path):
+  """Without a card, count_diag, calibrate_count and the fg eval raise
+  unless asked for the CPU, and write nothing first (on a copy of the
+  flagship's folder: both write into the model's folder)."""
+  from rec_attend_tpu_torch.cli import eval as eval_cli
+  from rec_attend_tpu_torch.pipelines import calibrate_count
+  from rec_attend_tpu_torch.pipelines import count_diag
+  flagship = 'full_model_synth-20260816104712'
+  folder = tmp_path / 'r' / flagship
+  folder.mkdir(parents=True)
+  for name in ('ckpt-30000.npz', 'model_opt.yaml'):
+    os.symlink(os.path.join(REPO, 'results', flagship, name), folder / name)
+  before = sorted(os.listdir(folder))
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  argv = ['--model_id', flagship, '--results', str(tmp_path / 'r'),
+          '--dataset_folder', str(tmp_path / 'd')]
+  for main in (count_diag.main, calibrate_count.main):
+    with pytest.raises(RuntimeError, match='CUDA'):
+      main(argv)
+  with pytest.raises(RuntimeError, match='CUDA'):
+    eval_cli.fg_main(['--model_id', 'fg_model_synth3-20260818a', '--results',
+                      os.path.join(REPO, 'results'), '--dataset', 'synth',
+                      '--output', str(tmp_path / 'fg')])
+  assert sorted(os.listdir(folder)) == before
+  assert sorted(os.listdir(tmp_path)) == ['r']
