@@ -3,15 +3,18 @@
 and check them.
 
     python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py hungarian  # the Hungarian kernel's phase alone
 
 Phases, one JSON line each on stdout, each with the seconds since the
 script started ('script_seconds'):
   device        the card, and its name and power limit from nvidia-smi;
-  build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and the C++
-                compiler csrc/hungarian.cc, both at once (seconds taken),
-                and each kernel's registers a thread, spill bytes and
-                static shared memory as nvcc -Xptxas -v reports them (the
-                paste kernel and the three extract routes must be there);
+  build         nvcc builds rec_attend_tpu_torch/csrc/glimpse.cu and
+                csrc/hungarian.cu and the C++ compiler the host libraries
+                (csrc/hungarian.cc and the others), all at once (seconds
+                taken), and each kernel's registers a thread, spill bytes
+                and static shared memory as nvcc -Xptxas -v reports them
+                (the paste kernel, the three extract routes and the
+                one-warp Hungarian kernel must be there);
   kernels       each hand-written kernel against its plain PyTorch version,
                 at the serving path's shapes (CVPPP, b128, b8 and b1), at
                 the synth3 chain's (KITTI 128x448, b32, extract D=13, paste
@@ -38,6 +41,18 @@ script started ('script_seconds'):
                 paste's d_p takes the strip route); the kernels' backward
                 uses (paste as extract's d_x, extract at D=1 as paste's d_p)
                 and the filter-gradient einsums timed;
+  hungarian     the Hungarian kernel (JAX's default matcher) against its
+                plain PyTorch version on the card, bit for bit in the
+                matching, c_x and c_y, on two launches each: weights as the
+                steps make them at each step shape ([64,21,21] of the
+                flagship's b32 down to [4,20,20]; the script fails if a
+                path solves at another), all ties, all 1e-5,
+                thirds, a rectangular 5x9 set, JAX's reference matrices and
+                a problem whose NaN arithmetic reaches the iteration cap;
+                the plain version with argmin's ties broken toward the last
+                index must differ; at each step shape the kernel's time
+                beside the plain version's, the host solver's with its
+                copies and the bound;
   serve         InstanceSegmenter serves the flagship CVPPP checkpoint (a
                 checkout without it fails) to three requests of b=8, 32 and
                 128 at the model's size and two of other sizes (b1 530x500,
@@ -58,7 +73,10 @@ script started ('script_seconds'):
                 beside the step's float32 noise floor) and against the CPU's
                 (b2) at step 0, with the matchings of each pair reported
                 and pinned where they differ; a step whose glimpse backward
-                drops the filter gradients must fail the same gates;
+                drops the filter gradients must fail the same gates; every
+                step and one eval step after them solve their matchings
+                with the Hungarian kernel, one launch each, timed by CUDA
+                events, and the host solver must not run;
   bf16          the flagship trained in bfloat16 (results/full_model_
                 synth1024bf16-r5, dtype from its model_opt.yaml; a
                 checkout without it fails): eval_split over the first 64
@@ -398,8 +416,10 @@ against the same call in a process without the card, byte for byte
 step, whose Chrome trace must name paste_kernel and extract_tiled_kernel
 (control: the same check of that trace for extract_strip_kernel, which the
 step does not launch).
-Then the kernel table (each row with bound_share = bound_ms / ms), the
-card's name and power limit, and as the last line
+Then the kernel table (each row with bound_share = bound_ms / ms; each
+row's launches by path, read from the counts of that path's own run: the
+Hungarian kernel's, one row a solved shape), the card's name and power
+limit, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises, and the exit code is not
 0.  Without CUDA the script exits 1 before printing any result.
 """
@@ -448,6 +468,20 @@ BACKWARD_USES = {
                      'glimpse.py:152',
 }
 SOURCE = 'rec_attend_tpu_torch/csrc/glimpse.cu'
+# JAX's default matcher, the solver its losses run in-graph under vmap
+# (``matcher='jax'``; not a Pallas kernel: JAX left it to XLA).
+HUNGARIAN_SOURCE = 'rec_attend_tpu_torch/csrc/hungarian.cu'
+HUNGARIAN_REPLACES = 'rec_attend_tpu/ops/hungarian.py:38'
+# The (problems, T) of the solves the port's steps run: at T=21 the full
+# model's stacked [2B, T, T] at the flagship's b32, the synth pipeline's
+# b8 and CVPPP's b5, the box model's [B, T, T] at the synth pipeline's b8
+# and CVPPP's b5; at T=20 the chain's and the synth3 pipeline's full model
+# at b8 and the synthcs full model's b4 (and the chain's box at b8),
+# KITTI's box at b5, and the synthcs and Cityscapes boxes' b4 (and the
+# KITTI and Cityscapes full models' b2).  The script fails if a path
+# solves at a shape beyond these (main).
+HUNGARIAN_STEP_SHAPES = ((64, 21), (16, 21), (10, 21), (8, 21), (5, 21),
+                         (16, 20), (8, 20), (5, 20), (4, 20))
 # Published H100 SXM peaks: HBM3 bytes/s and float32 FLOP/s outside the
 # tensor cores (NVIDIA's data sheet), for the least time of a kernel.
 PEAK_BYTES_PER_S = 3.35e12
@@ -1075,6 +1109,142 @@ def check_kernel_grad(torch, gk, attention, name, b, h, w, d, fh, fw, gen,
   return result
 
 
+def hungarian_cases(np, seed=0):
+  """{name: float32 weights [B, n_x, n_y]}: the inputs of the hungarian
+  phase, which tests/test_torch_hungarian.py holds to JAX's solver on the
+  CPU.  At each of HUNGARIAN_STEP_SHAPES, weights as f_segm_match makes
+  them from masked random IoU with 70 % zeros (boxes that miss most
+  instances: many ties), present counts drawn per example, rounded to
+  1e-6, plus 1e-5; then every weight 1 (all ties), every weight 1e-5 (an
+  absent instance's), thirds (many ties), a rectangular 5x9 set, JAX's
+  reference matrices (HUNGARIAN_REFERENCE), and one problem with an
+  infinite column, whose arithmetic makes NaN and whose rows reach the
+  iteration cap."""
+  rng = np.random.RandomState(seed)
+  cases = {}
+  for b, t in HUNGARIAN_STEP_SHAPES:
+    iou = rng.rand(b, t, t).astype(np.float32)
+    iou[rng.rand(b, t, t) < 0.7] = 0
+    s_gt = (np.arange(t) < rng.randint(1, t + 1, (b, 1))).astype(np.float32)
+    w = iou * s_gt[:, None, :] * s_gt[:, :, None]
+    cases[f'step_{b}x{t}x{t}'] = (np.round(w * 1e6) / 1e6
+                                  + 1e-5).astype(np.float32)
+  cases['all_ties'] = np.ones((4, 21, 21), np.float32)
+  cases['uniform_1e-5'] = np.full((4, 21, 21), 1e-5, np.float32)
+  cases['thirds'] = (np.round(rng.rand(16, 21, 21) * 3) / 3).astype(
+      np.float32)
+  cases['rectangular_5x9'] = rng.rand(8, 5, 9).astype(np.float32)
+  for name, w in HUNGARIAN_REFERENCE.items():
+    cases[f'jax_{name}'] = np.asarray(w, np.float32)[None]
+  capped = rng.rand(1, 6, 6).astype(np.float32)
+  capped[0, :, 1] = np.inf
+  cases['nan_capped'] = capped
+  return cases
+
+
+def solves_bit_equal(torch, got, want):
+  """Whether two solves (matching, c_x, c_y) have the same bits."""
+  return all(a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                                b.view(torch.int32))
+             for a, b in zip(got, want))
+
+
+def solves_max_abs(torch, got, want):
+  """The largest difference of two solves (equal values, NaN against
+  NaN included, count 0)."""
+  def diff(a, b):
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    return float(torch.where(same, 0.0, (a - b).abs()).max())
+  return max(diff(a, b) for a, b in zip(got, want))
+
+
+def hungarian_checks(torch, cases):
+  """The Hungarian kernel against its plain version: two launches on each
+  of ``cases`` ({name: weights on the card}), each bit for bit in the
+  matching, c_x and c_y.  Returns (checks, the kernel's first solves,
+  failures)."""
+  from rec_attend_tpu_torch.ops import hungarian as H
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  checks, solved, failures = {}, {}, []
+  for name, w in cases.items():
+    want = H.hungarian_plain(w)
+    hk.reset_launch_counts()
+    got = [hk.hungarian(w) for _ in range(2)]
+    torch.cuda.synchronize()
+    solved[name] = got[0]
+    equal = [solves_bit_equal(torch, g, want) for g in got]
+    checks[name] = {'shape': list(w.shape), 'bit_equal': equal,
+                    'launches': hk.hungarian.launches,
+                    'max_abs_err': max(solves_max_abs(torch, g, want)
+                                       for g in got),
+                    'matched': int(want[0].nan_to_num().sum())}
+    if not all(equal) or hk.hungarian.launches != 2:
+      failures.append(f'{name}: kernel against plain {checks[name]}')
+  return checks, solved, failures
+
+
+def hungarian_times(torch, w, max_abs_err):
+  """At weights w [b, n_x, n_y] on the card: the kernel's time (CUDA
+  events, median of 20) beside the plain version's, the host solver's
+  with its two copies (the port's solve before the kernel) and the
+  bound."""
+  from rec_attend_tpu_torch.ops import hungarian as H
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  b, n_x, n_y = w.shape
+  n = max(n_x, n_y)
+  steps = H.dijkstra_steps(w)
+  # Each input read once, each output written once; about 8 float
+  # operations a column in each Dijkstra iteration this data takes.
+  nbytes = 4 * (2 * b * n_x * n_y + b * (n_x + n_y))
+  flops = 8 * (n + 1) * int(steps.sum())
+  bound_ms, bound_by = bound(nbytes, flops)
+  kernel_ms = ms(torch, lambda: hk.hungarian(w))
+  return {
+      'kernel_ms': kernel_ms,
+      'host_solve_with_copies_ms': ms(
+          torch, lambda: matching.solve(w, 'native'), sleep=False),
+      'plain_ms': ms(torch, lambda: H.hungarian_plain(w), iters=2,
+                     warmup=0, sleep=False),
+      'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
+      'bound_share': bound_ms / kernel_ms,
+      'dijkstra_steps_max': int(steps.sum(1).max()),
+      'dijkstra_steps_total': int(steps.sum()),
+      'max_abs_err': max_abs_err}
+
+
+def hungarian_phase(torch, np, dev):
+  """The Hungarian kernel against its plain version on the card
+  (``hungarian_checks`` on each of hungarian_cases); the control, the
+  plain version with argmin's ties broken toward the last index, must
+  differ from the kernel; ``hungarian_times`` at each step shape.
+  Returns (results, failures)."""
+  from rec_attend_tpu_torch.ops import hungarian as H
+
+  cases = {k: torch.from_numpy(v).to(dev)
+           for k, v in hungarian_cases(np).items()}
+  checks, solved, failures = hungarian_checks(torch, cases)
+  # The control: argmin's ties broken toward the last index.
+  def last_index(argmin):
+    return lambda mm: mm.shape[1] - 1 - argmin(mm.flip(1))
+  control = {}
+  with patched(H, '_argmin', last_index):
+    for name in [f'step_{b}x{t}x{t}' for b, t in HUNGARIAN_STEP_SHAPES] + [
+        'all_ties', 'thirds']:
+      control[name] = solves_bit_equal(torch, H.hungarian_plain(cases[name]),
+                                       solved[name])
+  if all(control.values()):
+    failures.append('control: the last-index argmin gives the kernel\'s '
+                    'bits everywhere')
+  times = {}
+  for b, t in HUNGARIAN_STEP_SHAPES:
+    key = f'{b}x{t}x{t}'
+    times[key] = hungarian_times(torch, cases[f'step_{key}'],
+                                 checks[f'step_{key}']['max_abs_err'])
+  return {'cases': checks, 'control_bit_equal': control,
+          'times': times}, failures
+
+
 def zero_grad_leaves(model):
   """{bias name: weight name} of the conv layers that a BatchNorm follows
   (their bias gradient is 0 in exact arithmetic)."""
@@ -1150,14 +1320,17 @@ def step_gate_failures(stats, limits):
 
 @contextlib.contextmanager
 def hungarian_calls(matching, solve_fn):
-  """Inside the block every Hungarian solve of the loss calls
-  solve_fn(solve, weights), where solve is the host solver."""
-  solve = matching.hungarian_lib.hungarian
-  matching.hungarian_lib.hungarian = lambda w: solve_fn(solve, w)
+  """Inside the block every Hungarian solve of a loss
+  (``matching.solve``) calls solve_fn(solve, weights), where solve(weights)
+  is the solve the loss asked for (its matcher's: the kernel on the card
+  by default) and returns the matching tensor."""
+  solve = matching.solve
+  matching.solve = lambda w, matcher='jax': solve_fn(
+      lambda x: solve(x, matcher), w)
   try:
     yield
   finally:
-    matching.hungarian_lib.hungarian = solve
+    matching.solve = solve
 
 
 def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
@@ -1165,7 +1338,8 @@ def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
   """One train step of any model on copies of model and opt_state: (loss,
   grads, old params, new params, matches).  matches holds, where the model
   has them, the step's Hungarian matchings 'match' and 'match_box', its
-  greedy matches 'grd_match', the host solver's answer 'solved', and the
+  greedy matches 'grd_match', the solver's answer 'solved' (the matching
+  before its groundtruth mask, on the step's device), and the
   forward's 'y_out' and 's_out'.  With pinned (another step's 'solved'),
   the solve returns that answer instead of solving."""
   model = copy.deepcopy(model)
@@ -1174,7 +1348,7 @@ def one_step(torch, ts, matching, model, opt_state, batch, draws, step,
   solved = []
 
   def solve_fn(solve, w):
-    solved.append(solve(w) if pinned is None else pinned)
+    solved.append(solve(w) if pinned is None else pinned.to(w.device))
     return solved[-1]
   with hungarian_calls(matching, solve_fn):
     loss, aux, grads = ts.loss_and_grads(model, batch, draws, step, glimpse)
@@ -1238,8 +1412,8 @@ def step_to(torch, step, dev):
 def held_steps(torch, model, run, want, lr, limits):
   """A train step held against the reference step want (as one_step gives
   them).  run(pinned) takes the step, solving its matchings, or with the
-  host solver's answer pinned.  Yields (suffix, stats, gated): the step as
-  it solves ('', gated where its Hungarian matchings agree with want's in
+  solver's answer pinned.  Yields (suffix, stats, gated): the step as it
+  solves ('', gated where its Hungarian matchings agree with want's in
   every example) and, where they do not, the step with want's answer pinned
   ('_pinned', gated)."""
   def diff(got):
@@ -1337,7 +1511,7 @@ def eval_runs(torch, gk, folder, cfg, dataset, examples, batch, threshold,
 
   with tempfile.TemporaryDirectory(prefix=f'.chip_smoke_{label}-',
                                    dir=REPO) as csv_root:
-    gk.reset_launch_counts()
+    reset_counts(gk)
     runs = {'kernel': run('kernel', 'kernel')}
     launches = gk.launch_counts()
     runs['kernel']['extract_route_launches'] = {
@@ -1480,7 +1654,7 @@ def chain_phase(torch, gk):
     want = full_model_forward(exp.model, x, d_in, y_in, glimpse='plain')
     reordered = forward_diff(full_model_forward(
         exp.model, x, d_in, y_in, glimpse=reordered_plain(torch)), want)
-    gk.reset_launch_counts()
+    reset_counts(gk)
     got = full_model_forward(exp.model, x, d_in, y_in, glimpse='kernel')
     forward_routes = {k: v for k, v in
                       gk.glimpse_extract.route_launches.items() if v}
@@ -1673,7 +1847,7 @@ def cs_chain_phase(torch, gk, patches_bit_equal):
         exp = EvalExperiment(CS_FULL_DIR, cfg=cfg, device='cuda',
                              glimpse=glimpse)
         full_timings, cs_timings = {}, {}
-        gk.reset_launch_counts()
+        reset_counts(gk)
         with deterministic_cudnn(torch):
           full_packed = pack_full(exp, src_pack, CS_BATCH,
                                   timings=full_timings)
@@ -1791,7 +1965,7 @@ def cs_chain_phase(torch, gk, patches_bit_equal):
     want = full_model_forward(exp.model, x, d_in, y_in, glimpse='plain')
     reordered = forward_diff(full_model_forward(
         exp.model, x, d_in, y_in, glimpse=reordered_plain(torch)), want)
-    gk.reset_launch_counts()
+    reset_counts(gk)
     got = full_model_forward(exp.model, x, d_in, y_in, glimpse='kernel')
     forward_routes = {k: v for k, v in
                       gk.glimpse_extract.route_launches.items() if v}
@@ -1898,7 +2072,7 @@ def run_steps(torch, gk, trainer, batches, n):
   steps = []
   cuda = trainer.device.type == 'cuda'
   for _ in range(n):
-    gk.reset_launch_counts()
+    reset_counts(gk)
     if cuda:
       start = torch.cuda.Event(enable_timing=True)
       end = torch.cuda.Event(enable_timing=True)
@@ -1916,6 +2090,7 @@ def run_steps(torch, gk, trainer, batches, n):
         'backward_launches': gk.launch_counts(backward=True),
         'extract_route_launches': {
             k: v for k, v in gk.glimpse_extract.route_launches.items() if v},
+        'hungarian_launches': hungarian_launches(),
         'metrics': metrics})
   for k, v in trainer.model.state_dict().items():
     if not torch.isfinite(v).all():
@@ -1928,7 +2103,8 @@ def steps_summary(torch, steps, peak):
   steps must launch alike)."""
   per_step = {(tuple(s['launches'].items()),
                tuple(s['backward_launches'].items()),
-               tuple(s['extract_route_launches'].items())) for s in steps}
+               tuple(s['extract_route_launches'].items()),
+               tuple(s['hungarian_launches'].items())) for s in steps}
   if len(per_step) != 1:
     raise AssertionError(f'the steps launched differently: {per_step}')
   ms_ = [s['ms'] for s in steps if s['ms'] is not None]
@@ -1938,7 +2114,8 @@ def steps_summary(torch, steps, peak):
           'launches_per_step': steps[0]['launches'],
           'backward_launches_per_step': steps[0]['backward_launches'],
           'extract_route_launches_per_step':
-              steps[0]['extract_route_launches']}
+              steps[0]['extract_route_launches'],
+          'hungarian_launches_per_step': steps[0]['hungarian_launches']}
 
 
 def want_launches(steps, total, backward, routes, label):
@@ -2206,14 +2383,45 @@ def chain_train_phase(torch, gk, dev, cfgs=None, dirs=None,
   return out, failures
 
 
+def reset_counts(gk):
+  """Sets every kernel's launch counts to 0: the glimpse kernels' (gk)
+  and the Hungarian kernel's."""
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  gk.reset_launch_counts()
+  hk.reset_launch_counts()
+
+
+def hungarian_launches():
+  """The Hungarian kernel's launches since the last reset, by shape
+  ('BxN_XxN_Y')."""
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  return dict(hk.hungarian.shape_launches)
+
+
+def step_solves(b, t):
+  """The Hungarian launches of a step whose loss solves [b, t, t] once
+  (the box model's [B, T, T], the full model's stacked [2B, T, T])."""
+  return {f'{b}x{t}x{t}': 1}
+
+
+def sum_counts(counts):
+  """The sum of dicts of counts, key by key."""
+  out = {}
+  for c in counts:
+    for k, v in c.items():
+      out[k] = out.get(k, 0) + v
+  return out
+
+
 def launches_now(gk):
   """The kernel launches counted since the last reset: forward and
-  backward by kernel, extract by route."""
+  backward by kernel, extract by route, the Hungarian kernel by shape."""
   return {'launches': gk.launch_counts(),
           'backward_launches': gk.launch_counts(backward=True),
           'extract_route_launches': {
               k: v for k, v in gk.glimpse_extract.route_launches.items()
-              if v}}
+              if v},
+          'hungarian_launches': hungarian_launches()}
 
 
 def launch_gate(counts, want):
@@ -2280,7 +2488,8 @@ def eval_step_metrics(torch, ts, matching, model, batch, glimpse,
   solved = []
 
   def solve_fn(solve, w):
-    solved.append(solve(w) if pinned is None else pinned[len(solved)])
+    solved.append(solve(w) if pinned is None
+                  else pinned[len(solved)].to(w.device))
     return solved[-1]
   with hungarian_calls(matching, solve_fn), deterministic_cudnn(torch):
     metrics = ts.eval_step(model, batch, None, glimpse)
@@ -2347,7 +2556,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
 
     def stage(spec, cfg, tcfg, plot_fn=None):
       reset_peak(torch, dev)
-      gk.reset_launch_counts()
+      reset_counts(gk)
       t0 = time.time()
       exp = TrainingExperiment(spec, cfg, tcfg, data_cfg, plot_fn=plot_fn,
                                device=dev)
@@ -2464,14 +2673,14 @@ def pipeline_phase(torch, gk, dev, scale='paper',
                                             valid_batch, 'plain')
     floor, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
                                  reordered_plain(torch))
-    gk.reset_launch_counts()
+    reset_counts(gk)
     kernel, kernel_solved = eval_step_metrics(torch, ts, matching, model,
                                               valid_batch, 'kernel')
     eval_step = {'kernel': kernel, 'plain': plain,
                  'reordered_plain_rel_diff': metrics_rel_diff(floor, plain),
                  'solves_agree': len(kernel_solved) == len(plain_solved)
-                 and all(np.array_equal(u, v) for a, b in zip(
-                     kernel_solved, plain_solved) for u, v in zip(a, b)),
+                 and all(torch.equal(u, v) for u, v in zip(
+                     kernel_solved, plain_solved)),
                  **launches_now(gk)}
     if not eval_step['solves_agree']:
       kernel, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
@@ -2492,7 +2701,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
 
     # The launch gates' control: a plain train step and eval step of the
     # full model, which must launch no kernel.
-    gk.reset_launch_counts()
+    reset_counts(gk)
     draws = full.trainer.family.draws(
         full_cfg, bs, torch.Generator(device=dev).manual_seed(1))
     one_step(torch, ts, matching, model, full.trainer.opt_state,
@@ -2515,7 +2724,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
           launch_gate(plain_counts, want))
 
     # ---- eval: the command line on the valid split ----------------------
-    gk.reset_launch_counts()
+    reset_counts(gk)
     argv = ['--model_id', full.model_id, '--results', results,
             '--dataset', 'synth', '--split', 'valid',
             '--batch_size', str(train_cfg.batch_size)]
@@ -2599,7 +2808,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
     # ---- restore: the full run goes on from its last checkpoint ---------
     last = os.path.join(full.folder, f'ckpt-{ckpts[-1]}.npz')
     before = os.path.join(full.folder, f'ckpt-{ckpts[-2]}.npz')
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     again = TrainingExperiment('full', full_cfg, full_train_cfg.replace(
         restore=full.folder, num_steps=steps + 2), data_cfg, device=dev)
@@ -2844,7 +3053,7 @@ def chain_patched(run_pipeline, dataset, wrap):
 
 def counts_delta(before, after):
   """The launches between two ``launches_now`` readings (extract routes
-  with none left out)."""
+  and Hungarian shapes with none left out)."""
   out = {kind: {k: v - before[kind].get(k, 0) for k, v in after[kind].items()}
          for kind in ('launches', 'backward_launches')}
   routes = after['extract_route_launches']
@@ -2852,6 +3061,10 @@ def counts_delta(before, after):
       k: v - before['extract_route_launches'].get(k, 0)
       for k, v in routes.items()
       if v != before['extract_route_launches'].get(k, 0)}
+  out['hungarian_launches'] = {
+      k: v - before['hungarian_launches'].get(k, 0)
+      for k, v in after['hungarian_launches'].items()
+      if v != before['hungarian_launches'].get(k, 0)}
   return out
 
 
@@ -3007,7 +3220,7 @@ def synth3_child(spec_path):
       split.update({f'full_ctrl/{k}': v.cpu().numpy().copy()
                     for k, v in exp.trainer.model.state_dict().items()
                     if k.split('.')[0] in CTRL_NETS})
-  gk.reset_launch_counts()
+  reset_counts(gk)
   t0 = time.time()
   with recorded_runs(torch, gk, dev, keep_split) as runs, chain_patched(
       run_pipeline, 'synth3', chain_cut(spec['examples'])):
@@ -3102,7 +3315,7 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
       return summary
 
     # ---- fg, pack: this process -----------------------------------------
-    gk.reset_launch_counts()
+    reset_counts(gk)
     pack_seconds = []
     with recorded_runs(torch, gk, dev) as runs, chain_patched(
         run_pipeline, 'synth3', cut), patched(
@@ -3230,7 +3443,7 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
     log = logger.get()
     with recorded_runs(torch, gk, dev) as runs, chain_patched(
         run_pipeline, 'synth3', cut):
-      gk.reset_launch_counts()
+      reset_counts(gk)
       t0 = time.time()
       again = run_pipeline.main(
           argv + ['--stages', 'fg,pack,box,full', '--resume',
@@ -3277,13 +3490,15 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
     none = {'glimpse_extract': 0, 'glimpse_paste': 0}
     want = {
         'fg': {'launches': none, 'backward_launches': none,
-               'extract_route_launches': {}},
+               'extract_route_launches': {}, 'hungarian_launches': {}},
         'box': {'launches': dict(none, glimpse_paste=2 * T),
-                'backward_launches': none, 'extract_route_launches': {}},
+                'backward_launches': none, 'extract_route_launches': {},
+                'hungarian_launches': step_solves(bs, T)},
         'full': {'launches': {'glimpse_extract': 4 * T,
                               'glimpse_paste': 4 * T},
                  'backward_launches': dict(none, glimpse_extract=2 * T),
-                 'extract_route_launches': {'extract_strip_kernel': 4 * T}}}
+                 'extract_route_launches': {'extract_strip_kernel': 4 * T},
+                 'hungarian_launches': step_solves(2 * bs, T)}}
 
     def steps_diff(stage, per_step):
       return [f'{stage} step {i}: {s}' for i, s in enumerate(per_step)
@@ -3334,7 +3549,7 @@ def synth3_pipeline_phase(torch, gk, dev, scale='paper',
     cli_data.save_yaml(os.path.join(cli_folder, 'data_opt.yaml'))
     thresholds = [float(t) for t in SYNTH3_THRESHOLDS.split(',')]
     cli_out = os.path.join(root, 'cli')
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     with deterministic_cudnn(torch):
       eval_cli.full_main(
@@ -3625,7 +3840,7 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
 
     def timed(key):
       return lambda fn: timed_calls(torch, dev, fn, seconds[key])
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     with contextlib.ExitStack() as stack:
       runs = stack.enter_context(recorded_runs(torch, gk, dev, before))
@@ -3692,13 +3907,15 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
     none = {'glimpse_extract': 0, 'glimpse_paste': 0}
     want = {
         'fg': {'launches': none, 'backward_launches': none,
-               'extract_route_launches': {}},
+               'extract_route_launches': {}, 'hungarian_launches': {}},
         'box': {'launches': dict(none, glimpse_paste=2 * T),
-                'backward_launches': none, 'extract_route_launches': {}},
+                'backward_launches': none, 'extract_route_launches': {},
+                'hungarian_launches': step_solves(batch['box'], T)},
         'full': {'launches': {'glimpse_extract': 4 * T,
                               'glimpse_paste': 4 * T},
                  'backward_launches': dict(none, glimpse_extract=2 * T),
-                 'extract_route_launches': {'extract_strip_kernel': 4 * T}}}
+                 'extract_route_launches': {'extract_strip_kernel': 4 * T},
+                 'hungarian_launches': step_solves(2 * batch['full'], T)}}
     recorded = {s: by_stage[s]['step_launches'] for s in ('fg', 'box', 'full')}
     out['launches_per_step'] = {s: v[0] if v else None
                                 for s, v in recorded.items()}
@@ -3824,7 +4041,7 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
 
       def with_glimpse(cls, glimpse=glimpse):
         return lambda *args, **kw: cls(*args, glimpse=glimpse, **kw)
-      gk.reset_launch_counts()
+      reset_counts(gk)
       t0 = time.time()
       with patched(pack_cli, 'EvalExperiment', with_glimpse), \
           deterministic_cudnn(torch):
@@ -4547,7 +4764,7 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
         packed_maps.append({k: np.array(v) for k, v in maps.items()})
         return fn(**maps)
       return call
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     with contextlib.ExitStack() as stack:
       runs = stack.enter_context(recorded_runs(torch, gk, dev))
@@ -4656,13 +4873,13 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
         np.arange(bs)))
     plain, plain_solved = eval_step_metrics(torch, ts, matching, model,
                                             valid_batch, 'plain')
-    gk.reset_launch_counts()
+    reset_counts(gk)
     kernel, kernel_solved = eval_step_metrics(torch, ts, matching, model,
                                               valid_batch, 'kernel')
     eval_step = {'kernel': kernel, 'plain': plain, **launches_now(gk),
                  'solves_agree': len(kernel_solved) == len(plain_solved)
-                 and all(np.array_equal(u, v) for a, b in zip(
-                     kernel_solved, plain_solved) for u, v in zip(a, b))}
+                 and all(torch.equal(u, v) for u, v in zip(
+                     kernel_solved, plain_solved))}
     if not eval_step['solves_agree']:
       kernel, _ = eval_step_metrics(torch, ts, matching, model, valid_batch,
                                     'kernel', pinned=plain_solved)
@@ -4766,7 +4983,7 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
                        ap_diff(ap), ap_diff(shifted))}
 
     # ---- launches per step ----------------------------------------------
-    gk.reset_launch_counts()
+    reset_counts(gk)
     draws = full.trainer.family.draws(
         full.model_cfg, bs, torch.Generator(dev).manual_seed(1))
     one_step(torch, ts, matching, model, full.trainer.opt_state,
@@ -4786,13 +5003,15 @@ def h5_pipeline_phase(torch, gk, dev, dataset, fixture=None,
       none = {'glimpse_extract': 0, 'glimpse_paste': 0}
       want = {
           'fg': {'launches': none, 'backward_launches': none,
-                 'extract_route_launches': {}},
+                 'extract_route_launches': {}, 'hungarian_launches': {}},
           'box': {'launches': dict(none, glimpse_paste=2 * T),
-                  'backward_launches': none, 'extract_route_launches': {}},
+                  'backward_launches': none, 'extract_route_launches': {},
+                  'hungarian_launches': step_solves(batch['box'], T)},
           'full': {'launches': {'glimpse_extract': 4 * T,
                                 'glimpse_paste': 4 * T},
                    'backward_launches': dict(none, glimpse_extract=2 * T),
-                   'extract_route_launches': routes}}
+                   'extract_route_launches': routes,
+                   'hungarian_launches': step_solves(2 * batch['full'], T)}}
 
       def steps_diff(stage, per_step):
         return [f'{stage} step {i}: {s}' for i, s in enumerate(per_step)
@@ -5167,6 +5386,9 @@ def weights_h5_phase(torch, gk, dev, batch=WEIGHTS_H5_BATCH):
         k: sum(r['run']['run_launches'][kind][k]
                for r in (out['start'], out['finetune']))
         for k in ('glimpse_extract', 'glimpse_paste')}
+  launches['hungarian_launches'] = sum_counts(
+      r['run']['run_launches']['hungarian_launches']
+      for r in (out['start'], out['finetune']))
   out['launches'] = launches
   out['limits'] = PRETRAINED_STEP_LIMITS
   return out, failures
@@ -5521,7 +5743,9 @@ def bf16_phase(torch, np, gk, dev, train):
       'train_forward': {k: n * (v - summary['backward_launches_per_step'][k])
                         for k, v in summary['launches_per_step'].items()},
       'train_backward': {k: n * v for k, v in
-                         summary['backward_launches_per_step'].items()}}
+                         summary['backward_launches_per_step'].items()},
+      'train_hungarian': {k: n * v for k, v in
+                          summary['hungarian_launches_per_step'].items()}}
   f32_ms = train['step_ms_median']
   out['train'] = {
       'weights': os.path.relpath(ckpt, REPO), 'batch': b, 'gates': gates,
@@ -5575,13 +5799,14 @@ def bf16_phase(torch, np, gk, dev, train):
                           timespan=T, num_examples=2 * OPTION_BATCH)
     exp = TrainingExperiment('full', exp_cfg, train_cfg, data_cfg,
                              device=dev)
-    gk.reset_launch_counts()
+    reset_counts(gk)
     exp.run()
     counts = gk.launch_counts()
     backward = gk.launch_counts(backward=True)
     out['launches']['experiment_forward'] = {k: v - backward[k]
                                              for k, v in counts.items()}
     out['launches']['experiment_backward'] = backward
+    out['launches']['experiment_hungarian'] = hungarian_launches()
     ckpts = [step for step, _ in exp.saver.list_ckpts()]
     yaml_path = os.path.join(exp.folder, 'model_opt.yaml')
     read = FullModelConfig.from_yaml(yaml_path)
@@ -5617,13 +5842,16 @@ def flagship_segmenter(cfg):
 
 
 def train_phase(torch, np, cfg, dev, gk, name_power):
-  """The training path: restore, gate one step, take 5 + 2 steps."""
+  """The training path: restore, gate one step, take 5 + 2 steps and one
+  eval step, each solving its matchings with the Hungarian kernel (timed
+  by CUDA events; the host solver must not run)."""
   from rec_attend_tpu_torch import train_step as ts
   from rec_attend_tpu_torch.data.synthetic import synthetic_instances
   from rec_attend_tpu_torch.engine.trainer import Trainer
   from rec_attend_tpu_torch.models.full_model import draw_train_randoms
   from rec_attend_tpu_torch.models.full_model import learn_rate
   from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops import native
 
   trainer = Trainer(cfg, device=dev, seed=0)
   ckpt = trainer.restore(CHECKPOINT_DIR)
@@ -5661,25 +5889,37 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
     raise AssertionError(f'train step gates: {failures}; {gates}')
 
   # ---- the main path: 5 steps from 30000, 2 from 0 ---------------------
-  solve_ms = []
+  solve_events = []
 
   def timed_solve(solve, w):
-    t0 = time.perf_counter()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     out = solve(w)
-    solve_ms.append((time.perf_counter() - t0) * 1e3)
+    end.record()
+    solve_events.append((start, end))
     return out
+  host_calls = []
+
+  def counted(solve):
+    def call(*args, **kwargs):
+      host_calls.append(1)
+      return solve(*args, **kwargs)
+    return call
   data = batches(0)
   steps = []
   forward_launches = {'glimpse_extract': 0, 'glimpse_paste': 0}
   backward_launches = dict(forward_launches)
+  solve_shape = '{}x{}x{}'.format(2 * b, T, T)
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
-  with hungarian_calls(matching, timed_solve):
+  with hungarian_calls(matching, timed_solve), patched(
+      native, 'hungarian_native', counted):
     for i in range(7):
       if i == 5:
         trainer.step = 0
       step = trainer.step
-      gk.reset_launch_counts()
+      reset_counts(gk)
       start = torch.cuda.Event(enable_timing=True)
       end = torch.cuda.Event(enable_timing=True)
       start.record()
@@ -5697,12 +5937,35 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
         backward_launches[k] += bwd[k]
       if not np.isfinite(metrics['loss']):
         raise AssertionError(f'step {step}: loss {metrics["loss"]}')
+      solves = hungarian_launches()
+      if solves != {solve_shape: 1}:
+        raise AssertionError(f'step {step}: Hungarian kernel launches '
+                             f'{solves}, want {{{solve_shape!r}: 1}}')
       steps.append({'step': step, 'ms': start.elapsed_time(end),
-                    'solve_ms': solve_ms[-1], 'launches': total,
-                    'backward_launches': bwd,
+                    'solve_ms': solve_events[-1][0].elapsed_time(
+                        solve_events[-1][1]),
+                    'hungarian_launches': solves,
+                    'launches': total, 'backward_launches': bwd,
                     **{k: metrics[k] for k in (
                         'loss', 'box_loss', 'segm_loss', 'conf_loss',
                         'iou_soft', 'count_acc', 'learn_rate')}})
+    # The eval step of the same batch size.
+    reset_counts(gk)
+    eval_metrics = ts.eval_step(
+        trainer.model, {k: v.to(dev) for k, v in next(data).items()}, None)
+    torch.cuda.synchronize()
+    eval_step = {'hungarian_launches': hungarian_launches(),
+                 'solve_ms': solve_events[-1][0].elapsed_time(
+                     solve_events[-1][1]),
+                 **{k: float(v) for k, v in eval_metrics.items()}}
+    if (eval_step['hungarian_launches'] != {solve_shape: 1}
+        or not np.isfinite(eval_step['loss'])):
+      raise AssertionError(f'eval step: {eval_step}')
+  solves = sum_counts([s['hungarian_launches'] for s in steps]
+                      + [eval_step['hungarian_launches']])
+  if host_calls:
+    raise AssertionError(f'the host solver ran {len(host_calls)} times on '
+                         'the main path')
   peak = torch.cuda.max_memory_allocated()
   for k, v in trainer.model.state_dict().items():
     if not torch.isfinite(v).all():
@@ -5720,6 +5983,8 @@ def train_phase(torch, np, cfg, dev, gk, name_power):
       'max_memory_allocated_bytes': peak,
       'hungarian_solve_ms_median': solve_med,
       'hungarian_share': solve_med / step_ms,
+      'hungarian_launches': solves, 'eval_step': eval_step,
+      'host_solver_calls': len(host_calls),
       'forward_launches': forward_launches,
       'backward_launches': backward_launches,
       'adam_count': trainer.opt_state['count'], 'nvidia_smi': name_power}
@@ -5853,7 +6118,7 @@ def calibrate_phase(torch, gk, dev, sbd_limit):
         return eval_split(exp, dataset, output_folder, *a, **kw)
       return wrapped
     timings = {}
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     with deterministic_cudnn(torch), patched(count_diag, 'scores', keep), \
         patched(eval_cli, 'eval_split', keep_valid):
@@ -6043,7 +6308,7 @@ def fg_eval_phase(torch, gk, dev):
     seconds['fg_pack'] = time.time() - t0
     fg_folder = os.path.join(fg_out['card'], '50')
     full_out = os.path.join(root, 'full_card')
-    gk.reset_launch_counts()
+    reset_counts(gk)
     t0 = time.time()
     with deterministic_cudnn(torch):
       eval_cli.full_main(common + [
@@ -6131,9 +6396,12 @@ def main():
   paths = build.build()
   build.load()
   build.load_hungarian()
-  resources = build.kernel_resources(build.compile_log('glimpse'))
+  build.load_hungarian_cuda()
+  resources = {**build.kernel_resources(build.compile_log('glimpse')),
+               **build.kernel_resources(build.compile_log('hungarian_cuda'))}
   for prefix in ('paste_kernel', 'extract_tiled_kernel',
-                 'extract_strip_kernel', 'extract_kernel_general'):
+                 'extract_strip_kernel', 'extract_kernel_general',
+                 'hungarian_kernel<1>'):
     if not any(k.startswith(prefix) for k in resources):
       raise AssertionError(f'nvcc -Xptxas -v reported no {prefix}')
   emit('build', seconds=time.time() - t0,
@@ -6304,6 +6572,14 @@ def main():
        atol_scaled_by='max(1, largest |grad|)', nvidia_smi=name_power,
        functions=grad_checks)
 
+  # ---- hungarian -------------------------------------------------------
+  t0 = time.time()
+  hungarian, failures = hungarian_phase(torch, np, dev)
+  emit('hungarian', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **hungarian)
+  if failures:
+    raise AssertionError(f'hungarian gates: {failures}')
+
   # ---- serve -----------------------------------------------------------
   seg, weights = flagship_segmenter(cfg)
   T = cfg.timespan
@@ -6311,7 +6587,7 @@ def main():
             for b in (8, 32, 128)}
   other_sizes = [synthetic_images(b, h, w, seed=h).numpy()
                  for b, h, w in OTHER_SIZE_REQUESTS]
-  gk.reset_launch_counts()
+  reset_counts(gk)
   requests = []
   for imgs in [v.numpy() for v in images.values()] + other_sizes:
     b, h, w = imgs.shape[:3]
@@ -6717,6 +6993,61 @@ def main():
         'bound_ms': use['bound_ms'], 'bound_by': use['bound_by'],
         'bound_share': use['bound_share'], 'library_ms': use['library_ms'],
         **({'kernel_route': use['route']} if 'route' in use else {})})
+  # The Hungarian kernel: a row for each shape that a path solved at, its
+  # launches by path read from the counts of each phase's runs, as the
+  # glimpse rows' are.
+  solve_paths = [
+      ('train', train['hungarian_launches']),
+      ('bf16_train', bf16_launches['train_hungarian']),
+      ('bf16_training_experiment', bf16_launches['experiment_hungarian']),
+      ('weights_h5', weights['launches']['hungarian_launches'])]
+  for label, summary in (('box', chain_train['box']),
+                         ('full_from_box', chain_train['full']['from_box']),
+                         ('full_restored', chain_train['full']['restored'])):
+    solve_paths.append((f'chain_train_{label}', {
+        k: v * len(summary['steps'])
+        for k, v in summary['hungarian_launches_per_step'].items()}))
+  # The phases' launches_now and counts_delta readings.
+  readings = [
+      ('calibrate', calibrate),
+      ('fg_eval_foreground_eval', fg_eval['foreground_eval_launches']),
+      ('synth3_pipeline_box', synth3['box']['run_launches']),
+      ('synth3_pipeline_full', synth3['full']['run_launches']),
+      ('synth3_pipeline_eval', synth3['child']['eval_launches']),
+      ('synth3_pipeline_full_resumed', synth3['resumed']),
+      ('synthcs_pipeline_box', synthcs['box']['run_launches']),
+      ('synthcs_pipeline_full', synthcs['full']['run_launches']),
+      ('synthcs_pipeline_eval_ap', synthcs['eval_ap_pixel_launches']),
+      ('synthcs_pipeline_oracle_eval_ap', synthcs['oracle_launches'])]
+  readings += [(f'pipeline_{label}', pipeline[label])
+               for label in ('box', 'full', 'eval', 'restored')]
+  for dataset, res in h5_runs.items():
+    readings += [(f'{dataset}_pipeline_{label}', res[label]['run_launches'])
+                 for label in ('box', 'full') if label in res]
+    readings.append((f'{dataset}_pipeline_eval', res['eval_launches']))
+  solve_paths += [(label, r['hungarian_launches']) for label, r in readings]
+  unchecked = ({k for _, counts in solve_paths for k in counts}
+               - set(hungarian['times']))
+  if unchecked:
+    raise AssertionError(f'the paths solved at {sorted(unchecked)}, which '
+                         'the hungarian phase does not check '
+                         '(HUNGARIAN_STEP_SHAPES)')
+  for key, c in sorted(hungarian['times'].items()):
+    by_path = {label: counts[key] for label, counts in solve_paths
+               if counts.get(key)}
+    table.append({
+        'name': 'hungarian', 'route': 'cuda', 'source': HUNGARIAN_SOURCE,
+        'replaces': HUNGARIAN_REPLACES,
+        'use': 'the matchings of a train or eval step, weights [{}]'.format(
+            key.replace('x', ',')),
+        'launches': sum(by_path.values()), 'launches_by_path': by_path,
+        'max_abs_err': c['max_abs_err'], 'ms': c['kernel_ms'],
+        'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
+        'bound_by': c['bound_by'], 'bound_share': c['bound_share'],
+        'library_ms': c['library_ms'],
+        'host_solve_with_copies_ms': c['host_solve_with_copies_ms']})
+  if not train['hungarian_launches']:
+    raise AssertionError('the train phase launched no Hungarian kernel')
   emit('done', seconds=time.time() - start)
   print(json.dumps({'kernels': table}), flush=True)
   print(name_power, flush=True)
@@ -7443,8 +7774,152 @@ score_mlp_w_0 6e664619d0ff88d816c608af93077ee53a8c8cb2c02a1db01f250bbe13ea7b05
 """
 
 
+# JAX's reference matrices for its Hungarian solver (tests/test_hungarian.py:
+# W1-W3, with exact expected covers, and the degenerate WR1-WR6 that once
+# hung the reference's solver), copied for the hungarian phase on a machine
+# without JAX; tests/test_torch_hungarian.py holds the copy to the file.
+HUNGARIAN_REFERENCE = {
+    'W1': [
+        [3, 2, 2],
+        [1, 2, 0],
+        [2, 2, 1],
+    ],
+    'W2': [
+        [5, 0, 4, 0],
+        [0, 4, 6, 8],
+        [4, 0, 5, 7],
+    ],
+    'W3': [
+        [5, 0, 2],
+        [3, 1, 0],
+        [0, 5, 0],
+    ],
+    'WR1': [
+        [0.9, 0.7, 0.3, 0.2, 0.4, 0.001, 0.001, 0.001, 0.001, 0.001],
+        [0.8, 0.75, 0.92, 0.1, 0.15, 0.001, 0.001, 0.001, 0.001, 0.001],
+        [0.78, 0.85, 0.66, 0.29, 0.21, 0.001, 0.001, 0.001, 0.001, 0.001],
+        [0.42, 0.55, 0.23, 0.43, 0.33, 0.002, 0.001, 0.001, 0.001, 0.001],
+        [0.64, 0.44, 0.33, 0.33, 0.34, 0.001, 0.002, 0.001, 0.001, 0.001],
+        [0.22, 0.55, 0.43, 0.43, 0.14, 0.001, 0.001, 0.002, 0.001, 0.001],
+        [0.43, 0.33, 0.34, 0.22, 0.14, 0.001, 0.001, 0.001, 0.002, 0.001],
+        [0.33, 0.42, 0.23, 0.13, 0.43, 0.001, 0.001, 0.001, 0.001, 0.002],
+        [0.39, 0.24, 0.53, 0.56, 0.89, 0.001, 0.001, 0.001, 0.001, 0.001],
+        [0.12, 0.34, 0.82, 0.82, 0.77, 0.001, 0.001, 0.001, 0.001, 0.001],
+    ],
+    'WR2': [
+        [0.00604139, 0.0126045, 0.0117373, 0.01245, 0.00808836, 0.0162662,
+         0.0137996, 0.00403898, 0.0123786, 1e-05],
+        [0.00604229, 0.0126071, 0.01174, 0.0124528, 0.00808971, 0.0162703,
+         0.0138028, 0.00403935, 0.0123812, 1e-05],
+        [0.00604234, 0.0126073, 0.0117402, 0.012453, 0.0080898, 0.0162706,
+         0.013803, 0.00403937, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+        [0.00604235, 0.0126073, 0.0117402, 0.012453, 0.00808981, 0.0162706,
+         0.013803, 0.00403938, 0.0123814, 1e-05],
+    ],
+    'WR3': [
+        [0.00302646, 0.00321431, 0.0217552, 0.00836773, 0.0256353, 0.0177026,
+         0.0289461, 0.0214768, 0.0101898, 1e-05],
+        [0.00302875, 0.003217, 0.0217628, 0.00836405, 0.0256229, 0.0177137,
+         0.0289468, 0.0214719, 0.0101904, 1e-05],
+        [0.00302897, 0.00321726, 0.0217636, 0.00836369, 0.0256217, 0.0177148,
+         0.0289468, 0.0214714, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.0177149,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.0177149,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.017715,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.017715,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.017715,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.017715,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+        [0.003029, 0.0032173, 0.0217637, 0.00836364, 0.0256216, 0.017715,
+         0.0289468, 0.0214713, 0.0101905, 1e-05],
+    ],
+    'WR4': [
+        [1e-05, 0.0634311, 1e-05, 4.76687e-05, 1.00079e-05, 1.00378e-05, 1e-05,
+         1e-05, 1e-05, 3.9034e-05],
+        [1e-05, 3.42696e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1.0122e-05,
+         3.43236e-05, 1e-05],
+        [1e-05, 0.0426792, 0.031155, 1.0008e-05, 0.00483961, 0.0228187, 1e-05,
+         1e-05, 1e-05, 0.102463],
+        [1e-05, 1e-05, 1e-05, 1.07065e-05, 1e-05, 1.00185e-05, 1e-05, 1e-05,
+         1e-05, 1.00007e-05],
+        [1e-05, 4.22947e-05, 0.00062168, 0.623917, 1.03468e-05, 0.00588984,
+         1.00004e-05, 1.44433e-05, 1.00014e-05, 0.000213425],
+        [1e-05, 1.01764e-05, 1e-05, 0.000667249, 1e-05, 0.000485082, 1e-05,
+         1e-05, 1.00002e-05, 1e-05],
+        [1e-05, 1e-05, 1.50331e-05, 1e-05, 0.11269, 1e-05, 1e-05, 1e-05, 1e-05,
+         1.13251e-05],
+        [1.0001e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 0.0246974, 1e-05,
+         1e-05, 1e-05],
+        [1e-05, 2.89144e-05, 1e-05, 1.05147e-05, 1e-05, 0.000894762,
+         1.03587e-05, 0.150301, 1e-05, 1.00045e-05],
+        [1e-05, 3.97901e-05, 1e-05, 1.11641e-05, 1e-05, 2.34249e-05,
+         1.0007e-05, 2.42828e-05, 1e-05, 1.10529e-05],
+    ],
+    'WR5': [
+        [1.4e-05, 1e-05, 1e-05, 0.053306, 0.044139, 1e-05, 1.2e-05, 1e-05,
+         1e-05, 1e-05],
+        [0.001234, 1e-05, 1e-05, 2.1e-05, 1e-05, 0.001535, 0.019553, 1e-05,
+         1e-05, 1e-05],
+        [0.002148, 1e-05, 1e-05, 1.6e-05, 0.651536, 2e-05, 7.4e-05, 0.002359,
+         1e-05, 1e-05],
+        [3.8e-05, 1e-05, 0.000592, 4.7e-05, 0.09173, 1e-05, 1e-05, 1e-05,
+         1e-05, 1e-05],
+        [1e-05, 1e-05, 1e-05, 0.213736, 1e-05, 4.5e-05, 0.000768, 1e-05, 1e-05,
+         1e-05],
+        [1e-05, 1e-05, 1e-05, 0.317609, 1e-05, 1e-05, 0.002151, 1e-05, 1e-05,
+         1e-05],
+        [0.002802, 1e-05, 1.2e-05, 1e-05, 1e-05, 0.002999, 4.8e-05, 1.1e-05,
+         0.000919, 1e-05],
+        [1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 0.028816,
+         1e-05],
+        [1e-05, 1e-05, 0.047335, 1e-05, 1.2e-05, 1e-05, 1e-05, 1e-05, 1e-05,
+         1e-05],
+        [1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05, 1e-05],
+    ],
+    'WR6': [[0.003408, 0.010531, 0.002795, 1e-05, 0.019786, 0.010435,
+          0.002743, 0.023617, 0.010436, 0.003116]] * 10,
+}
+
+
+def hungarian_only():
+  """``python3 chip_smoke.py hungarian``: the build of the Hungarian
+  libraries and the hungarian phase alone."""
+  import numpy as np
+  import torch
+  if not torch.cuda.is_available():
+    sys.exit('chip_smoke: CUDA is not available; this script runs on a card')
+  from rec_attend_tpu_torch.ops.cuda import build
+  build.build(('hungarian_cuda', 'hungarian'))
+  emit('build', kernel_resources=build.kernel_resources(
+      build.compile_log('hungarian_cuda')))
+  results, failures = hungarian_phase(torch, np, torch.device('cuda'))
+  emit('hungarian', nvidia_smi=nvidia_smi_name_power(), failures=failures,
+       **results)
+  if failures:
+    raise AssertionError(f'hungarian gates: {failures}')
+
+
 if __name__ == '__main__':
   if sys.argv[1:2] == ['synth3-child']:
     synth3_child(sys.argv[2])
+  elif sys.argv[1:2] == ['hungarian']:
+    hungarian_only()
   else:
     main()

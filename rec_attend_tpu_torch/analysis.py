@@ -44,7 +44,7 @@ import time
 import numpy as np
 
 from rec_attend_tpu_torch.data import orientation
-from rec_attend_tpu_torch.ops.hungarian import hungarian
+from rec_attend_tpu_torch.ops.native import hungarian_native
 from rec_attend_tpu_torch.utils import png
 
 
@@ -142,7 +142,7 @@ def f_ins_iou(results):
     iou_pw = results['iou_pairwise'][ii]
     iou_pw = np.maximum(1e-4, iou_pw)
     iou_pw = np.round(iou_pw * 1e4) / 1e4
-    match, _, _, _ = hungarian(iou_pw.astype('float32'))
+    match, _, _, _ = hungarian_native(iou_pw.astype('float32'))
     n = int(num_obj[ii])
     match[n:, :] = 0.0
     match[:, n:] = 0.0

@@ -268,11 +268,12 @@ def box_model_forward(model: BoxModel, batch, draws, train=True,
 
 
 def box_model_loss(model: BoxModel, batch, draws, step, glimpse='kernel',
-                   train=True):
+                   train=True, matcher='jax'):
   """Box and confidence loss of one batch (JAX ``box_model_loss``).
 
   Args: as ``box_model_forward``; step: the global step (for the reported
-  learning rate).
+  learning rate); matcher: the Hungarian solver, 'jax' (JAX's default) or
+  'native' (``ops/matching.f_segm_match``).
   Returns:
     (loss, aux): aux holds ``METRIC_KEYS`` as 0-d tensors, 'outputs',
     'new_bn' and the boxes' Hungarian matching 'match_box' [B,T,T].
@@ -289,7 +290,7 @@ def box_model_loss(model: BoxModel, batch, draws, step, glimpse='kernel',
     iou_soft_box_mask = iou_soft_box
   else:
     iou_soft_box = outputs['iou_soft_box_t']                      # [B,T,T]
-    match_box = matching.f_segm_match(iou_soft_box, s_gt)
+    match_box = matching.f_segm_match(iou_soft_box, s_gt, matcher=matcher)
     iou_soft_box_mask = torch.sum(iou_soft_box * match_box, dim=1)
   match_count_box = torch.clamp_min(torch.sum(match_box, dim=(1, 2)), 1.0)
   iou_soft_box_scalar = torch.sum(

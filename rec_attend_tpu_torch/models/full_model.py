@@ -644,7 +644,7 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
 # ---------------------------------------------------------------------------
 
 def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
-                    train=True):
+                    train=True, matcher='jax'):
   """Total loss and metrics of one batch, in training or, with
   ``train=False``, in eval (JAX ``full_model_loss(train=False)``, as
   ``make_eval_step`` calls it: the eval forward, then the same matching and
@@ -655,6 +655,8 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
       the model's device, and 'd_in' and 'y_in' where the config reads them
       (as in ``full_model_forward``).
     draws, step, glimpse, train: as in ``full_model_train_forward``.
+    matcher: the Hungarian solver of the matchings, 'jax' (JAX's default)
+      or 'native' (``ops/matching.f_segm_match``).
   Returns:
     (loss, aux): aux holds the scalar terms and metrics as 0-d tensors,
     'outputs', 'new_bn' (the new BN statistics), 'match' and 'match_box'.
@@ -677,7 +679,8 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
     iou_soft_box = losses.f_iou(outputs['attn_box'],
                                 outputs['attn_box_gt'])            # [B,T]
     match_box = matching.get_identity_match(cfg.timespan, s_gt)
-    real_match = matching.f_segm_match(iou_soft_pairwise, s_gt)
+    real_match = matching.f_segm_match(iou_soft_pairwise, s_gt,
+                                       matcher=matcher)
   else:
     if cfg.use_knob:
       iou_soft_box = outputs['iou_soft_box_t']
@@ -686,7 +689,7 @@ def full_model_loss(model: FullModel, batch, draws, step, glimpse='kernel',
                                   outputs['attn_box_gt'], pairwise=True)
     both = matching.f_segm_match(
         torch.cat([iou_soft_box, iou_soft_pairwise], dim=0),
-        torch.cat([s_gt, s_gt], dim=0))
+        torch.cat([s_gt, s_gt], dim=0), matcher=matcher)
     match_box, real_match = both[:B], both[B:]
 
   # Box loss.

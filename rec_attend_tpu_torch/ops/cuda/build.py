@@ -1,9 +1,10 @@
 """Build and load the port's native libraries from ``csrc/``.
 
-Four libraries, each with a plain C interface and loaded with ``ctypes``:
+Five libraries, each with a plain C interface and loaded with ``ctypes``:
 
-  glimpse     ``csrc/glimpse.cu``, the hand-written CUDA kernels, compiled
-              by ``nvcc`` for ``sm_90a``;
+  glimpse         ``csrc/glimpse.cu``, the hand-written glimpse kernels,
+  hungarian_cuda  ``csrc/hungarian.cu``, the Hungarian solver on the card,
+                  the two compiled by ``nvcc`` for ``sm_90a``;
   hungarian   ``csrc/hungarian.cc``, the host Hungarian solver,
   png_filter  ``csrc/png_filter.cc``, the PNG decoder's row unfiltering,
               and
@@ -15,7 +16,7 @@ Each is built under ``rec_attend_tpu_torch/_build/`` (listed in
 ``.gitignore``) at first use, and built again when its source changes (the
 file name carries a hash of the source).  ``build()`` starts every compile
 at once and waits for all of them, and keeps each compiler's output beside
-its library (``glimpse-<hash>.log``): nvcc's holds the ``-Xptxas -v``
+its library (``glimpse-<hash>.log``): nvcc's hold the ``-Xptxas -v``
 report of each kernel's registers, spills and static shared memory.
 Nothing of ``torch.utils.cpp_extension`` is used: a source that includes
 PyTorch's headers takes minutes to compile, these take seconds.
@@ -36,6 +37,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = {
     'glimpse': os.path.join(_PKG_DIR, 'csrc', 'glimpse.cu'),
+    'hungarian_cuda': os.path.join(_PKG_DIR, 'csrc', 'hungarian.cu'),
     'hungarian': os.path.join(_PKG_DIR, 'csrc', 'hungarian.cc'),
     'png_filter': os.path.join(_PKG_DIR, 'csrc', 'png_filter.cc'),
     'poly_fill': os.path.join(_PKG_DIR, 'csrc', 'poly_fill.cc'),
@@ -64,7 +66,7 @@ def find_nvcc():
   if os.path.exists(candidate):
     return candidate
   raise RuntimeError('nvcc not found on PATH, under $CUDA_HOME or '
-                     '/usr/local/cuda: the glimpse kernels cannot be built')
+                     '/usr/local/cuda: the CUDA kernels cannot be built')
 
 
 def library_path(name='glimpse'):
@@ -85,7 +87,7 @@ def compile_log(name='glimpse'):
 
 
 def _command(name, out):
-  if name == 'glimpse':
+  if SOURCES[name].endswith('.cu'):
     cmd = [find_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v']
   else:
     cmd = [os.environ.get('CXX', 'g++'), *CXX_FLAGS]
@@ -204,6 +206,16 @@ def _bind_hungarian(lib):
   lib.hungarian_solve.restype = ctypes.c_int
 
 
+def _bind_hungarian_cuda(lib):
+  lib.hungarian_solve_cuda.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
+                                       + [ctypes.c_void_p] * 4)
+  lib.hungarian_solve_cuda.restype = ctypes.c_int
+  lib.hungarian_max_n.argtypes = []
+  lib.hungarian_max_n.restype = ctypes.c_int
+  lib.hungarian_error_string.argtypes = [ctypes.c_int]
+  lib.hungarian_error_string.restype = ctypes.c_char_p
+
+
 def _bind_png_filter(lib):
   lib.png_unfilter.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
@@ -224,6 +236,11 @@ def load():
 def load_hungarian():
   """The loaded host Hungarian library, built first if needed."""
   return _load('hungarian', _bind_hungarian)
+
+
+def load_hungarian_cuda():
+  """The loaded Hungarian kernel library, built first if needed."""
+  return _load('hungarian_cuda', _bind_hungarian_cuda)
 
 
 def load_png_filter():

@@ -3,8 +3,12 @@
 Counterpart of ``rec_attend_tpu/ops/matching.py:21-55``: mask the pairwise
 IoU by the groundtruth scores on both sides, round to 1e-6, add 1e-5 so
 every edge has positive weight, solve max-weight matching, and mask the
-matching again.  The solve runs on the host (``ops/hungarian.py``): one copy
-of the weights from the device and one of the matching back per call.
+matching again.  ``matcher`` takes JAX's values: 'jax' (the default, as in
+JAX's losses) solves with JAX's algorithm on the tensor's device
+(``ops/hungarian.py``: the kernel on the card, its plain version on the
+CPU), with no copy to the host; 'native' solves with the host C++ solver
+(``ops/native.py``), one copy of the weights from the device and one of
+the matching back per call.
 """
 
 from __future__ import annotations
@@ -12,17 +16,31 @@ from __future__ import annotations
 import torch
 
 from rec_attend_tpu_torch.ops import hungarian as hungarian_lib
+from rec_attend_tpu_torch.ops import native
 
 MATCH_EPS = 1e-5
 MATCH_PRECISION = 1e6
 
 
-def f_segm_match(iou, s_gt):
+def solve(weights, matcher='jax'):
+  """The 0/1 max-weight matching [B, N, M] of weights [B, N, M], float32
+  on the weights' device, by ``matcher`` ('jax' or 'native')."""
+  if matcher == 'jax':
+    return hungarian_lib.hungarian(weights)[0]
+  if matcher == 'native':
+    m = native.hungarian_native(weights.cpu().numpy())[0]
+    return torch.from_numpy(m).to(weights.device)
+  raise ValueError(f"Unknown matcher: {matcher!r}, want 'jax' or 'native'")
+
+
+def f_segm_match(iou, s_gt, matcher='jax'):
   """Match predictions to groundtruth by pairwise IoU.
 
   Args:
     iou: [B, N, M] pairwise scores (predictions x groundtruth).
     s_gt: [B, M] groundtruth presence indicators.
+    matcher: 'jax' (JAX's algorithm, run on the tensor's device) or
+      'native' (the host C++ solver).
   Returns:
     match: [B, N, M] 0/1 float matching on iou's device, zero outside the
     present groundtruth rows and columns; no gradient flows through it.
@@ -33,9 +51,7 @@ def f_segm_match(iou, s_gt):
     iou_mask = iou * mask_x * mask_y
     iou_mask = torch.round(iou_mask * MATCH_PRECISION) / MATCH_PRECISION
     weights = iou_mask + MATCH_EPS
-    m, _, _, _ = hungarian_lib.hungarian(weights.cpu().numpy())
-    match = torch.from_numpy(m).to(iou.device, non_blocking=False)
-    return match * mask_x * mask_y
+    return solve(weights, matcher) * mask_x * mask_y
 
 
 def get_identity_match(timespan, s_gt):

@@ -337,7 +337,7 @@ def test_glimpses_refuse_bfloat16():
 @functools.lru_cache(maxsize=None)
 def _jax_step(jit):
   jcfg = JC.tiny_full_config(dtype='bfloat16', **STEP_OVER)
-  loss_fn = functools.partial(JF.full_model_loss, matcher='native')
+  loss_fn = JF.full_model_loss
   grad_fn = jax.value_and_grad(
       lambda p, b, k, s: loss_fn(p, b, jcfg, True, k, s), has_aux=True)
   step_fn, tx = JT.make_train_step(loss_fn, jcfg, jit=False)

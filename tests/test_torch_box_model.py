@@ -8,9 +8,9 @@ numpy-seeded batch of rectangle instances with an empty slot, random
 packed maps, and JAX's own random draws, rebuilt from the key by the
 ``jax.random.split`` sequence of ``box_model.py:87-122`` (``key -> (_,
 k_aug, k_scan)``, one canvas-noise uniform per timestep from
-``split(k_scan, T)``).  Both sides match with the same host Hungarian
-solver (JAX ``matcher='native'``); the inputs give no ties in the soft box
-IoU that it matches on.
+``split(k_scan, T)``).  Both sides match with JAX's default matcher, its
+in-graph Hungarian solver (in the port ``ops/hungarian.hungarian_plain``
+on the CPU, the same bits).
 
 Compared, with their tolerances (float32 on both sides, as in
 ``test_torch_train_step.py``):
@@ -194,7 +194,7 @@ def test_forward_matches_jax(variant, train):
 
 
 def jax_loss_grad(jcfg):
-  loss_fn = functools.partial(JB.box_model_loss, matcher='native')
+  loss_fn = JB.box_model_loss
   return jax.jit(jax.value_and_grad(
       lambda p, b, k, s: loss_fn(p, b, jcfg, True, k, s), has_aux=True))
 
@@ -240,7 +240,7 @@ def test_loss_and_gradients_match_jax(box_loss_fn):
 @functools.lru_cache(maxsize=None)
 def _jax_step(variant):
   jcfg, _ = _configs(variant)
-  loss_fn = functools.partial(JB.box_model_loss, matcher='native')
+  loss_fn = JB.box_model_loss
   step_fn, tx = JT.make_train_step(loss_fn, jcfg, jit=False)
   return jax.jit(step_fn), tx
 

@@ -259,7 +259,6 @@ def _step_batch(cfg, seed):
 
 @pytest.mark.parametrize('variant', sorted(STEP_VARIANTS))
 def test_packed_train_step_matches_jax(variant):
-  import functools
   from rec_attend_tpu.parallel import train_step as JT
   over = dict(STEP_VARIANTS[variant], use_knob=True, remat=True)
   jcfg, cfg = JC.tiny_full_config(**over), C.tiny_full_config(**over)
@@ -268,7 +267,7 @@ def test_packed_train_step_matches_jax(variant):
   params = jax.tree_util.tree_map(
       lambda a: np.asarray(a) * (1 + 10 * rng.rand(*a.shape)).astype(
           np.float32) if a.ndim >= 2 else np.asarray(a), params)
-  loss_fn = functools.partial(JF.full_model_loss, matcher='native')
+  loss_fn = JF.full_model_loss
   grad_fn = jax.value_and_grad(
       lambda p, b, k, s: loss_fn(p, b, jcfg, True, k, s), has_aux=True)
   step_fn, tx = JT.make_train_step(loss_fn, jcfg, jit=False)

@@ -1,6 +1,7 @@
-"""The hand-written glimpse kernels on the card, against their plain
-versions.  Marked ``cuda``; they skip where there is no card.  On the
-machine with the card (which has no JAX, so without the repo's conftest):
+"""The hand-written kernels on the card (the glimpse kernels and the
+Hungarian solver), against their plain versions.  Marked ``cuda``; they
+skip where there is no card.  On the machine with the card (which has no
+JAX, so without the repo's conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -9,7 +10,7 @@ Tolerance: rtol 1e-4 / atol 1e-5, those of tests/test_pallas_glimpse.py
 (the Functions' backward, whose operand gradient is the other kernel,
 against plain autograd through the einsums): rtol 1e-3 / atol 1e-4 times
 max(1, the gradient's largest magnitude), the gradient tolerance of
-ROADMAP B.
+ROADMAP B.  The Hungarian kernel: the same bits as its plain version.
 """
 
 import pytest
@@ -286,3 +287,73 @@ def test_backward_launches_only_what_is_needed(dev):
   gk.glimpse_paste(p, f_y.detach(), f_x.detach().requires_grad_()).sum(
   ).backward()
   assert gk.launch_counts() == {'glimpse_extract': 0, 'glimpse_paste': 1}
+
+
+# ---------------------------------------------------------------------------
+# The Hungarian kernel (csrc/hungarian.cu) against its plain version,
+# ops/hungarian.hungarian_plain, bit for bit: the same float32 operations in
+# the same order (tests/test_torch_hungarian.py holds the plain version to
+# JAX's solver on the CPU).
+# (B, n_x, n_y): the flagship's stacked step solve, a rectangular one, one
+# problem larger than a warp (two and three entries a lane), and one whose
+# cost matrix needs more than 48 KB of shared memory.
+HUNGARIAN_SHAPES = [(64, 21, 21), (8, 5, 9), (3, 40, 40), (1, 70, 50),
+                    (1, 120, 120)]
+
+
+def _hungarian_weights(shape, seed=0):
+  """Weights as f_segm_match makes them, with 70 % zero IoU (many
+  ties)."""
+  g = torch.Generator().manual_seed(seed)
+  iou = torch.rand(shape, generator=g)
+  iou[torch.rand(shape, generator=g) < 0.7] = 0
+  return torch.round(iou * 1e6) / 1e6 + 1e-5
+
+
+def _same_bits(got, want):
+  return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+             for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize('shape', HUNGARIAN_SHAPES, ids=str)
+def test_hungarian_kernel_matches_plain_bit_for_bit(dev, shape):
+  from rec_attend_tpu_torch.ops import hungarian as H
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  w = _hungarian_weights(shape)
+  before = hk.hungarian.launches
+  got = hk.hungarian(w.to(dev))
+  again = hk.hungarian(w.to(dev))
+  torch.cuda.synchronize()
+  assert hk.hungarian.launches == before + 2
+  want = H.hungarian_plain(w.to(dev))
+  assert _same_bits(got, want) and _same_bits(again, want)
+  # The plain version gives the same bits on the card as on the CPU.
+  assert _same_bits([t.cpu() for t in want], H.hungarian_plain(w))
+
+
+def test_segm_match_solves_on_the_card(dev, monkeypatch):
+  from rec_attend_tpu_torch.ops import matching
+  from rec_attend_tpu_torch.ops import native
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  iou, s_gt = _hungarian_weights((8, 21, 21)), torch.ones(8, 21)
+  want = matching.f_segm_match(iou, s_gt)
+  monkeypatch.setattr(native, 'hungarian_native', None)
+  before = hk.hungarian.launches
+  got = matching.f_segm_match(iou.to(dev), s_gt.to(dev))
+  assert hk.hungarian.launches == before + 1
+  assert got.device.type == 'cuda' and torch.equal(got.cpu(), want)
+
+
+def test_hungarian_kernel_refuses_what_it_does_not_take(dev):
+  from rec_attend_tpu_torch.ops.cuda import hungarian as hk
+  w = torch.rand(2, 4, 4, device=dev)
+  with pytest.raises(TypeError):
+    hk.hungarian(w.double())
+  with pytest.raises(ValueError):
+    hk.hungarian(w.transpose(1, 2))
+  with pytest.raises(ValueError):
+    hk.hungarian(w[0])
+  n = hk.max_n()
+  assert n == 240
+  with pytest.raises(ValueError):
+    hk.hungarian(torch.rand(1, n + 1, 2, device=dev))

@@ -6,15 +6,14 @@ and the numpy-seeded batches of ``test_torch_train_step.py``,
 ``test_torch_box_model.py`` and ``test_torch_fg_train.py``; in eval only
 the box model draws (the noise of the ground truth it paints into its
 canvas), and the test rebuilds JAX's draws from the key.  Both sides match
-with the same host Hungarian solver.  Every metric of the port's step
+with JAX's default matcher (in the port ``hungarian_plain`` on the CPU, the
+same bits).  Every metric of the port's step
 (``metric_keys``) is compared at rtol 1e-4, atol 1e-5, the float32
 allowance of the train-step tests (XLA's jit reassociates sums, and
 ``1 - s + eps`` in the confidence BCE).  A train-mode control (the train
 loss on the same batch) must differ, so the eval branch is not the train
 one by accident.
 """
-
-import functools
 
 import jax
 import numpy as np
@@ -39,11 +38,11 @@ torch.set_num_threads(1)
 
 CASES = {
     'full_knob': (full_t, 'knob_on_remat', FullModel,
-                  functools.partial(JF.full_model_loss, matcher='native')),
+                  JF.full_model_loss),
     'full_no_knob': (full_t, 'no_knob_canvas_grad', FullModel,
-                     functools.partial(JF.full_model_loss, matcher='native')),
+                     JF.full_model_loss),
     'box_packed': (box_t, 'packed_remat', BoxModel,
-                   functools.partial(JB.box_model_loss, matcher='native')),
+                   JB.box_model_loss),
     'fg_orientation': (fg_t, 'orientation_momentum', FGModel,
                        JG.fg_model_loss),
     'fg_softmax3': (fg_t, 'softmax3_momentum', FGModel, JG.fg_model_loss),

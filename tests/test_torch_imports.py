@@ -130,6 +130,14 @@ def test_port_imports_with_those_modules_missing(tmp_path):
                            batch_size=2, score_threshold=0.4)
       assert sorted(summary) == [0.3, 0.5] and len(summary[0.3]) == 14
       assert os.path.exists(os.path.join(out, 'count_50.csv'))
+      # JAX's default matcher (the plain version on the CPU) and the host
+      # solver of 'native'.
+      from rec_attend_tpu_torch.ops import hungarian, matching
+      torch.manual_seed(0)
+      w, s_gt = torch.rand(3, 6, 6), torch.ones(3, 6)
+      assert torch.equal(matching.f_segm_match(w, s_gt),
+                         matching.f_segm_match(w, s_gt, matcher='native'))
+      assert hungarian.hungarian(w)[1].shape == (3, 6, 1)
       leaked = [m for m in sys.modules
                 if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
       assert not leaked, leaked
@@ -547,6 +555,16 @@ def test_fg_entry_points_default_to_cuda(monkeypatch):
   fg_folder = os.path.join(REPO, 'results', 'fg_model_synth3-20260818a')
   with pytest.raises(RuntimeError, match='CUDA'):
     EvalExperiment(fg_folder, cfg=C.kitti_fg_config(), spec='fg')
+
+
+def test_the_matchers_modules_are_covered():
+  """JAX's default matcher (``ops/hungarian.py``, its kernel's binding
+  ``ops/cuda/hungarian.py``) and the host solver (``ops/native.py``) are
+  among the modules imported with JAX blocked and the sources read below."""
+  mods = _port_modules()
+  for mod in ('ops.hungarian', 'ops.cuda.hungarian', 'ops.native',
+              'ops.matching'):
+    assert f'rec_attend_tpu_torch.{mod}' in mods, mod
 
 
 @pytest.mark.parametrize('path', _port_sources(),

@@ -1,12 +1,14 @@
-"""The port's Hungarian matching against the JAX package's.
+"""The port's host Hungarian matching against the JAX package's.
 
 The port builds its own copy of the host solver (``csrc/hungarian.cc``) and
-calls it through its own ctypes wrapper; on the same weights it must give
-exactly the matching and covers of the JAX package's native solver
-(``ops/native.py``, ``matcher='native'``), ties included.  Against the
-JAX package's on-device solver (``matcher='jax'``) only the total weight
-must agree (rtol 1e-6): both are optimal, but on ties they may choose
-different matchings (``rec_attend_tpu/ops/hungarian.py:22-25``).
+calls it through its own ctypes wrapper (``ops/native.py``); on the same
+weights it must give exactly the matching and covers of the JAX package's
+native solver (``ops/native.py``, ``matcher='native'``), ties included.
+Against the JAX package's default solver (``matcher='jax'``) only the
+total weight must agree (rtol 1e-6): both are optimal, but on ties they
+may choose different matchings (``rec_attend_tpu/ops/hungarian.py:22-25``).
+The port's counterpart of that default solver is held to it in
+``test_torch_hungarian.py``.
 """
 
 import os
@@ -18,8 +20,8 @@ import torch
 
 from rec_attend_tpu.ops import matching as JM
 from rec_attend_tpu.ops import native as JN
-from rec_attend_tpu_torch.ops import hungarian as H
 from rec_attend_tpu_torch.ops import matching as M
+from rec_attend_tpu_torch.ops import native as H
 from rec_attend_tpu_torch.ops.cuda import build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -63,7 +65,7 @@ def test_the_solver_source_is_the_native_solvers_code():
                                   'uniform'])
 def test_hungarian_equals_the_native_solver(kind):
   w = _weights(kind)
-  m, cx, cy, capped = H.hungarian(w)
+  m, cx, cy, capped = H.hungarian_native(w)
   jm, jcx, jcy = JN.hungarian_native(w)
   assert capped == 0
   np.testing.assert_array_equal(m, jm)
@@ -75,7 +77,7 @@ def test_hungarian_equals_the_native_solver(kind):
 
 def test_hungarian_takes_one_problem():
   w = _weights('random')[0]
-  m, _, _, _ = H.hungarian(w)
+  m, _, _, _ = H.hungarian_native(w)
   np.testing.assert_array_equal(m, JN.hungarian_native(w)[0])
 
 
@@ -89,7 +91,8 @@ def test_segm_match_equals_jax_native_and_weighs_as_jax(seed):
   s_gt = np.zeros((8, t), np.float32)
   for b in range(8):
     s_gt[b, :rng.randint(1, t + 1)] = 1
-  got = M.f_segm_match(torch.from_numpy(iou), torch.from_numpy(s_gt))
+  got = M.f_segm_match(torch.from_numpy(iou), torch.from_numpy(s_gt),
+                       matcher='native')
   want = np.asarray(JM.f_segm_match(jnp.asarray(iou), jnp.asarray(s_gt),
                                     matcher='native'))
   np.testing.assert_array_equal(got.numpy(), want)

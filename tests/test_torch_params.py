@@ -315,7 +315,7 @@ def _box_jax_fns():
   jcfg = _box_jcfg()
   params = _box_params(C.BoxModelConfig.from_dict(jcfg.to_dict()), 0)
   step_fn, tx = JT.make_train_step(
-      functools.partial(JB.box_model_loss, matcher='native'), jcfg,
+      JB.box_model_loss, jcfg,
       freeze=JB.freeze_mask(params, jcfg), jit=False)
   return jax.jit(step_fn), tx
 

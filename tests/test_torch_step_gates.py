@@ -81,17 +81,16 @@ def test_a_control_that_passes_the_limits_is_a_failure(setup):
 
 def test_a_pinned_step_uses_the_given_matching(setup):
   _, batch, _, _ = setup
-  m, cx, cy, capped = _step(setup, 'plain')[4]['solved']
-  other = (np.ascontiguousarray(m[:, ::-1]), cx, cy, capped)
+  m = _step(setup, 'plain')[4]['solved']
+  other = m.flip(2)
   got = _step(setup, 'kernel', pinned=other)[4]
   s_gt = batch['s_gt'].float()
   mask = s_gt[:, None, :] * s_gt[:, :, None]
   np.testing.assert_array_equal(got['match_box'].numpy(),
-                                (torch.from_numpy(other[0][:BATCH])
-                                 * mask).numpy())
+                                (other[:BATCH] * mask).numpy())
   np.testing.assert_array_equal(got['match'].numpy(),
-                                (torch.from_numpy(other[0][BATCH:])
-                                 * mask).numpy())
+                                (other[BATCH:] * mask).numpy())
+  assert not torch.equal(got['match'], m[BATCH:] * mask)
 
 
 def test_a_step_whose_matching_differs_is_gated_pinned(setup):

@@ -1,5 +1,5 @@
 """One and two train steps of the port against the JAX package's
-``make_train_step(partial(full_model_loss, matcher='native'), cfg)``.
+``make_train_step(full_model_loss, cfg)``.
 
 Tiny configs (64x64, T=4), JAX ``init_full_model`` parameters with the
 weights scaled by up to 11x (out of the near-constant regime of the 0.01
@@ -8,7 +8,8 @@ gradients), a numpy-seeded batch of rectangle instances with an empty slot,
 and JAX's own random draws: the test rebuilds them from the step's key by
 the ``jax.random.split`` sequence of ``full_model.py:218-262``,
 ``image_ops.py:141-146`` and the scan keys, and hands them to the port.
-Both sides match with the same host Hungarian solver.
+Both sides match with JAX's default matcher, its in-graph Hungarian solver
+(in the port ``ops/hungarian.hungarian_plain`` on the CPU, the same bits).
 
 Compared, with their tolerances (float32 on both sides; the conv stacks and
 the contractions sum in other orders in XLA and in PyTorch):
@@ -174,7 +175,7 @@ def _jax_fns(variant):
   train step, ``make_train_step``'s step function, compiled as one
   program."""
   jcfg, _ = _configs(variant)
-  loss_fn = functools.partial(JF.full_model_loss, matcher='native')
+  loss_fn = JF.full_model_loss
   grad_fn = jax.value_and_grad(
       lambda p, b, k, s: loss_fn(p, b, jcfg, True, k, s), has_aux=True)
   step_fn, tx = JT.make_train_step(loss_fn, jcfg, jit=False)
