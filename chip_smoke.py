@@ -51,8 +51,8 @@ script started ('script_seconds'):
                 a problem whose NaN arithmetic reaches the iteration cap;
                 the plain version with argmin's ties broken toward the last
                 index must differ; at each step shape the kernel's time
-                beside the plain version's, the host solver's with its
-                copies and the bound;
+                and ns a Dijkstra step beside the plain version's, the
+                host solver's with its copies and the bound;
   serve         InstanceSegmenter serves the flagship CVPPP checkpoint (a
                 checkout without it fails) to three requests of b=8, 32 and
                 128 at the model's size and two of other sizes (b1 530x500,
@@ -1200,15 +1200,17 @@ def hungarian_times(torch, w, max_abs_err):
   flops = 8 * (n + 1) * int(steps.sum())
   bound_ms, bound_by = bound(nbytes, flops)
   kernel_ms = ms(torch, lambda: hk.hungarian(w))
+  steps_max = int(steps.sum(1).max())
   return {
       'kernel_ms': kernel_ms,
+      'ns_per_dijkstra_step': kernel_ms * 1e6 / steps_max,
       'host_solve_with_copies_ms': ms(
           torch, lambda: matching.solve(w, 'native'), sleep=False),
       'plain_ms': ms(torch, lambda: H.hungarian_plain(w), iters=2,
                      warmup=0, sleep=False),
       'library_ms': None, 'bound_ms': bound_ms, 'bound_by': bound_by,
       'bound_share': bound_ms / kernel_ms,
-      'dijkstra_steps_max': int(steps.sum(1).max()),
+      'dijkstra_steps_max': steps_max,
       'dijkstra_steps_total': int(steps.sum()),
       'max_abs_err': max_abs_err}
 
@@ -7045,6 +7047,7 @@ def main():
         'plain_ms': c['plain_ms'], 'bound_ms': c['bound_ms'],
         'bound_by': c['bound_by'], 'bound_share': c['bound_share'],
         'library_ms': c['library_ms'],
+        'ns_per_dijkstra_step': c['ns_per_dijkstra_step'],
         'host_solve_with_copies_ms': c['host_solve_with_copies_ms']})
   if not train['hungarian_launches']:
     raise AssertionError('the train phase launched no Hungarian kernel')

@@ -31,46 +31,96 @@
 // n (n + 2) Dijkstra steps of about 8 float operations per column: under
 // 3 MFLOP at [64,21,21], 0.04 us at 67 TFLOP/s).  What bounds it is the
 // serial chain: each Dijkstra step depends on the argmin of the one before,
-// a warp reduction of five shuffle rounds, and each augmentation step on
-// the one before.  So it is bound by latency, not by bytes or operations.
+// and each augmentation step on the one before.  The longest problem of a
+// step-shaped batch takes 209-231 Dijkstra steps, so the time is that count
+// times the latency of one step.  The first version of this kernel spent
+// about 1 us a step (0.21-0.24 ms a solve on an H100 80GB HBM3 at 700 W),
+// most of it in a serial loop of two shuffles a column for u.at[p].add and
+// in a ten-shuffle butterfly for the argmin.  This design takes 160-163 ns
+// a step, fixed costs included (0.034-0.037 ms a solve at the step shapes,
+// the same card): what is left is the chain of two __fsub_rn, the key,
+// redux.sync, a ballot, two shuffles and the next row's shared load.
 //
 // Design: one block of one warp per problem; the problems of a batch run on
 // separate SMs at once.  Lane l holds, in registers, the entries j = l,
-// l + 32, ... (CPL of them, CPL = ceil((n + 1) / 32)) of u, v, minv, used,
-// way and p; at n + 1 <= 32 (every model of the repository: T <= 21) lane j
-// holds entry j alone.  A value held by one lane reaches the others by
-// __shfl_sync; the argmin is a butterfly of __shfl_xor_sync rounds over
-// (value, index) pairs in argmin's total order, so every lane ends with the
-// same (j1, delta).  The (n + 1)^2 cost matrix lies in shared memory (at
-// most 232,448 bytes, so n + 1 <= 241).
+// l + 32, ... (CPL of them, CPL = 1, 2, 4 or 8 >= (n + 1) / 32) of the
+// column arrays v, minv, way and p and of the row array u (lane r holds
+// u[r]); at n + 1 <= 32 (every model of the repository: T <= 21) lane j
+// holds entry j alone.  used is a bit mask of CPL words, the same in every
+// lane.  Shared memory holds the cost of columns 1..n (column 0 of JAX's
+// cost is never read: column 0 is used from the first step on) and rows
+// 0..n, row 0 zeros (JAX's row 0 is never a step's row, i0 = p[j0] >= 1,
+// but the load ahead below reads it when the argmin names an unmatched
+// column, so that it needs no guard), and the inverse map q as bytes; at
+// most 231,360 + 241 bytes, so n <= 240.  A step:
+//
+//   * The cost row of the step is loaded during the step before, as soon
+//     as that step's argmin names it: each lane keeps a pointer to its
+//     column, so the address is one multiply-add on p[j1]; u[i0] comes
+//     from one shuffle.
+//   * The argmin is one warp reduction.  Each lane maps mm to an order-
+//     preserving uint32 key: NaN to 0 (first, as in jnp.argmin), -0.0 and
+//     +0.0 to one key, every other value by the sign-flip map (negative:
+//     all bits flipped; otherwise the sign bit set), a slot past column n
+//     to 0xFFFFFFFF, all without a branch (x + 0.0 turns -0.0 into +0.0,
+//     an arithmetic shift gives the sign-flip mask, an OR marks an empty
+//     slot).  __reduce_min_sync (redux.sync) gives the least key;
+//     at CPL = 1 the first lane of __ballot_sync(key == least) is j1, at
+//     CPL > 1 each lane offers its own first slot at the least key and a
+//     second __reduce_min_sync takes the smallest.  The key order is
+//     jnp.argmin's order, so j1 is its index; delta = mm[j1] comes by one
+//     shuffle, with mm[j1]'s own bits (the key merges -0 and +0).
+//   * u.at[p].add without shuffles.  p does not change during a Dijkstra
+//     phase, so once a row (after p[0] = i) the inverse map q is built in
+//     shared memory: q[p[j]] = j for every column j.  A row r >= 1 named
+//     by one column q[r] receives exactly one addition in JAX's scatter,
+//     used[q[r]] ? delta : +0.0, so lane r makes it alone:
+//     u[r] = __fadd_rn(u[r], used(q[r]) ? delta : 0.0f), the +0.0 included
+//     (it turns -0.0 into +0.0, as JAX's does); a row no column names
+//     receives nothing.  Row 0 is named only by columns with p = 0, which
+//     are never used (a column is used only while p[j0] != 0), so its
+//     additions are all +0.0, and x + 0 + 0 has the bits of x + 0: one
+//     addition is the same.  No row r >= 1 is named by two columns, in
+//     which case JAX would add a sum in column order: p starts at zeros,
+//     p[0] = i names the one row not yet matched, and the augmentation
+//     shifts p along way, a chain of distinct columns, each used before
+//     the next, back to column 0, shorter than the iteration cap, so each
+//     row stays named once (tests/test_torch_hungarian.py's lane-level
+//     model asserts it on every state of its sets).
+//   * The augmentation walks way with two dependent shuffles a step, p in
+//     registers; a walk by one lane over shared copies of p and way was
+//     0.3-0.9 % faster (PERF.md), too little for its two arrays and two
+//     barriers a row.
 //
 // The C entry point takes raw device pointers and a cudaStream_t, launches
 // on that stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() so the caller can raise on a refused launch.
 
-#include <climits>
-
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr float kInf = 1e30f;      // JAX's _INF, as float32
+constexpr float kInf = 1e30f;        // JAX's _INF, as float32
 constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned kEmpty = 0xffffffffu;  // the key of a slot past column n
+constexpr int kNone = 255;           // q of a row that no column names
 constexpr int kMaxSmemBytes = 232448;
+constexpr int kFillRows = 8;         // rows of w in flight in the fill
 
-// (a, ia) before (b, ib) in jnp.argmin's order: NaN below every number, then
-// the smaller value (-0 == +0), then the smaller index; an index of INT_MAX
-// marks an empty slot, after everything.
-__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
-  if (ia == INT_MAX) return false;
-  if (ib == INT_MAX) return true;
-  const bool na = isnan(a), nb = isnan(b);
-  if (na != nb) return na;
-  if (!na && a != b) return a < b;
-  return ia < ib;
+// Dynamic shared memory of an n x n problem: the cost of rows 0..n and
+// columns 1..n, then q as n + 1 bytes.
+size_t smem_bytes(int n) {
+  return (size_t)(n + 1) * n * sizeof(float) + (size_t)(n + 1);
 }
 
-// a[c] for a slot number c the same in every lane, kept in registers.
+// mm's place in jnp.argmin's order as an unsigned key: NaN first, -0 == +0.
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned b = __float_as_uint(__fadd_rn(x, 0.0f));  // -0.0 -> +0.0
+  const unsigned k = b ^ ((unsigned)((int)b >> 31) | 0x80000000u);
+  return isnan(x) ? 0u : k;
+}
+
+// a[c] for a slot number c, kept in registers.
 template <int CPL, typename T>
 __device__ __forceinline__ T pick(const T (&a)[CPL], int c) {
   T r = a[0];
@@ -96,95 +146,130 @@ __device__ __forceinline__ void set_entry(T (&a)[CPL], int j, T value,
     if (k == (j >> 5)) a[k] = value;
 }
 
+// Bit j of a mask of CPL words.
+template <int CPL>
+__device__ __forceinline__ bool bit(const unsigned (&m)[CPL], int j) {
+  return (pick(m, j >> 5) >> (j & 31)) & 1u;
+}
+
 template <int CPL>
 __global__ void __launch_bounds__(32)
 hungarian_kernel(const float* __restrict__ w, int n_x, int n_y,
                  float* __restrict__ match, float* __restrict__ c_x,
                  float* __restrict__ c_y) {
-  extern __shared__ float cost[];  // [n + 1][n + 1]
+  extern __shared__ float cost[];  // [n + 1][n]: rows 0..n, columns 1..n
   const int lane = threadIdx.x;
   const int b = blockIdx.x;
   const int n = n_x > n_y ? n_x : n_y;
   const int n1 = n + 1;
+  unsigned char* q_sh = reinterpret_cast<unsigned char*>(cost + n1 * n);
   const float* wb = w + (size_t)b * n_x * n_y;
-  // cost = zeros, then cost[1:, 1:] = -(w zero-padded): -0.0 in the padding.
-  for (int k = lane; k < n1 * n1; k += 32) {
-    const int i = k / n1, j = k - i * n1;
-    float c = 0.0f;
-    if (i > 0 && j > 0)
-      c = -((i <= n_x && j <= n_y) ? wb[(i - 1) * n_y + (j - 1)] : 0.0f);
-    cost[k] = c;
-  }
+  // cost = -(w zero-padded), -0.0 in the padding: row by row, the lanes
+  // on a row's columns, kFillRows rows of loads in flight; row 0 zeros.
+  for (int r0 = 0; r0 < n; r0 += kFillRows)
+    for (int c = lane; c < n; c += 32) {
+      float x[kFillRows];
+#pragma unroll
+      for (int k = 0; k < kFillRows; ++k)
+        x[k] = (r0 + k < n_x && c < n_y) ? wb[(r0 + k) * n_y + c] : 0.0f;
+#pragma unroll
+      for (int k = 0; k < kFillRows; ++k)
+        if (r0 + k < n) cost[(r0 + k + 1) * n + c] = -x[k];
+    }
+  for (int c = lane; c < n; c += 32) cost[c] = 0.0f;
   __syncwarp();
 
-  float u[CPL], v[CPL], minv[CPL];
-  int p[CPL], way[CPL], used[CPL];
+  float u[CPL], v[CPL], minv[CPL], mm[CPL], crow[CPL];
+  int p[CPL], way[CPL], q[CPL];
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     u[c] = 0.0f;
     v[c] = 0.0f;
     p[c] = 0;
   }
+  // Each lane's column of the cost: row r of slot c at col[c][r * n].
+  const float* col[CPL];
+#pragma unroll
+  for (int c = 0; c < CPL; ++c) {
+    const int j = lane + 32 * c;
+    col[c] = cost + (j >= 1 && j < n1 ? j - 1 : 0);
+  }
   const int max_iter = n + 2;
   for (int i = 1; i <= n; ++i) {
-    set_entry(p, 0, i, lane);
+    if (lane == 0) p[0] = i;
+    // q[r]: the column that names row r (kNone if none; any one of the
+    // unused columns with p = 0 for row 0).
+    for (int k = lane; k < n1; k += 32) q_sh[k] = kNone;
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      if (lane + 32 * c < n1) q_sh[p[c]] = (unsigned char)(lane + 32 * c);
+    __syncwarp();
 #pragma unroll
     for (int c = 0; c < CPL; ++c) {
+      q[c] = lane + 32 * c < n1 ? q_sh[lane + 32 * c] : kNone;
       minv[c] = kInf;
-      used[c] = 0;
       way[c] = 0;
     }
-    int j0 = 0;
-    for (int it = 0; it < max_iter; ++it) {
-      const int i0 = entry(p, j0);
-      if (i0 == 0) break;
-      set_entry(used, j0, 1, lane);
+
+    unsigned used[CPL];
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+      used[c] = 0u;
+      crow[c] = col[c][i * n];
+    }
+    int j0 = 0, i0 = i;
+    for (int it = 0; it < max_iter && i0 != 0; ++it) {
       const float ui0 = entry(u, i0);
-      const float* row = cost + i0 * n1;
-      float best = 0.0f;
-      int best_j = INT_MAX;
+#pragma unroll
+      for (int c = 0; c < CPL; ++c)
+        if (c == (j0 >> 5)) used[c] |= 1u << (j0 & 31);
+      unsigned best = kEmpty;
+      int best_j = 0;
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int j = lane + 32 * c;
-        if (j >= n1) continue;
-        const float cur = __fsub_rn(__fsub_rn(row[j], ui0), v[c]);
-        if (cur < minv[c] && !used[c]) {
-          minv[c] = cur;
-          way[c] = j0;
+        const bool uj = (used[c] >> lane) & 1u;
+        if (j >= 1) {
+          const float cur = __fsub_rn(__fsub_rn(crow[c], ui0), v[c]);
+          if (cur < minv[c] && !uj) {
+            minv[c] = cur;
+            way[c] = j0;
+          }
         }
-        const float mm = (used[c] || j == 0) ? kInf : minv[c];
-        if (before(mm, j, best, best_j)) {
-          best = mm;
+        mm[c] = (uj || j == 0) ? kInf : minv[c];
+        const unsigned key = order_key(mm[c]) | (j < n1 ? 0u : kEmpty);
+        if (key < best) {
+          best = key;
           best_j = j;
         }
       }
+      const unsigned least = __reduce_min_sync(kFull, best);
+      int j1;
+      if (CPL == 1)
+        j1 = __ffs(__ballot_sync(kFull, best == least)) - 1;
+      else
+        j1 = (int)__reduce_min_sync(kFull, best == least ? (unsigned)best_j
+                                                          : kEmpty);
+      const float delta = entry(mm, j1);
+      const int i1 = entry(p, j1);
+      // The next step's cost row, while u is updated.
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        const float o = __shfl_xor_sync(kFull, best, off);
-        const int oj = __shfl_xor_sync(kFull, best_j, off);
-        if (before(o, oj, best, best_j)) {
-          best = o;
-          best_j = oj;
-        }
-      }
-      const float delta = best;
-      // u.at[p].add(where(used, delta, 0)): one addition per column, in
-      // column order, into the entry of u that the column's p names.
-      for (int j = 0; j < n1; ++j) {
-        const int pj = entry(p, j);
-        const float add = entry(used, j) ? delta : 0.0f;
-        if (lane == (pj & 31)) {
+      for (int c = 0; c < CPL; ++c) crow[c] = col[c][i1 * n];
+      // u.at[p].add(where(used, delta, 0)): one addition into each row
+      // that a column names.
 #pragma unroll
-          for (int k = 0; k < CPL; ++k)
-            if (k == (pj >> 5)) u[k] = __fadd_rn(u[k], add);
-        }
-      }
+      for (int c = 0; c < CPL; ++c)
+        if (q[c] != kNone)
+          u[c] = __fadd_rn(u[c], bit(used, q[c]) ? delta : 0.0f);
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
-        v[c] = __fsub_rn(v[c], used[c] ? delta : 0.0f);
-        if (!used[c]) minv[c] = __fsub_rn(minv[c], delta);
+        const bool uj = (used[c] >> lane) & 1u;
+        v[c] = __fsub_rn(v[c], uj ? delta : 0.0f);
+        if (!uj) minv[c] = __fsub_rn(minv[c], delta);
       }
-      j0 = best_j;
+      j0 = j1;
+      i0 = i1;
     }
     for (int it = 0; it < max_iter && j0 != 0; ++it) {
       const int j1 = entry(way, j0);
@@ -193,17 +278,27 @@ hungarian_kernel(const float* __restrict__ w, int n_x, int n_y,
     }
   }
 
-  // matching[r, c] = (p[c + 1] - 1 == r); c_x = -u[1:], c_y = -v[1:].
+  // matching[r, c] = (p[c + 1] - 1 == r), consecutive lanes on consecutive
+  // columns: lane l takes p of column l + 32 t + 1 from lane l + 1, lane
+  // 31 from lane 0's next slot; c_x = -u[1:], c_y = -v[1:].
   float* mb = match + (size_t)b * n_x * n_y;
+  int pc[CPL];
+#pragma unroll
+  for (int t = 0; t < CPL; ++t) {
+    const int next = __shfl_sync(kFull, lane == 0 ? pick(p, t + 1) : p[t],
+                                 (lane + 1) & 31);
+    pc[t] = lane + 32 * t < n_y ? next - 1 : -1;
+  }
+  for (int r = 0; r < n_x; ++r) {
+#pragma unroll
+    for (int t = 0; t < CPL; ++t)
+      if (lane + 32 * t < n_y)
+        mb[r * n_y + lane + 32 * t] = pc[t] == r ? 1.0f : 0.0f;
+  }
 #pragma unroll
   for (int c = 0; c < CPL; ++c) {
     const int j = lane + 32 * c;
-    if (j >= 1 && j <= n_y) {
-      const int row = p[c] - 1;
-      for (int r = 0; r < n_x; ++r)
-        mb[r * n_y + (j - 1)] = r == row ? 1.0f : 0.0f;
-      c_y[(size_t)b * n_y + (j - 1)] = -v[c];
-    }
+    if (j >= 1 && j <= n_y) c_y[(size_t)b * n_y + (j - 1)] = -v[c];
     if (j >= 1 && j <= n_x) c_x[(size_t)b * n_x + (j - 1)] = -u[c];
   }
 }
@@ -225,12 +320,12 @@ cudaError_t launch(const float* w, int B, int n_x, int n_y, float* match,
 
 extern "C" {
 
-// The largest n = max(n_x, n_y) the kernel takes: its cost matrix fills the
-// shared memory of a block.
+// The largest n = max(n_x, n_y) the kernel takes: its cost matrix and q
+// fill the shared memory of a block.
 int hungarian_max_n() {
-  int n1 = 1;
-  while ((size_t)(n1 + 1) * (n1 + 1) * sizeof(float) <= kMaxSmemBytes) ++n1;
-  return n1 - 1;
+  int n = 1;
+  while (smem_bytes(n + 1) <= kMaxSmemBytes) ++n;
+  return n;
 }
 
 // w [B][n_x][n_y] -> match [B][n_x][n_y], c_x [B][n_x], c_y [B][n_y], all
@@ -240,12 +335,15 @@ int hungarian_solve_cuda(const float* w, int B, int n_x, int n_y,
   const int n = n_x > n_y ? n_x : n_y;
   if (B <= 0 || n <= 0 || n > hungarian_max_n())
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(n + 1) * (n + 1) * sizeof(float);
+  const size_t smem = smem_bytes(n);
   const cudaStream_t s = (cudaStream_t)stream;
   const int cpl = (n + 1 + 31) / 32;
-  if (cpl == 1) return (int)launch<1>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
-  if (cpl == 2) return (int)launch<2>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
-  if (cpl <= 4) return (int)launch<4>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
+  if (cpl == 1)
+    return (int)launch<1>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
+  if (cpl == 2)
+    return (int)launch<2>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
+  if (cpl <= 4)
+    return (int)launch<4>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
   return (int)launch<8>(w, B, n_x, n_y, match, c_x, c_y, smem, s);
 }
 

@@ -294,20 +294,26 @@ def test_backward_launches_only_what_is_needed(dev):
 # ops/hungarian.hungarian_plain, bit for bit: the same float32 operations in
 # the same order (tests/test_torch_hungarian.py holds the plain version to
 # JAX's solver on the CPU).
-# (B, n_x, n_y): the flagship's stacked step solve, a rectangular one, one
-# problem larger than a warp (two and three entries a lane), and one whose
-# cost matrix needs more than 48 KB of shared memory.
+# (B, n_x, n_y[, a column of inf]): the flagship's stacked step solve, a
+# rectangular one, one problem larger than a warp (two and three entries a
+# lane), one whose cost matrix needs more than 48 KB of shared memory, one
+# past 128 columns (five entries a lane: the kernel's CPL = 8 instance),
+# and, at two entries a lane, problems with an infinite column, whose
+# arithmetic makes NaN and whose rows reach the iteration cap.
 HUNGARIAN_SHAPES = [(64, 21, 21), (8, 5, 9), (3, 40, 40), (1, 70, 50),
-                    (1, 120, 120)]
+                    (1, 120, 120), (2, 140, 131), (2, 40, 40, 1)]
 
 
 def _hungarian_weights(shape, seed=0):
-  """Weights as f_segm_match makes them, with 70 % zero IoU (many
-  ties)."""
+  """Weights as f_segm_match makes them, with 70 % zero IoU (many ties);
+  a fourth entry of shape names a column made infinite."""
   g = torch.Generator().manual_seed(seed)
-  iou = torch.rand(shape, generator=g)
-  iou[torch.rand(shape, generator=g) < 0.7] = 0
-  return torch.round(iou * 1e6) / 1e6 + 1e-5
+  iou = torch.rand(shape[:3], generator=g)
+  iou[torch.rand(shape[:3], generator=g) < 0.7] = 0
+  w = torch.round(iou * 1e6) / 1e6 + 1e-5
+  if len(shape) > 3:
+    w[:, :, shape[3]] = float('inf')
+  return w
 
 
 def _same_bits(got, want):

@@ -24,7 +24,16 @@ algorithm in PyTorch operations) on the CPU.  Held here, on the CPU:
     ``test_torch_train_step.py``; on one more knob-off batch, where JAX's
     jitted and op-by-op runs give one gradient leaf 1.5e-2 apart, the
     port's step against JAX's op-by-op loss at those tolerances
-    (ROADMAP C.19).
+    (ROADMAP C.19);
+  a lane-level numpy model of the kernel's Dijkstra step (u by row
+    through the inverse map q, the used bit mask, the argmin as a
+    reduction of order keys) against JAX's solver, bit for bit, on every
+    set of ``hungarian_cases`` and on random problems up to n = 70, with
+    the invariant the u update rests on (no row r >= 1 named twice)
+    asserted on every state; the keys against ``jnp.argmin`` (controls:
+    -0.0 below +0.0, NaN last); the u update against ``np.add.at``
+    (control: a state that names a row twice); the model's citations of
+    the kernel's lines.
 """
 
 import functools
@@ -384,3 +393,321 @@ def test_the_xla_gap_batch_matches_jax_run_op_by_op():
     full_t._close(g.numpy(), op_grads[k], 1e-3, f'grad {k} (op by op)')
     if k != 'ctrl_cnn.0.w':
       full_t._close(g.numpy(), jit_grads[k], 1e-3, f'grad {k} (jit)')
+
+
+# ---------------------------------------------------------------------------
+# The kernel's Dijkstra step, modelled lane by lane
+# ---------------------------------------------------------------------------
+# csrc/hungarian.cu reformulates JAX's step for a warp: u by row through the
+# inverse map q, used as a bit mask, the argmin as a reduction of keys.
+# There is no nvcc here, so the reformulation is held to JAX in numpy.
+
+F32 = np.float32
+KEY_EMPTY = 0xFFFFFFFF
+Q_NONE = 255
+SIGN = 0x80000000
+
+
+def kernel_cpl(n):
+  """The CPL that ``hungarian_solve_cuda`` launches at n = max(n_x, n_y)."""
+  cpl = (n + 32) // 32
+  return cpl if cpl <= 2 else 4 if cpl <= 4 else 8
+
+
+def order_key(mm):
+  """``order_key`` of the kernel: float32 values to uint32 keys in
+  jnp.argmin's order (NaN 0, -0.0 and +0.0 one key, the sign-flip map)."""
+  bits = (mm + F32(0)).astype(F32).view(np.uint32)  # -0.0 -> +0.0
+  flip = ((bits.view(np.int32) >> 31).view(np.uint32) | np.uint32(SIGN))
+  return np.where(np.isnan(mm), np.uint32(0), bits ^ flip)
+
+
+def warp_argmin(keys):
+  """The kernel's argmin of keys [32 CPL], slot j = lane + 32 c: each
+  lane's first slot at its least key, ``__reduce_min_sync`` of the keys,
+  then at CPL = 1 the first lane of the ballot, at CPL > 1 a second
+  ``__reduce_min_sync`` over the offered indices."""
+  by_lane = keys.reshape(-1, 32)
+  lanes = np.arange(32)
+  first = by_lane.argmin(0)
+  best = by_lane[first, lanes]
+  least = best.min()
+  if by_lane.shape[0] == 1:
+    return int(np.flatnonzero(best == least)[0])
+  return int(np.where(best == least, lanes + 32 * first, KEY_EMPTY).min())
+
+
+def build_q(p, n1):
+  """q [32 CPL]: a column that names each row (Q_NONE if none; of several,
+  the last), as the kernel builds it once a row."""
+  q = np.full(p.size, Q_NONE)
+  for j in range(n1):
+    q[p[j]] = j
+  return q
+
+
+def named_twice(p, n1):
+  """The rows r >= 1 that more than one of the columns 0..n names."""
+  counts = np.bincount(p[:n1], minlength=p.size)
+  return np.flatnonzero(counts[1:] > 1) + 1
+
+
+def update_u(u, q, used, delta):
+  """The kernel's u.at[p].add(where(used, delta, 0)): lane by lane, u[r] +=
+  used[q[r]] ? delta : +0.0 for every row that a column names."""
+  u = u.copy()
+  rows = q != Q_NONE
+  u[rows] = u[rows] + np.where(used[q[rows]], delta, F32(0))
+  return u
+
+
+# The parts of ``kernel_model`` by the lines of csrc/hungarian.cu that each
+# mirrors: (part, first line, last line, a text those lines hold).
+KERNEL_LINES = [
+    ('key', 116, 121, 'unsigned order_key(float x)'),
+    ('fill', 167, 180, 'cost[(r0 + k + 1) * n + c] = -x[k]'),
+    ('q build', 199, 213, 'q_sh[p[c]] = (unsigned char)(lane + 32 * c)'),
+    ('u[i0] and used', 222, 226, 'entry(u, i0)'),
+    ('cur, minv, mm, keys', 230, 246, 'order_key(mm[c])'),
+    ('reduction, delta, p[j1]', 247, 255, '__reduce_min_sync(kFull, best)'),
+    ('u update', 259, 264, 'bit(used, q[c])'),
+    ('v and minv', 265, 270, 'v[c] = __fsub_rn(v[c]'),
+    ('augmentation', 274, 278, 'entry(way, j0)'),
+    ('outputs', 281, 303, '= -u[c]'),
+]
+
+
+def kernel_model(w, cpl=None):
+  """The kernel's solve of one problem w [n_x, n_y] in numpy float32, lane
+  by lane: (matching, c_x, c_y).
+
+  Mirrors ``csrc/hungarian.cu:hungarian_kernel`` (``KERNEL_LINES``): the
+  fill (:167-180: cost = -w, -0.0 in the padding, columns 1..n, rows 0..n
+  with row 0 zeros); per row p[0] = i and the q build (:199-213), where
+  the model asserts the invariant the u update rests on: no row r >= 1
+  named twice; the step: u[i0] and the used bit mask (:222-226), cur,
+  minv, mm and the keys (:230-246, ``order_key`` :116-121), their
+  reduction, delta and p[j1] (:247-255, ``warp_argmin``), the u update
+  (:259-264, ``update_u``; the model also asserts that no used column has
+  p = 0, the premise of row 0's one addition), v and minv (:265-270); the
+  augmentation along way (:274-278); the outputs (:281-303)."""
+  n_x, n_y = w.shape
+  n = max(n_x, n_y)
+  n1 = n + 1
+  slots = 32 * (cpl or kernel_cpl(n))
+  assert slots >= n1
+  cost = np.full((n + 1, n), -0.0, F32)
+  cost[0] = 0.0
+  cost[1:n_x + 1, :n_y] = -w
+  j_all = np.arange(slots)
+  real = j_all < n1
+  inf = F32(1e30)
+  u = np.zeros(slots, F32)
+  v = np.zeros(slots, F32)
+  p = np.zeros(slots, np.int64)
+  for i in range(1, n + 1):
+    p[0] = i
+    q = build_q(p, n1)
+    assert not named_twice(p, n1).size, (i, p[:n1])
+    minv = np.full(slots, inf)
+    way = np.zeros(slots, np.int64)
+    words = np.zeros(slots // 32, np.uint32)
+    j0, i0, it = 0, i, 0
+    while it < n + 2 and i0 != 0:
+      ui0 = u[i0]
+      words[j0 >> 5] |= np.uint32(1 << (j0 & 31))
+      used = ((words[j_all >> 5] >> (j_all & 31)) & 1).astype(bool)
+      crow = np.zeros(slots, F32)
+      crow[1:n1] = cost[i0]
+      cur = (crow - ui0) - v
+      upd = (cur < minv) & ~used & (j_all >= 1)
+      minv = np.where(upd, cur, minv)
+      way = np.where(upd, j0, way)
+      mm = np.where(used | (j_all == 0), inf, minv)
+      j1 = warp_argmin(np.where(real, order_key(mm), np.uint32(KEY_EMPTY)))
+      delta, i1 = mm[j1], p[j1]
+      assert not (used & real & (p == 0)).any(), (i, p[:n1])
+      u = update_u(u, q, used, delta)
+      v = v - np.where(used, delta, F32(0))
+      minv = np.where(used, minv, minv - delta)
+      j0, i0, it = j1, i1, it + 1
+    it = 0
+    while it < n + 2 and j0 != 0:
+      j1 = way[j0]
+      p[j0] = p[j1]
+      j0, it = j1, it + 1
+  matching = (p[1:n_y + 1][None, :] - 1 == np.arange(n_x)[:, None])
+  return matching.astype(F32), -u[1:n_x + 1], -v[1:n_y + 1]
+
+
+def model_solve(w, cpl=None):
+  """kernel_model over a batch w [B, n_x, n_y], in JAX hungarian's
+  shapes."""
+  with np.errstate(invalid='ignore'):  # NaN made on purpose (nan_capped)
+    out = [kernel_model(x, cpl) for x in w]
+  return (np.stack([o[0] for o in out]), np.stack([o[1] for o in out])[..., None],
+          np.stack([o[2] for o in out])[:, None, :])
+
+
+def _model_weights(shape, seed):
+  """Weights as f_segm_match makes them, 70 % zero IoU (many ties)."""
+  rng = np.random.RandomState(seed)
+  iou = rng.rand(*shape).astype(F32)
+  iou[rng.rand(*shape) < 0.7] = 0
+  return (np.round(iou * 1e6) / 1e6 + 1e-5).astype(F32)
+
+
+# (B, n_x, n_y) up to n = 70: CPL 3 at n + 1 > 64 (the kernel launches 4).
+MODEL_SHAPES = [(2, 70, 70), (2, 64, 41), (3, 33, 40), (4, 7, 12)]
+
+
+def _model_sets():
+  sets = {f'case_{k}': (v, None) for k, v in sorted(CASES.items())}
+  for seed in (0, 1):
+    for shape in MODEL_SHAPES:
+      w = _model_weights(shape, seed)
+      n1 = max(shape[1:]) + 1
+      for cpl in sorted({(n1 + 31) // 32, kernel_cpl(n1 - 1)}):
+        sets[f'seed{seed}_{"x".join(map(str, shape))}_cpl{cpl}'] = (w, cpl)
+  return sets
+
+
+MODEL_SETS = _model_sets()
+
+
+@pytest.mark.parametrize('name', sorted(MODEL_SETS))
+def test_the_kernels_step_model_is_jaxs_bit_for_bit(name):
+  """The model, which asserts on every state that no row r >= 1 is named
+  twice and no used column has p = 0, gives JAX's bits."""
+  w, cpl = MODEL_SETS[name]
+  _assert_same_bits([torch.from_numpy(a) for a in model_solve(w, cpl)],
+                    _jax_hungarian()(jnp.asarray(w)), name)
+
+
+def test_the_kernel_model_cites_the_kernels_lines():
+  """Each part of the model names the lines of csrc/hungarian.cu that it
+  mirrors, in KERNEL_LINES and in kernel_model's docstring, and those
+  lines hold the part's text: an edit that moves the kernel's lines fails
+  here until the model is read against it again."""
+  path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+      __file__))), 'rec_attend_tpu_torch', 'csrc', 'hungarian.cu')
+  with open(path) as f:
+    lines = f.read().split('\n')
+  doc = ' '.join(kernel_model.__doc__.split())
+  for part, first, last, text in KERNEL_LINES:
+    assert text in '\n'.join(lines[first - 1:last]), (part, first, last)
+    assert f':{first}-{last}' in doc, part
+
+
+# Vectors for the argmin: NaN, -0.0 before +0.0 and after it, +-inf, ties
+# at 1e30 (JAX's _INF, mm[0] and every used column), longer than a warp.
+ARGMIN_VECTORS = [
+    [1e30, 1e30, 1e30],
+    [1e30, 0.5, np.nan, 0.2, np.nan],
+    [1e30, 0.0, -0.0, 3.0],
+    [1e30, -0.0, 0.0, 3.0],
+    [1e30, 1.0, 1.0, np.nan],
+    [1e30, np.inf, -np.inf, 5.0, -np.inf],
+    [1e30, 2.0, 1e30, -1e30, -1e30],
+    [-np.nan, 1e30, 4.0],
+    [1e30] * 40 + [-0.0, 7.0, 0.0],
+    [1e30] * 33 + [0.0] + [1e30] * 10 + [-0.0],
+    [1e30] * 65 + [np.nan, 1.0],
+]
+
+
+def _argmin_vectors():
+  rng = np.random.RandomState(0)
+  # Normal numbers only: XLA on the CPU ranks subnormals as zero.
+  pool = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1e30, 1e30, 1.5,
+                   -1.5, 2e-38, -2e-38], F32)
+  extra = [pool[rng.randint(0, pool.size, rng.randint(1, 97))]
+           for _ in range(200)]
+  return [np.asarray(v, F32) for v in ARGMIN_VECTORS] + extra
+
+
+def _kernel_argmin(mm, key):
+  """The kernel's argmin of mm with key, over the slots of the CPL that a
+  problem of mm.size columns launches with (the rest empty)."""
+  slots = 32 * kernel_cpl(mm.size - 1)
+  keys = np.full(slots, KEY_EMPTY, np.uint32)
+  keys[:mm.size] = key(mm)
+  return warp_argmin(keys)
+
+
+def _key_apart(mm):
+  """Control: -0.0 below +0.0."""
+  bits = mm.view(np.uint32)
+  key = np.where(bits & SIGN, ~bits, bits | SIGN).astype(np.uint32)
+  return np.where(np.isnan(mm), np.uint32(0), key)
+
+
+def _key_nan_last(mm):
+  """Control: NaN after every number (but before an empty slot)."""
+  return np.where(np.isnan(mm), np.uint32(KEY_EMPTY - 1), order_key(mm))
+
+
+def test_the_kernels_argmin_keys_are_jnp_argmins_order():
+  vectors = _argmin_vectors()
+  want = [int(jnp.argmin(jnp.asarray(v))) for v in vectors]
+  assert [_kernel_argmin(v, order_key) for v in vectors] == want
+  # The order itself: NaN first, -0.0 == +0.0, then by value.
+  keys = order_key(np.array([np.nan, -np.inf, -1e30, -1e-45, -0.0, 0.0,
+                             1e-45, 1e30, np.inf], F32))
+  assert keys[0] == 0 and keys[4] == keys[5]
+  assert (np.diff(keys[[0, 1, 2, 3, 4, 6, 7, 8]].astype(np.int64)) > 0).all()
+  assert keys.max() < KEY_EMPTY
+  for control in (_key_apart, _key_nan_last):
+    got = [_kernel_argmin(v, control) for v in vectors]
+    assert got != want, control.__name__
+
+
+def _u_states(seed, n1, twice):
+  """(u, p, used, delta) states as the solver holds them: rows matched to
+  columns, the rest 0, column 0 the current row, used only where p != 0
+  (a column is used only while it names a row), some u at -0.0, delta
+  +-0.0, 1e30 or a number; with ``twice``, p names one row r >= 1 twice
+  (both columns used in a third of the states)."""
+  rng = np.random.RandomState(seed)
+  slots = 32 * kernel_cpl(n1 - 1)
+  states = []
+  for k in range(60):
+    p = np.zeros(slots, np.int64)
+    rows = rng.permutation(np.arange(1, n1))[:rng.randint(2, n1)]
+    p[0] = rows[0]
+    p[rng.permutation(np.arange(1, n1))[:rows.size - 1]] = rows[1:]
+    a = rng.choice(np.flatnonzero(p[:n1]))
+    b = rng.choice(np.delete(np.arange(n1), a))
+    if twice:
+      p[b] = p[a]
+    used = (p != 0) & (rng.rand(slots) < 0.5)
+    if twice and k % 3 == 0:
+      used[[a, b]] = True
+    used[n1:] = False
+    u = rng.randn(slots).astype(F32)
+    u[rng.rand(slots) < 0.2] = -0.0
+    delta = F32(rng.choice([rng.randn(), 0.0, -0.0, 1e30]))
+    states.append((u, p, used, delta))
+  return states
+
+
+@pytest.mark.parametrize('n1', [22, 71])
+def test_the_kernels_u_update_routes_are_npaddat(n1):
+  """The kernel's u update, one lane-local addition a row through q, gives
+  np.add.at's bits (one addition a column, in column order) on states as
+  the solver holds them; on states that name a row twice it does not,
+  which is why the kernel rests on the invariant that the model asserts."""
+  for u, p, used, delta in _u_states(n1, n1, twice=False):
+    assert not named_twice(p, n1).size
+    want = u.copy()
+    np.add.at(want, p[:n1], np.where(used[:n1], delta, F32(0)))
+    got = update_u(u, build_q(p, n1), used, delta)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+  differs = False
+  for u, p, used, delta in _u_states(n1, n1, twice=True):
+    assert named_twice(p, n1).size == 1
+    want = u.copy()
+    np.add.at(want, p[:n1], np.where(used[:n1], delta, F32(0)))
+    got = update_u(u, build_q(p, n1), used, delta)
+    differs |= not np.array_equal(got.view(np.int32), want.view(np.int32))
+  assert differs
