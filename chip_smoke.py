@@ -381,7 +381,7 @@ script started ('script_seconds'):
                 the calibrated stop score over six mask thresholds, the
                 capped train sweep, count_calibration.json) over a
                 temporary copy of its folder (checkpoint, both YAML files,
-                output_valid/), the synth224 splits (256 train, 64 valid)
+                output_valid/), the synth224 splits (128 train, 32 valid)
                 drawn anew from its data_opt.yaml, cuDNN deterministic.
                 Gates, each with a control that must fail: count_diag's
                 scores with the plain glimpses within 1e-4 of the kernel
@@ -405,7 +405,41 @@ script started ('script_seconds'):
                 0.55), the foreground eval's per-example SBD and counts
                 kernel against plain (control: the fg target's renders as
                 the foreground), the renders' names and counts (control:
-                the train split's).
+                the train split's);
+  parallel_decode
+                the parallel decode (JAX full_model.py:519-541) of the
+                flagship preset with the timesteps independent (no canvas
+                input, no overwrite mask, no knob; seeded weights scaled as
+                the CPU tests scale them): the b32 and b128 eval forwards
+                (one extract of x [T·B,224,224,3] and two pastes a
+                forward, against 21 and 42 serially) and one remat train
+                step at b32 (4 extracts, 2 of them d_p, and 4 pastes,
+                against 84 and 84), the parallel pass against the serial
+                loop on the same weights, cuDNN deterministic, at the
+                serve gate's limits (y_out, s_out, canvas), the step held
+                to the serial step in float64 on the card at STEP_LIMITS
+                or twice the serial float32 step's own distance (loss,
+                gradients, updates; parallel_step_limits), the new
+                BatchNorm statistics at EMA_STATS_LIMIT, the kernels
+                against the plain
+                glimpses; the control (BatchNorm copy 0 for every
+                timestep's rows) must fail each.  CUDA-event times and
+                peak memory of both paths;
+  run_tools     the run tools over the pipeline and synthcs_pipeline
+                phases' folders: resume_synth_paper (the synth box resumed
+                by 2 steps, a fresh full model 2 steps from its weights.h5,
+                the valid split's sweep of 7 thresholds), compare_runs
+                --notes into that run's notes.md, write_results (the CVPPP
+                head, the synthcs section, each rewritten) and
+                ablate_packed (the synthcs box's twin without the packed
+                channels, 2 steps).  Gates, each with a control: the
+                files written (control: before the tools ran), the text
+                names no accelerator (control: the committed RESULTS.md),
+                sections replaced in place (control: one appended), notes
+                through regeneration (control: regenerated without
+                notes.md), the resumed steps, the sweep's CSVs (control:
+                the pipeline's own eval), the ablation table (control:
+                before the twin trained), launches.
 The `pipeline` phase's full stage also runs the train command line's plot
 hook once (at step 0, num_samples_plot 5); it reports whether matplotlib
 imports on the machine and gates its PNGs and catalog lines, or, without
@@ -427,12 +461,14 @@ limit, and as the last line
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import hashlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -587,6 +623,10 @@ CS_AP_FLOOR_FACTOR, CS_AP_SLACK = 2.0, 1e-4
 # serving gate's s_out limit); the valid eval's control at a mask threshold
 # this much higher.
 CALIBRATE_BATCH = 32
+# The calibration's train split, cut from the flagship run's 256 (and so
+# its valid split from 64 to 32) to make room for later phases: its gates
+# hold kernel against plain on the same images, whatever their number.
+CALIBRATE_EXAMPLES = 128
 CALIBRATE_S_OUT_ATOL = 1e-4
 CALIBRATE_CONTROL_SHIFT = 0.2
 # The fg eval on the synth3 checkpoints: the split's settings with 32 train
@@ -858,6 +898,11 @@ BF16_LAYER_CONTROL_SCALE = 1.02
 # the flagship checkpoint, kernel against plain at b8 (STEP_LIMITS, with
 # the dropped-filter-gradient control).
 OPTION_BATCH = 8
+# The parallel decode's train step against the serial one: the relative L2
+# difference of each BatchNorm buffer's batch statistics (the new EMA
+# less the decayed old), the float32 floor of two reductions over the
+# same rows in other orders being about 1e-6.
+EMA_STATS_LIMIT = 1e-4
 
 
 def emit(phase, **fields):
@@ -2506,7 +2551,7 @@ def metrics_rel_diff(got, want):
 
 def pipeline_phase(torch, gk, dev, scale='paper',
                    examples=PIPELINE_EXAMPLES, steps=PIPELINE_STEPS,
-                   cli_examples=PIPELINE_CLI_EXAMPLES):
+                   cli_examples=PIPELINE_CLI_EXAMPLES, keep=None):
   """The port's synth pipeline (``run_pipeline.run_synth``'s stages)
   at ``scale`` on ``dev``, its step counts cut: the box model's
   ``TrainingExperiment`` with the split on the device, the full model's
@@ -2515,8 +2560,9 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   trainval passes every PIPELINE_EVAL_STEPS), then the eval command line on
   the valid split, then a restore of the full run that takes two more
   steps.  Results and logs go to a temporary folder in the checkout,
-  removed after.  Returns (results, the gates' failures); each gate's
-  control must fail, else it is a failure too."""
+  removed after, or to ``keep``, left for phase run_tools.  Returns
+  (results, the gates' failures); each gate's control must fail, else it
+  is a failure too."""
   import numpy as np
 
   from rec_attend_tpu_torch import train_step as ts
@@ -2542,8 +2588,7 @@ def pipeline_phase(torch, gk, dev, scale='paper',
   def gate(name, got, control):
     return gate_with_control(failures, name, got, control)
 
-  with tempfile.TemporaryDirectory(prefix='.chip_smoke_pipeline-',
-                                   dir=REPO) as root:
+  with work_folder('.chip_smoke_pipeline-', keep) as root:
     results = os.path.join(root, 'results')
     data_cfg, box_cfg, full_base, train_cfg, _ = run_pipeline.synth_stages(
         scale, results, os.path.join(root, 'logs'), num_steps=steps)
@@ -3711,7 +3756,7 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
                            ap_remove_tiny=CS_AP_REMOVE_TINY,
                            limits=(SYNTHCS_FG_STEP_LIMITS,
                                    SYNTHCS_BOX_STEP_LIMITS,
-                                   SYNTHCS_FULL_STEP_LIMITS)):
+                                   SYNTHCS_FULL_STEP_LIMITS), keep=None):
   """The port's synthcs pipeline (``run_pipeline.run_chain``) at
   ``scale`` on ``dev`` through ``run_pipeline.main``, all its stages in
   this process, its scale cut (``chain_cut`` of ``examples``, ``steps``
@@ -3727,7 +3772,8 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
   plain versions' bits at this phase's shapes (the kernels phase), so the
   AP of the two must be equal; else it is held to the reordered-plain
   floor as in cs_chain.  Results, logs and pack files go to a temporary
-  folder in the checkout, removed after.  Returns (results, the gates'
+  folder in the checkout, removed after, or to ``keep``, left for phase
+  run_tools.  Returns (results, the gates'
   failures); each gate's control must fail, else it is a failure too."""
   import numpy as np
 
@@ -3769,8 +3815,7 @@ def synthcs_pipeline_phase(torch, gk, dev, scale='paper',
             for dst, src in (keys or {k: k for k in raw}).items()}
 
   start = time.time()
-  with tempfile.TemporaryDirectory(prefix='.chip_smoke_synthcs-',
-                                   dir=REPO) as root:
+  with work_folder('.chip_smoke_synthcs-', keep) as root:
     results, logs, data = (os.path.join(root, d)
                            for d in ('results', 'logs', 'data'))
     argv = ['--dataset', 'synthcs', '--scale', scale, '--results', results,
@@ -5421,21 +5466,23 @@ def float64_everywhere(torch):
 
 
 def float64_step(torch, ts, matching, model, opt_state, batch, draws, step,
-                 pinned):
-  """``one_step`` of a float32 model on the CPU in float64 with the
-  Hungarian answer ``pinned``, its floating results cast back to
-  float32."""
-  model = copy.deepcopy(model).to('cpu').double()
-  model.device = torch.device('cpu')
-  opt_state = {k: (v if k == 'count' else {n: t.cpu().double()
+                 pinned, dev='cpu'):
+  """``one_step`` of a float32 model on ``dev`` (the CPU by default) in
+  float64 with the Hungarian answer ``pinned``, its floating results cast
+  back to float32.  The glimpses are the plain einsums (the kernels take
+  float32 only; on the CPU the kernels' wrappers run those einsums)."""
+  dev = torch.device(dev)
+  model = copy.deepcopy(model).to(dev).double()
+  model.device = model.ctrl_lstm.b_f.device
+  opt_state = {k: (v if k == 'count' else {n: t.to(dev).double()
                                            for n, t in v.items()})
                for k, v in opt_state.items()}
-  draws = {k: (v if k == 'aug' else v.cpu().double())
+  draws = {k: (v if k == 'aug' else v.to(dev).double())
            for k, v in draws.items()}
   with float64_everywhere(torch):
     out = one_step(torch, ts, matching, model, opt_state,
-                   {k: v.cpu() for k, v in batch.items()}, draws, step,
-                   'kernel', pinned)
+                   {k: v.to(dev) for k, v in batch.items()}, draws, step,
+                   'kernel' if dev.type == 'cpu' else 'plain', pinned)
 
   def f32(t):
     return t.float() if torch.is_tensor(t) and t.is_floating_point() else t
@@ -6059,7 +6106,9 @@ def calibrate_phase(torch, gk, dev, sbd_limit):
   pipelines.calibrate_count.main on the card, at b32, over a temporary
   copy of the flagship's folder (its checkpoint, its two YAML files and
   its output_valid/) inside the checkout, removed after; the synth224
-  train (256) and valid (64) splits drawn anew from its data_opt.yaml.
+  train and valid splits drawn anew from its data_opt.yaml, cut from
+  the run's 256 train examples to CALIBRATE_EXAMPLES (valid gets a
+  quarter).
   cuDNN deterministic, as every compared forward.  Gates, each with a
   control that must fail: count_diag's scores of the train split with
   the plain glimpses within CALIBRATE_S_OUT_ATOL of the kernel run's per
@@ -6096,7 +6145,9 @@ def calibrate_phase(torch, gk, dev, sbd_limit):
     results = os.path.join(root, 'results')
     folder = linked_model_folder(CHECKPOINT_DIR,
                                  os.path.join(results, model_id))
-    shutil.copy(os.path.join(CHECKPOINT_DIR, 'data_opt.yaml'), folder)
+    DataConfig.from_yaml(os.path.join(CHECKPOINT_DIR, 'data_opt.yaml')
+                         ).replace(num_examples=CALIBRATE_EXAMPLES).save_yaml(
+                             os.path.join(folder, 'data_opt.yaml'))
     shutil.copytree(os.path.join(CHECKPOINT_DIR, 'output_valid'),
                     os.path.join(folder, 'output_valid'))
     data = os.path.join(root, 'data')
@@ -6368,6 +6419,447 @@ def fg_eval_phase(torch, gk, dev):
   return out, failures
 
 
+PARALLEL_SEED = 25
+PARALLEL_PARAM_SCALE = 10
+PARALLEL_BATCHES = (32, 128)
+
+
+def parallel_decode_config():
+  """The flagship preset with the timesteps independent: neither CNN reads
+  the canvas, no overwrite mask, no knob; JAX decodes it with a vmap over
+  the timesteps, the port with one pass over T·B rows."""
+  from rec_attend_tpu_torch.config import cvppp_full_config
+  return cvppp_full_config().replace(
+      ctrl_add_canvas=False, attn_add_canvas=False, disable_overwrite=False,
+      use_knob=False)
+
+
+def seeded_model(torch, cfg, dev, seed=PARALLEL_SEED):
+  """The model's init from ``seed`` with every tensor of two or more dims
+  scaled by 1 + PARALLEL_PARAM_SCALE * U(0, 1) (the CPU tests' scaling),
+  so that activations leave the near-constant regime of the 0.01 init
+  and the BatchNorm copies of the timesteps differ."""
+  from rec_attend_tpu_torch.models.full_model import FullModel
+  model = FullModel(cfg, seed=seed, device=dev)
+  g = torch.Generator().manual_seed(seed)
+  model.load_state_dict({
+      k: v * (1 + PARALLEL_PARAM_SCALE * torch.rand(v.shape, generator=g)
+              ).to(v.device) if v.dim() >= 2 else v
+      for k, v in model.state_dict().items()})
+  return model
+
+
+def bn_copy_zero(layers):
+  """The parallel pass's BatchNorm with copy 0 for every timestep's rows:
+  the control that the parallel-against-serial gates must reject."""
+  folded = layers.BatchNorm._forward_folded
+  return patched(layers.BatchNorm, '_forward_folded',
+                 lambda _: lambda self, x, ts, stats: folded(
+                     self, x, [0] * len(ts), stats))
+
+
+def bn_stats_diff(torch, got, want):
+  """Largest relative L2 difference, over the BatchNorm buffers, of the
+  batch statistics that two steps' new EMA values hold (new minus the
+  decayed old, over 1 - decay)."""
+  from rec_attend_tpu_torch.nn.layers import BN_DECAY
+  worst = ['', 0.0]
+  for k, new in want['new'].items():
+    old = want['old'][k]
+    stat = (new - BN_DECAY * old) / (1 - BN_DECAY)
+    stat_got = (got['new'][k] - BN_DECAY * old) / (1 - BN_DECAY)
+    d = float((stat_got - stat).norm() / stat.norm().clamp_min(1e-30))
+    if d > worst[1]:
+      worst = [k, d]
+  return worst
+
+
+def parallel_step_limits(serial_exact):
+  """The parallel train step's limits against the float64 step: each of
+  STEP_LIMITS, or twice the serial float32 step's own distance where that
+  is larger (the seeded weights' gradients sit near their float32 floor:
+  the parallel pass sums its convolutions and BatchNorm reductions over
+  672 rows in other orders than the serial loop's over 32), but the
+  zero-gradient biases' update in units of lr, whose limit is Adam's."""
+  def value(v):
+    return v[1] if isinstance(v, (list, tuple)) else v
+  return {k: limit if k == 'zero_update_in_lr_max' else max(
+      limit, 2 * value(serial_exact[k])) for k, limit in STEP_LIMITS.items()}
+
+
+def parallel_decode_phase(torch, gk, dev, cfg=None,
+                          batches=PARALLEL_BATCHES,
+                          train_batch=TRAIN_BATCH):
+  """The parallel decode (JAX full_model.py:519-541) of
+  ``parallel_decode_config()`` at full width, seeded weights: the eval
+  forward at each of ``batches`` and one remat train step at
+  ``train_batch``, the parallel pass against the serial loop on the same
+  weights and inputs (cuDNN deterministic; the step held to the serial
+  step in float64 at ``parallel_step_limits``), and the parallel forward
+  with the kernels against the plain glimpses; the control (BatchNorm
+  copy 0 for every row) must fail the gates.  Launches per forward and per step
+  by kernel and route, CUDA-event times and peak memory of both paths.
+  Returns (results, the gates' failures)."""
+  from rec_attend_tpu_torch import train_step as ts
+  from rec_attend_tpu_torch.data.synthetic import synthetic_images
+  from rec_attend_tpu_torch.data.synthetic import synthetic_instances
+  from rec_attend_tpu_torch.models import full_model as fm
+  from rec_attend_tpu_torch.nn import layers
+  from rec_attend_tpu_torch.ops import matching
+
+  cfg = cfg or parallel_decode_config()
+  cuda = dev.type == 'cuda'
+  T = cfg.timespan
+  if not fm.parallel_decode(cfg, train=True):
+    raise AssertionError('the config does not decode in parallel')
+  model = seeded_model(torch, cfg, dev)
+  serial = fm.FullModel(cfg.replace(parallel_decode=False), device=dev)
+  serial.load_state_dict(model.state_dict())
+  out, failures = {'config': {k: getattr(cfg, k) for k in (
+      'ctrl_add_canvas', 'attn_add_canvas', 'disable_overwrite', 'use_knob',
+      'parallel_decode', 'remat', 'timespan', 'inp_height',
+      'filter_height')}, 'seed': PARALLEL_SEED}, []
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  def counted(fn):
+    reset_counts(gk)
+    result = fn()
+    if cuda:
+      torch.cuda.synchronize()
+    return result, launches_now(gk)
+
+  def timed(fn, iters):
+    if not cuda:
+      return None
+    return ms(torch, fn, iters=iters, warmup=1, sleep=False)
+
+  def peak(fn):
+    reset_peak(torch, dev)
+    fn()
+    return peak_memory(torch, dev)
+
+  # ---- eval forwards ---------------------------------------------------
+  forwards = {}
+  for b in batches:
+    x = synthetic_images(b, cfg.inp_height, cfg.inp_width, seed=b).to(dev)
+    res = {}
+    with torch.inference_mode():
+      got, res['parallel_launches'] = counted(
+          lambda: fm.full_model_forward(model, x))
+      _, res['serial_launches'] = counted(
+          lambda: fm.full_model_forward(serial, x))
+      for label, m, n in (('parallel', model, 1), ('serial', serial, T)):
+        want = {'glimpse_extract': n, 'glimpse_paste': 2 * n}
+        if cuda and res[f'{label}_launches']['launches'] != want:
+          failures.append(f'b{b} {label} forward: launches '
+                          f'{res[f"{label}_launches"]}, want {want}')
+      with deterministic_cudnn(torch):
+        par = fm.full_model_forward(model, x)
+        ser = fm.full_model_forward(serial, x)
+        plain = fm.full_model_forward(model, x, glimpse='plain')
+        with bn_copy_zero(layers):
+          control = fm.full_model_forward(model, x)
+      for name, a, ref in (('parallel_vs_serial', par, ser),
+                           ('kernel_vs_plain', par, plain),
+                           ('control_bn_copy0_vs_serial', control, ser)):
+        res[name] = forward_diff(a, ref)
+        dc = float((a['canvas'].float().cpu()
+                    - ref['canvas'].float().cpu()).abs().mean())
+        res[name]['canvas_mean'] = dc
+        res[name]['failed'] = gate_failures(res[name]) + (
+            ['canvas_mean'] if dc > Y_OUT_MEAN_ATOL else [])
+      canvas_is_max = float((par['canvas'] - par['y_out'].amax(1)).abs().max())
+      res['canvas_minus_max_y_out'] = canvas_is_max
+      gate(f'b{b} parallel against serial',
+           res['parallel_vs_serial']['failed']
+           + (['canvas'] if canvas_is_max else []),
+           res['control_bn_copy0_vs_serial']['failed'])
+      failures.extend(f'b{b} kernel against plain: {k}'
+                      for k in res['kernel_vs_plain']['failed'])
+      if not all(bool(torch.isfinite(v).all()) for v in got.values()):
+        failures.append(f'b{b}: non-finite outputs')
+      res['parallel_ms'] = timed(lambda: fm.full_model_forward(model, x), 3)
+      res['serial_ms'] = timed(lambda: fm.full_model_forward(serial, x), 3)
+      res['parallel_peak_bytes'] = peak(
+          lambda: fm.full_model_forward(model, x))
+      res['serial_peak_bytes'] = peak(
+          lambda: fm.full_model_forward(serial, x))
+    del got, par, ser, plain, control, x
+    forwards[f'b{b}'] = res
+  out['forwards'] = forwards
+
+  # ---- one train step, remat ------------------------------------------
+  b = train_batch
+  batch = {k: v.to(dev) for k, v in synthetic_instances(
+      b, cfg.inp_height, cfg.inp_width, T, seed=2000).items()}
+  draws = to_device(fm.draw_train_randoms(
+      cfg, b, torch.Generator().manual_seed(3)), dev)
+  opt = ts.init_opt_state(model)
+  lr = fm.learn_rate(cfg, 0)
+
+  def step_of(m, glimpse='kernel'):
+    def run(pinned):
+      with deterministic_cudnn(torch):
+        return one_step(torch, ts, matching, m, opt, batch, draws, 0,
+                        glimpse, pinned)
+    return run
+
+  def new_bn(m):
+    with deterministic_cudnn(torch):
+      _, new = fm.full_model_train_forward(m, batch['x'], batch['y_gt'],
+                                           batch['s_gt'], draws, 0)
+    return {'new': new, 'old': {k: v for k, v in m.state_dict().items()
+                                if k in new}}
+
+  train = {'batch': b}
+  want = step_of(serial)(None)
+  pinned = want[4]['solved']
+  par = step_of(model)(None)
+  train['parallel_vs_serial'] = step_diff(torch, model, par, want, lr)
+  if any(train['parallel_vs_serial']['matches_differ'].values()):
+    par = step_of(model)(pinned)
+    train['parallel_vs_serial_pinned'] = step_diff(torch, model, par, want,
+                                                   lr)
+  floor = step_of(serial, reordered_plain(torch))(pinned)
+  train['serial_reordered_plain_vs_serial'] = step_diff(
+      torch, serial, floor, want, lr)
+  with bn_copy_zero(layers):
+    control = step_of(model)(pinned)
+    ema_control = new_bn(model)
+  # Each float32 step held to the serial step in float64 (the plain
+  # glimpses, the same matching): the parallel one within
+  # parallel_step_limits of the serial one's own distance.
+  t0 = time.time()
+  with deterministic_cudnn(torch):
+    exact = float64_step(torch, ts, matching, serial, opt, batch, draws, 0,
+                         pinned, dev=dev)
+  train['float64_step_seconds'] = time.time() - t0
+  serial_exact = step_diff(torch, serial, want, exact, lr)
+  limits = parallel_step_limits(serial_exact)
+  train.update(limits=limits, serial_vs_float64=serial_exact)
+  for name, step in (('parallel', par), ('control_bn_copy0', control)):
+    stats = step_diff(torch, model, step, exact, lr)
+    stats['failed'] = step_gate_failures(stats, limits)
+    train[f'{name}_vs_float64'] = stats
+  if train['parallel_vs_float64']['failed']:
+    failures.append('train parallel against float64: '
+                    f'{train["parallel_vs_float64"]["failed"]}')
+  if not train['control_bn_copy0_vs_float64']['failed']:
+    failures.append('train control (BatchNorm copy 0): passes the gates')
+  ema_want = new_bn(serial)
+  train['ema_stats_rel_l2_max'] = bn_stats_diff(torch, new_bn(model),
+                                                ema_want)
+  train['control_ema_stats_rel_l2_max'] = bn_stats_diff(torch, ema_control,
+                                                        ema_want)
+  gate('train EMA statistics',
+       [] if train['ema_stats_rel_l2_max'][1] <= EMA_STATS_LIMIT else
+       [train['ema_stats_rel_l2_max']],
+       [] if train['control_ema_stats_rel_l2_max'][1] <= EMA_STATS_LIMIT
+       else [train['control_ema_stats_rel_l2_max']])
+  for label, m, n in (('parallel', model, 1), ('serial', serial, T)):
+    step_opt = copy.deepcopy(opt)
+    m_copy = copy.deepcopy(m)
+    _, counts = counted(lambda: ts.train_step(m_copy, step_opt, batch, draws,
+                                              0))
+    train[f'{label}_launches'] = counts
+    want_counts = {'glimpse_extract': 4 * n, 'glimpse_paste': 4 * n}
+    want_bwd = {'glimpse_extract': 2 * n, 'glimpse_paste': 0}
+    if cuda and (counts['launches'] != want_counts
+                 or counts['backward_launches'] != want_bwd):
+      failures.append(f'train {label} step: launches {counts}, want '
+                      f'{want_counts} (backward {want_bwd})')
+    train[f'{label}_ms'] = timed(lambda: ts.train_step(
+        m_copy, step_opt, batch, draws, 0), 2)
+    train[f'{label}_peak_bytes'] = peak(lambda: ts.train_step(
+        m_copy, step_opt, batch, draws, 0))
+    del m_copy, step_opt
+  out['train'] = train
+  return out, failures
+
+
+RUN_TOOLS_THRESHOLDS = (20, 30, 35, 40, 45, 50, 60)
+
+
+@contextlib.contextmanager
+def work_folder(prefix, keep=None):
+  """A phase's folder of results, logs and data: ``keep`` (made, and left
+  for a later phase to read) or a temporary folder in the checkout,
+  removed after."""
+  if keep is None:
+    with tempfile.TemporaryDirectory(prefix=prefix, dir=REPO) as root:
+      yield root
+  else:
+    os.makedirs(keep)
+    yield keep
+
+
+def run_tools_phase(torch, gk, dev, pipeline_root, synthcs_root):
+  """The run tools as users launch them, over the folders that phases
+  ``pipeline`` (``pipeline_root``) and ``synthcs_pipeline``
+  (``synthcs_root``) wrote: ``resume_synth_paper`` (the synth box resumed
+  by 2 steps, a fresh full model 2 steps from its weights.h5, the valid
+  split's threshold sweep), ``write_results`` (the CVPPP head of the
+  resumed run, the synthcs section, each regenerated), ``compare_runs
+  --notes`` into the resumed run's notes.md, and ``ablate_packed`` (the
+  synthcs box's twin without the packed channels, 2 steps).  Gates, each
+  with a control that must fail: the files written, no accelerator named
+  in the text, sections replaced in place, notes.md surviving
+  regeneration, the resumed steps, the sweep's CSVs, the ablation's
+  table.  Returns (results, the gates' failures)."""
+  from rec_attend_tpu_torch.pipelines import ablate_packed
+  from rec_attend_tpu_torch.pipelines import compare_runs
+  from rec_attend_tpu_torch.pipelines import resume_synth_paper
+  from rec_attend_tpu_torch.pipelines import write_results as wr
+
+  out, failures = {}, []
+
+  def gate(name, got, control):
+    return gate_with_control(failures, name, got, control)
+
+  res, logs = (os.path.join(pipeline_root, d) for d in ('results', 'logs'))
+  cs_res, cs_logs = (os.path.join(synthcs_root, d)
+                     for d in ('results', 'logs'))
+  box_id, base_id = 'box_model_synth-chip', 'full_model_synth-chip'
+  full_id = 'full_model_synth-tools'
+  cs_ids = {s: f'{s}_model_synthcs-chip' for s in ('fg', 'box', 'full')}
+  twin_id = cs_ids['box'].replace('box_model_', 'box_model_nofg_')
+  results_md = os.path.join(pipeline_root, 'RESULTS.md')
+  notes = os.path.join(res, full_id, 'notes.md')
+  csvs = [os.path.join(res, full_id, 'output_valid', f'sbd_{t}.csv')
+          for t in RUN_TOOLS_THRESHOLDS]
+  written = [results_md, notes, os.path.join(res, full_id, 'ckpt-2.npz'),
+             os.path.join(cs_res, twin_id, 'ablation.json')] + csvs
+  before = [p for p in written if not os.path.exists(p)]
+  box_step = wr.latest_ckpt_step(os.path.join(res, box_id))
+
+  def timed(label, fn):
+    reset_counts(gk)
+    t0 = time.time()
+    result = fn()
+    if dev.type == 'cuda':
+      torch.cuda.synchronize()
+    out[label] = {'seconds': time.time() - t0, **launches_now(gk)}
+    return result
+
+  # ---- resume_synth_paper ---------------------------------------------
+  timed('resume_synth_paper', lambda: resume_synth_paper.main(
+      ['--box_id', box_id, '--results', res, '--logs', logs,
+       '--dataset_folder', os.path.join(pipeline_root, 'data'),
+       '--box_steps', str(box_step + 2), '--full_steps', '2',
+       '--data_examples', str(PIPELINE_EXAMPLES), '--full_id', full_id],
+      device=dev))
+  steps = {'box': wr.latest_ckpt_step(os.path.join(res, box_id)),
+           'full': wr.latest_ckpt_step(os.path.join(res, full_id))}
+  out['resume_synth_paper']['steps'] = steps
+  out['resume_synth_paper']['steps_gate'] = gate(
+      'resume_synth_paper steps',
+      [] if steps == {'box': box_step + 2, 'full': 2} else [steps],
+      [] if {'box': box_step, 'full': 2} == steps else ['box not resumed'])
+  sweep = wr.split_sweep(wr.read_analyzer_csvs(os.path.dirname(csvs[0])))[1]
+  base_sweep = wr.split_sweep(wr.read_analyzer_csvs(
+      os.path.join(res, base_id, 'output_valid')))[1]
+
+  def sweep_failures(got):
+    want = [t / 100 for t in RUN_TOOLS_THRESHOLDS]
+    return [] if sorted(got) == want else [f'thresholds {sorted(got)}']
+  out['resume_synth_paper']['sweep_gate'] = gate(
+      'resume_synth_paper valid sweep', sweep_failures(sweep),
+      sweep_failures(base_sweep))
+  out['resume_synth_paper']['sbd'] = {
+      f'{t:.2f}': v['sbd'][0] for t, v in sorted(sweep.items())}
+  out['resume_synth_paper']['launch_gate'] = gate(
+      'resume_synth_paper launches', launch_gate(out['resume_synth_paper'], [
+          ('launches', 'glimpse_extract'), ('launches', 'glimpse_paste'),
+          ('backward_launches', 'glimpse_extract')]),
+      launch_gate(out['resume_synth_paper'], [
+          ('backward_launches', 'glimpse_paste')]))
+
+  # ---- compare_runs, then write_results -------------------------------
+  title = 'Run tools: the pipeline full model against its resumed twin'
+  rows = timed('compare_runs', lambda: compare_runs.main(
+      ['--ids', f'{base_id},{full_id}', '--labels', 'pipeline,resumed',
+       '--results', res, '--logs', logs, '--title', title,
+       '--notes', notes]))
+  out['compare_runs']['rows'] = rows
+  head = ['--full_id', full_id, '--box_id', box_id, '--results', res,
+          '--logs', logs, '--out', results_md]
+  section = ['--section', 'synthcs', '--fg_id', cs_ids['fg'], '--box_id',
+             cs_ids['box'], '--full_id', cs_ids['full'], '--results', cs_res,
+             '--logs', cs_logs, '--out', results_md]
+  cs_title = f'## {wr.SECTION_FLAVORS["synthcs"][0]}'
+
+  def read(path):
+    with open(path) as f:
+      return f.read()
+
+  def layout_failures(doc):
+    problems = []
+    if not doc.startswith('# RESULTS'):
+      problems.append('the head is not first')
+    for marker in ('# RESULTS', cs_title, f'### {title}'):
+      if doc.count(marker) != 1:
+        problems.append(f'{doc.count(marker)} x {marker!r}')
+    return problems
+
+  timed('write_results', lambda: [wr.main(a) for a in (
+      head, section, head, section)])
+  no_ablation = read(results_md)
+  timed('ablate_packed', lambda: ablate_packed.main(
+      ['--baseline_id', cs_ids['box'], '--results', cs_res, '--logs',
+       cs_logs, '--steps', '2', '--batch_size', str(SYNTHCS_TRAIN_BATCH)],
+      device=dev))
+  with open(os.path.join(cs_res, twin_id, 'ablation.json')) as f:
+    out['ablate_packed']['table'] = json.load(f)
+  wr.main(section)
+  wr.main(head)
+  doc = read(results_md)
+  out['results_md_bytes'] = len(doc.encode())
+  out['written_gate'] = gate(
+      'files written', [p for p in written if not os.path.exists(p)],
+      before)
+  committed = read(os.path.join(REPO, 'RESULTS.md'))
+
+  def accelerator(text):
+    return [w for w in ('TPU', 'v5e') if w in text]
+  out['no_accelerator_gate'] = gate('the text names an accelerator',
+                                    accelerator(doc), accelerator(committed))
+  out['in_place_gate'] = gate(
+      'sections replaced in place', layout_failures(doc),
+      layout_failures(doc + '\n\n' + wr.three_stage_section(
+          wr.parse_args(section))))
+  twin_steps = out['ablate_packed']['table']['no_packed']['steps']
+
+  def ablation_failures(text):
+    if '### Packed-channel ablation' not in text:
+      return ['no ablation table']
+    return [] if '| no_packed |' in text and twin_steps == 2 else [
+        f'twin steps {twin_steps}']
+  out['ablation_gate'] = gate('the ablation table', ablation_failures(doc),
+                              ablation_failures(no_ablation))
+  out['ablate_packed']['launch_gate'] = gate(
+      'ablate_packed launches', launch_gate(out['ablate_packed'], [
+          ('launches', 'glimpse_paste')]),
+      launch_gate(out['ablate_packed'], [('launches', 'glimpse_extract')]))
+  # notes.md: regenerated without it, the table is gone (the control);
+  # with it, there once.
+  saved = read(notes)
+  os.remove(notes)
+  wr.main(head)
+  without = read(results_md)
+  with open(notes, 'w') as f:
+    f.write(saved)
+  wr.main(head)
+  doc = read(results_md)
+  out['notes_gate'] = gate('notes.md through regeneration',
+                           layout_failures(doc), layout_failures(without))
+  if doc.split(wr.SECTION_MARKER)[0].count(f'### {title}') != 1:
+    failures.append('notes.md: the table is not in the head')
+  out['results_md_head'] = doc.split('\n')[:6]
+  return out, failures
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -6516,6 +7008,31 @@ def main():
     for b in (8, 1):
       checks[name][f'b{b}'] = check_kernel(torch, gk, attention, name, b,
                                            *dims[1:], gen, dev, timed=True)
+  # The parallel decode's passes at b32 and b128 (T·B rows): extract x
+  # [T·B,224,224,3] (no canvas channel), the pastes [T·B,48,48,1] ->
+  # 224x224 and, in training, their d_p, extract x [T·B,224,224,1]; and
+  # the 64x64 glimpse of resume_synth_paper --filter_size 64 (x
+  # [8,224,224,4]).
+  pd_cfg = parallel_decode_config()
+  parallel_dims = {}
+  for b in PARALLEL_BATCHES:
+    rows = b * pd_cfg.timespan
+    parallel_dims[f'parallel_b{b}'] = {
+        'glimpse_extract': (rows, pd_cfg.inp_height, pd_cfg.inp_width,
+                            pd_cfg.acnn_inp_depth, pd_cfg.filter_height,
+                            pd_cfg.filter_width),
+        'glimpse_paste': (rows, pd_cfg.inp_height, pd_cfg.inp_width, 1,
+                          pd_cfg.filter_height, pd_cfg.filter_width)}
+  parallel_d1 = parallel_dims[f'parallel_b{TRAIN_BATCH}']['glimpse_paste']
+  filter64 = (8, cfg.inp_height, cfg.inp_width, cfg.acnn_inp_depth, 64, 64)
+  for key, dims in parallel_dims.items():
+    for name in checks:
+      checks[name][key] = check_kernel(torch, gk, attention, name,
+                                       *dims[name], gen, dev, timed=True)
+  for key, dims in (('parallel_d1_b32', parallel_d1),
+                    ('filter64_b8', filter64)):
+    checks['glimpse_extract'][key] = check_kernel(
+        torch, gk, attention, 'glimpse_extract', *dims, gen, dev, timed=True)
   # The flagship's extracts take the tiled kernel; the synth3 chain's,
   # Cityscapes' and the KITTI-sized d_p the strip kernel; the 48x64 glimpse
   # the general one.
@@ -6536,7 +7053,11 @@ def main():
                  'kitti_b2': 'extract_strip_kernel',
                  'kitti_d1_b2': 'extract_strip_kernel',
                  'cityscapes_b2': 'extract_strip_kernel',
-                 'cityscapes_d1_b2': 'extract_strip_kernel'}
+                 'cityscapes_d1_b2': 'extract_strip_kernel',
+                 'parallel_b32': 'extract_strip_kernel',
+                 'parallel_b128': 'extract_strip_kernel',
+                 'parallel_d1_b32': 'extract_tiled_kernel',
+                 'filter64_b8': 'extract_kernel_general'}
   routes = {k: (ex if k == 'b128' else ex[k])['route']['kernel']
             for k in want_routes}
   if routes != want_routes:
@@ -6718,9 +7239,17 @@ def main():
       checks[name]['synthcs']['max_abs_err'] == 0 for name in checks))
   emit('cs_chain', nvidia_smi=name_power, **cs_chain)
 
+  # The folders of the synth and synthcs pipelines, kept for phase
+  # run_tools.
+  tools_root = tempfile.mkdtemp(prefix='.chip_smoke_run_tools-', dir=REPO)
+  atexit.register(shutil.rmtree, tools_root, True)
+  tools_dirs = {k: os.path.join(tools_root, k)
+                for k in ('pipeline', 'synthcs')}
+
   # The synth pipeline's training run as users launch it: after the other
   # phases, which run as they did without it.
-  pipeline, failures = pipeline_phase(torch, gk, dev)
+  pipeline, failures = pipeline_phase(torch, gk, dev,
+                                      keep=tools_dirs['pipeline'])
   emit('pipeline', nvidia_smi=name_power, failures=failures, **pipeline)
   if failures:
     raise AssertionError(f'pipeline gates: {failures}')
@@ -6737,7 +7266,8 @@ def main():
   # in one process: after the other phases, which run as they did without
   # it.
   synthcs, failures = synthcs_pipeline_phase(torch, gk, dev, bit_equal=all(
-      checks[name]['synthcs_b4']['max_abs_err'] == 0 for name in checks))
+      checks[name]['synthcs_b4']['max_abs_err'] == 0 for name in checks),
+      keep=tools_dirs['synthcs'])
   emit('synthcs_pipeline', nvidia_smi=name_power, failures=failures,
        **synthcs)
   if failures:
@@ -6779,6 +7309,22 @@ def main():
        phase_seconds=time.time() - t0, **fg_eval)
   if failures:
     raise AssertionError(f'fg_eval gates: {failures}')
+  # The parallel decode, then the run tools over the pipelines' folders:
+  # after the other phases, which run as they did without them.
+  t0 = time.time()
+  parallel, failures = parallel_decode_phase(torch, gk, dev)
+  emit('parallel_decode', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **parallel)
+  if failures:
+    raise AssertionError(f'parallel_decode gates: {failures}')
+  t0 = time.time()
+  tools, failures = run_tools_phase(torch, gk, dev, tools_dirs['pipeline'],
+                                    tools_dirs['synthcs'])
+  shutil.rmtree(tools_root)
+  emit('run_tools', nvidia_smi=name_power, failures=failures,
+       phase_seconds=time.time() - t0, **tools)
+  if failures:
+    raise AssertionError(f'run_tools gates: {failures}')
   weights_forward = {k: weights['launches']['launches'][k]
                      - weights['launches']['backward_launches'][k]
                      for k in checks}
@@ -6862,12 +7408,13 @@ def main():
   # With them, the bf16 phase's TrainingExperiment at b8.
   def pipeline_launches(name, kind):
     by_path = {}
-    for label in ('box', 'full', 'eval', 'restored'):
-      counts = pipeline[label]
+    for label, counts in [(f'pipeline_{k}', pipeline[k]) for k in (
+        'box', 'full', 'eval', 'restored')] + [
+            ('run_tools_resume_synth_paper', tools['resume_synth_paper'])]:
       n = counts['launches'][name] - counts['backward_launches'][name]
       n = counts['backward_launches'][name] if kind == 'backward' else n
       if n:
-        by_path[f'pipeline_{label}'] = n
+        by_path[label] = n
     n = bf16_launches[f'experiment_{kind}'][name]
     if n:
       by_path['bf16_training_experiment'] = n
@@ -6923,6 +7470,9 @@ def main():
         n = counts['launches'][name] - n
       if n:
         by_path[f'synthcs_pipeline_{label}'] = n
+    n = tools['ablate_packed']['launches'][name]
+    if n and not backward:
+      by_path['run_tools_ablate_packed'] = n
     return by_path
   for name in checks:
     table.append(row(name, checks[name]['synthcs_b4'], 'forward, synthcs '
@@ -6962,6 +7512,28 @@ def main():
     use = (BACKWARD_USES[name] if backward else 'forward') + (
         f', {dataset} pipeline, ' + shape(name, dims))
     table.append(row(name, checks[name][key], use, by_path))
+  # The parallel decode's passes (launches of the phase's forwards, one a
+  # batch size, and of its b32 train step, forward and recomputed; d_p in
+  # that step's backward).
+  pd_train = parallel['train']['parallel_launches']
+  for key, dims in parallel_dims.items():
+    b = int(key.split('_b')[1])
+    for name in checks:
+      by_path = {f'parallel_decode_eval_b{b}': parallel['forwards'][f'b{b}'][
+          'parallel_launches']['launches'][name]}
+      if b == TRAIN_BATCH:
+        by_path['parallel_decode_train_step'] = (
+            pd_train['launches'][name] - pd_train['backward_launches'][name])
+      table.append(row(name, checks[name][key], 'forward, parallel decode, '
+                       + shape(name, dims[name]), by_path))
+  table.append(row('glimpse_extract', checks['glimpse_extract'][
+      'parallel_d1_b32'], BACKWARD_USES['glimpse_extract'] + ', parallel '
+      'decode train step, ' + shape('glimpse_extract', parallel_d1),
+      {'parallel_decode_train_step':
+           pd_train['backward_launches']['glimpse_extract']}))
+  table.append(row('glimpse_extract', checks['glimpse_extract'][
+      'filter64_b8'], 'resume_synth_paper --filter_size 64 (no phase runs '
+      'it), ' + shape('glimpse_extract', filter64), {}))
   # Shapes that no phase of this script runs on a path (launches 0): the
   # strip route at Cityscapes' forward and at paste's d_p of the KITTI
   # size at b32, the general route at the 48x64 glimpse, paste at that
@@ -7023,6 +7595,9 @@ def main():
       ('synthcs_pipeline_oracle_eval_ap', synthcs['oracle_launches'])]
   readings += [(f'pipeline_{label}', pipeline[label])
                for label in ('box', 'full', 'eval', 'restored')]
+  readings += [('parallel_decode_train_step', pd_train),
+               ('run_tools_resume_synth_paper', tools['resume_synth_paper']),
+               ('run_tools_ablate_packed', tools['ablate_packed'])]
   for dataset, res in h5_runs.items():
     readings += [(f'{dataset}_pipeline_{label}', res[label]['run_launches'])
                  for label in ('box', 'full') if label in res]

@@ -6,8 +6,8 @@ those of the JAX ``FullModelConfig``, ``BoxModelConfig``,
 ``FGModelConfig``, ``TrainConfig`` and ``DataConfig``, so a
 ``model_opt.yaml`` or ``data_opt.yaml`` written by either package loads in
 the other's class to the same config.  Keys that a config here lacks (the
-JAX compiler's switches ``use_pallas``, ``remat_policy``, ``scan_unroll``
-and ``parallel_decode``, say) are not read, but a config loaded from a
+JAX compiler's switches ``use_pallas``, ``remat_policy`` and
+``scan_unroll``, say) are not read, but a config loaded from a
 snapshot carries them and ``to_dict`` writes them back.  YAML is read and
 written by ``utils.opt_yaml``, without PyYAML.
 """
@@ -194,6 +194,9 @@ class FullModelConfig(_ConfigBase):
 
   dtype: str = 'float32'          # compute dtype of the conv/matmul stacks
   remat: bool = False             # recompute each timestep in the backward
+  parallel_decode: Optional[bool] = None  # the T timesteps as one batch
+                                          # where they are independent
+                                          # (None: wherever they are)
   accumulate_greedy_match: bool = False
 
   # ---- derived helpers -------------------------------------------------

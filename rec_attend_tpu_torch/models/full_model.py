@@ -26,8 +26,13 @@ input, the MLPs, the canvas and the losses stay float32.  With
 The JAX ``lax.scan`` over T is a Python loop carrying the canvas; with
 ``cfg.remat`` each timestep of training runs under
 ``torch.utils.checkpoint`` and is recomputed in the backward, as
-``jax.checkpoint`` does.  Training's random draws (augmentation, box noise,
-knob uniforms, segmentation noise) are inputs, drawn before the loop by
+``jax.checkpoint`` does.  Where the timesteps are independent (no CNN
+reads the canvas, no overwrite mask, no knob in training) the JAX
+``vmap`` over them is one pass over T·B rows, BatchNorm copy t for the
+rows of timestep t (``parallel_decode``, ``_decode``): one extract and two
+pastes a forward in place of T and 2T.  Training's random draws
+(augmentation, box noise, knob uniforms, segmentation noise) are inputs,
+drawn before the loop by
 ``draw_train_randoms``: a recomputed timestep must see the draws of its
 first run, and ``torch.utils.checkpoint`` restores only the global random
 state, not an explicit generator's.  The eval centre crop of the JAX
@@ -313,12 +318,17 @@ def gaussian_filters(cfg, ctr, size, lg_var):
 
 def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
               train=None):
-  """One timestep of the model (JAX full_model.py:287-508).
+  """One timestep of the model (JAX full_model.py:287-508), or several
+  as one batch.
 
   Args:
     x: [B,H,W,D] image; packed: {'d_out': d_in, 'y_out': y_in}, either
       None where the config does not read it; canvas: [B,H,W,1]; t:
-      timestep index.
+      timestep index, or a list of n timesteps whose rows the batch holds
+      in groups (``_decode``'s parallel pass: x, the packed maps and the
+      canvas hold n·B rows, the ground truth stays [B,...]; BatchNorm
+      uses copy t[i] for group i, and its statistics come back one dict
+      a timestep).
     train: None for the serving forward; with the ground truth a dict of
       this step's inputs: 'train' (True: BatchNorm on the batch and the
       knob's mixes; False: the eval forward of the loss in eval mode),
@@ -341,8 +351,11 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   n_adc = len(cfg.attn_dcnn_filter_size)
   relu = F.relu
   training = train is not None and train['train']
-  stats = {'ctrl_cnn': [], 'attn_cnn': [], 'attn_dcnn': []} if training else (
-      None)
+  n = len(t) if L.folded(t) else None
+  stats = None
+  if training:
+    stats = {net: [] if n is None else [[] for _ in range(n)]
+             for net in ('ctrl_cnn', 'attn_cnn', 'attn_dcnn')}
 
   def inputs(prefix):
     parts = [v for key, v in (('inp', x), ('canvas', canvas),
@@ -376,6 +389,13 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
   attn_box = paste_fn(box_patch, f_y, f_x)
   attn_box = torch.sigmoid(attn_box + ATTN_BOX_BETA)[..., 0]     # [B,H,W]
 
+  def against_gt(a):
+    """a [rows,...] as [rows,1,...], or folded as [n,B,1,...]: each row
+    broadcast against its example's ground truth [B,T,...]."""
+    if n is None:
+      return a[:, None]
+    return a.view((n, -1, 1) + tuple(a.shape[1:]))
+
   step_out = {}
   grd_cum = grd_match = None
   if train is not None:
@@ -383,13 +403,13 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
     if cfg.use_iou_box:
       tl, br = attention.get_box_coord(attn_ctr, attn_size)
       iou_soft_box_t = losses.f_iou_box(
-          tl[:, None, :], br[:, None, :], train['attn_top_left_gt'],
+          against_gt(tl), against_gt(br), train['attn_top_left_gt'],
           train['attn_bot_right_gt'])                              # [B,T]
     else:
       iou_soft_box_t = (
-          losses.f_inter(attn_box[:, None], train['attn_box_gt'])
-          / losses.f_union(attn_box[:, None], train['attn_box_gt']))
-    step_out['iou_soft_box_t'] = iou_soft_box_t
+          losses.f_inter(against_gt(attn_box), train['attn_box_gt'])
+          / losses.f_union(against_gt(attn_box), train['attn_box_gt']))
+    step_out['iou_soft_box_t'] = iou_soft_box_t.reshape(B, -1)
     grd_cum = train['grd_cum']
     if cfg.use_knob and training:
       # Mix in the noisy ground-truth box (JAX :396-415): with fixed_order
@@ -479,11 +499,102 @@ def _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
         attn_bot_right=attn_bot_right,
         glimpse_map=torch.stack(glimpse_maps, dim=1)[..., 0].reshape(
             B, cfg.num_ctrl_rnn_iter, cfg.crnn_h, cfg.crnn_w))
+  if stats is not None and n is not None:
+    stats = [{net: v[i] for net, v in stats.items()} for i in range(n)]
   return canvas, grd_cum, step_out, stats
 
 
 def _stack_steps(steps):
   return {k: torch.stack([s[k] for s in steps], dim=1) for k in steps[0]}
+
+
+def parallel_decode(cfg: FullModelConfig, train=False):
+  """Whether the forward runs its T timesteps as one batch (JAX
+  full_model.py:524-541): where neither CNN reads the canvas, the masks
+  are not masked by it and the knob does not train, the timesteps are
+  independent, and ``cfg.parallel_decode`` (None: wherever they are)
+  picks the batched pass; elsewhere the serial loop runs, whatever it
+  says."""
+  flags = cfg.resolved_input_flags()
+  independent = (not flags['ctrl_add_canvas'] and not flags['attn_add_canvas']
+                 and not cfg.disable_overwrite
+                 and not (cfg.use_knob and train))
+  use = (cfg.parallel_decode if cfg.parallel_decode is not None
+         else independent)
+  return bool(use and independent)
+
+
+def timestep_groups(timespan, batch):
+  """The timesteps of each pass of the parallel decode: all T in one,
+  unless T·B rows pass the glimpse kernels' batch limit
+  (``gk.MAX_BATCH``); then as many whole timesteps a pass as fit."""
+  per = max(1, gk.MAX_BATCH // batch)
+  return [list(range(i, min(i + per, timespan)))
+          for i in range(0, timespan, per)]
+
+
+def _decode(model, x, packed, extract_fn, paste_fn, gt=None, knob=None,
+            remat=False):
+  """The T timesteps: a serial loop carrying the canvas (JAX's
+  ``lax.scan``), or, where ``parallel_decode`` says so, the batched pass
+  (JAX's ``vmap``): x and the packed maps repeated once a timestep, one
+  controller and one ``_timestep`` over the T·B rows from a zero canvas,
+  the canvas the max over T.  ``gt`` and ``knob`` as in
+  ``full_model_train_forward``'s loop (None when serving); ``remat`` runs
+  each timestep, or each pass, under ``torch.utils.checkpoint``.
+
+  Returns (canvas [B,H,W,1], outputs stacked [B,T,...], the BatchNorm
+  statistics of each timestep in training, else [])."""
+  cfg = model.cfg
+  B, T = x.shape[0], cfg.timespan
+  H, W = cfg.inp_height, cfg.inp_width
+
+  def run(fn, *args):
+    if not remat:
+      return fn(*args)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+  if parallel_decode(cfg, gt is not None and gt['train']):
+    def group(ts):
+      n = len(ts)
+      rows = {k: None if v is None else v.repeat(n, 1, 1, 1)
+              for k, v in packed.items()}
+      canvas = torch.zeros((n * B, H, W, 1), device=x.device)
+      canvas, _, out, stats = _timestep(
+          model, x.repeat(n, 1, 1, 1), rows, canvas, ts, extract_fn,
+          paste_fn, None if gt is None else dict(gt, grd_cum=None))
+      return (canvas.view(n, B, H, W, 1).amax(dim=0),
+              {k: v.view((n, B) + tuple(v.shape[1:])) for k, v in
+               out.items()}, stats or [])
+
+    canvas, groups, bn_steps = None, [], []
+    for ts in timestep_groups(T, B):
+      c, out, stats = run(group, ts)
+      canvas = c if canvas is None else torch.maximum(canvas, c)
+      groups.append(out)
+      bn_steps += stats
+    outputs = {k: torch.cat([g[k] for g in groups]).transpose(0, 1)
+               .contiguous() for k in groups[0]}
+    return canvas, outputs, bn_steps
+
+  def step(canvas, grd_cum, t):
+    inputs = None
+    if gt is not None:
+      inputs = dict(gt, grd_cum=grd_cum, **{
+          k: v[:, t] if k != 'segm_noise' else v[t] for k, v in knob.items()})
+    return _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
+                     inputs)
+
+  canvas = torch.zeros((B, H, W, 1), device=x.device)
+  grd_cum = torch.zeros((B, T), device=x.device)
+  steps, bn_steps = [], []
+  for t in range(T):
+    canvas, grd_cum, step_out, stats = run(step, canvas, grd_cum, t)
+    steps.append(step_out)
+    if stats is not None:
+      bn_steps.append(stats)
+  return canvas, _stack_steps(steps), bn_steps
 
 
 @torch.no_grad()
@@ -513,14 +624,7 @@ def full_model_forward(model: FullModel, x, d_in=None, y_in=None,
   x = x.float()
   packed = {'d_out': None if d_in is None else d_in.float(),
             'y_out': None if y_in is None else y_in.float()}
-  canvas = torch.zeros((x.shape[0], cfg.inp_height, cfg.inp_width, 1),
-                       device=x.device)
-  steps = []
-  for t in range(cfg.timespan):
-    canvas, _, step_out, _ = _timestep(model, x, packed, canvas, t,
-                                       extract_fn, paste_fn)
-    steps.append(step_out)
-  out = _stack_steps(steps)
+  canvas, out, _ = _decode(model, x, packed, extract_fn, paste_fn)
   out['canvas'] = canvas[..., 0]
   return out
 
@@ -558,7 +662,6 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
   extract_fn, paste_fn = _glimpse_fns(glimpse)
   _check_input(model, x, d_in, y_in)
   cfg = model.cfg
-  B, T = x.shape[0], cfg.timespan
   H, W = cfg.inp_height, cfg.inp_width
   FH, FW = cfg.filter_height, cfg.filter_width
   x, y_gt = x.float(), y_gt.float()
@@ -597,26 +700,8 @@ def full_model_train_forward(model: FullModel, x, y_gt, s_gt, draws, step,
             'knob_segm': (draws['knob_segm'] <= p_segm).float(),
             'segm_noise': draws['segm_noise']}
 
-  def body(canvas, grd_cum, t):
-    inputs = dict(gt, grd_cum=grd_cum, **{k: v[:, t] if k != 'segm_noise'
-                                          else v[t] for k, v in knob.items()})
-    return _timestep(model, x, packed, canvas, t, extract_fn, paste_fn,
-                     inputs)
-
-  canvas = torch.zeros((B, H, W, 1), device=x.device)
-  grd_cum = torch.zeros((B, T), device=x.device)
-  steps, bn_steps = [], []
-  for t in range(T):
-    if cfg.remat and train:
-      canvas, grd_cum, step_out, stats = torch.utils.checkpoint.checkpoint(
-          body, canvas, grd_cum, t, use_reentrant=False,
-          preserve_rng_state=False)
-    else:
-      canvas, grd_cum, step_out, stats = body(canvas, grd_cum, t)
-    steps.append(step_out)
-    bn_steps.append(stats)
-
-  outputs = _stack_steps(steps)
+  canvas, outputs, bn_steps = _decode(model, x, packed, extract_fn, paste_fn,
+                                      gt, knob, remat=cfg.remat and train)
   outputs.update(
       canvas=canvas[..., 0], x_trans=x, y_gt_trans=y_gt, s_gt=s_gt,
       attn_ctr_gt=attn_ctr_gt, attn_size_gt=attn_size_gt,

@@ -170,8 +170,15 @@ class BatchNorm(nn.Module):
     list): with the batch mean and biased variance, and the new EMA
     statistics of copy t, ``BN_DECAY * ema + (1 - BN_DECAY) * batch``, are
     appended to ``stats`` as a (mean, var) pair instead of being written
-    here, so that a recomputed forward does not apply them twice."""
+    here, so that a recomputed forward does not apply them twice.
+
+    With ``t`` a list of n copies (``folded``), x holds n groups of B rows,
+    rows i*B to (i+1)*B-1 normalised with copy t[i]: in training over the
+    group's own statistics, whose pair goes to ``stats[i]``, one list per
+    copy; what ``jax.vmap`` of the serial forward over the copies does."""
     out_dtype = x.dtype if out_dtype is None else out_dtype
+    if folded(t):
+      return self._forward_folded(x, t, stats).to(out_dtype)
     shape = (1, -1) + (1,) * (x.dim() - 2)
     xf = x.float()
     copy = (lambda p: p) if t is None else (lambda p: p[t])
@@ -189,6 +196,31 @@ class BatchNorm(nn.Module):
     normed = ((xf - mean.view(shape)) * inv * copy(self.gamma).view(shape)
               + copy(self.beta).view(shape))
     return normed.to(out_dtype)
+
+  def _forward_folded(self, x, ts, stats):
+    n = len(ts)
+    xf = x.float().reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
+    shape = (n, 1, -1) + (1,) * (x.dim() - 2)
+    if stats is None:
+      mean, var = self.ema_mean[ts], self.ema_var[ts]
+    else:
+      axes = (1,) + tuple(range(3, xf.dim()))
+      mean = torch.mean(xf, dim=axes)
+      var = torch.var(xf, dim=axes, correction=0)
+      new_mean = (BN_DECAY * self.ema_mean[ts] + (1 - BN_DECAY) * mean)
+      new_var = (BN_DECAY * self.ema_var[ts] + (1 - BN_DECAY) * var)
+      for i in range(n):
+        stats[i].append((new_mean[i].detach(), new_var[i].detach()))
+    inv = torch.rsqrt(var + BN_EPS).view(shape)
+    normed = ((xf - mean.view(shape)) * inv * self.gamma[ts].view(shape)
+              + self.beta[ts].view(shape))
+    return normed.reshape(x.shape)
+
+
+def folded(t):
+  """Whether ``t`` is a list of BatchNorm copies, one a group of rows of
+  the batch (``BatchNorm.forward``), and not one copy or None."""
+  return isinstance(t, list)
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +274,8 @@ def _conv_bias_bn(layer, h, t, stats):
   b = layer.b.to(h.dtype).view(1, -1, 1, 1)
   if layer.bn is None:
     if stats is not None:
-      stats.append(None)
+      for s in (stats if folded(t) else [stats]):
+        s.append(None)
     return h + b
   return layer.bn(h.float() + b.float(), t, stats, out_dtype=h.dtype)
 
@@ -254,7 +287,9 @@ def apply_cnn(layers, x, pool, act, t, stats=None, dtype=None):
 
   x [B,C,H,W]; returns the list of per-layer activations.  With ``stats``
   a list, BatchNorm runs in train mode and appends each layer's new EMA
-  statistics (None for a layer without BatchNorm)."""
+  statistics (None for a layer without BatchNorm).  With ``t`` a list of
+  copies, x holds one group of rows a copy and ``stats`` one list a copy
+  (``BatchNorm.forward``)."""
   h = x
   h_list = []
   for i, layer in enumerate(layers):

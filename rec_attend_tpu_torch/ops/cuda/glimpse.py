@@ -49,6 +49,10 @@ from rec_attend_tpu_torch.ops.cuda import build
 extract_patch_plain = attention.extract_patch
 paste_patch_plain = attention.paste_patch
 
+# The largest batch that either kernel takes (the grid's y or z extent,
+# ``csrc/glimpse.cu``).
+MAX_BATCH = 65535
+
 
 def _check(name, a, f_y, f_x):
   """Validate a [B, *, *, D] operand and its filter banks; returns

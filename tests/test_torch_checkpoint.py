@@ -109,7 +109,7 @@ def test_cvppp_preset_matches_the_flagship_folder():
   ours = C.cvppp_full_config().to_dict()
   jax_preset = JC.cvppp_full_config().to_dict()
   defaults = C.FullModelConfig().to_dict()
-  jax_only = {'mlp_dropout', 'parallel_decode', 'remat_policy',
+  jax_only = {'mlp_dropout', 'remat_policy',
               'scan_unroll', 'use_pallas'}
   assert ours == {k: v for k, v in jax_preset.items() if k not in jax_only}
   assert set(jax_preset) - set(ours) == jax_only

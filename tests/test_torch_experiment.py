@@ -45,7 +45,7 @@ torch.set_num_threads(1)
 # The options of the JAX configs that the port's lack (a JAX snapshot
 # loaded in the port carries them and writes them back), and the flags
 # that set only them.
-JAX_ONLY = {'full': {'mlp_dropout', 'parallel_decode', 'remat_policy',
+JAX_ONLY = {'full': {'mlp_dropout', 'remat_policy',
                      'scan_unroll', 'use_pallas'},
             'box': {'use_pallas'}, 'fg': set()}
 JAX_ONLY_FLAGS = {'full': {'mlp_dropout', 'use_pallas'}, 'box': set(),

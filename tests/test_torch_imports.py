@@ -14,8 +14,9 @@ train step of each model (fg with momentum, box, full started from the
 box), an eval_split, the fg -> pack -> full chain, the Cityscapes-shaped
 chain to its AP and pixel eval, and the train command line, the synth
 pipeline and the synthcs pipeline (to its ap.json and pixel_eval.json),
-and Cityscapes from its polygons to the AP of its submission's files, run
-with those modules blocked."""
+and Cityscapes from its polygons to the AP of its submission's files, and
+the run tools (write_results, compare_runs, the packed-channel ablation),
+run with those modules blocked."""
 
 import ast
 import os
@@ -791,3 +792,99 @@ def test_calibration_and_fg_eval_default_to_cuda(monkeypatch, tmp_path):
                       '--output', str(tmp_path / 'fg')])
   assert sorted(os.listdir(folder)) == before
   assert sorted(os.listdir(tmp_path)) == ['r']
+
+
+def test_run_tools_with_those_modules_missing(tmp_path):
+  """The run tools with JAX, cv2, h5py, YAML and the rest blocked:
+  write_results over the committed folders (the head and a section),
+  compare_runs with --notes, and the packed-channel ablation training its
+  twin of a tiny box run for one step."""
+  script = textwrap.dedent(f"""
+      import json, os, sys
+      BLOCKED = {BLOCKED!r}
+
+      class Block:
+        def find_spec(self, name, path=None, target=None):
+          if any(name == b or name.startswith(b + '.') for b in BLOCKED):
+            raise ModuleNotFoundError(f'blocked: {{name}}')
+          return None
+
+      sys.meta_path.insert(0, Block())
+      import torch
+      torch.set_num_threads(1)
+      from rec_attend_tpu_torch import config
+      from rec_attend_tpu_torch.pipelines import ablate_packed
+      from rec_attend_tpu_torch.pipelines import compare_runs
+      from rec_attend_tpu_torch.pipelines import resume_synth_paper
+      from rec_attend_tpu_torch.pipelines import write_results
+      root = {str(tmp_path)!r}
+      out = os.path.join(root, 'RESULTS.md')
+      write_results.main(['--full_id', 'full_model_synth-20260816104712',
+                          '--box_id', 'box_model_synth-20260816104712',
+                          '--out', out])
+      write_results.main(['--section', 'synth3',
+                          '--fg_id', 'fg_model_synth3-20260818a',
+                          '--box_id', 'box_model_synth3-20260818a',
+                          '--full_id', 'full_model_synth3-20260818a',
+                          '--out', out])
+      doc = open(out).read()
+      assert doc.startswith('# RESULTS') and 'KITTI shape' in doc
+      assert 'TPU' not in doc
+      notes = os.path.join(root, 'n', 'notes.md')
+      rows = compare_runs.main(['--ids', 'full_model_synth1024-20260816,'
+                                'full_model_synth1024bf16-r5',
+                                '--notes', notes])
+      assert len(rows) == 2 and '### Run comparison' in open(notes).read()
+      assert resume_synth_paper.parse_args(['--box_id', 'b']).box_steps == (
+          12000)
+      base = os.path.join(root, 'r', 'box_model_tiny')
+      os.makedirs(base)
+      config.DataConfig(dataset='synth', height=64, width=64, timespan=6,
+                        num_examples=8, max_objects=4).save_yaml(
+                            os.path.join(base, 'data_opt.yaml'))
+      config.tiny_box_config(timespan=6, add_d_out=True,
+                             add_y_out=True).save_yaml(
+                                 os.path.join(base, 'model_opt.yaml'))
+      table = ablate_packed.main(
+          ['--baseline_id', 'box_model_tiny', '--results',
+           os.path.join(root, 'r'), '--logs', os.path.join(root, 'l'),
+           '--steps', '1', '--batch_size', '2', '--dataset_folder',
+           os.path.join(root, 'data')], device='cpu')
+      assert table['no_packed']['steps'] == 1, table
+      assert table['with_packed']['steps'] is None
+      assert os.path.exists(os.path.join(root, 'r', 'box_model_nofg_tiny',
+                                         'ablation.json'))
+      leaked = [m for m in sys.modules
+                if any(m == b or m.startswith(b + '.') for b in BLOCKED)]
+      assert not leaked, leaked
+      print('ok')
+      """)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=300,
+                        env=dict(os.environ, PYTHONPATH=REPO))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.strip().endswith('ok')
+
+
+def test_run_tools_default_to_cuda(monkeypatch, tmp_path):
+  """Without a card, the tools that train raise unless asked for the CPU,
+  before they write anything."""
+  from rec_attend_tpu_torch.pipelines import ablate_packed
+  from rec_attend_tpu_torch.pipelines import resume_synth_paper
+  monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+  results, logs = str(tmp_path / 'r'), str(tmp_path / 'l')
+  base = os.path.join(results, 'box_model_tiny')
+  os.makedirs(base)
+  C.DataConfig(dataset='synth', height=64, width=64).save_yaml(
+      os.path.join(base, 'data_opt.yaml'))
+  C.tiny_box_config(add_d_out=True, add_y_out=True).save_yaml(
+      os.path.join(base, 'model_opt.yaml'))
+  with pytest.raises(RuntimeError, match='CUDA'):
+    ablate_packed.main(['--baseline_id', 'box_model_tiny', '--results',
+                        results, '--logs', logs])
+  with pytest.raises(RuntimeError, match='CUDA'):
+    resume_synth_paper.main(['--box_id', 'box_model_tiny', '--results',
+                             results, '--logs', logs])
+  assert os.listdir(results) == ['box_model_tiny']
+  assert sorted(os.listdir(base)) == ['data_opt.yaml', 'model_opt.yaml']
+  assert not os.path.exists(logs)
